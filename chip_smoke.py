@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. build the four CUDA kernels from src/repro_torch/kernels/csrc (one
+   nvcc per source, in parallel) and print each `-Xptxas -v` report;
+2. print the card's name and power limit (nvidia-smi);
+3. hold every kernel against its plain PyTorch version on the card at
+   the internlm2-1.8b leaf shapes with M = 256 tokens (one cohort's
+   batch 2 x seq 128), a non-zero stream offset, both mask modes and a
+   ragged shape: masks and words exactly, sums within float32 rounding;
+4. time each kernel, its plain version and a PyTorch matmul on the
+   pre-masked bf16 weight (the library yardstick) with CUDA events;
+5. check the port's train and round steps on the card against the same
+   steps on the CPU (plain versions) at the SMOKE config;
+6. drive the main path: `repro_torch.launch.train.main` with fedpm_reg on
+   full-size internlm2-1.8b (all 24 layers), 2 cohorts x batch 2 x seq
+   128, 4 steps, a round every 2, 8-bit downlink; the kernels' launch
+   counters are zeroed just before and read just after, and every
+   kernel must have run the expected number of times;
+7. profile one more full-size step and round (torch.profiler): device
+   time by kernel and the device's busy share.
+
+The last two lines are a JSON object per kernel and
+{"ok": true, "device": {...}}.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+M = 256                       # tokens per cohort on the main path
+LAYER_SHAPES = {              # internlm2-1.8b masked leaves, (K, N)
+    "w_q": (2048, 2048), "w_k": (2048, 1024), "w_v": (2048, 1024),
+    "w_o": (2048, 2048), "w_gate": (2048, 8192), "w_up": (2048, 8192),
+    "w_down": (8192, 2048)}
+N_LAYERS, COHORTS = 24, 2
+RAGGED = (200, 1000, 1500)    # (M, K, N), no dimension a multiple of 64
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16, published
+BF16_RTOL = 2.0 ** -7         # one bfloat16 ulp, relative
+REPLACES = {
+    "masked_matmul_fwd": "src/repro/kernels/masked_matmul.py:153",
+    "masked_matmul_dx": "src/repro/kernels/masked_matmul.py:227",
+    "masked_matmul_ds": "src/repro/kernels/masked_matmul.py:297",
+    "sample_and_pack": "src/repro/kernels/masked_matmul.py:356",
+}
+
+
+class Failed(Exception):
+    pass
+
+
+def check(ok, what):
+    if not ok:
+        raise Failed(what)
+
+
+def time_ms(torch, fns, reps):
+    """Mean device ms of each zero-argument call, run in turn `reps`
+    times after one warm-up round (CUDA events around each call)."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    ev = [[(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+          for _ in fns]
+    for r in range(reps):
+        for j, f in enumerate(fns):
+            ev[j][r][0].record()
+            f()
+            ev[j][r][1].record()
+    torch.cuda.synchronize()
+    return [sum(a.elapsed_time(b) for a, b in e) / reps for e in ev]
+
+
+def bound(nbytes, flops):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def kernel_phase(torch, mm, ref, dev):
+    """Kernels vs plain versions at the main path's shapes; returns
+    {kernel: max_abs_err} (sample_and_pack: differing bits)."""
+    err = {k: 0.0 for k in mm.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def operands(m, k, n):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(k, n, generator=gen, device=dev)
+        g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        return x, w, s, g
+
+    def close_bf16(a, b, what):
+        # f32 sums in another order, then a bf16 cast: one bf16 ulp
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
+              f"{what}: max |diff| {float(d.max())}")
+        return float(d.max())
+
+    def mask_exact(got, want, u, theta, what):
+        # the same sigmoid runs in both: any flip must sit on the boundary
+        flips = got != want
+        n = int(flips.sum())
+        if n:
+            gap = (u - theta).abs()[flips]
+            check(bool((gap <= 2.4e-7).all()), f"{what}: {n} mask flips "
+                  f"off the sigmoid boundary")
+        check(n <= 16, f"{what}: {n} boundary flips")
+        return n
+
+    shapes = sorted(set(LAYER_SHAPES.values()))
+    for (K, N) in shapes + [RAGGED[1:]]:
+        m = RAGGED[0] if (K, N) == RAGGED[1:] else M
+        x, w, s, g = operands(m, K, N)
+        off = (5 * K * N) & 0xFFFFFFFF
+        for mode in ("sample", "threshold"):
+            kw = dict(mode=mode, tau=0.45)
+            tag = f"K={K} N={N} M={m} {mode}"
+            err["masked_matmul_fwd"] = max(err["masked_matmul_fwd"], close_bf16(
+                mm.masked_matmul(x, w, s, 1234, off, **kw),
+                ref.masked_matmul(x, w, s, 1234, off, **kw), "fwd " + tag))
+            err["masked_matmul_dx"] = max(err["masked_matmul_dx"], close_bf16(
+                mm.masked_matmul_dx(g, w, s, 1234, off, **kw),
+                ref.masked_matmul_dx(g, w, s, 1234, off, **kw), "dx " + tag))
+            # identity probes read the masks back exactly: x = [I 0]
+            # gives rows 0..r-1 of m*w, g = [I 0] columns 0..r-1
+            r = min(m, K, N)
+            mask = (ref.threshold_mask(s, 0.45) if mode == "threshold"
+                    else ref.sample_mask(s, 1234, off))
+            wm = (mask.float() * w.float()).to(torch.bfloat16)
+            idx = ref.flat_index(K, N, off, N, dev)
+            u = ref.hash_uniform(idx, 1234) if mode == "sample" else \
+                torch.full_like(s, 0.45)
+            theta = torch.sigmoid(s)
+            px = torch.zeros(r, K, device=dev, dtype=torch.bfloat16)
+            px[:, :r] = torch.eye(r, device=dev, dtype=torch.bfloat16)
+            y = mm.masked_matmul(px, w, s, 1234, off, **kw)
+            n_f = mask_exact(y != 0, wm[:r] != 0, u[:r], theta[:r],
+                             "fwd probe " + tag)
+            check(n_f or torch.equal(y, wm[:r]), "fwd probe values " + tag)
+            pg = torch.zeros(r, N, device=dev, dtype=torch.bfloat16)
+            pg[:, :r] = torch.eye(r, device=dev, dtype=torch.bfloat16)
+            dx = mm.masked_matmul_dx(pg, w, s, 1234, off, **kw)
+            n_d = mask_exact(dx.T != 0, wm[:, :r] != 0, u[:, :r],
+                             theta[:, :r], "dx probe " + tag)
+            check(n_d or torch.equal(dx.T, wm[:, :r]),
+                  "dx probe values " + tag)
+        ds = mm.masked_matmul_ds(x, g, w, s)
+        want = ref.masked_matmul_ds(x, g, w, s)
+        d = float((ds - want).abs().max())
+        # f32 sums over M bf16-exact products in another order
+        check(bool(torch.allclose(ds, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max()))),
+              f"ds K={K} N={N}: max |diff| {d}")
+        err["masked_matmul_ds"] = max(err["masked_matmul_ds"], d)
+        del x, w, s, g, wm, idx, u, theta, mask
+        torch.cuda.empty_cache()
+
+    # sample_and_pack: every full layer-stacked leaf of one round (C = 2)
+    # and a ragged row length, both modes: words exactly
+    lens = sorted({N_LAYERS * K * N for K, N in LAYER_SHAPES.values()})
+    for n in lens + [100_003]:
+        s = 2 * torch.randn(COHORTS, n, generator=gen, device=dev)
+        seeds = [0x9E3779B9 * (c + 1) & 0xFFFFFFFF for c in range(COHORTS)]
+        for mode in ("sample", "threshold"):
+            words = mm.sample_and_pack(s, seeds, mode=mode, tau=0.45)
+            want = ref.sample_and_pack(s, torch.tensor(seeds, device=dev),
+                                       mode, 0.45)
+            diff = int(ref.popcount32(words ^ want).sum())
+            check(diff == 0, f"sample_and_pack n={n} {mode}: {diff} bits")
+            del want
+            torch.cuda.empty_cache()
+        del s
+    torch.cuda.synchronize()
+    return err
+
+
+def timing_phase(torch, mm, ref, dev):
+    """Per-layer (7 projections, one cohort) times of kernels 1-3 and
+    per-round (7 leaves, C = 2) times of sample_and_pack: kernel, plain
+    version and library yardstick, in ms, with their bounds."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ops = []
+    for name, (K, N) in LAYER_SHAPES.items():
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.randn(K, N, generator=gen, device=dev)
+        g = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+        wm = (ref.sample_mask(s, 7, 0).to(torch.bfloat16) * w)
+        ops.append((name, K, N, x, w, s, g, wm))
+    res, per_shape = {}, {}
+    specs = {
+        "masked_matmul_fwd": (
+            lambda o: (lambda: mm.masked_matmul(o[3], o[4], o[5], 7, 0)),
+            lambda o: (lambda: ref.masked_matmul(o[3], o[4], o[5], 7, 0)),
+            lambda o: (lambda: o[3] @ o[7]),
+            lambda K, N: (2 * M * K + 6 * K * N + 2 * M * N, 2 * M * K * N)),
+        "masked_matmul_dx": (
+            lambda o: (lambda: mm.masked_matmul_dx(o[6], o[4], o[5], 7, 0)),
+            lambda o: (lambda: ref.masked_matmul_dx(o[6], o[4], o[5], 7, 0)),
+            lambda o: (lambda: o[6] @ o[7].T),
+            lambda K, N: (2 * M * N + 6 * K * N + 2 * M * K, 2 * M * K * N)),
+        "masked_matmul_ds": (
+            lambda o: (lambda: mm.masked_matmul_ds(o[3], o[6], o[4], o[5])),
+            lambda o: (lambda: ref.masked_matmul_ds(o[3], o[6], o[4], o[5])),
+            lambda o: (lambda: o[3].T @ o[6]),
+            lambda K, N: (2 * M * K + 2 * M * N + 10 * K * N, 2 * M * K * N)),
+    }
+    for kname, (kern, plain, lib, cost) in specs.items():
+        t_k = time_ms(torch, [kern(o) for o in ops], 10)
+        t_p = time_ms(torch, [plain(o) for o in ops], 2)
+        t_l = time_ms(torch, [lib(o) for o in ops], 10)
+        nbytes = sum(cost(o[1], o[2])[0] for o in ops)
+        flops = sum(cost(o[1], o[2])[1] for o in ops)
+        b_ms, b_by = bound(nbytes, flops)
+        res[kname] = dict(ms=sum(t_k), plain_ms=sum(t_p),
+                          library_ms=sum(t_l), bound_ms=b_ms, bound_by=b_by)
+        per_shape[kname] = {o[0]: (tk, tp, tl, bound(*cost(o[1], o[2]))[0])
+                            for o, tk, tp, tl in zip(ops, t_k, t_p, t_l)}
+    del ops
+    torch.cuda.empty_cache()
+
+    # one round's uplink: the 7 full leaves, C = 2 cohorts
+    t_k, t_p, nbytes = 0.0, 0.0, 0
+    per_shape["sample_and_pack"] = {}
+    seeds = [11, 12]
+    for name, (K, N) in LAYER_SHAPES.items():
+        n = N_LAYERS * K * N
+        s = torch.randn(COHORTS, n, generator=gen, device=dev)
+        tk = time_ms(torch, [lambda: mm.sample_and_pack(s, seeds)], 5)[0]
+        sd = torch.tensor(seeds, device=dev)
+        tp = time_ms(torch, [lambda: ref.sample_and_pack(s, sd)], 1)[0]
+        nb = COHORTS * n * 4 + COHORTS * ((n + 31) // 32) * 4
+        per_shape["sample_and_pack"][name] = (tk, tp, None, bound(nb, 0)[0])
+        t_k, t_p, nbytes = t_k + tk, t_p + tp, nbytes + nb
+        del s
+        torch.cuda.empty_cache()
+    b_ms, b_by = bound(nbytes, 0)
+    res["sample_and_pack"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                                  bound_ms=b_ms, bound_by=b_by)
+    return res, per_shape
+
+
+def smoke_reference_phase(torch, dev):
+    """The port's round and train step on the card against the same
+    steps on the CPU (plain versions) from one SMOKE state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking, tree
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    api = build_model(get_config("internlm2-1.8b", smoke=True))
+    cfg = steps.StepConfig(lam=1.0, lr=0.3, seed=17)
+    states = []
+    for d in ("cpu", dev):
+        st = steps.init_fed_state(torch.Generator().manual_seed(3), api,
+                                  masking.MaskSpec(), C=COHORTS)
+        states.append({k: (v if k == "step" else tree.tree_map(
+            lambda t: None if t is None else t.to(d), v))
+            for k, v in st.items()})
+    metrics = [steps.make_round_step(api, cfg)(st)[1] for st in states]
+    for key in ("bpp", "bits_measured"):
+        check(float(metrics[0][key]) == float(metrics[1][key]),
+              f"smoke round {key}: cpu {float(metrics[0][key])} "
+              f"card {float(metrics[1][key])}")
+    for a, b in zip(tree.leaves(states[0]["scores"]),
+                    tree.leaves(states[1]["scores"])):
+        if a is not None:
+            check(torch.equal(torch.sign(a), torch.sign(b.cpu())),
+                  "smoke round theta differs between cpu and card")
+    toks = torch.randint(0, 256, (COHORTS, 2, 32),
+                         generator=torch.Generator().manual_seed(4))
+    losses = [float(steps.make_train_step(api, cfg)(
+        st, {"tokens": toks.to(d)})[1]["loss"])
+        for st, d in zip(states, ("cpu", dev))]
+    # bf16 activations, f32 sums in another order: 0.5% of the loss
+    check(abs(losses[0] - losses[1]) <= 5e-3 * abs(losses[0]),
+          f"smoke train loss cpu {losses[0]} card {losses[1]}")
+    print(f"smoke reference: round bpp {float(metrics[1]['bpp']):.6f} "
+          f"bits {float(metrics[1]['bits_measured']):.0f} equal on cpu "
+          f"and card; train loss cpu {losses[0]:.6f} card {losses[1]:.6f}")
+
+
+def profile_phase(torch, dev):
+    """One more full-size train step and round under torch.profiler:
+    device time by kernel and the device's busy share of the wall time
+    (after the main path, whose launch counts are already read)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import registry
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import build_model
+    api = build_model(get_config("internlm2-1.8b"))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    plan = registry.get_launch_plan("fedpm_reg")(
+        api, steplib.StepConfig(lam=1.0, lr=0.3, downlink_bits=8, seed=17),
+        gen=gen, cohorts=COHORTS)
+    toks = torch.randint(0, api.cfg.vocab, (100_000,), generator=gen,
+                         device=dev)
+    batch = plan.make_batch(gen, toks, 2, 128)
+    state, _ = plan.step_fn(plan.state, batch)     # warm-up
+    torch.cuda.synchronize()
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in (("step", lambda s: plan.step_fn(s, batch)),
+                         ("round", plan.round_fn)):
+            t0 = time.perf_counter()
+            state, _ = fn(state)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    wall = sum(walls.values()) * 1e3
+    print(f"profile: 1 step + 1 round, wall {wall:.1f} ms "
+          f"(step {walls['step'] * 1e3:.1f}, round "
+          f"{walls['round'] * 1e3:.1f}), device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%); device ms by kernel:")
+    for key, count, ms in rows[:15]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    check(busy > 0, "the profiler saw no device time")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train
+
+    t0 = time.time()
+    for name, log in build.build().items():
+        print(f"== nvcc -Xptxas -v {name}.cu")
+        print(log.strip())
+    print(f"build: {time.time() - t0:.1f}s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    t0 = time.time()
+    err = kernel_phase(torch, mm, ref, dev)
+    print(f"kernel phase: all kernels agree with their plain versions "
+          f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
+    t0 = time.time()
+    timing, per_shape = timing_phase(torch, mm, ref, dev)
+    print(f"timing phase ({time.time() - t0:.1f}s), ms per launch at "
+          f"M={M}: kernel / plain / library / bound")
+    for kname, rows in per_shape.items():
+        for leaf, (tk, tp, tl, tb) in rows.items():
+            lib = "-" if tl is None else f"{tl:.4f}"
+            print(f"  {kname:18s} {leaf:7s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
+                  f"{tb:9.4f}")
+    t0 = time.time()
+    smoke_reference_phase(torch, dev)
+    print(f"smoke reference phase: {time.time() - t0:.1f}s")
+
+    steps_, every = 4, 2
+    argv = ["--arch", "internlm2-1.8b", "--algo", "fedpm_reg",
+            "--cohorts", str(COHORTS), "--batch", "2", "--seq", "128",
+            "--steps", str(steps_), "--round-every", str(every),
+            "--downlink-bits", "8", "--device", "cuda"]
+    print("main path: python -m repro_torch.launch.train " + " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mm.reset_launch_counts()
+    t0 = time.time()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mm.LAUNCHES)
+    wall = time.time() - t0
+    per_pass = N_LAYERS * len(LAYER_SHAPES) * COHORTS * steps_
+    expect = {"masked_matmul_fwd": per_pass, "masked_matmul_dx": per_pass,
+              "masked_matmul_ds": per_pass,
+              "sample_and_pack": len(LAYER_SHAPES) * (steps_ // every)}
+    print(f"main path: {wall:.1f}s; launches {json.dumps(launches)}; "
+          f"step seconds {[round(t, 4) for t in out['step_seconds']]}; "
+          f"round seconds {[round(t, 4) for t in out['round_seconds']]}; "
+          f"max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == expect, f"launch counts {launches}, expected {expect}")
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite loss")
+    check(len(out["rounds"]) == steps_ // every, "missing round")
+    for r in out["rounds"]:
+        check(0.0 < r["bpp"] <= 1.0 and 0.0 < r["bpp_measured"] <= 1.1,
+              f"uplink Bpp out of range: {r}")
+
+    del out
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    profile_phase(torch, dev)
+    print(f"profile phase: {time.time() - t0:.1f}s")
+
+    kernels = []
+    for name in mm.KERNELS:
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=err[name], **timing[name]))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

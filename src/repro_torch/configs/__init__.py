@@ -1,0 +1,14 @@
+"""Config registry: --arch <id> resolution (the port's configs so far)."""
+from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs import internlm2_1_8b
+
+_REGISTRY = {m.CONFIG.name: m for m in (internlm2_1_8b,)}
+
+ARCH_NAMES = tuple(_REGISTRY)
+
+
+def get_config(name: str, smoke: bool = False) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {ARCH_NAMES}")
+    mod = _REGISTRY[name]
+    return mod.SMOKE if smoke else mod.CONFIG

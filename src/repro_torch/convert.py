@@ -1,0 +1,37 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package's arrays are handed over as numpy arrays (bfloat16
+arrays as numpy's ml_dtypes bfloat16) in the same nested-dict structure,
+None leaves included, so both packages then compute on identical state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as tu
+
+
+def to_torch(a, device):
+    """One numpy array (or None) -> an owned torch tensor on `device`."""
+    if a is None:
+        return None
+    a = np.array(a)  # an owned, writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def tree_to_torch(tree, device):
+    return tu.tree_map(lambda a: to_torch(a, device), tree)
+
+
+def state_from_jax(np_state: dict, device) -> dict:
+    """The JAX `init_fed_state` dict (scores / floats / weights / opt_m
+    [/ opt_v] / step, leaves as numpy arrays) -> the port's fed state."""
+    state = {k: tree_to_torch(v, device) for k, v in np_state.items()
+             if k != "step"}
+    state["step"] = int(np.asarray(np_state["step"]))
+    return state

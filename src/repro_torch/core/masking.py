@@ -1,0 +1,239 @@
+"""Core mask-training primitives (the training half of
+`repro.core.masking`).
+
+The paper trains scores s over a frozen random network w:
+
+    theta = sigmoid(s);  m ~ Bernoulli(theta);  y(x) = f(x; m * w)
+
+with a straight-through estimator (dm/dtheta := 1).  Maskable leaves are
+chosen by `MaskSpec`; norms, biases and embeddings stay float.
+
+`masked_forward_tree` merges (weights, scores, floats) into one params
+tree whose maskable leaves are `MaskedLeaf` bundles; the models route
+those through the fused kernels (`repro_torch.models.layers`).  Every
+mask is drawn from the counter hash at the leaf's stream coordinates
+(seed, off), so the forward's mask of a leaf equals the bits
+`sample_and_pack` packs for it under the same seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as tu
+from repro_torch.kernels import ref as kref
+
+Pytree = Any
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Frozen random weights and initial scores
+# ---------------------------------------------------------------------------
+
+
+def signed_constant_init(gen: torch.Generator, shape, fan_in: int,
+                         dtype=torch.float32):
+    """Paper §IV: weights ~ Uniform{-c, +c}, c = sqrt(2 / fan_in) (the
+    std of Kaiming Normal), with c computed in `dtype` as the reference
+    does."""
+    c = torch.sqrt(torch.tensor(2.0 / max(fan_in, 1), dtype=dtype,
+                                device=gen.device))
+    sign = torch.randint(0, 2, tuple(shape), generator=gen,
+                         device=gen.device).to(dtype) * 2 - 1
+    return sign * c
+
+
+def score_init(gen: torch.Generator, shape, dtype=torch.float32,
+               p0: float = 0.5, jitter: float = 0.0):
+    """Scores with sigmoid(s) ~ U[p0 - jitter, p0 + jitter] (the paper's
+    theta ~ U[0, 1] at p0 = jitter = 0.5), or exactly logit(p0)."""
+    if jitter > 0:
+        u = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+        u.uniform_(max(p0 - jitter, 1e-4), min(p0 + jitter, 1 - 1e-4),
+                   generator=gen)
+        return torch.log(u) - torch.log1p(-u)
+    p = min(max(p0, 1e-4), 1 - 1e-4)
+    return torch.full(tuple(shape), math.log(p) - math.log1p(-p),
+                      dtype=dtype, device=gen.device)
+
+
+def logit(theta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    theta = torch.clamp(theta, eps, 1.0 - eps)
+    return torch.log(theta) - torch.log1p(-theta)
+
+
+class _STE(torch.autograd.Function):
+    """Forward the given mask, pass the gradient straight to theta."""
+
+    @staticmethod
+    def forward(ctx, theta, mask):
+        return mask.to(theta.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# ---------------------------------------------------------------------------
+# MaskSpec: which leaves are masked
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    """Mask every >= 2-D leaf except paths matching `float_patterns`
+    (case-insensitive; a one-letter pattern must match a whole path
+    component, longer ones match as substrings) and, unless
+    `mask_embeddings`, embedding tables."""
+    float_patterns: tuple = ("norm", "bias", "scale", "router", "a_param",
+                             "dt", "A_log", "D", "embed_float")
+    mask_embeddings: bool = False
+    min_ndim: int = 2
+
+    def is_masked(self, path: str, leaf) -> bool:
+        lp = path.lower()
+        parts = lp.split("/")
+        for p in self.float_patterns:
+            pl = p.lower()
+            if (len(pl) > 1 and pl in lp) or pl in parts:
+                return False
+        if not self.mask_embeddings and ("embed" in lp or "unembed" in lp
+                                         or "lm_head" in lp):
+            return False
+        return getattr(leaf, "ndim", 0) >= self.min_ndim
+
+
+@dataclasses.dataclass
+class MaskedParams:
+    """weights: frozen random values (None at float leaves);
+    scores: trainable logits (None at float leaves);
+    floats: trainable float leaves (None at masked leaves)."""
+    weights: Pytree
+    scores: Pytree
+    floats: Pytree
+
+
+def init_masked(gen: torch.Generator, params_like: Pytree, spec: MaskSpec,
+                fan_in_fn: Callable = None, score_dtype=torch.float32,
+                weight_dtype=torch.bfloat16) -> MaskedParams:
+    """Split a template params tree: masked leaves get signed-constant
+    weights and logit-uniform scores, float leaves keep their value.
+    As in the reference, the default fan-in is a leaf's first dimension
+    (the layer count for a layer-stacked leaf)."""
+    weights, scores, floats = [], [], []
+    paths = tu.flatten_with_paths(params_like)
+    for path, leaf in paths:
+        if spec.is_masked(path, leaf):
+            fan_in = leaf.shape[0] if leaf.ndim >= 2 else leaf.numel()
+            if fan_in_fn is not None:
+                fan_in = fan_in_fn(leaf)
+            weights.append(signed_constant_init(gen, leaf.shape, fan_in,
+                                                weight_dtype))
+            scores.append(score_init(gen, leaf.shape, score_dtype, p0=0.5,
+                                     jitter=0.5))
+            floats.append(None)
+        else:
+            weights.append(None)
+            scores.append(None)
+            floats.append(leaf)
+    tdef = tu.flatten(params_like)[1]
+    mk = lambda lst: tu.unflatten(tdef, lst)
+    return MaskedParams(mk(weights), mk(scores), mk(floats))
+
+
+# ---------------------------------------------------------------------------
+# Masked execution: the (w, s, seed, off) convention shared with the uplink
+# ---------------------------------------------------------------------------
+
+
+def mask_stream_seed(step, dev, leaf_idx: int, cohort, run_seed=0) -> int:
+    """The (run, step, shard, leaf, cohort) -> uint32 seed convention of
+    the counter-based mask sampler, shared by the forward and the round
+    uplink (uint32 arithmetic on Python ints)."""
+    base = ((int(step) & _M32) * 0x9E3779B9 & _M32) \
+        ^ (((int(dev) + 1) & _M32) * 0x85EBCA6B & _M32) \
+        ^ (leaf_idx * 0xC2B2AE35 & _M32) \
+        ^ ((int(run_seed) & _M32) * 0x7FEB352D & _M32)
+    return (base + (int(cohort) & _M32) * 0x01000193) & _M32
+
+
+@dataclasses.dataclass
+class MaskedLeaf:
+    """One maskable tensor on the fused path: frozen weights `w`, score
+    logits `s` and the hash-stream coordinates of each trailing (K, N)
+    block.  For a leaf of shape lead + (K, N), `seed` and `off` are
+    uint32 numpy arrays of shape `lead` (block b samples at flat index
+    off[b] = b*K*N of the leaf's stream); `block(i)` slices the leading
+    axis.  `s` may also be a sequence of per-block tensors (the train
+    step makes each block its own autograd leaf)."""
+    w: Any
+    s: Any
+    seed: Any
+    off: Any
+    mode: str = "sample"
+    tau: float = 0.5
+
+    @classmethod
+    def build(cls, w, s, seed: int, mode: str = "sample", tau: float = 0.5):
+        lead = tuple(w.shape[:-2])
+        K, N = w.shape[-2:]
+        nblk = int(np.prod(lead, dtype=np.int64))
+        off = ((np.arange(nblk, dtype=np.uint64) * np.uint64(K * N))
+               & np.uint64(_M32)).astype(np.uint32).reshape(lead)
+        seed = np.full(lead, int(seed) & _M32, dtype=np.uint32)
+        return cls(w, s, seed, off, mode, tau)
+
+    def block(self, i: int) -> "MaskedLeaf":
+        return MaskedLeaf(self.w[i], self.s[i], self.seed[i], self.off[i],
+                          self.mode, self.tau)
+
+
+def materialize_leaf(leaf: MaskedLeaf) -> torch.Tensor:
+    """Effective weights m * w for a MaskedLeaf with the fused kernels'
+    masks (same stream, same offsets) and straight-through grads to s."""
+    K, N = leaf.w.shape[-2:]
+    s = leaf.s if isinstance(leaf.s, torch.Tensor) else torch.stack(
+        list(leaf.s))
+    theta = torch.sigmoid(s.float())
+    if leaf.mode == "threshold":
+        m = kref.threshold_mask(s, leaf.tau)
+    else:
+        dev = s.device
+        off = torch.as_tensor(leaf.off.astype(np.int64), device=dev)
+        seed = torch.as_tensor(leaf.seed.astype(np.int64), device=dev)
+        idx = off[..., None, None] + torch.arange(
+            K * N, dtype=torch.int64, device=dev).reshape(K, N)
+        u = kref.hash_uniform(idx, seed[..., None, None])
+        m = (u < theta).to(torch.uint8)
+    return _STE.apply(theta, m).to(leaf.w.dtype) * leaf.w
+
+
+def masked_forward_tree(mp: MaskedParams, seed_fn: Callable,
+                        mode: str = "sample", tau: float = 0.5) -> Pytree:
+    """Merge MaskedParams into one params tree: maskable leaves become
+    `MaskedLeaf`s seeded by `seed_fn(leaf_idx)`, where leaf indices
+    enumerate the flattened tree with None leaves counted — the round
+    uplink's enumeration."""
+    flat_w, tdef = tu.flatten(mp.weights)
+    flat_s = tu.leaves(mp.scores)
+    flat_f = tu.leaves(mp.floats)
+    out = []
+    for i, (w, s, f) in enumerate(zip(flat_w, flat_s, flat_f)):
+        out.append(f if w is None else
+                   MaskedLeaf.build(w, s, seed_fn(i), mode, tau))
+    return tu.unflatten(tdef, out)
+
+
+def hash_effective(mp: MaskedParams, seed_fn: Callable,
+                   mode: str = "sample", tau: float = 0.5) -> Pytree:
+    """Materialized twin of `masked_forward_tree`: effective params
+    m * w with the same hash-stream masks as the fused kernels."""
+    return tu.tree_map(
+        lambda p: materialize_leaf(p) if isinstance(p, MaskedLeaf) else p,
+        masked_forward_tree(mp, seed_fn, mode, tau))
+

@@ -1,0 +1,148 @@
+"""Wrappers of the four hand-written CUDA kernels, each beside its plain
+PyTorch version.
+
+    masked_matmul     y  = x @ (m * w)                  csrc/masked_matmul_fwd.cu
+    masked_matmul_dx  dx = g @ (m * w)^T                csrc/masked_matmul_dx.cu
+    masked_matmul_ds  ds = (x^T g) * w * s'(s)          csrc/masked_matmul_ds.cu
+    sample_and_pack   (C, n) scores -> (C, n/32) words  csrc/sample_and_pack.cu
+
+m = 1[hash_u(seed, off + row*n_logical + col) < sigmoid(s)] in "sample"
+mode, 1[sigmoid(s) > tau] in "threshold" mode; the hash index is uint32
+and wraps, as in the JAX reference.
+
+Dispatch is by the tensors' device: a CPU tensor runs the plain version
+(`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
+raises.  Nothing falls back.  Each launch adds one to `LAUNCHES[name]`,
+so a run can show that it went through the kernels.
+
+The kernels take bf16 x/g/w, f32 scores and contiguous operands; the
+wrappers raise on anything else rather than copy.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+KERNELS = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
+           "sample_and_pack")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+masked_matmul_plain = ref.masked_matmul
+masked_matmul_dx_plain = ref.masked_matmul_dx
+masked_matmul_ds_plain = ref.masked_matmul_ds
+sample_and_pack_plain = ref.sample_and_pack
+
+_MODES = {"sample": 0, "threshold": 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(*tensors) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"operands must all lie on the CPU or on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    return False
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous {dtype} "
+                         f"{tuple(shape)} tensor, got {t.dtype} "
+                         f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _u32(v) -> int:
+    return int(v) & 0xFFFFFFFF
+
+
+def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
+                  tau=0.5):
+    """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
+    if _on_cpu(x, w, s):
+        return masked_matmul_plain(x, w, s, seed, off, n_logical, mode, tau)
+    M, K = x.shape
+    N = w.shape[1]
+    _require(x, "x", torch.bfloat16, (M, K))
+    _require(w, "w", torch.bfloat16, (K, N))
+    _require(s, "s", torch.float32, (K, N))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M and N:
+        build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
+                     s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
+                     _u32(off), _u32(N if n_logical is None else n_logical),
+                     _MODES[mode], float(tau), _stream(x))
+        LAUNCHES["masked_matmul_fwd"] += 1
+    return y
+
+
+def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
+                     mode="sample", tau=0.5):
+    """g: (M, N); w, s: (K, N) -> dx = g @ (m * w)^T : (M, K) in g.dtype."""
+    if _on_cpu(g, w, s):
+        return masked_matmul_dx_plain(g, w, s, seed, off, n_logical, mode,
+                                      tau)
+    M, N = g.shape
+    K = w.shape[0]
+    _require(g, "g", torch.bfloat16, (M, N))
+    _require(w, "w", torch.bfloat16, (K, N))
+    _require(s, "s", torch.float32, (K, N))
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    if M and K:
+        build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
+                     s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
+                     _u32(off), _u32(N if n_logical is None else n_logical),
+                     _MODES[mode], float(tau), _stream(g))
+        LAUNCHES["masked_matmul_dx"] += 1
+    return dx
+
+
+def masked_matmul_ds(x, g, w, s):
+    """x: (M, K); g: (M, N); w, s: (K, N) -> ds : (K, N) in s.dtype."""
+    if _on_cpu(x, g, w, s):
+        return masked_matmul_ds_plain(x, g, w, s)
+    M, K = x.shape
+    N = g.shape[1]
+    _require(x, "x", torch.bfloat16, (M, K))
+    _require(g, "g", torch.bfloat16, (M, N))
+    _require(w, "w", torch.bfloat16, (K, N))
+    _require(s, "s", torch.float32, (K, N))
+    ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
+    if K and N:
+        build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
+                     w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
+                     _stream(x))
+        LAUNCHES["masked_matmul_ds"] += 1
+    return ds
+
+
+def sample_and_pack(s, seeds, mode="sample", tau=0.5):
+    """s: (C, n) score rows; seeds: C uint32 row seeds (ints or a
+    tensor) -> (C, ceil(n/32)) int32 words holding the uint32 bit
+    patterns; bits past n are zero."""
+    seeds = torch.as_tensor([_u32(v) for v in seeds], dtype=torch.int64,
+                            device=s.device)
+    if _on_cpu(s):
+        return sample_and_pack_plain(s, seeds, mode, tau)
+    C, n = s.shape
+    _require(s, "s", torch.float32, (C, n))
+    words = torch.empty((C, (n + 31) // 32), dtype=torch.int32,
+                        device=s.device)
+    if C and n:
+        seeds32 = (seeds - ((seeds >> 31) << 32)).to(torch.int32)
+        build.launch("sample_and_pack", s.data_ptr(), seeds32.data_ptr(),
+                     words.data_ptr(), C, n, _MODES[mode], float(tau),
+                     _stream(s))
+        LAUNCHES["sample_and_pack"] += 1
+    return words

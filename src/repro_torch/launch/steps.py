@@ -1,0 +1,278 @@
+"""The federated train and round steps (single device: the reference's
+`repro.launch.steps` with `mesh=None`).
+
+State layout as in the reference: `scores`, `floats`, `opt_m` (and
+`opt_v` for adam) carry a leading cohort axis C; the frozen `weights`
+have none; `step` counts train steps and rounds, and is the tick every
+mask stream is keyed by.
+
+* `make_train_step` — one local mini-batch score update per cohort on
+  the fused path: the forward consumes a `masked_forward_tree`, every
+  masked projection runs the masked-matmul kernels, and scores get the
+  straight-through gradient plus lam times the eq. 12 entropy proxy's.
+* `make_round_step` — the paper's communication event: each cohort's
+  scores become packed mask words through the fused `sample_and_pack`
+  kernel, theta is the (survivor-weighted) mean of the words, crosses
+  the optional k-bit downlink, and resets every cohort's scores; the
+  codec meters each cohort's pooled words.
+
+The reference vmaps over cohorts and returns new state; here the cohorts
+run in a loop and the steps update the state's tensors in place (scores,
+optimizer moments, floats), so a full-size model holds one copy of its
+score state.  `step` is a Python int.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.api import codecs as codecs_lib
+from repro_torch.api import payloads as plds
+from repro_torch.core import aggregation, masking, regularizer
+from repro_torch.core import tree as tu
+from repro_torch.core.masking import MaskedLeaf, MaskedParams
+from repro_torch.kernels import ref as kref
+
+Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    lam: float = 1.0
+    lr: float = 0.1
+    float_lr: float = 0.01
+    momentum: float = 0.9
+    optimizer: str = "momentum"      # "momentum" | "adam" (scores)
+    adam_eps: float = 1e-8
+    downlink_bits: int = 0           # k-bit theta broadcast (0 = f32)
+    seed: int = 17                   # run seed mixed into every mask stream
+    mask_mode: str = "sample"        # "sample" (fedpm*) | "threshold" (FedMask)
+    tau: float = 0.5
+
+
+# sentinel leaf index of the downlink quantizer's stream seed, far above
+# any real leaf index
+DOWNLINK_STREAM_LEAF = 1 << 20
+
+
+def init_fed_state(gen: torch.Generator, api, spec: masking.MaskSpec, C: int,
+                   optimizer: str = "momentum"):
+    """Fed state on `gen`'s device; every cohort starts from the same
+    scores and floats."""
+    mp = masking.init_masked(gen, api.init_params(gen), spec)
+
+    def rep(t):
+        return None if t is None else t[None].repeat(
+            (C,) + (1,) * t.ndim)
+
+    scores = tu.tree_map(rep, mp.scores)
+    zeros = lambda tree: tu.tree_map(
+        lambda x: None if x is None else torch.zeros_like(x), tree)
+    state = {"scores": scores, "floats": tu.tree_map(rep, mp.floats),
+             "weights": mp.weights, "opt_m": zeros(scores), "step": 0}
+    if optimizer == "adam":
+        state["opt_v"] = zeros(scores)
+    return state
+
+
+def _blocks(t: torch.Tensor) -> list:
+    """Views of the trailing 2-D blocks of a (..., K, N) tensor."""
+    return list(t.reshape(-1, *t.shape[-2:]).unbind(0))
+
+
+def _as_grad_leaves(leaf: MaskedLeaf) -> MaskedLeaf:
+    """The leaf with each score block an autograd leaf of its own (views
+    of the state's storage), so each block's gradient lands in its own
+    `.grad` and no stacked gradient buffer is built."""
+    if leaf.s.ndim == 2:
+        return dataclasses.replace(leaf, s=leaf.s.detach().requires_grad_())
+    lead = leaf.s.shape[:-2]
+    if len(lead) != 1:
+        raise NotImplementedError("score leaves with more than one leading "
+                                  "axis are not ported yet")
+    return dataclasses.replace(
+        leaf, s=[b.detach().requires_grad_() for b in leaf.s.unbind(0)])
+
+
+def _score_blocks(leaf: MaskedLeaf) -> list:
+    return [leaf.s] if isinstance(leaf.s, torch.Tensor) else list(leaf.s)
+
+
+def make_train_step(api, cfg: StepConfig):
+    """(state, batch) -> (state, {"loss"}); batch["tokens"]: (C, B, S)."""
+    b1, b2 = 0.9, 0.999
+
+    def cohort_update(state, c, batch_c):
+        step = state["step"]
+        scores_c = tu.tree_map(lambda s: None if s is None else s[c],
+                               state["scores"])
+        floats_c = tu.tree_map(
+            lambda f: None if f is None else
+            f[c].detach().requires_grad_(), state["floats"])
+        mp = MaskedParams(state["weights"], scores_c, floats_c)
+        params = masking.masked_forward_tree(
+            mp, lambda i: masking.mask_stream_seed(step, 0, i, c,
+                                                   run_seed=cfg.seed),
+            mode=cfg.mask_mode, tau=cfg.tau)
+        params = tu.tree_map(
+            lambda p: _as_grad_leaves(p) if isinstance(p, MaskedLeaf)
+            else p, params)
+        loss = api.loss(api.forward(params, batch_c), batch_c)
+        loss.backward()
+
+        with torch.no_grad():
+            leaves = [p for p in tu.leaves(params) if isinstance(p, MaskedLeaf)]
+            n = sum(p.w.numel() for p in leaves)
+            # d(lam * (1/n) sum sigmoid(s)) / ds = (lam / n) sigmoid'(s)
+            dev = leaves[0].w.device
+            coef = (torch.tensor(cfg.lam, dtype=torch.float32) /
+                    torch.tensor(float(n), dtype=torch.float32)).to(dev)
+            moms = [m[c] for m in tu.leaves(state["opt_m"]) if m is not None]
+            vels = ([v[c] for v in tu.leaves(state["opt_v"]) if v is not None]
+                    if "opt_v" in state else [None] * len(moms))
+            if "opt_v" in state:
+                t = torch.tensor(float(step + 1), dtype=torch.float32)
+                bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).to(dev)
+                bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).to(dev)
+            for leaf, m_leaf, v_leaf in zip(leaves, moms, vels):
+                m_blocks = _blocks(m_leaf) if m_leaf.ndim > 2 else [m_leaf]
+                v_blocks = ([None] * len(m_blocks) if v_leaf is None else
+                            _blocks(v_leaf) if v_leaf.ndim > 2 else [v_leaf])
+                for s, m, v in zip(_score_blocks(leaf), m_blocks, v_blocks):
+                    g = s.grad
+                    if g is None:
+                        g = torch.zeros_like(s)
+                    if cfg.lam:
+                        regularizer.entropy_proxy_grad_(g, s, coef)
+                    if v is None:
+                        m.mul_(cfg.momentum).add_(g)
+                        s.sub_(cfg.lr * m)
+                    else:
+                        m.mul_(b1).add_((1 - b1) * g)
+                        v.mul_(b2).add_((1 - b2) * (g * g))
+                        s.sub_(cfg.lr * (m / bc1)
+                               / (torch.sqrt(v / bc2)
+                                  + cfg.adam_eps))
+                    s.grad = None
+            for f in tu.leaves(floats_c):
+                if f is not None and f.grad is not None:
+                    f.sub_(cfg.float_lr * f.grad)
+                    f.grad = None
+        return loss.detach().float()
+
+    def train_step(state, batch):
+        C = next(s for s in tu.leaves(state["scores"]) if s is not None
+                 ).shape[0]
+        losses = [cohort_update(state, c, {k: v[c] for k, v in batch.items()})
+                  for c in range(C)]
+        state["step"] += 1
+        return state, {"loss": torch.stack(losses).mean()}
+
+    return train_step
+
+
+def make_round_step(api, cfg: StepConfig, codec=None):
+    """(state, participation=None, downlink_u=None) -> (state, metrics).
+
+    `participation` (C floats, 1 = the cohort's uplink arrived) makes
+    theta the survivor-renormalized mean and meters survivors only.
+    The k-bit downlink draws its uniforms from a torch.Generator seeded
+    with `mask_stream_seed(step, 0, DOWNLINK_STREAM_LEAF, 0, run_seed)`
+    (the reference keys threefry with the same value, which torch cannot
+    reproduce); `downlink_u` injects them instead (one tensor per masked
+    leaf, flatten order).  Metrics: bpp (eq. 13 bound), bpp_measured,
+    bits_measured, downlink_bpp, downlink_bits — float32 tensors."""
+    codec = codecs_lib.get_codec(codec or "arithmetic")
+    f32 = torch.float32
+
+    def round_step(state, participation=None, downlink_u=None):
+        step = state["step"]
+        flat_s = tu.leaves(state["scores"])
+        C = next(s for s in flat_s if s is not None).shape[0]
+        dev = next(s for s in flat_s if s is not None).device
+        part = wn = None
+        if participation is not None:
+            part = torch.as_tensor(participation, device=dev).to(f32)
+            wn = part / torch.clamp(part.sum(), min=1.0)
+        gen = None
+        if cfg.downlink_bits and downlink_u is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(masking.mask_stream_seed(
+                step, 0, DOWNLINK_STREAM_LEAF, 0, run_seed=cfg.seed))
+        u_it = iter(downlink_u) if downlink_u is not None else None
+        ones_c, word_parts, n_pool = None, [], 0
+        for i, sl in enumerate(flat_s):
+            if sl is None:
+                continue
+            flat = sl.reshape(C, -1)
+            n = flat.shape[1]
+            seeds = [masking.mask_stream_seed(step, 0, i, c,
+                                              run_seed=cfg.seed)
+                     for c in range(C)]
+            words = aggregation.sample_and_pack_rows(
+                flat, seeds, mode=cfg.mask_mode, tau=cfg.tau)
+            ones = kref.popcount32(words).sum(dim=1).to(f32)
+            ones_c = ones if ones_c is None else ones_c + ones
+            word_parts.append(words)
+            theta = plds.mean_from_words(words, n, weights=wn)
+            if cfg.downlink_bits:
+                q = aggregation.quantize_theta(
+                    [theta], gen, bits=cfg.downlink_bits,
+                    u=None if u_it is None else [next(u_it).reshape(-1)])
+                theta = aggregation.dequantize_theta(
+                    q, bits=cfg.downlink_bits)[0]
+            # every cohort restarts from logit(theta)
+            flat.copy_(masking.logit(theta)[None])
+            del theta
+            n_pool += n
+
+        for f in tu.leaves(state["floats"]):
+            if f is None:
+                continue
+            ff = f.float()
+            avg = ff.mean(dim=0) if wn is None else torch.tensordot(
+                wn, ff, dims=([0], [0]))
+            f.copy_(avg.to(f.dtype)[None])
+        for key in ("opt_m", "opt_v"):
+            for m in tu.leaves(state.get(key)):
+                if m is not None:
+                    m.zero_()
+
+        # eq. 13 meter from the popcounts (the packed words are never
+        # unpacked for it); survivors only under participation
+        if n_pool:
+            if part is None:
+                p1 = ones_c.sum() / torch.tensor(float(n_pool * C), dtype=f32,
+                                                 device=dev)
+            else:
+                p1 = (ones_c * part).sum() / (
+                    torch.tensor(float(n_pool), dtype=f32, device=dev)
+                    * torch.clamp(part.sum(), min=1.0))
+            bpp = regularizer.binary_entropy(p1)
+        else:
+            bpp = torch.zeros((), dtype=f32, device=dev)
+        pooled = torch.cat(word_parts, dim=1) if word_parts else None
+        per_cohort = torch.tensor(
+            [codec.measure_pooled_words(pooled[c], n_pool) if n_pool else 0
+             for c in range(C)], dtype=torch.int64).to(f32).to(dev)
+        if part is not None:
+            per_cohort = per_cohort * part
+        bits_total = per_cohort.sum()
+        eff = (torch.tensor(float(C), dtype=f32, device=dev) if part is None
+               else torch.clamp(part.sum(), min=1.0))
+        dl_bpp = float(cfg.downlink_bits) if cfg.downlink_bits else 32.0
+        metrics = {
+            "bpp": bpp,
+            "bpp_measured": bits_total / (torch.tensor(
+                float(n_pool), dtype=f32, device=dev) * eff),
+            "bits_measured": bits_total,
+            "downlink_bpp": torch.tensor(dl_bpp, dtype=f32),
+            "downlink_bits": torch.tensor(dl_bpp * n_pool, dtype=f32,
+                                          device=dev) * eff,
+        }
+        state["step"] += 1
+        return state, metrics
+
+    return round_step

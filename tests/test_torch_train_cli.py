@@ -1,0 +1,37 @@
+"""The port's launcher end to end on the CPU at SMOKE size, and its
+refusal to fall back when a card is asked for and absent."""
+import re
+
+import pytest
+import torch
+
+from repro_torch.kernels import masked_matmul as mm
+from repro_torch.launch import train
+
+ROUND = re.compile(r"step (\d+): loss=([\d.]+) uplink=([\d.]+)Bpp "
+                   r"\(wire ([\d.]+)Bpp (\w+)\) cum=([\d.]+)MB")
+
+
+@pytest.mark.parametrize("algo,codec", [("fedpm_reg", "arithmetic"),
+                                        ("fedmask", "bitpack")])
+def test_cli_prints_round_lines_on_cpu(capsys, algo, codec):
+    mm.reset_launch_counts()
+    out = train.main(["--smoke", "--device", "cpu", "--algo", algo,
+                      "--codec", codec, "--steps", "4", "--round-every",
+                      "2", "--cohorts", "2", "--batch", "2", "--seq", "16"])
+    lines = [ROUND.match(l) for l in capsys.readouterr().out.splitlines()]
+    rounds = [m for m in lines if m]
+    assert [int(m.group(1)) for m in rounds] == [2, 4]
+    for m in rounds:
+        assert 0.0 < float(m.group(3)) <= 1.0
+        assert m.group(5) == codec
+    assert len(out["losses"]) == 4 and len(out["rounds"]) == 2
+    assert all(0.0 < r["bpp"] <= 1.0 for r in out["rounds"])
+    # CPU tensors take the plain versions: no kernel launches
+    assert not any(mm.LAUNCHES.values())
+
+
+def test_cli_raises_on_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1", "--device", "cuda"])
