@@ -5,28 +5,36 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the four CUDA kernels from src/repro_torch/kernels/csrc (one
+1. build the seven CUDA kernels from src/repro_torch/kernels/csrc (one
    nvcc per source, in parallel) and print each `-Xptxas -v` report;
 2. print the card's name and power limit (nvidia-smi);
-3. hold every kernel against its plain PyTorch version on the card at
-   the internlm2-1.8b leaf shapes with M = 256 tokens (one cohort's
-   batch 2 x seq 128), a non-zero stream offset, both mask modes and a
-   ragged shape: masks and words exactly, sums within float32 rounding;
-4. time each kernel, its plain version and a PyTorch matmul on the
-   pre-masked bf16 weight (the library yardstick) with CUDA events;
+3. hold every kernel against its plain PyTorch version on the card:
+   the dense kernels at the internlm2-1.8b leaf shapes with M = 256
+   tokens (one cohort's batch 2 x seq 128), the grouped (MoE expert)
+   kernels at the deepseek-v2-lite expert shapes (64 experts, the
+   capacity M = 30 rows each), each with a non-zero stream offset, both
+   mask modes and a ragged shape: masks and words exactly, sums within
+   float32 rounding;
+4. time each kernel, its plain version and a PyTorch product on the
+   pre-masked weight (the library yardstick) with CUDA events;
 5. check the port's train and round steps on the card against the same
-   steps on the CPU (plain versions) at the SMOKE config;
-6. drive the main path: `repro_torch.launch.train.main` with fedpm_reg on
-   full-size internlm2-1.8b (all 24 layers), 2 cohorts x batch 2 x seq
-   128, 4 steps, a round every 2, 8-bit downlink; the kernels' launch
-   counters are zeroed just before and read just after, and every
-   kernel must have run the expected number of times;
-7. profile one more full-size step and round (torch.profiler): device
-   time by kernel and the device's busy share.
+   steps on the CPU (plain versions) at the internlm2 and deepseek-v2-lite
+   SMOKE configs;
+6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
+   with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
+   downlink: full-size internlm2-1.8b (all 24 layers), then
+   deepseek-v2-lite-16b at full width with its depth cut to 4 layers
+   (the dense layer and 3 MoE layers; 27 do not fit one card's memory).
+   Before each path the kernels' launch counters are zeroed, after it
+   they are read, and every kernel must have run the expected number of
+   times;
+7. profile one more step and round of each path (torch.profiler):
+   device time by kernel and the device's busy share.
 
 The last two lines are a JSON object per kernel and
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -44,14 +52,26 @@ LAYER_SHAPES = {              # internlm2-1.8b masked leaves, (K, N)
     "w_down": (8192, 2048)}
 N_LAYERS, COHORTS = 24, 2
 RAGGED = (200, 1000, 1500)    # (M, K, N), no dimension a multiple of 64
+# deepseek-v2-lite-16b expert projections: (E, M, K, N) with M the
+# capacity int(256 tokens * top-6 * 1.25 / 64 experts) = 30
+N_EXPERTS, CAP = 64, 30
+EXPERT_SHAPES = {"w_gate": (2048, 1408), "w_up": (2048, 1408),
+                 "w_down": (1408, 2048)}
+GROUPED_RAGGED = (5, 29, 1000, 1500)
+MOE_LAYERS = 4                # 1 dense + 3 MoE layers of the 27
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16, published
+F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_RTOL = 2.0 ** -7         # one bfloat16 ulp, relative
+M32 = 0xFFFFFFFF
 REPLACES = {
     "masked_matmul_fwd": "src/repro/kernels/masked_matmul.py:153",
     "masked_matmul_dx": "src/repro/kernels/masked_matmul.py:227",
     "masked_matmul_ds": "src/repro/kernels/masked_matmul.py:297",
     "sample_and_pack": "src/repro/kernels/masked_matmul.py:356",
+    "masked_matmul_grouped": "src/repro/kernels/masked_matmul.py:443",
+    "masked_matmul_grouped_dx": "src/repro/kernels/masked_matmul.py:513",
+    "masked_matmul_grouped_ds": "src/repro/kernels/masked_matmul.py:574",
 }
 
 
@@ -82,15 +102,28 @@ def time_ms(torch, fns, reps):
     return [sum(a.elapsed_time(b) for a, b in e) / reps for e in ev]
 
 
-def bound(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def mask_exact(torch, got, want, u, theta, what):
+    """Masks read back by identity probes: the same sigmoid runs in
+    kernel and plain version, so any flip must sit on the boundary."""
+    flips = got != want
+    n = int(flips.sum())
+    if n:
+        gap = (u - theta).abs()[flips]
+        check(bool((gap <= 2.4e-7).all()), f"{what}: {n} mask flips "
+              f"off the sigmoid boundary")
+    check(n <= 16, f"{what}: {n} boundary flips")
+    return n
 
 
 def kernel_phase(torch, mm, ref, dev):
     """Kernels vs plain versions at the main path's shapes; returns
     {kernel: max_abs_err} (sample_and_pack: differing bits)."""
-    err = {k: 0.0 for k in mm.KERNELS}
+    err = {k: 0.0 for k in mm.KERNELS[:4]}
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def operands(m, k, n):
@@ -107,17 +140,6 @@ def kernel_phase(torch, mm, ref, dev):
         check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
               f"{what}: max |diff| {float(d.max())}")
         return float(d.max())
-
-    def mask_exact(got, want, u, theta, what):
-        # the same sigmoid runs in both: any flip must sit on the boundary
-        flips = got != want
-        n = int(flips.sum())
-        if n:
-            gap = (u - theta).abs()[flips]
-            check(bool((gap <= 2.4e-7).all()), f"{what}: {n} mask flips "
-                  f"off the sigmoid boundary")
-        check(n <= 16, f"{what}: {n} boundary flips")
-        return n
 
     shapes = sorted(set(LAYER_SHAPES.values()))
     for (K, N) in shapes + [RAGGED[1:]]:
@@ -146,13 +168,13 @@ def kernel_phase(torch, mm, ref, dev):
             px = torch.zeros(r, K, device=dev, dtype=torch.bfloat16)
             px[:, :r] = torch.eye(r, device=dev, dtype=torch.bfloat16)
             y = mm.masked_matmul(px, w, s, 1234, off, **kw)
-            n_f = mask_exact(y != 0, wm[:r] != 0, u[:r], theta[:r],
+            n_f = mask_exact(torch, y != 0, wm[:r] != 0, u[:r], theta[:r],
                              "fwd probe " + tag)
             check(n_f or torch.equal(y, wm[:r]), "fwd probe values " + tag)
             pg = torch.zeros(r, N, device=dev, dtype=torch.bfloat16)
             pg[:, :r] = torch.eye(r, device=dev, dtype=torch.bfloat16)
             dx = mm.masked_matmul_dx(pg, w, s, 1234, off, **kw)
-            n_d = mask_exact(dx.T != 0, wm[:, :r] != 0, u[:, :r],
+            n_d = mask_exact(torch, dx.T != 0, wm[:, :r] != 0, u[:, :r],
                              theta[:, :r], "dx probe " + tag)
             check(n_d or torch.equal(dx.T, wm[:, :r]),
                   "dx probe values " + tag)
@@ -182,6 +204,85 @@ def kernel_phase(torch, mm, ref, dev):
             del want
             torch.cuda.empty_cache()
         del s
+    torch.cuda.synchronize()
+    return err
+
+
+def grouped_kernel_phase(torch, mm, ref, dev):
+    """Grouped kernels vs plain versions at the deepseek-v2-lite expert
+    shapes (E = 64, M = 30) with layer 2's stream offsets
+    ((2*E + e)*K*N mod 2**32) and a ragged shape, both mask modes;
+    returns {kernel: max_abs_err}."""
+    err = {k: 0.0 for k in mm.KERNELS[4:]}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shapes = [(N_EXPERTS, CAP, K, N)
+              for K, N in sorted(set(EXPERT_SHAPES.values()))]
+    for (E, m, K, N) in shapes + [GROUPED_RAGGED]:
+        x = torch.randn(E, m, K, generator=gen, device=dev)
+        w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(E, K, N, generator=gen, device=dev)
+        g = torch.randn(E, m, N, generator=gen, device=dev)
+        seeds = [0x5EED0000 + e for e in range(E)]
+        offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
+        for mode in ("sample", "threshold"):
+            kw = dict(mode=mode, tau=0.45)
+            tag = f"E={E} M={m} K={K} N={N} {mode}"
+            for name, got, want in (
+                    ("masked_matmul_grouped",
+                     mm.masked_matmul_grouped(x, w, s, seeds, offs, **kw),
+                     ref.masked_matmul_grouped(x, w, s, seeds, offs, **kw)),
+                    ("masked_matmul_grouped_dx",
+                     mm.masked_matmul_grouped_dx(g, w, s, seeds, offs, **kw),
+                     ref.masked_matmul_grouped_dx(g, w, s, seeds, offs,
+                                                  **kw))):
+                d = float((got - want).abs().max())
+                # f32 sums of bf16-exact weights in another order
+                check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5
+                                          * float(want.abs().max()))),
+                      f"{name} {tag}: max |diff| {d}")
+                err[name] = max(err[name], d)
+                del got, want
+            # identity probes read every group's mask back exactly in f32:
+            # x[e] = [I 0] gives rows 0..r-1 of m[e]*w[e], g[e] = [I 0]
+            # columns 0..r-1
+            r = min(m, K, N)
+            mask = ref.grouped_mask(s, seeds, offs, mode=mode, tau=0.45)
+            wm = mask.float() * w.float()
+            theta = torch.sigmoid(s)
+            if mode == "sample":
+                u = torch.stack([ref.hash_uniform(ref.flat_index(
+                    K, N, offs[e], N, dev), seeds[e]) for e in range(E)])
+            else:
+                u = torch.full_like(s, 0.45)
+            px = torch.zeros(E, r, K, device=dev)
+            px[:, :, :r] = torch.eye(r, device=dev)
+            y = mm.masked_matmul_grouped(px, w, s, seeds, offs, **kw)
+            n_f = mask_exact(torch, y != 0, wm[:, :r] != 0, u[:, :r],
+                             theta[:, :r], "grouped fwd probe " + tag)
+            check(n_f or torch.equal(y, wm[:, :r]),
+                  "grouped fwd probe values " + tag)
+            pg = torch.zeros(E, r, N, device=dev)
+            pg[:, :, :r] = torch.eye(r, device=dev)
+            dx = mm.masked_matmul_grouped_dx(pg, w, s, seeds, offs, **kw)
+            wt = wm[:, :, :r].transpose(1, 2)
+            n_d = mask_exact(torch, dx != 0, wt != 0,
+                             u[:, :, :r].transpose(1, 2),
+                             theta[:, :, :r].transpose(1, 2),
+                             "grouped dx probe " + tag)
+            check(n_d or torch.equal(dx, wt), "grouped dx probe values "
+                  + tag)
+            del mask, wm, theta, u, px, y, pg, dx, wt
+        ds = mm.masked_matmul_grouped_ds(x, g, w, s)
+        want = ref.masked_matmul_grouped_ds(x, g, w, s)
+        d = float((ds - want).abs().max())
+        # f32 sums over M terms in another order
+        check(bool(torch.allclose(ds, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max()))),
+              f"grouped ds E={E} M={m} K={K} N={N}: max |diff| {d}")
+        err["masked_matmul_grouped_ds"] = max(err["masked_matmul_grouped_ds"],
+                                              d)
+        del x, w, s, g, ds, want
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return err
 
@@ -252,14 +353,76 @@ def timing_phase(torch, mm, ref, dev):
     return res, per_shape
 
 
-def smoke_reference_phase(torch, dev):
+def grouped_timing_phase(torch, mm, ref, dev):
+    """Per-MoE-layer (3 expert projections, one cohort) times of the
+    grouped kernels at E = 64, M = 30: kernel, plain version and the
+    library yardstick (torch.bmm on the pre-masked f32 weights, TF32
+    off; for ds the x^T g product only), in ms, with their bounds (the
+    inputs are f32: flops over the f32 peak)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    E, M_ = N_EXPERTS, CAP
+    seeds = [7] * E
+    ops = []
+    for name, (K, N) in EXPERT_SHAPES.items():
+        offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
+        x = torch.randn(E, M_, K, generator=gen, device=dev)
+        w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.randn(E, K, N, generator=gen, device=dev)
+        g = torch.randn(E, M_, N, generator=gen, device=dev)
+        wm = ref.grouped_mask(s, seeds, offs).float() * w.float()
+        ops.append((name, K, N, x, w, s, g, wm, offs))
+    specs = {
+        "masked_matmul_grouped": (
+            lambda o: (lambda: mm.masked_matmul_grouped(o[3], o[4], o[5],
+                                                        seeds, o[8])),
+            lambda o: (lambda: ref.masked_matmul_grouped(o[3], o[4], o[5],
+                                                         seeds, o[8])),
+            lambda o: (lambda: torch.bmm(o[3], o[7])),
+            lambda K, N: (4 * E * M_ * K + 6 * E * K * N + 4 * E * M_ * N,
+                          2 * E * M_ * K * N)),
+        "masked_matmul_grouped_dx": (
+            lambda o: (lambda: mm.masked_matmul_grouped_dx(
+                o[6], o[4], o[5], seeds, o[8])),
+            lambda o: (lambda: ref.masked_matmul_grouped_dx(
+                o[6], o[4], o[5], seeds, o[8])),
+            lambda o: (lambda: torch.bmm(o[6], o[7].transpose(1, 2))),
+            lambda K, N: (4 * E * M_ * N + 6 * E * K * N + 4 * E * M_ * K,
+                          2 * E * M_ * K * N)),
+        "masked_matmul_grouped_ds": (
+            lambda o: (lambda: mm.masked_matmul_grouped_ds(o[3], o[6], o[4],
+                                                           o[5])),
+            lambda o: (lambda: ref.masked_matmul_grouped_ds(o[3], o[6], o[4],
+                                                            o[5])),
+            lambda o: (lambda: torch.bmm(o[3].transpose(1, 2), o[6])),
+            lambda K, N: (4 * E * M_ * K + 4 * E * M_ * N + 10 * E * K * N,
+                          2 * E * M_ * K * N)),
+    }
+    res, per_shape = {}, {}
+    for kname, (kern, plain, lib, cost) in specs.items():
+        t_k = time_ms(torch, [kern(o) for o in ops], 10)
+        t_p = time_ms(torch, [plain(o) for o in ops], 2)
+        t_l = time_ms(torch, [lib(o) for o in ops], 10)
+        nbytes = sum(cost(o[1], o[2])[0] for o in ops)
+        flops = sum(cost(o[1], o[2])[1] for o in ops)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        res[kname] = dict(ms=sum(t_k), plain_ms=sum(t_p),
+                          library_ms=sum(t_l), bound_ms=b_ms, bound_by=b_by)
+        per_shape[kname] = {
+            o[0]: (tk, tp, tl, bound(*cost(o[1], o[2]), F32_FLOPS_PER_S)[0])
+            for o, tk, tp, tl in zip(ops, t_k, t_p, t_l)}
+    del ops
+    torch.cuda.empty_cache()
+    return res, per_shape
+
+
+def smoke_reference_phase(torch, dev, arch):
     """The port's round and train step on the card against the same
-    steps on the CPU (plain versions) from one SMOKE state."""
+    steps on the CPU (plain versions) from one SMOKE state of `arch`."""
     from repro_torch.configs import get_config
     from repro_torch.core import masking, tree
     from repro_torch.launch import steps
     from repro_torch.models import build_model
-    api = build_model(get_config("internlm2-1.8b", smoke=True))
+    api = build_model(get_config(arch, smoke=True))
     cfg = steps.StepConfig(lam=1.0, lr=0.3, seed=17)
     states = []
     for d in ("cpu", dev):
@@ -286,21 +449,21 @@ def smoke_reference_phase(torch, dev):
     # bf16 activations, f32 sums in another order: 0.5% of the loss
     check(abs(losses[0] - losses[1]) <= 5e-3 * abs(losses[0]),
           f"smoke train loss cpu {losses[0]} card {losses[1]}")
-    print(f"smoke reference: round bpp {float(metrics[1]['bpp']):.6f} "
+    print(f"smoke reference {arch}: round bpp "
+          f"{float(metrics[1]['bpp']):.6f} "
           f"bits {float(metrics[1]['bits_measured']):.0f} equal on cpu "
           f"and card; train loss cpu {losses[0]:.6f} card {losses[1]:.6f}")
 
 
-def profile_phase(torch, dev):
-    """One more full-size train step and round under torch.profiler:
+def profile_phase(torch, dev, cfg):
+    """One more train step and round of `cfg` under torch.profiler:
     device time by kernel and the device's busy share of the wall time
-    (after the main path, whose launch counts are already read)."""
+    (after the main paths, whose launch counts are already read)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import registry
-    from repro_torch.configs import get_config
     from repro_torch.launch import steps as steplib
     from repro_torch.models import build_model
-    api = build_model(get_config("internlm2-1.8b"))
+    api = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(17)
     plan = registry.get_launch_plan("fedpm_reg")(
         api, steplib.StepConfig(lam=1.0, lr=0.3, downlink_bits=8, seed=17),
@@ -326,7 +489,8 @@ def profile_phase(torch, dev):
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     wall = sum(walls.values()) * 1e3
-    print(f"profile: 1 step + 1 round, wall {wall:.1f} ms "
+    print(f"profile {cfg.name} ({cfg.n_layers} layers): 1 step + 1 round, "
+          f"wall {wall:.1f} ms "
           f"(step {walls['step'] * 1e3:.1f}, round "
           f"{walls['round'] * 1e3:.1f}), device busy {busy:.1f} ms "
           f"({100 * busy / wall:.1f}%); device ms by kernel:")
@@ -340,6 +504,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import ref
@@ -361,56 +526,94 @@ def main():
 
     t0 = time.time()
     err = kernel_phase(torch, mm, ref, dev)
+    err.update(grouped_kernel_phase(torch, mm, ref, dev))
     print(f"kernel phase: all kernels agree with their plain versions "
           f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
     t0 = time.time()
     timing, per_shape = timing_phase(torch, mm, ref, dev)
-    print(f"timing phase ({time.time() - t0:.1f}s), ms per launch at "
-          f"M={M}: kernel / plain / library / bound")
+    g_timing, g_per_shape = grouped_timing_phase(torch, mm, ref, dev)
+    timing.update(g_timing)
+    per_shape.update(g_per_shape)
+    print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
+          f"at M={M}, grouped at E={N_EXPERTS} M={CAP}): kernel / plain / "
+          f"library / bound")
     for kname, rows in per_shape.items():
         for leaf, (tk, tp, tl, tb) in rows.items():
             lib = "-" if tl is None else f"{tl:.4f}"
-            print(f"  {kname:18s} {leaf:7s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
+            print(f"  {kname:24s} {leaf:7s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
                   f"{tb:9.4f}")
     t0 = time.time()
-    smoke_reference_phase(torch, dev)
+    for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):
+        smoke_reference_phase(torch, dev, arch)
     print(f"smoke reference phase: {time.time() - t0:.1f}s")
 
     steps_, every = 4, 2
-    argv = ["--arch", "internlm2-1.8b", "--algo", "fedpm_reg",
-            "--cohorts", str(COHORTS), "--batch", "2", "--seq", "128",
-            "--steps", str(steps_), "--round-every", str(every),
-            "--downlink-bits", "8", "--device", "cuda"]
-    print("main path: python -m repro_torch.launch.train " + " ".join(argv))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    mm.reset_launch_counts()
-    t0 = time.time()
-    out = train.main(argv)
-    torch.cuda.synchronize()
-    launches = dict(mm.LAUNCHES)
-    wall = time.time() - t0
-    per_pass = N_LAYERS * len(LAYER_SHAPES) * COHORTS * steps_
-    expect = {"masked_matmul_fwd": per_pass, "masked_matmul_dx": per_pass,
-              "masked_matmul_ds": per_pass,
-              "sample_and_pack": len(LAYER_SHAPES) * (steps_ // every)}
-    print(f"main path: {wall:.1f}s; launches {json.dumps(launches)}; "
-          f"step seconds {[round(t, 4) for t in out['step_seconds']]}; "
-          f"round seconds {[round(t, 4) for t in out['round_seconds']]}; "
-          f"max memory allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(launches == expect, f"launch counts {launches}, expected {expect}")
-    check(all(math.isfinite(v) for v in out["losses"]), "non-finite loss")
-    check(len(out["rounds"]) == steps_ // every, "missing round")
-    for r in out["rounds"]:
-        check(0.0 < r["bpp"] <= 1.0 and 0.0 < r["bpp_measured"] <= 1.1,
-              f"uplink Bpp out of range: {r}")
+    argv = ["--algo", "fedpm_reg", "--cohorts", str(COHORTS), "--batch",
+            "2", "--seq", "128", "--steps", str(steps_), "--round-every",
+            str(every), "--downlink-bits", "8", "--device", "cuda"]
+    dense = N_LAYERS * len(LAYER_SHAPES) * COHORTS * steps_
+    moe_cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                                  n_layers=MOE_LAYERS)
+    # per MoE-path train step: 8 dense projections in every layer (MLA 5
+    # + the dense or shared MLP 3), 3 expert projections in each MoE
+    # layer; 19 masked leaves per round
+    n_moe = MOE_LAYERS - moe_cfg.first_dense_layers
+    grouped = 3 * n_moe * COHORTS * steps_
+    dense_moe = 8 * MOE_LAYERS * COHORTS * steps_
+    paths = [
+        (get_config("internlm2-1.8b"), {
+            "masked_matmul_fwd": dense, "masked_matmul_dx": dense,
+            "masked_matmul_ds": dense,
+            "sample_and_pack": len(LAYER_SHAPES) * (steps_ // every),
+            "masked_matmul_grouped": 0, "masked_matmul_grouped_dx": 0,
+            "masked_matmul_grouped_ds": 0}),
+        (moe_cfg, {
+            "masked_matmul_fwd": dense_moe, "masked_matmul_dx": dense_moe,
+            "masked_matmul_ds": dense_moe,
+            "sample_and_pack": 19 * (steps_ // every),
+            "masked_matmul_grouped": grouped,
+            "masked_matmul_grouped_dx": grouped,
+            "masked_matmul_grouped_ds": grouped}),
+    ]
+    launches = {k: 0 for k in mm.KERNELS}
+    for cfg, expect in paths:
+        args = train.parse_args(["--arch", cfg.name] + argv)
+        print(f"main path: python -m repro_torch.launch.train --arch "
+              f"{cfg.name} {' '.join(argv)} at {cfg.n_layers} layers of "
+              f"{get_config(cfg.name).n_layers}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mm.reset_launch_counts()
+        t0 = time.time()
+        out = train.run(cfg, args)
+        torch.cuda.synchronize()
+        got = dict(mm.LAUNCHES)
+        wall = time.time() - t0
+        print(f"main path {cfg.name}: {wall:.1f}s; launches "
+              f"{json.dumps(got)}; step seconds "
+              f"{[round(t, 4) for t in out['step_seconds']]}; round "
+              f"seconds {[round(t, 4) for t in out['round_seconds']]}; "
+              f"losses {[round(v, 4) for v in out['losses']]}; max memory "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+        check(got == expect, f"{cfg.name} launch counts {got}, expected "
+              f"{expect}")
+        check(all(math.isfinite(v) for v in out["losses"]),
+              f"{cfg.name}: non-finite loss")
+        check(len(out["rounds"]) == steps_ // every,
+              f"{cfg.name}: missing round")
+        for r in out["rounds"]:
+            check(0.0 < r["bpp"] <= 1.0 and 0.0 < r["bpp_measured"] <= 1.1,
+                  f"{cfg.name}: uplink Bpp out of range: {r}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        del out
+        torch.cuda.empty_cache()
 
-    del out
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    profile_phase(torch, dev)
-    print(f"profile phase: {time.time() - t0:.1f}s")
+    for cfg, _ in paths:
+        t0 = time.time()
+        profile_phase(torch, dev, cfg)
+        print(f"profile phase {cfg.name}: {time.time() - t0:.1f}s")
+        torch.cuda.empty_cache()
 
     kernels = []
     for name in mm.KERNELS:

@@ -1,8 +1,9 @@
 """Config registry: --arch <id> resolution (the port's configs so far)."""
 from repro_torch.configs.base import ArchConfig  # noqa: F401
-from repro_torch.configs import internlm2_1_8b
+from repro_torch.configs import deepseek_v2_lite_16b, internlm2_1_8b
 
-_REGISTRY = {m.CONFIG.name: m for m in (internlm2_1_8b,)}
+_REGISTRY = {m.CONFIG.name: m for m in (internlm2_1_8b,
+                                        deepseek_v2_lite_16b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

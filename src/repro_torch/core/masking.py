@@ -168,9 +168,11 @@ class MaskedLeaf:
     logits `s` and the hash-stream coordinates of each trailing (K, N)
     block.  For a leaf of shape lead + (K, N), `seed` and `off` are
     uint32 numpy arrays of shape `lead` (block b samples at flat index
-    off[b] = b*K*N of the leaf's stream); `block(i)` slices the leading
-    axis.  `s` may also be a sequence of per-block tensors (the train
-    step makes each block its own autograd leaf)."""
+    off[b] = b*K*N mod 2**32 of the leaf's stream); `block(i)` slices the
+    leading axis, so layer l of a stacked (L, E, K, N) expert leaf has the
+    (E,) seeds and offsets (l*E + e)*K*N of one grouped launch.  `s` may
+    also be a sequence of per-layer tensors (the train step makes each
+    layer's block its own autograd leaf)."""
     w: Any
     s: Any
     seed: Any

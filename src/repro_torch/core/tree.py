@@ -18,32 +18,34 @@ def _is_node(t) -> bool:
     return isinstance(t, (dict, list, tuple))
 
 
+def _flatten_into(t, leaves: list):
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten_into(v, leaves) for v in t)
+    leaves.append(t)
+    return _LEAF
+
+
 def flatten(tree) -> tuple:
-    """(leaves, treedef) with leaves in jax.tree_util order."""
+    """(leaves, treedef) with leaves in jax.tree_util order.  (Module-level
+    recursion, not a self-referencing closure: a closure cycle would keep
+    every leaf alive until the garbage collector runs.)"""
     leaves = []
+    treedef = _flatten_into(tree, leaves)
+    return leaves, treedef
 
-    def rec(t):
-        if isinstance(t, dict):
-            return {k: rec(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rec(v) for v in t)
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, rec(tree)
+def _unflatten_from(t, it):
+    if isinstance(t, dict):
+        return {k: _unflatten_from(v, it) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten_from(v, it) for v in t)
+    return next(it)
 
 
 def unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def rec(t):
-        if isinstance(t, dict):
-            return {k: rec(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rec(v) for v in t)
-        return next(it)
-
-    return rec(treedef)
+    return _unflatten_from(treedef, iter(leaves))
 
 
 def leaves(tree) -> list:

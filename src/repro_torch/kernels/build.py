@@ -24,9 +24,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("hash.cuh",)
+HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
-           "sample_and_pack")
+           "sample_and_pack", "masked_matmul_grouped",
+           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,11 @@ ARGTYPES = {
                          _F, _P],
     "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
+    "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
+                              _I, _F, _P],
+    "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _U32, _I, _F, _P],
+    "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LOADED: dict = {}

@@ -1,37 +1,52 @@
-"""Wrappers of the four hand-written CUDA kernels, each beside its plain
+"""Wrappers of the seven hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
-    masked_matmul     y  = x @ (m * w)                  csrc/masked_matmul_fwd.cu
-    masked_matmul_dx  dx = g @ (m * w)^T                csrc/masked_matmul_dx.cu
-    masked_matmul_ds  ds = (x^T g) * w * s'(s)          csrc/masked_matmul_ds.cu
-    sample_and_pack   (C, n) scores -> (C, n/32) words  csrc/sample_and_pack.cu
+    masked_matmul             y  = x @ (m * w)          csrc/masked_matmul_fwd.cu
+    masked_matmul_dx          dx = g @ (m * w)^T        csrc/masked_matmul_dx.cu
+    masked_matmul_ds          ds = (x^T g) * w * s'(s)  csrc/masked_matmul_ds.cu
+    sample_and_pack           (C, n) scores -> (C, n/32) words
+                                                        csrc/sample_and_pack.cu
+    masked_matmul_grouped     y[e]  = x[e] @ (m[e] * w[e])
+                                                  csrc/masked_matmul_grouped.cu
+    masked_matmul_grouped_dx  dx[e] = g[e] @ (m[e] * w[e])^T
+                                               csrc/masked_matmul_grouped_dx.cu
+    masked_matmul_grouped_ds  ds[e] = (x[e]^T g[e]) * w[e] * s'(s[e])
+                                               csrc/masked_matmul_grouped_ds.cu
 
 m = 1[hash_u(seed, off + row*n_logical + col) < sigmoid(s)] in "sample"
 mode, 1[sigmoid(s) > tau] in "threshold" mode; the hash index is uint32
-and wraps, as in the JAX reference.
+and wraps, as in the JAX reference.  The grouped kernels take E stacked
+(K, N) problems with per-group stream coordinates seeds[e], offs[e].
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
 raises.  Nothing falls back.  Each launch adds one to `LAUNCHES[name]`,
 so a run can show that it went through the kernels.
 
-The kernels take bf16 x/g/w, f32 scores and contiguous operands; the
-wrappers raise on anything else rather than copy.
+The dense kernels take bf16 x/g, the grouped ones f32 x/g (the MoE
+expert chain stays in f32, as in the reference); all take bf16 w, f32
+scores and contiguous operands.  The wrappers raise on anything else
+rather than copy.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
 KERNELS = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
-           "sample_and_pack")
+           "sample_and_pack", "masked_matmul_grouped",
+           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 masked_matmul_plain = ref.masked_matmul
 masked_matmul_dx_plain = ref.masked_matmul_dx
 masked_matmul_ds_plain = ref.masked_matmul_ds
 sample_and_pack_plain = ref.sample_and_pack
+masked_matmul_grouped_plain = ref.masked_matmul_grouped
+masked_matmul_grouped_dx_plain = ref.masked_matmul_grouped_dx
+masked_matmul_grouped_ds_plain = ref.masked_matmul_grouped_ds
 
 _MODES = {"sample": 0, "threshold": 1}
 
@@ -65,6 +80,29 @@ def _stream(t: torch.Tensor) -> int:
 
 def _u32(v) -> int:
     return int(v) & 0xFFFFFFFF
+
+
+def _i32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 holding their bit patterns."""
+    return (t - ((t >> 31) << 32)).to(torch.int32)
+
+
+def _group_u32(vals, E: int, name: str) -> list:
+    """E per-group uint32 stream coordinates as Python ints, from one
+    value (broadcast) or E of them (ints, a numpy array or a CPU
+    tensor)."""
+    a = np.asarray(vals, dtype=np.int64).reshape(-1)
+    if a.size not in (1, E):
+        raise ValueError(f"{name}: expected 1 or {E} per-group values, "
+                         f"got {a.size}")
+    return (np.broadcast_to(a, (E,)) & 0xFFFFFFFF).tolist()
+
+
+def _group_coords(seeds: list, offs: list, dev) -> torch.Tensor:
+    """(2, E) int32 device tensor of the seeds' and offsets' uint32 bit
+    patterns, copied from pinned memory without a host synchronize."""
+    t = _i32_bits(torch.tensor([seeds, offs], dtype=torch.int64))
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
@@ -140,9 +178,84 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     words = torch.empty((C, (n + 31) // 32), dtype=torch.int32,
                         device=s.device)
     if C and n:
-        seeds32 = (seeds - ((seeds >> 31) << 32)).to(torch.int32)
+        seeds32 = _i32_bits(seeds)
         build.launch("sample_and_pack", s.data_ptr(), seeds32.data_ptr(),
                      words.data_ptr(), C, n, _MODES[mode], float(tau),
                      _stream(s))
         LAUNCHES["sample_and_pack"] += 1
     return words
+
+
+def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
+                          mode="sample", tau=0.5):
+    """x: (E, M, K); w, s: (E, K, N); seeds, offs: per-group uint32
+    stream coordinates (E of them, or one for all) -> y[e] = x[e] @
+    (m[e] * w[e]) : (E, M, N) in x.dtype."""
+    E = x.shape[0]
+    seeds = _group_u32(seeds, E, "seeds")
+    offs = _group_u32(offs, E, "offs")
+    if _on_cpu(x, w, s):
+        return masked_matmul_grouped_plain(x, w, s, seeds, offs, n_logical,
+                                           mode, tau)
+    _, M, K = x.shape
+    N = w.shape[2]
+    _require(x, "x", torch.float32, (E, M, K))
+    _require(w, "w", torch.bfloat16, (E, K, N))
+    _require(s, "s", torch.float32, (E, K, N))
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if E and M and N:
+        coords = _group_coords(seeds, offs, x.device)
+        build.launch("masked_matmul_grouped", x.data_ptr(), w.data_ptr(),
+                     s.data_ptr(), coords[0].data_ptr(),
+                     coords[1].data_ptr(), y.data_ptr(), E, M, K, N,
+                     _u32(N if n_logical is None else n_logical),
+                     _MODES[mode], float(tau), _stream(x))
+        LAUNCHES["masked_matmul_grouped"] += 1
+    return y
+
+
+def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
+                             mode="sample", tau=0.5):
+    """g: (E, M, N); w, s: (E, K, N) -> dx[e] = g[e] @ (m[e] * w[e])^T :
+    (E, M, K) in g.dtype, the grouped forward's masks."""
+    E = g.shape[0]
+    seeds = _group_u32(seeds, E, "seeds")
+    offs = _group_u32(offs, E, "offs")
+    if _on_cpu(g, w, s):
+        return masked_matmul_grouped_dx_plain(g, w, s, seeds, offs,
+                                              n_logical, mode, tau)
+    _, M, N = g.shape
+    K = w.shape[1]
+    _require(g, "g", torch.float32, (E, M, N))
+    _require(w, "w", torch.bfloat16, (E, K, N))
+    _require(s, "s", torch.float32, (E, K, N))
+    dx = torch.empty((E, M, K), dtype=g.dtype, device=g.device)
+    if E and M and K:
+        coords = _group_coords(seeds, offs, g.device)
+        build.launch("masked_matmul_grouped_dx", g.data_ptr(), w.data_ptr(),
+                     s.data_ptr(), coords[0].data_ptr(),
+                     coords[1].data_ptr(), dx.data_ptr(), E, M, K, N,
+                     _u32(N if n_logical is None else n_logical),
+                     _MODES[mode], float(tau), _stream(g))
+        LAUNCHES["masked_matmul_grouped_dx"] += 1
+    return dx
+
+
+def masked_matmul_grouped_ds(x, g, w, s):
+    """x: (E, M, K); g: (E, M, N); w, s: (E, K, N) -> ds : (E, K, N) in
+    s.dtype."""
+    if _on_cpu(x, g, w, s):
+        return masked_matmul_grouped_ds_plain(x, g, w, s)
+    E, M, K = x.shape
+    N = g.shape[2]
+    _require(x, "x", torch.float32, (E, M, K))
+    _require(g, "g", torch.float32, (E, M, N))
+    _require(w, "w", torch.bfloat16, (E, K, N))
+    _require(s, "s", torch.float32, (E, K, N))
+    ds = torch.empty((E, K, N), dtype=s.dtype, device=s.device)
+    if E and K and N:
+        build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
+                     w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
+                     _stream(x))
+        LAUNCHES["masked_matmul_grouped_ds"] += 1
+    return ds

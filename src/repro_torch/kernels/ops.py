@@ -1,5 +1,5 @@
-"""Autograd wrappers around the masked-matmul kernels (the dense half of
-`repro.kernels.ops`).
+"""Autograd wrappers around the masked-matmul kernels (the dense and
+grouped parts of `repro.kernels.ops`).
 
 `masked_dense` is the mask-training forward of a dense layer with the
 straight-through backward; all three passes run the fused kernels:
@@ -16,9 +16,16 @@ shifts the flat hash index, so the L per-layer launches over a stacked
 packs for the flattened leaf.  The JAX reference pads operands to 128
 for its matrix unit; the CUDA kernels mask their ragged edges instead,
 so no padding happens here and the hash keeps the logical column count.
+
+`masked_dense_grouped` is the same for stacked (E, K, N) weights (the
+MoE experts): one grouped launch per pass covers all E groups, group e
+sampling at offs[e] of seeds[e]'s stream, so under the `MaskedLeaf`
+convention (offs[e] = (l*E + e)*K*N) layer l's E masks are its slice of
+the leaf's uplink stream.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import masked_matmul as mm
@@ -57,6 +64,50 @@ def masked_dense(x, w, s, seed, off=0):
 def masked_dense_threshold(x, w, s, tau=0.5):
     """y = x @ (1[sigmoid(s) > tau] * w), STE backward (FedMask)."""
     return _MaskedDense.apply(x, w, s, 0, 0, "threshold", float(tau))
+
+
+class _MaskedDenseGrouped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, seeds, offs, mode, tau):
+        E = x.shape[0]
+        K, N = w.shape[-2:]
+        x3 = x.reshape(E, -1, K).contiguous()
+        y = mm.masked_matmul_grouped(x3, w, s, seeds, offs, mode=mode,
+                                     tau=tau)
+        ctx.save_for_backward(x3, w, s)
+        ctx.coords = (seeds, offs, mode, tau, x.shape)
+        return y.reshape(*x.shape[:-1], N)
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, w, s = ctx.saved_tensors
+        seeds, offs, mode, tau, shape = ctx.coords
+        g3 = g.reshape(x3.shape[0], -1, w.shape[-1]).contiguous()
+        dx = ds = None
+        if ctx.needs_input_grad[0]:
+            dx = mm.masked_matmul_grouped_dx(
+                g3, w, s, seeds, offs, mode=mode,
+                tau=tau).reshape(shape).to(x3.dtype)
+        if ctx.needs_input_grad[2]:
+            ds = mm.masked_matmul_grouped_ds(x3, g3, w, s).to(s.dtype)
+        return dx, None, ds, None, None, None, None
+
+
+def masked_dense_grouped(x, w, s, seeds, offs=None):
+    """y[e] = x[e] @ (bern(sigmoid(s[e]); seeds[e], offs[e]) * w[e]) for
+    stacked (E, K, N) weights, STE backward.  x: (E, ..., K); seeds, offs:
+    one uint32 or E of them (offs default e*K*N)."""
+    if offs is None:
+        K, N = w.shape[-2:]
+        offs = np.arange(x.shape[0], dtype=np.int64) * (K * N)
+    return _MaskedDenseGrouped.apply(x, w, s, seeds, offs, "sample", 0.5)
+
+
+def masked_dense_grouped_threshold(x, w, s, tau=0.5):
+    """y[e] = x[e] @ (1[sigmoid(s[e]) > tau] * w[e]), STE backward
+    (FedMask; no hash stream)."""
+    return _MaskedDenseGrouped.apply(x, w, s, 0, 0, "threshold",
+                                     float(tau))
 
 
 def sample_and_pack(scores, seeds, mode="sample", tau=0.5):

@@ -94,6 +94,50 @@ def masked_matmul_ds(x, g, w, s):
     return (xg * w.float() * sig * (1.0 - sig)).to(s.dtype)
 
 
+def grouped_mask(s, seeds, offs, n_logical=None, mode="sample", tau=0.5):
+    """(E, K, N) uint8 masks of stacked score blocks; group e samples at
+    flat index offs[e] + row*n_logical + col of seeds[e]'s stream
+    (offs[e] = e*K*N makes the E masks one stacked-leaf stream)."""
+    if mode == "threshold":
+        return threshold_mask(s, tau)
+    return torch.stack([sample_mask(s[e], int(seeds[e]), int(offs[e]),
+                                    n_logical) for e in range(s.shape[0])])
+
+
+def masked_matmul_grouped(x, w, s, seeds, offs, n_logical=None,
+                          mode="sample", tau=0.5):
+    """y[e] = x[e] @ (m[e] * w[e]), f32 accumulation, cast to x.dtype.
+    x: (E, M, K); w, s: (E, K, N); seeds, offs: E uint32 ints."""
+    m = grouped_mask(s, seeds, offs, n_logical, mode, tau)
+    wm = m.float() * w.float()
+    return torch.bmm(x.float(), wm).to(x.dtype)
+
+
+def masked_matmul_grouped_dx(g, w, s, seeds, offs, n_logical=None,
+                             mode="sample", tau=0.5):
+    """dx[e] = g[e] @ (m[e] * w[e])^T with the forward's masks, cast to
+    g.dtype."""
+    m = grouped_mask(s, seeds, offs, n_logical, mode, tau)
+    wm = m.float() * w.float()
+    return torch.bmm(g.float(), wm.transpose(1, 2)).to(g.dtype)
+
+
+def masked_matmul_grouped_ds(x, g, w, s):
+    """ds[e] = (x[e]^T @ g[e]) * w[e] * sigmoid(s[e])(1 - sigmoid(s[e])),
+    cast to s.dtype."""
+    xg = torch.bmm(x.float().transpose(1, 2), g.float())
+    sig = torch.sigmoid(s.float())
+    return (xg * w.float() * sig * (1.0 - sig)).to(s.dtype)
+
+
+def masked_dense_grouped_bwd(x, w, s, seeds, offs, g, mode="sample",
+                             tau=0.5):
+    """The grouped STE backward (dx, ds) from the plain versions, with
+    the stacked mask, m*w and x^T g materialized at (E, K, N)."""
+    dx = masked_matmul_grouped_dx(g, w, s, seeds, offs, None, mode, tau)
+    return dx, masked_matmul_grouped_ds(x, g, w, s)
+
+
 def sample_rows(s2: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     """(C, n) score rows + (C,) uint32 seeds -> (C, n) uint8 masks; row c
     draws flat indices 0..n-1 of seeds[c]'s stream."""

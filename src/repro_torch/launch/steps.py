@@ -78,22 +78,20 @@ def init_fed_state(gen: torch.Generator, api, spec: masking.MaskSpec, C: int,
 
 
 def _blocks(t: torch.Tensor) -> list:
-    """Views of the trailing 2-D blocks of a (..., K, N) tensor."""
-    return list(t.reshape(-1, *t.shape[-2:]).unbind(0))
+    """The per-layer blocks of a leaf: views along its leading (layer)
+    axis, or the leaf itself when it is one (K, N) matrix.  A layer's
+    block of a stacked expert leaf is its whole (E, K, N) slice, the
+    operand of one grouped launch."""
+    return [t] if t.ndim == 2 else list(t.unbind(0))
 
 
 def _as_grad_leaves(leaf: MaskedLeaf) -> MaskedLeaf:
-    """The leaf with each score block an autograd leaf of its own (views
-    of the state's storage), so each block's gradient lands in its own
-    `.grad` and no stacked gradient buffer is built."""
-    if leaf.s.ndim == 2:
-        return dataclasses.replace(leaf, s=leaf.s.detach().requires_grad_())
-    lead = leaf.s.shape[:-2]
-    if len(lead) != 1:
-        raise NotImplementedError("score leaves with more than one leading "
-                                  "axis are not ported yet")
+    """The leaf with each per-layer score block an autograd leaf of its
+    own (views of the state's storage), so each block's gradient lands
+    in its own `.grad` and no stacked gradient buffer is built."""
+    blocks = [b.detach().requires_grad_() for b in _blocks(leaf.s)]
     return dataclasses.replace(
-        leaf, s=[b.detach().requires_grad_() for b in leaf.s.unbind(0)])
+        leaf, s=blocks[0] if leaf.s.ndim == 2 else blocks)
 
 
 def _score_blocks(leaf: MaskedLeaf) -> list:
@@ -137,9 +135,9 @@ def make_train_step(api, cfg: StepConfig):
                 bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).to(dev)
                 bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).to(dev)
             for leaf, m_leaf, v_leaf in zip(leaves, moms, vels):
-                m_blocks = _blocks(m_leaf) if m_leaf.ndim > 2 else [m_leaf]
-                v_blocks = ([None] * len(m_blocks) if v_leaf is None else
-                            _blocks(v_leaf) if v_leaf.ndim > 2 else [v_leaf])
+                m_blocks = _blocks(m_leaf)
+                v_blocks = ([None] * len(m_blocks) if v_leaf is None
+                            else _blocks(v_leaf))
                 for s, m, v in zip(_score_blocks(leaf), m_blocks, v_blocks):
                     g = s.grad
                     if g is None:

@@ -10,8 +10,10 @@ config), where the kernels' plain versions run.  Every
 
     step N: loss=… uplink=…Bpp (wire …Bpp <codec>) cum=…MB (…s)
 
-`main` returns a summary (losses, round metrics, per-step and per-round
-seconds measured after a device synchronize) for scripted callers.
+`main` parses the command line and calls `run(cfg, args)`, which a
+scripted caller may call with any `ArchConfig` (e.g. a depth-cut one);
+both return a summary (losses, round metrics, per-step and per-round
+seconds measured after a device synchronize).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.api import codecs as codecs_lib
 from repro_torch.api import registry
-from repro_torch.configs import get_config
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.data import synthetic
 from repro_torch.launch import plans  # noqa: F401  (registers the plans)
 from repro_torch.launch import steps as steplib
@@ -46,7 +48,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action="store_true")
@@ -71,14 +73,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--score-opt", default="momentum",
                     choices=["momentum", "adam"])
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return run(get_config(args.arch, smoke=args.smoke), args)
+
+
+def run(cfg: ArchConfig, args: argparse.Namespace) -> dict:
+    """Train `cfg` as the parsed command line `args` asks (its --arch and
+    --smoke are not read)."""
     dev = resolve_device(args.device)
-    # the reference's attention and unembed products are full f32
+    # the reference's attention, router and unembed products are full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     api = build_model(cfg)
     scfg = steplib.StepConfig(lam=args.lam, lr=args.lr,
                               optimizer=args.score_opt,

@@ -2,8 +2,8 @@
 
 `forward(params, batch)` takes a params tree whose maskable leaves are
 plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
-`layers.masked_dense_apply` dispatch decides per leaf.  Only the dense
-transformer family is ported so far.
+`layers.masked_dense_apply` / `masked_grouped_apply` dispatch decides
+per leaf.  The dense and MoE transformer families are ported so far.
 """
 from __future__ import annotations
 
@@ -23,9 +23,10 @@ class ModelApi:
 
 
 def build_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+            f"model family {cfg.family!r} is not ported yet (dense and "
+            f"moe only)")
 
     def fwd(params, batch):
         if "vis_embeds" in batch:

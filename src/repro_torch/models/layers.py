@@ -1,11 +1,13 @@
-"""Dense-transformer layers (the dense subset of `repro.models.layers`).
+"""Transformer layers (the dense, MLA and MoE parts of
+`repro.models.layers`).
 
 Conventions follow the reference: activations x are (B, S, D), params
 are nested dicts of tensors, maskable tensors are named "w_*" and norms
-carry "scale".  Every maskable projection goes through
-`masked_dense_apply`, which runs the fused kernels for a `MaskedLeaf`
-and a plain matmul for a plain tensor (float baselines, materialized
-effective params).
+and the router carry "scale" / "router".  Every maskable projection goes
+through `masked_dense_apply` (2-D weights) or `masked_grouped_apply`
+(stacked (E, K, N) expert weights), which run the fused kernels for a
+`MaskedLeaf` and a plain product for a plain tensor (float baselines,
+materialized effective params).
 """
 from __future__ import annotations
 
@@ -27,6 +29,20 @@ def masked_dense_apply(x: torch.Tensor, p) -> torch.Tensor:
             return ops.masked_dense_threshold(x, p.w, p.s, p.tau)
         return ops.masked_dense(x, p.w, p.s, int(p.seed), int(p.off))
     return x @ p
+
+
+def masked_grouped_apply(x: torch.Tensor, p) -> torch.Tensor:
+    """y[e] = x[e] @ w_eff[e] for a stacked (E, K, N) weight; x: (E, ..., K).
+    A `MaskedLeaf` runs one grouped kernel launch per pass for all E
+    groups, each group's mask its slice of the leaf's stream."""
+    if isinstance(p, MaskedLeaf):
+        if p.mode == "threshold":
+            return ops.masked_dense_grouped_threshold(x, p.w, p.s, p.tau)
+        return ops.masked_dense_grouped(x, p.w, p.s, p.seed, p.off)
+    shape = x.shape
+    dt = torch.promote_types(x.dtype, p.dtype)
+    y = torch.bmm(x.reshape(shape[0], -1, shape[-1]).to(dt), p.to(dt))
+    return y.reshape(*shape[:-1], p.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +147,64 @@ def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0):
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, d_model, n_heads, kv_lora, q_lora, qk_nope, qk_rope,
+             v_head, dtype=DEFAULT_DTYPE, lead=()):
+    lead = tuple(lead)
+    dev = gen.device
+    p = {
+        "w_dkv": dense_init(gen, lead + (d_model, kv_lora + qk_rope), dtype),
+        "kv_norm_scale": torch.ones(lead + (kv_lora,), dtype=torch.float32,
+                                    device=dev),
+        "w_uk": dense_init(gen, lead + (kv_lora, n_heads * qk_nope), dtype),
+        "w_uv": dense_init(gen, lead + (kv_lora, n_heads * v_head), dtype),
+        "w_o": dense_init(gen, lead + (n_heads * v_head, d_model), dtype),
+    }
+    if q_lora:
+        p["w_dq"] = dense_init(gen, lead + (d_model, q_lora), dtype)
+        p["q_norm_scale"] = torch.ones(lead + (q_lora,), dtype=torch.float32,
+                                       device=dev)
+        p["w_uq"] = dense_init(
+            gen, lead + (q_lora, n_heads * (qk_nope + qk_rope)), dtype)
+    else:
+        p["w_q"] = dense_init(
+            gen, lead + (d_model, n_heads * (qk_nope + qk_rope)), dtype)
+    return p
+
+
+def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
+              rope_theta=10000.0):
+    """MLA forward (training / prefill); returns (out, (c_kv, k_rope)).
+    q and k carry nope + rope dims, so the softmax scale is
+    1/sqrt(qk_nope + qk_rope); the decoupled rope key is shared by all
+    heads and the compressed c_kv is RMS-normed with `kv_norm_scale`."""
+    B, S, _ = x.shape
+    if "w_dq" in p:
+        cq = rms_norm({"scale": p["q_norm_scale"]},
+                      masked_dense_apply(x, p["w_dq"]))
+        q = masked_dense_apply(cq, p["w_uq"])
+    else:
+        q = masked_dense_apply(x, p["w_q"])
+    q = q.reshape(B, S, n_heads, qk_nope + qk_rope)
+    q_rope = apply_rope(q[..., qk_nope:], positions, rope_theta)
+
+    dkv = masked_dense_apply(x, p["w_dkv"])
+    c_kv = rms_norm({"scale": p["kv_norm_scale"]}, dkv[..., :kv_lora])
+    k_rope = apply_rope(dkv[..., kv_lora:][:, :, None, :], positions,
+                        rope_theta)                      # (B, S, 1, rope)
+    k_nope = masked_dense_apply(c_kv, p["w_uk"]).reshape(
+        B, S, n_heads, qk_nope)
+    v = masked_dense_apply(c_kv, p["w_uv"]).reshape(B, S, n_heads, v_head)
+    k = torch.cat([k_nope, k_rope.expand(B, S, n_heads, qk_rope)], dim=-1)
+    q = torch.cat([q[..., :qk_nope], q_rope], dim=-1)
+    o = attention_core(q, k, v, positions, positions)
+    return masked_dense_apply(o.reshape(B, S, -1), p["w_o"]), (c_kv, k_rope)
+
+
+# ---------------------------------------------------------------------------
 # MLP, embedding, head
 # ---------------------------------------------------------------------------
 
@@ -146,6 +220,85 @@ def mlp_apply(p, x):
     up = masked_dense_apply(x, p["w_up"])
     up = F.silu(masked_dense_apply(x, p["w_gate"])) * up
     return masked_dense_apply(up, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity dispatch; the reference's block_dispatch = 0 path)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen, d_model, moe_d_ff, n_experts, n_shared,
+             dtype=DEFAULT_DTYPE, lead=()):
+    lead = tuple(lead)
+    p = {"router_w": dense_init(gen, lead + (d_model, n_experts),
+                                torch.float32),
+         "w_up": dense_init(gen, lead + (n_experts, d_model, moe_d_ff),
+                            dtype),
+         "w_gate": dense_init(gen, lead + (n_experts, d_model, moe_d_ff),
+                              dtype),
+         "w_down": dense_init(gen, lead + (n_experts, moe_d_ff, d_model),
+                              dtype)}
+    if n_shared:
+        p["shared"] = mlp_init(gen, d_model, moe_d_ff * n_shared, dtype,
+                               lead)
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """`jax.lax.top_k` over the last axis: the k largest values in
+    descending order, the lower index first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(logits: torch.Tensor, n_experts: int, k: int,
+              capacity_factor: float):
+    """Top-k routing with capacity, as the reference's `moe_apply`:
+    returns (probs (T, E), renormalised gates with dropped slots zeroed
+    (T, k), expert ids gidx (T, k), their one-hot (T, k, E), queue
+    positions pos (T, k) f32, keep = pos < cap (T, k), cap).  A queue
+    position counts the earlier (token, slot) pairs sent to the same
+    expert, token-major."""
+    T = logits.shape[0]
+    probs = torch.softmax(logits, dim=-1)
+    gval, gidx = top_k(probs, k)
+    gval = gval / torch.clamp(gval.sum(-1, keepdim=True), min=1e-9)
+    cap = max(int(T * k * capacity_factor / n_experts), 4)
+    onehot = F.one_hot(gidx, n_experts).float()               # (T, k, E)
+    flat = onehot.reshape(T * k, n_experts)
+    pos_in_e = (torch.cumsum(flat, dim=0) - flat).reshape(T, k, n_experts)
+    pos = (pos_in_e * onehot).sum(-1)                          # (T, k)
+    keep = pos < cap
+    return probs, gval * keep, gidx, onehot, pos, keep, cap
+
+
+def moe_apply(p, x, n_experts, k, capacity_factor=1.25):
+    """Capacity-dispatch MoE. x: (B, S, D) -> ((B, S, D), aux).  Tokens
+    over an expert's capacity fall through on the residual path (plus
+    the shared experts); dispatch and combine are the reference's
+    one-hot (T, E, C) einsums, and the expert chain stays in f32."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    logits = xt.float() @ p["router_w"]
+    probs, gval, _, onehot, pos, keep, cap = moe_route(
+        logits, n_experts, k, capacity_factor)
+    pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).float() \
+        * keep[..., None]                                     # (T, k, C)
+    disp = torch.einsum("tke,tkc->tec", onehot, pos_oh)        # (T, E, C)
+    xe = torch.einsum("tec,td->ecd", disp, xt.float())         # (E, C, D)
+    h = F.silu(masked_grouped_apply(xe, p["w_gate"])) \
+        * masked_grouped_apply(xe, p["w_up"])
+    ye = masked_grouped_apply(h, p["w_down"])                  # (E, C, D)
+    comb = torch.einsum("tke,tkc,tk->tec", onehot, pos_oh, gval.float())
+    y = torch.einsum("tec,ecd->td", comb, ye.float())
+    y = y.to(x.dtype).reshape(B, S, D)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x)
+    # Switch-style load-balancing loss
+    me = probs.mean(dim=0)
+    ce = onehot.sum(1).mean(dim=0)
+    return y, n_experts * (me * ce).sum()
 
 
 def embed_lookup(table, tokens):

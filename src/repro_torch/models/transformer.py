@@ -1,11 +1,14 @@
-"""Decoder-only transformer, dense family (the dense part of
-`repro.models.transformer`).
+"""Decoder-only transformer, dense and MoE families (the dense and
+MLA/MoE parts of `repro.models.transformer`).
 
-Layers are stacked along a leading L axis, as in the reference; the
-reference's `lax.scan` over the stack is a Python loop here, and layer l
-runs on block l of every leaf (a `MaskedLeaf` block carries that
-layer's seed and its flat-stream offset l*K*N).  MoE, MLA and VLM
-branches are not ported yet and raise.
+Layers are stacked along a leading L axis, as in the reference: the
+first `first_dense_layers` layers (all of them without experts) under
+params["layers"], the MoE layers under params["moe_layers"].  The
+reference's `lax.scan` over each stack is a Python loop here, and layer
+l runs on block l of every leaf (a `MaskedLeaf` block carries that
+layer's seeds and flat-stream offsets).  The VLM branch, sliding
+windows, soft caps and block-local MoE dispatch are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -21,34 +24,51 @@ from repro_torch.models import layers as L
 Pytree = Any
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts or cfg.kv_lora_rank \
-            or cfg.sliding_window or cfg.attn_soft_cap or cfg.norm != "rms" \
-            or cfg.act != "silu" or cfg.qkv_bias:
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.sliding_window \
+            or cfg.attn_soft_cap or cfg.norm != "rms" or cfg.act != "silu" \
+            or cfg.qkv_bias or cfg.moe_block_dispatch:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA transformer with a gated "
-            f"SiLU MLP is ported (no MoE, MLA, VLM, sliding window, soft "
-            f"cap or qkv bias yet)")
+            f"{cfg.name}: only the dense and MoE transformers with GQA or "
+            f"MLA attention and gated SiLU MLPs are ported (no VLM, "
+            f"sliding window, soft cap, qkv bias or block dispatch yet)")
+
+
+def _stack_init(gen: torch.Generator, cfg: ArchConfig, n: int, moe: bool):
+    d, lead = cfg.d_model, (n,)
+    p = {"attn_norm": L.rms_norm_init(d, gen.device, lead),
+         "ffn_norm": L.rms_norm_init(d, gen.device, lead)}
+    if cfg.kv_lora_rank:
+        p["attn"] = L.mla_init(gen, d, cfg.n_heads, cfg.kv_lora_rank,
+                               cfg.q_lora_rank, cfg.qk_nope_dim,
+                               cfg.qk_rope_dim, cfg.v_head_dim, lead=lead)
+    else:
+        p["attn"] = L.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                               lead=lead)
+    if moe:
+        p["moe"] = L.moe_init(gen, d, cfg.moe_d_ff, cfg.n_experts,
+                              cfg.n_shared_experts, lead=lead)
+    else:
+        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, lead=lead)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Pytree:
     """Random params on `gen`'s device; layer leaves are (L, ...)."""
-    _check_dense(cfg)
-    Lyr, d = cfg.n_layers, cfg.d_model
-    dev = gen.device
+    _check_ported(cfg)
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
+    n_dense = cfg.n_layers - n_moe
     params = {
-        "embed": {"table": L.embed_init(gen, (cfg.vocab, d))},
-        "final_norm": L.rms_norm_init(d, dev),
-        "layers": {
-            "attn_norm": L.rms_norm_init(d, dev, (Lyr,)),
-            "ffn_norm": L.rms_norm_init(d, dev, (Lyr,)),
-            "attn": L.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                               lead=(Lyr,)),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, lead=(Lyr,)),
-        },
+        "embed": {"table": L.embed_init(gen, (cfg.vocab, cfg.d_model))},
+        "final_norm": L.rms_norm_init(cfg.d_model, gen.device),
     }
+    if n_dense:
+        params["layers"] = _stack_init(gen, cfg, n_dense, moe=False)
+    if n_moe:
+        params["moe_layers"] = _stack_init(gen, cfg, n_moe, moe=True)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"table": L.embed_init(gen, (cfg.vocab, d))}
+        params["lm_head"] = {"table": L.embed_init(gen, (cfg.vocab,
+                                                          cfg.d_model))}
     return params
 
 
@@ -58,30 +78,49 @@ def layer_slice(stacked: Pytree, l: int) -> Pytree:
         lambda a: a.block(l) if isinstance(a, MaskedLeaf) else a[l], stacked)
 
 
-def _block(cfg: ArchConfig, x, lp, positions, theta):
+def _depth(stacked: Pytree) -> int:
+    a = tu.leaves(stacked)[0]
+    return (a.w if isinstance(a, MaskedLeaf) else a).shape[0]
+
+
+def _block(cfg: ArchConfig, moe: bool, x, lp, positions, theta):
+    """One layer; returns (x, aux)."""
     h = L.rms_norm(lp["attn_norm"], x)
-    attn_out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.hd, rope_theta=theta)
+    if cfg.kv_lora_rank:
+        attn_out, _ = L.mla_apply(lp["attn"], h, positions, cfg.n_heads,
+                                  cfg.kv_lora_rank, cfg.qk_nope_dim,
+                                  cfg.qk_rope_dim, cfg.v_head_dim,
+                                  rope_theta=cfg.rope_theta)
+    else:
+        attn_out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, rope_theta=theta)
     x = x + attn_out
     h = L.rms_norm(lp["ffn_norm"], x)
-    return x + L.mlp_apply(lp["mlp"], h)
+    if moe:
+        ffn_out, aux = L.moe_apply(lp["moe"], h, cfg.n_experts, cfg.top_k,
+                                   cfg.capacity_factor)
+        return x + ffn_out, aux
+    return x + L.mlp_apply(lp["mlp"], h), 0.0
 
 
 def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits f32 (B, S, V), aux_loss)."""
-    _check_dense(cfg)
+    """tokens: (B, S) -> (logits f32 (B, S, V), summed MoE aux loss)."""
+    _check_ported(cfg)
     x = L.embed_lookup(params["embed"]["table"], tokens)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     theta = cfg.rope_theta_global or cfg.rope_theta
-    n = tu.leaves(params["layers"])[0]
-    n = n.w.shape[0] if isinstance(n, MaskedLeaf) else n.shape[0]
-    for l in range(n):
-        x = _block(cfg, x, layer_slice(params["layers"], l), positions,
-                   theta)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for key, moe in (("layers", False), ("moe_layers", True)):
+        if key not in params:
+            continue
+        for l in range(_depth(params[key])):
+            x, aux = _block(cfg, moe, x, layer_slice(params[key], l),
+                            positions, theta)
+            aux_total = aux_total + aux
     x = L.rms_norm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])["table"]
-    return L.unembed(head, x), torch.zeros((), device=x.device)
+    return L.unembed(head, x), aux_total
 
 
 def lm_loss(outputs, batch):

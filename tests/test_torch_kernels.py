@@ -340,3 +340,79 @@ def test_card_sample_and_pack_matches_plain(card, C, n, mode):
     want = ref.sample_and_pack(s, torch.tensor(seeds, device=card), mode,
                                0.45)
     assert torch.equal(words, want)
+
+
+GROUPED_CARD_SHAPES = [(8, 30, 256, 192), (3, 33, 70, 45),
+                       (64, 30, 2048, 1408)]
+
+
+def _card_grouped_operands(E, M, K, N, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(E, M, K, generator=g, device=dev)
+    w = torch.randn(E, K, N, generator=g, device=dev).to(torch.bfloat16)
+    s = torch.randn(E, K, N, generator=g, device=dev)
+    gy = torch.randn(E, M, N, generator=g, device=dev)
+    return x, w, s, gy
+
+
+def _grouped_coords(E, K, N, layer=2):
+    """Layer `layer`'s per-expert seeds and stream offsets."""
+    offs = [((layer * E + e) * K * N) & 0xFFFFFFFF for e in range(E)]
+    return [0x9E3779B9] * E, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_CARD_SHAPES)
+@pytest.mark.parametrize("mode", ["sample", "threshold"])
+def test_card_grouped_fwd_dx_match_plain(card, shape, mode):
+    E, M, K, N = shape
+    x, w, s, gy = _card_grouped_operands(E, M, K, N, 4, card)
+    seeds, offs = _grouped_coords(E, K, N)
+    kw = dict(mode=mode, tau=0.45)
+    before = dict(mm.LAUNCHES)
+    y = mm.masked_matmul_grouped(x, w, s, seeds, offs, **kw)
+    dx = mm.masked_matmul_grouped_dx(gy, w, s, seeds, offs, **kw)
+    torch.cuda.synchronize()
+    for name in ("masked_matmul_grouped", "masked_matmul_grouped_dx"):
+        assert mm.LAUNCHES[name] == before[name] + 1
+    # f32 sums over bf16-exact weights in another order
+    for got, want in ((y, ref.masked_matmul_grouped(x, w, s, seeds, offs,
+                                                    **kw)),
+                      (dx, ref.masked_matmul_grouped_dx(gy, w, s, seeds,
+                                                        offs, **kw))):
+        assert got.dtype == torch.float32
+        assert torch.allclose(got, want, rtol=1e-5,
+                              atol=1e-5 * want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sample", "threshold"])
+def test_card_grouped_masks_bit_exact_by_identity_probe(card, mode):
+    """x[e] = I reads m[e]*w[e] back exactly (f32), g[e] = I its
+    transpose: every group's mask equals the plain one."""
+    E, K, N = 4, 96, 80
+    _, w, s, _ = _card_grouped_operands(E, 1, K, N, 5, card)
+    seeds, offs = _grouped_coords(E, K, N)
+    wm = ref.grouped_mask(s, seeds, offs, mode=mode,
+                          tau=0.45).float() * w.float()
+    eye = torch.eye(K, device=card).expand(E, K, K).contiguous()
+    y = mm.masked_matmul_grouped(eye, w, s, seeds, offs, mode=mode,
+                                 tau=0.45)
+    eye_n = torch.eye(N, device=card).expand(E, N, N).contiguous()
+    dx = mm.masked_matmul_grouped_dx(eye_n, w, s, seeds, offs, mode=mode,
+                                     tau=0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wm)
+    assert torch.equal(dx, wm.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_CARD_SHAPES)
+def test_card_grouped_ds_matches_plain(card, shape):
+    E, M, K, N = shape
+    x, w, s, gy = _card_grouped_operands(E, M, K, N, 6, card)
+    ds = mm.masked_matmul_grouped_ds(x, gy, w, s)
+    torch.cuda.synchronize()
+    want = ref.masked_matmul_grouped_ds(x, gy, w, s)
+    # f32 sums over M terms in another order
+    assert torch.allclose(ds, want, rtol=1e-5, atol=1e-5 * want.abs().max())

@@ -2,6 +2,9 @@
 decisions, tree flatten order (which feeds every mask seed), the stream
 seed formula, MaskedLeaf offsets, and the identity of a layer-stacked
 leaf's forward masks with its uplink words."""
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,6 +75,22 @@ def test_flatten_order_and_paths_match_jax(smoke_state):
     for (_, a), (_, b) in zip(tw, jw):
         if a is not None:
             assert tuple(a.shape) == b.shape and a.dtype == torch.bfloat16
+
+
+def test_tree_ops_free_their_leaves_without_the_garbage_collector():
+    """flatten, unflatten and tree_map leave no reference cycle behind:
+    a cycle holding the leaves list would keep every tensor of a tree
+    (a whole fed state, on the card) alive until the collector runs."""
+    x = torch.zeros(4)
+    alive = weakref.ref(x)
+    gc.disable()
+    try:
+        tree.tree_map(lambda a: None if a is None else a + 1,
+                      {"b": (x, None), "a": [x, {"c": x}]})
+        del x
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_mask_stream_seed_matches():
