@@ -5,29 +5,36 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the seven CUDA kernels from src/repro_torch/kernels/csrc (one
+1. build the nine CUDA kernels from src/repro_torch/kernels/csrc (one
    nvcc per source, in parallel) and print each `-Xptxas -v` report;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card:
    the dense kernels at the internlm2-1.8b leaf shapes with M = 256
    tokens (one cohort's batch 2 x seq 128), the grouped (MoE expert)
    kernels at the deepseek-v2-lite expert shapes (64 experts, the
-   capacity M = 30 rows each), each with a non-zero stream offset, both
-   mask modes and a ragged shape: masks and words exactly, sums within
-   float32 rounding;
-4. time each kernel, its plain version and a PyTorch product on the
-   pre-masked weight (the library yardstick) with CUDA events;
+   capacity M = 30 rows each), the masked depthwise conv kernels at the
+   mamba2-370m and recurrentgemma-9b conv shapes (B 2, S 128, C 2304 and
+   4096) with the last layer's offset, each with a non-zero stream
+   offset, every mode (the conv also mask-free and flipped, its ds with
+   both epilogues) and a ragged shape, and the dense kernels on the f32
+   activations recurrentgemma's gate projections feed them: masks and
+   words exactly, sums within float32 rounding;
+4. time each kernel, its plain version and a PyTorch call computing the
+   same function on the pre-masked weight (the library yardstick) with
+   CUDA events;
 5. check the port's train and round steps on the card against the same
-   steps on the CPU (plain versions) at the internlm2 and deepseek-v2-lite
-   SMOKE configs;
+   steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
+   mamba2 and recurrentgemma SMOKE configs;
 6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
    with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
    downlink: full-size internlm2-1.8b (all 24 layers), then
    deepseek-v2-lite-16b at full width with its depth cut to 4 layers
-   (the dense layer and 3 MoE layers; 27 do not fit one card's memory).
-   Before each path the kernels' launch counters are zeroed, after it
-   they are read, and every kernel must have run the expected number of
-   times;
+   (the dense layer and 3 MoE layers; 27 do not fit one card's memory),
+   full-size mamba2-370m (all 48 layers), and recurrentgemma-9b at full
+   width with its depth cut to 5 layers (one rec, rec, attn group and
+   the 2-layer rec tail; 38 do not fit).  Before each path the kernels'
+   launch counters are zeroed, after it they are read, and every kernel
+   must have run the expected number of times;
 7. profile one more step and round of each path (torch.profiler):
    device time by kernel and the device's busy share.
 
@@ -59,6 +66,13 @@ EXPERT_SHAPES = {"w_gate": (2048, 1408), "w_up": (2048, 1408),
                  "w_down": (1408, 2048)}
 GROUPED_RAGGED = (5, 29, 1000, 1500)
 MOE_LAYERS = 4                # 1 dense + 3 MoE layers of the 27
+# masked depthwise convs: W = 4 taps over (B 2, S 128) at mamba2-370m's
+# C = d_in + 2*G*N = 2304 (48 layers) and recurrentgemma-9b's lru width
+# 4096; a ragged (B, S, C)
+CONV_W, CONV_B, CONV_S = 4, 2, 128
+CONV_SHAPES = {"mamba2-370m": 2304, "recurrentgemma-9b": 4096}
+CONV_RAGGED = (3, 37, 1000)
+MAMBA_LAYERS, RG_LAYERS = 48, 5   # recurrentgemma: 5 of its 38 layers
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16, published
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -72,6 +86,8 @@ REPLACES = {
     "masked_matmul_grouped": "src/repro/kernels/masked_matmul.py:443",
     "masked_matmul_grouped_dx": "src/repro/kernels/masked_matmul.py:513",
     "masked_matmul_grouped_ds": "src/repro/kernels/masked_matmul.py:574",
+    "masked_conv1d": "src/repro/kernels/masked_matmul.py:649",
+    "masked_conv1d_ds": "src/repro/kernels/masked_matmul.py:710",
 }
 
 
@@ -100,6 +116,34 @@ def time_ms(torch, fns, reps):
             ev[j][r][1].record()
     torch.cuda.synchronize()
     return [sum(a.elapsed_time(b) for a, b in e) / reps for e in ev]
+
+
+def graph_ms(torch, fns, reps):
+    """Mean device ms of each zero-argument call, from CUDA events around
+    replays of a CUDA graph holding `reps` back-to-back calls: for a
+    kernel of a few microseconds the host's launch cost (the Python
+    wrapper, ctypes, the output's allocation) would otherwise be timed
+    instead of the kernel."""
+    out = []
+    for f in fns:
+        f()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                f()
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        for _ in range(5):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / (5 * reps))
+        del graph
+    return out
 
 
 def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -213,7 +257,7 @@ def grouped_kernel_phase(torch, mm, ref, dev):
     shapes (E = 64, M = 30) with layer 2's stream offsets
     ((2*E + e)*K*N mod 2**32) and a ragged shape, both mask modes;
     returns {kernel: max_abs_err}."""
-    err = {k: 0.0 for k in mm.KERNELS[4:]}
+    err = {k: 0.0 for k in mm.KERNELS[4:7]}
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = [(N_EXPERTS, CAP, K, N)
               for K, N in sorted(set(EXPERT_SHAPES.values()))]
@@ -415,6 +459,158 @@ def grouped_timing_phase(torch, mm, ref, dev):
     return res, per_shape
 
 
+def conv_kernel_phase(torch, mm, ref, dev):
+    """Conv kernels vs plain versions at the mamba2 and recurrentgemma
+    conv shapes with the last layer's stream offset and at a ragged
+    shape: masked_conv1d in all three modes, forward (bf16 x) and
+    flipped (f32 g), bit for bit (the same separately rounded products
+    in the same order); masks exactly by an identity probe; ds with both
+    epilogues and bf16 or f32 x within float32 rounding.  Then kernels
+    1-3 on the f32 activations of recurrentgemma's gate projections
+    (M = 256, K = N = 4096).  Returns {kernel: max_abs_err}."""
+    err = {"masked_conv1d": 0.0, "masked_conv1d_ds": 0.0,
+           "masked_matmul_fwd": 0.0, "masked_matmul_dx": 0.0,
+           "masked_matmul_ds": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    W = CONV_W
+    shapes = [(CONV_B, CONV_S, C) for C in CONV_SHAPES.values()]
+    for (B, S, C) in shapes + [CONV_RAGGED]:
+        x = torch.randn(B, S, C, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(B, S, C, generator=gen, device=dev)
+        w = torch.randn(W, C, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(W, C, generator=gen, device=dev)
+        off = ((MAMBA_LAYERS - 1) * W * C) & M32
+        for mode in ("sample", "threshold", "plain"):
+            for flip, inp in ((False, x), (True, g)):
+                tag = f"conv B={B} S={S} C={C} {mode} flip={flip}"
+                got = mm.masked_conv1d(inp, w, s, 1234, off, mode=mode,
+                                       tau=0.45, flip=flip)
+                want = ref.masked_conv1d(inp, w, s, 1234, off, mode, 0.45,
+                                         flip=flip)
+                d = float((got - want).abs().max())
+                check(torch.equal(got, want), f"{tag}: max |diff| {d}")
+                err["masked_conv1d"] = max(err["masked_conv1d"], d)
+            if mode == "plain":
+                continue
+            # identity probe: w = 1 and a one-hot in time read tap t's
+            # mask bit at time 2(W-1) - t of every channel
+            ones = torch.ones(W, C, dtype=torch.bfloat16, device=dev)
+            probe = torch.zeros(1, 2 * W, C, dtype=torch.bfloat16,
+                                device=dev)
+            probe[0, W - 1] = 1
+            y = mm.masked_conv1d(probe, ones, s, 1234, off, mode=mode,
+                                 tau=0.45)
+            read = torch.stack([y[0, 2 * (W - 1) - t] for t in range(W)])
+            mask = ref.conv_weight(ones, s, 1234, off, None, mode, 0.45)
+            check(torch.equal(read, mask), f"conv probe C={C} {mode}: "
+                  f"{int((read != mask).sum())} mask bits differ")
+        for xin in (x, x.float()):
+            for epi in ("ste", "dw"):
+                ds = mm.masked_conv1d_ds(xin, g, w, s, epilogue=epi)
+                want = ref.masked_conv1d_ds(xin, g, w, s, epi)
+                d = float((ds - want).abs().max())
+                # f32 sums over B*S terms in another order
+                check(bool(torch.allclose(ds, want, rtol=1e-5, atol=1e-5
+                                          * float(want.abs().max()))),
+                      f"conv ds C={C} {epi} {xin.dtype}: max |diff| {d}")
+                err["masked_conv1d_ds"] = max(err["masked_conv1d_ds"], d)
+        del x, g, w, s
+    # kernels 1-3 on f32 activations (recurrentgemma's w_rg, w_ri)
+    K = N = CONV_SHAPES["recurrentgemma-9b"]
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+    s = 2 * torch.randn(K, N, generator=gen, device=dev)
+    g = torch.randn(M, N, generator=gen, device=dev)
+    off = (7 * K * N) & M32
+    for mode in ("sample", "threshold"):
+        kw = dict(mode=mode, tau=0.45)
+        for name, got, want in (
+                ("masked_matmul_fwd", mm.masked_matmul(x, w, s, 99, off, **kw),
+                 ref.masked_matmul(x, w, s, 99, off, **kw)),
+                ("masked_matmul_dx",
+                 mm.masked_matmul_dx(g, w, s, 99, off, **kw),
+                 ref.masked_matmul_dx(g, w, s, 99, off, **kw)),
+                ("masked_matmul_ds", mm.masked_matmul_ds(x, g, w, s),
+                 ref.masked_matmul_ds(x, g, w, s))):
+            d = float((got - want).abs().max())
+            check(got.dtype == torch.float32 and bool(torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))),
+                f"{name} f32 {mode}: max |diff| {d}")
+            err[name] = max(err[name], d)
+    del x, w, s, g
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return err
+
+
+def conv_timing_phase(torch, mm, ref, dev):
+    """Per-recurrent-layer (one cohort) times of the conv kernels at
+    mamba2-370m's C = 2304 (kernel 8: the forward on bf16 x and the
+    flipped pass on the f32 cotangent; kernel 9: the STE ds), and at
+    recurrentgemma-9b's C = 4096: kernel, plain version and the library
+    yardstick (torch.nn.functional.conv1d, groups = C, on the pre-masked
+    f32 kernel and an f32 input laid out (B, C, S) and padded
+    beforehand; torch.nn.grad.conv1d_weight for kernel 9's correlation),
+    in ms, with their bounds (f32 arithmetic: flops over the f32 peak).
+    Kernel and library run a few microseconds each, so they are timed by
+    CUDA-graph replay (`graph_ms`); the per-call times with the host's
+    launch cost included (CUDA events around each call) are printed
+    beside them."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(6)
+    W, B, S = CONV_W, CONV_B, CONV_S
+    res, per_shape = {}, {"masked_conv1d": {}, "masked_conv1d_ds": {}}
+    for arch, C in CONV_SHAPES.items():
+        x = torch.randn(B, S, C, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(B, S, C, generator=gen, device=dev)
+        w = torch.randn(W, C, generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.randn(W, C, generator=gen, device=dev)
+        wm = ref.conv_weight(w, s, 7, 0)                       # (W, C) f32
+        wk = wm.T.contiguous()[:, None, :]                     # (C, 1, W)
+        wk_flip = wm.flip(0).T.contiguous()[:, None, :]
+        xt = F.pad(x.float().transpose(1, 2), (W - 1, 0)).contiguous()
+        gt = F.pad(g.transpose(1, 2), (0, W - 1)).contiguous()
+        g_cs = g.transpose(1, 2).contiguous()
+        kern = [lambda: mm.masked_conv1d(x, w, s, 7, 0),
+                lambda: mm.masked_conv1d(g, w, s, 7, 0, flip=True),
+                lambda: mm.masked_conv1d_ds(x, g, w, s)]
+        lib = [lambda: F.conv1d(xt, wk, groups=C),
+               lambda: F.conv1d(gt, wk_flip, groups=C),
+               lambda: torch.nn.grad.conv1d_weight(xt, (C, 1, W), g_cs,
+                                                   groups=C)]
+        t_k = graph_ms(torch, kern, 50)
+        t_l = graph_ms(torch, lib, 50)
+        t_p = time_ms(torch, [
+            lambda: ref.masked_conv1d(x, w, s, 7, 0),
+            lambda: ref.masked_conv1d(g, w, s, 7, 0, flip=True),
+            lambda: ref.masked_conv1d_ds(x, g, w, s)], 5)
+        t_call = time_ms(torch, kern + lib, 20)
+        print(f"  conv {arch} C={C} per call with launch cost (events), "
+              f"ms: kernel fwd/flip/ds "
+              f"{' '.join(f'{t:.4f}' for t in t_call[:3])}; library "
+              f"{' '.join(f'{t:.4f}' for t in t_call[3:])}")
+        n = B * S * C
+        # bytes: each input read once, each output written once
+        costs = ((2 * n + 6 * W * C + 4 * n, 2 * W * n),   # bf16 x -> f32 y
+                 (4 * n + 6 * W * C + 4 * n, 2 * W * n),   # f32 g -> f32 dx
+                 (2 * n + 4 * n + 10 * W * C, 2 * W * n))  # x, g, w, s -> ds
+        for name, lo, hi in (("masked_conv1d", 0, 2),
+                             ("masked_conv1d_ds", 2, 3)):
+            nbytes = sum(c[0] for c in costs[lo:hi])
+            flops = sum(c[1] for c in costs[lo:hi])
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            row = dict(ms=sum(t_k[lo:hi]), plain_ms=sum(t_p[lo:hi]),
+                       library_ms=sum(t_l[lo:hi]), bound_ms=b_ms,
+                       bound_by=b_by)
+            per_shape[name][f"{arch} C={C}"] = (
+                row["ms"], row["plain_ms"], row["library_ms"], b_ms)
+            if arch == "mamba2-370m":
+                res[name] = row
+        del x, g, w, s, wm, wk, wk_flip, xt, gt, g_cs
+    torch.cuda.empty_cache()
+    return res, per_shape
+
+
 def smoke_reference_phase(torch, dev, arch):
     """The port's round and train step on the card against the same
     steps on the CPU (plain versions) from one SMOKE state of `arch`."""
@@ -494,7 +690,10 @@ def profile_phase(torch, dev, cfg):
           f"(step {walls['step'] * 1e3:.1f}, round "
           f"{walls['round'] * 1e3:.1f}), device busy {busy:.1f} ms "
           f"({100 * busy / wall:.1f}%); device ms by kernel:")
-    for key, count, ms in rows[:15]:
+    # the 15 largest, then every other hand-written kernel of the port
+    own = ("masked_", "sample_and_pack")
+    for key, count, ms in rows[:15] + [r for r in rows[15:]
+                                       if any(k in r[0] for k in own)]:
         print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
     check(busy > 0, "the profiler saw no device time")
 
@@ -527,15 +726,19 @@ def main():
     t0 = time.time()
     err = kernel_phase(torch, mm, ref, dev)
     err.update(grouped_kernel_phase(torch, mm, ref, dev))
+    for k, v in conv_kernel_phase(torch, mm, ref, dev).items():
+        err[k] = max(err.get(k, 0.0), v)
     print(f"kernel phase: all kernels agree with their plain versions "
           f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
     t0 = time.time()
     timing, per_shape = timing_phase(torch, mm, ref, dev)
-    g_timing, g_per_shape = grouped_timing_phase(torch, mm, ref, dev)
-    timing.update(g_timing)
-    per_shape.update(g_per_shape)
+    for phase in (grouped_timing_phase, conv_timing_phase):
+        p_timing, p_per_shape = phase(torch, mm, ref, dev)
+        timing.update(p_timing)
+        per_shape.update(p_per_shape)
     print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
-          f"at M={M}, grouped at E={N_EXPERTS} M={CAP}): kernel / plain / "
+          f"at M={M}, grouped at E={N_EXPERTS} M={CAP}; conv per layer at "
+          f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds): kernel / plain / "
           f"library / bound")
     for kname, rows in per_shape.items():
         for leaf, (tk, tp, tl, tb) in rows.items():
@@ -543,7 +746,8 @@ def main():
             print(f"  {kname:24s} {leaf:7s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
                   f"{tb:9.4f}")
     t0 = time.time()
-    for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):
+    for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
+                 "recurrentgemma-9b"):
         smoke_reference_phase(torch, dev, arch)
     print(f"smoke reference phase: {time.time() - t0:.1f}s")
 
@@ -560,21 +764,47 @@ def main():
     n_moe = MOE_LAYERS - moe_cfg.first_dense_layers
     grouped = 3 * n_moe * COHORTS * steps_
     dense_moe = 8 * MOE_LAYERS * COHORTS * steps_
+    rg_cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                                 n_layers=RG_LAYERS)
+    rounds = steps_ // every
+    per_pass = COHORTS * steps_       # launches of one projection or conv
+    # mamba2: 2 dense projections (w_in, w_out) and one conv per layer,
+    # 3 masked leaves per round.  recurrentgemma at 5 layers: one group
+    # (rec, rec, attn) and a 2-layer rec tail, so 4 rec blocks of 8 dense
+    # projections (w_x, w_y, w_rg, w_ri, w_out, the MLP's 3) and one conv
+    # each, and 1 attn block of 7 (w_q, w_k, w_v, w_o, the MLP's 3).  A
+    # round packs each stacked leaf once: 9 under each of groups/b0_rec,
+    # groups/b1_rec and the tail, 7 under groups/b2_attn, 34 in all.
+    # Kernel 8 runs twice per conv and pass (forward, flipped dx).
     paths = [
         (get_config("internlm2-1.8b"), {
             "masked_matmul_fwd": dense, "masked_matmul_dx": dense,
             "masked_matmul_ds": dense,
-            "sample_and_pack": len(LAYER_SHAPES) * (steps_ // every),
-            "masked_matmul_grouped": 0, "masked_matmul_grouped_dx": 0,
-            "masked_matmul_grouped_ds": 0}),
+            "sample_and_pack": len(LAYER_SHAPES) * rounds}),
         (moe_cfg, {
             "masked_matmul_fwd": dense_moe, "masked_matmul_dx": dense_moe,
             "masked_matmul_ds": dense_moe,
-            "sample_and_pack": 19 * (steps_ // every),
+            "sample_and_pack": 19 * rounds,
             "masked_matmul_grouped": grouped,
             "masked_matmul_grouped_dx": grouped,
             "masked_matmul_grouped_ds": grouped}),
+        (get_config("mamba2-370m"), {
+            "masked_matmul_fwd": 2 * MAMBA_LAYERS * per_pass,
+            "masked_matmul_dx": 2 * MAMBA_LAYERS * per_pass,
+            "masked_matmul_ds": 2 * MAMBA_LAYERS * per_pass,
+            "sample_and_pack": 3 * rounds,
+            "masked_conv1d": 2 * MAMBA_LAYERS * per_pass,
+            "masked_conv1d_ds": MAMBA_LAYERS * per_pass}),
+        (rg_cfg, {
+            "masked_matmul_fwd": (4 * 8 + 7) * per_pass,
+            "masked_matmul_dx": (4 * 8 + 7) * per_pass,
+            "masked_matmul_ds": (4 * 8 + 7) * per_pass,
+            "sample_and_pack": (3 * 9 + 7) * rounds,
+            "masked_conv1d": 2 * 4 * per_pass,
+            "masked_conv1d_ds": 4 * per_pass}),
     ]
+    paths = [(cfg, {k: expect.get(k, 0) for k in mm.KERNELS})
+             for cfg, expect in paths]
     launches = {k: 0 for k in mm.KERNELS}
     for cfg, expect in paths:
         args = train.parse_args(["--arch", cfg.name] + argv)

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
-           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds")
+           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
+           "masked_conv1d", "masked_conv1d_ds")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,16 +38,19 @@ _P, _I, _I64, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # every entry returns cudaGetLastError() as an int
 ARGTYPES = {
     "masked_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _U32, _U32, _U32, _I,
-                          _F, _P],
+                          _F, _I, _P],
     "masked_matmul_dx": [_P, _P, _P, _P, _I, _I, _I, _U32, _U32, _U32, _I,
-                         _F, _P],
-    "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                         _F, _I, _P],
+    "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
                               _I, _F, _P],
     "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _U32, _I, _F, _P],
     "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
+                      _F, _I, _I, _P],
+    "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOADED: dict = {}

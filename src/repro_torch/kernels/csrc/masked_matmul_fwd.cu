@@ -4,8 +4,10 @@
 // src/repro/kernels/masked_matmul.py.
 //
 // m = 1[hash_u(seed, off + k*n_logical + n) < sigmoid(s[k, n])] (mode 0) or
-// 1[sigmoid(s[k, n]) > tau] (mode 1).  x, w: bf16, s: f32, y: bf16 (the
-// reference casts its f32 accumulator to x.dtype).
+// 1[sigmoid(s[k, n]) > tau] (mode 1).  w: bf16, s: f32; x and y: bf16, or
+// f32 where the reference feeds an f32 activation (recurrentgemma's RG-LRU
+// gate projections); the f32 accumulator is cast to x.dtype, as the
+// reference casts it.
 //
 // Design: the tiled SIMT GEMM of masked_matmul_tiles.cuh (`fwd_tile`):
 // 64x64 tiles of y, K walked in steps of 16, the gated m*w tile formed in
@@ -22,13 +24,13 @@
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(repro::THREADS)
-masked_matmul_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+masked_matmul_fwd_kernel(const T* __restrict__ x,
                          const __nv_bfloat16* __restrict__ w,
-                         const float* __restrict__ s,
-                         __nv_bfloat16* __restrict__ y, int M, int K, int N,
-                         uint32_t seed, uint32_t off, uint32_t n_logical,
-                         int mode, float tau) {
+                         const float* __restrict__ s, T* __restrict__ y,
+                         int M, int K, int N, uint32_t seed, uint32_t off,
+                         uint32_t n_logical, int mode, float tau) {
   repro::fwd_tile(x, w, s, y, M, K, N, seed, off, n_logical, mode, tau);
 }
 
@@ -37,10 +39,16 @@ masked_matmul_fwd_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int masked_matmul_fwd(const void* x, const void* w, const void* s,
                                  void* y, int M, int K, int N, uint32_t seed,
                                  uint32_t off, uint32_t n_logical, int mode,
-                                 float tau, void* stream) {
-  masked_matmul_fwd_kernel<<<repro::tile_grid(M, N), repro::THREADS, 0,
-                             (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)s,
-      (__nv_bfloat16*)y, M, K, N, seed, off, n_logical, mode, tau);
+                                 float tau, int x_f32, void* stream) {
+  const dim3 grid = repro::tile_grid(M, N);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (x_f32)
+    masked_matmul_fwd_kernel<float><<<grid, repro::THREADS, 0, st>>>(
+        (const float*)x, (const __nv_bfloat16*)w, (const float*)s, (float*)y,
+        M, K, N, seed, off, n_logical, mode, tau);
+  else
+    masked_matmul_fwd_kernel<__nv_bfloat16><<<grid, repro::THREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)s,
+        (__nv_bfloat16*)y, M, K, N, seed, off, n_logical, mode, tau);
   return (int)cudaGetLastError();
 }

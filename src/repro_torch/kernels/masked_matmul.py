@@ -1,4 +1,4 @@
-"""Wrappers of the seven hand-written CUDA kernels, each beside its plain
+"""Wrappers of the nine hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
     masked_matmul             y  = x @ (m * w)          csrc/masked_matmul_fwd.cu
@@ -12,20 +12,29 @@ PyTorch version.
                                                csrc/masked_matmul_grouped_dx.cu
     masked_matmul_grouped_ds  ds[e] = (x[e]^T g[e]) * w[e] * s'(s[e])
                                                csrc/masked_matmul_grouped_ds.cu
+    masked_conv1d             y[b,s,c] = sum_t x_pad[b,s+t,c] (m * w)[t,c]
+                                                  csrc/masked_conv1d.cu
+    masked_conv1d_ds          ds[t,c] = (sum_{b,s} x_pad[b,s+t,c] g[b,s,c])
+                                        * w * s'(s)  csrc/masked_conv1d_ds.cu
 
 m = 1[hash_u(seed, off + row*n_logical + col) < sigmoid(s)] in "sample"
 mode, 1[sigmoid(s) > tau] in "threshold" mode; the hash index is uint32
 and wraps, as in the JAX reference.  The grouped kernels take E stacked
-(K, N) problems with per-group stream coordinates seeds[e], offs[e].
+(K, N) problems with per-group stream coordinates seeds[e], offs[e].  The
+conv kernels take a depthwise (W, C) kernel leaf, its mask drawn at
+off + t*n_logical + c; `masked_conv1d` also runs mask-free ("plain", for
+pre-materialized weights) and with the taps flipped (dL/dx).
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
 raises.  Nothing falls back.  Each launch adds one to `LAUNCHES[name]`,
 so a run can show that it went through the kernels.
 
-The dense kernels take bf16 x/g, the grouped ones f32 x/g (the MoE
-expert chain stays in f32, as in the reference); all take bf16 w, f32
-scores and contiguous operands.  The wrappers raise on anything else
+The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
+f32 activation (recurrentgemma's gate projections); the grouped ones f32
+x/g (the MoE expert chain stays in f32, as in the reference); the conv
+kernels bf16 or f32 x and f32 g, with an f32 output.  All take bf16 w,
+f32 scores and contiguous operands.  The wrappers raise on anything else
 rather than copy.
 """
 from __future__ import annotations
@@ -37,7 +46,8 @@ from repro_torch.kernels import build, ref
 
 KERNELS = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
-           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds")
+           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
+           "masked_conv1d", "masked_conv1d_ds")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 masked_matmul_plain = ref.masked_matmul
@@ -47,8 +57,12 @@ sample_and_pack_plain = ref.sample_and_pack
 masked_matmul_grouped_plain = ref.masked_matmul_grouped
 masked_matmul_grouped_dx_plain = ref.masked_matmul_grouped_dx
 masked_matmul_grouped_ds_plain = ref.masked_matmul_grouped_ds
+masked_conv1d_plain = ref.masked_conv1d
+masked_conv1d_ds_plain = ref.masked_conv1d_ds
 
-_MODES = {"sample": 0, "threshold": 1}
+_MODES = {"sample": 0, "threshold": 1, "plain": 2}
+_EPILOGUES = {"ste": 0, "dw": 1}
+_ACTS = (torch.bfloat16, torch.float32)   # activation types built for
 
 
 def reset_launch_counts() -> None:
@@ -67,11 +81,24 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+    """`dtype`: the type the kernel takes, or a tuple of types it takes."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous {dtype} "
                          f"{tuple(shape)} tensor, got {t.dtype} "
                          f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _f32(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.float32)
+
+
+def _mask_mode(mode: str) -> str:
+    """The mask modes of the matmul kernels (the conv takes "plain" too)."""
+    if mode not in ("sample", "threshold"):
+        raise ValueError(f"mask mode {mode!r}: sample or threshold")
+    return mode
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -108,11 +135,12 @@ def _group_coords(seeds: list, offs: list, dev) -> torch.Tensor:
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
                   tau=0.5):
     """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
+    mode = _mask_mode(mode)
     if _on_cpu(x, w, s):
         return masked_matmul_plain(x, w, s, seed, off, n_logical, mode, tau)
     M, K = x.shape
     N = w.shape[1]
-    _require(x, "x", torch.bfloat16, (M, K))
+    _require(x, "x", _ACTS, (M, K))
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", torch.float32, (K, N))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -120,7 +148,7 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
         build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _stream(x))
+                     _MODES[mode], float(tau), _f32(x), _stream(x))
         LAUNCHES["masked_matmul_fwd"] += 1
     return y
 
@@ -128,12 +156,13 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
 def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
                      mode="sample", tau=0.5):
     """g: (M, N); w, s: (K, N) -> dx = g @ (m * w)^T : (M, K) in g.dtype."""
+    mode = _mask_mode(mode)
     if _on_cpu(g, w, s):
         return masked_matmul_dx_plain(g, w, s, seed, off, n_logical, mode,
                                       tau)
     M, N = g.shape
     K = w.shape[0]
-    _require(g, "g", torch.bfloat16, (M, N))
+    _require(g, "g", _ACTS, (M, N))
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", torch.float32, (K, N))
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
@@ -141,7 +170,7 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
         build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _stream(g))
+                     _MODES[mode], float(tau), _f32(g), _stream(g))
         LAUNCHES["masked_matmul_dx"] += 1
     return dx
 
@@ -152,15 +181,15 @@ def masked_matmul_ds(x, g, w, s):
         return masked_matmul_ds_plain(x, g, w, s)
     M, K = x.shape
     N = g.shape[1]
-    _require(x, "x", torch.bfloat16, (M, K))
-    _require(g, "g", torch.bfloat16, (M, N))
+    _require(x, "x", _ACTS, (M, K))
+    _require(g, "g", x.dtype, (M, N))
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", torch.float32, (K, N))
     ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
     if K and N:
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
-                     _stream(x))
+                     _f32(x), _stream(x))
         LAUNCHES["masked_matmul_ds"] += 1
     return ds
 
@@ -169,6 +198,7 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     """s: (C, n) score rows; seeds: C uint32 row seeds (ints or a
     tensor) -> (C, ceil(n/32)) int32 words holding the uint32 bit
     patterns; bits past n are zero."""
+    mode = _mask_mode(mode)
     seeds = torch.as_tensor([_u32(v) for v in seeds], dtype=torch.int64,
                             device=s.device)
     if _on_cpu(s):
@@ -191,6 +221,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     """x: (E, M, K); w, s: (E, K, N); seeds, offs: per-group uint32
     stream coordinates (E of them, or one for all) -> y[e] = x[e] @
     (m[e] * w[e]) : (E, M, N) in x.dtype."""
+    mode = _mask_mode(mode)
     E = x.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
@@ -218,6 +249,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
                              mode="sample", tau=0.5):
     """g: (E, M, N); w, s: (E, K, N) -> dx[e] = g[e] @ (m[e] * w[e])^T :
     (E, M, K) in g.dtype, the grouped forward's masks."""
+    mode = _mask_mode(mode)
     E = g.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
@@ -258,4 +290,61 @@ def masked_matmul_grouped_ds(x, g, w, s):
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
                      _stream(x))
         LAUNCHES["masked_matmul_grouped_ds"] += 1
+    return ds
+
+
+def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
+                  tau=0.5, flip=False):
+    """x: (B, S, C) bf16 or f32, unpadded; w, s: (W, C) (s unread and may
+    be None in mode "plain") -> (B, S, C) f32: y[b,s,c] = sum_t
+    x_pad[b,s+t,c] * (m * w)[t,c] with W - 1 leading zeros, or with
+    `flip` the reversed taps over W - 1 trailing zeros (dL/dx).  The mask
+    is drawn at off + t*n_logical + c (n_logical defaults to C)."""
+    if mode not in _MODES:
+        raise ValueError(f"conv mode {mode!r}: sample, threshold or plain")
+    plain = mode == "plain"
+    if _on_cpu(x, w, *(() if plain else (s,))):
+        return masked_conv1d_plain(x, w, s, seed, off, mode, tau, n_logical,
+                                   flip)
+    B, S, C = x.shape
+    W = w.shape[0]
+    _require(x, "x", _ACTS, (B, S, C))
+    _require(w, "w", torch.bfloat16, (W, C))
+    if not plain:
+        _require(s, "s", torch.float32, (W, C))
+    y = torch.empty((B, S, C), dtype=torch.float32, device=x.device)
+    if B and S and C:
+        build.launch("masked_conv1d", x.data_ptr(), w.data_ptr(),
+                     0 if plain else s.data_ptr(), y.data_ptr(), B, S, C, W,
+                     _u32(seed), _u32(off),
+                     _u32(C if n_logical is None else n_logical),
+                     _MODES[mode], float(tau), int(flip), _f32(x),
+                     _stream(x))
+        LAUNCHES["masked_conv1d"] += 1
+    return y
+
+
+def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
+    """x: (B, S, C) bf16 or f32, unpadded; g: (B, S, C) f32; w, s: (W, C)
+    -> (W, C) f32: the correlation sum_{b,s} x_pad[b,s+t,c] g[b,s,c] times
+    w * sigmoid'(s) (epilogue "ste"), or raw (epilogue "dw": the plain
+    conv's weight gradient; s unread and may be None)."""
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r}: ste or dw")
+    dw = epilogue == "dw"
+    if _on_cpu(x, g, w, *(() if dw else (s,))):
+        return masked_conv1d_ds_plain(x, g, w, s, epilogue)
+    B, S, C = x.shape
+    W = w.shape[0]
+    _require(x, "x", _ACTS, (B, S, C))
+    _require(g, "g", torch.float32, (B, S, C))
+    _require(w, "w", torch.bfloat16, (W, C))
+    if not dw:
+        _require(s, "s", torch.float32, (W, C))
+    ds = torch.empty((W, C), dtype=torch.float32, device=x.device)
+    if C:
+        build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),
+                     w.data_ptr(), 0 if dw else s.data_ptr(), ds.data_ptr(),
+                     B, S, C, W, _EPILOGUES[epilogue], _f32(x), _stream(x))
+        LAUNCHES["masked_conv1d_ds"] += 1
     return ds

@@ -1,5 +1,5 @@
-"""Autograd wrappers around the masked-matmul kernels (the dense and
-grouped parts of `repro.kernels.ops`).
+"""Autograd wrappers around the masked-matmul and masked-conv kernels
+(the dense, grouped and conv parts of `repro.kernels.ops`).
 
 `masked_dense` is the mask-training forward of a dense layer with the
 straight-through backward; all three passes run the fused kernels:
@@ -22,6 +22,18 @@ MoE experts): one grouped launch per pass covers all E groups, group e
 sampling at offs[e] of seeds[e]'s stream, so under the `MaskedLeaf`
 convention (offs[e] = (l*E + e)*K*N) layer l's E masks are its slice of
 the leaf's uplink stream.
+
+`masked_conv1d` is the depthwise causal conv through a masked (W, C)
+kernel leaf, f32 output:
+
+    y     = sum_t x_pad[s+t] * (m*w)[t]           [masked_conv1d]
+    dL/dx = the same taps flipped over g          [masked_conv1d, flip]
+    dL/ds = (x^T * g) * w * sigmoid'(s)           [masked_conv1d_ds]
+
+with the mask drawn at off + t*C + c (C the logical channel count; the
+reference pads C to 128 for its vector unit, which the CUDA kernels do
+not need).  `conv1d_plain` runs the same kernels mask-free for a
+pre-materialized kernel, its weight gradient the raw correlation.
 """
 from __future__ import annotations
 
@@ -108,6 +120,70 @@ def masked_dense_grouped_threshold(x, w, s, tau=0.5):
     (FedMask; no hash stream)."""
     return _MaskedDenseGrouped.apply(x, w, s, 0, 0, "threshold",
                                      float(tau))
+
+
+class _MaskedConv1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, seed, off, mode, tau):
+        x = x.contiguous()
+        y = mm.masked_conv1d(x, w, s, seed, off, mode=mode, tau=tau)
+        ctx.save_for_backward(x, w, s)
+        ctx.coords = (seed, off, mode, tau)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, s = ctx.saved_tensors
+        seed, off, mode, tau = ctx.coords
+        g = g.contiguous()
+        dx = ds = None
+        if ctx.needs_input_grad[0]:
+            dx = mm.masked_conv1d(g, w, s, seed, off, mode=mode, tau=tau,
+                                  flip=True).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            ds = mm.masked_conv1d_ds(x, g, w, s).to(s.dtype)
+        return dx, None, ds, None, None, None, None
+
+
+def masked_conv1d(x, w, s, seed, off=0):
+    """Depthwise causal conv through the masked (W, C) kernel leaf,
+    y[b,s,c] = sum_t x[b, s+t-(W-1), c] * (m*w)[t,c] with m ~
+    bern(sigmoid(s); seed, off), STE backward.  x: (B, S, C); returns f32
+    (B, S, C) (bias and cast stay with the caller)."""
+    return _MaskedConv1d.apply(x, w, s, int(seed), int(off), "sample", 0.5)
+
+
+def masked_conv1d_threshold(x, w, s, tau=0.5):
+    """The same with m = 1[sigmoid(s) > tau] (FedMask; no hash stream)."""
+    return _MaskedConv1d.apply(x, w, s, 0, 0, "threshold", float(tau))
+
+
+class _Conv1dPlain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        return mm.masked_conv1d(x, w, None, mode="plain")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = mm.masked_conv1d(g, w, None, mode="plain",
+                                  flip=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = mm.masked_conv1d_ds(x, g, w, None,
+                                     epilogue="dw").to(w.dtype)
+        return dx, dw
+
+
+def conv1d_plain(x, w):
+    """Depthwise causal conv with a plain (pre-materialized) (W, C)
+    kernel through the same kernels, f32 output; the weight gradient is
+    the raw correlation."""
+    return _Conv1dPlain.apply(x, w)
 
 
 def sample_and_pack(scores, seeds, mode="sample", tau=0.5):

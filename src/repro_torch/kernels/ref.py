@@ -138,6 +138,76 @@ def masked_dense_grouped_bwd(x, w, s, seeds, offs, g, mode="sample",
     return dx, masked_matmul_grouped_ds(x, g, w, s)
 
 
+def conv_weight(w, s, seed=0, off=0, n_logical=None, mode="sample",
+                tau=0.5) -> torch.Tensor:
+    """The f32 (W, C) taps m * w of a depthwise conv kernel leaf; the
+    mask is drawn at flat index off + t*n_logical + c (the leaf's uplink
+    stream).  mode "plain" takes w as it is (pre-materialized weights)."""
+    if mode == "plain":
+        return w.float()
+    m = _block_mask(s, seed, off, n_logical, mode, tau)
+    return m.float() * w.float()
+
+
+def _shifted(x, W: int, flip: bool):
+    """x (B, S, C) zero-padded on the time axis to S + W - 1: W - 1
+    leading zeros (the causal forward) or trailing ones (`flip`, dL/dx)."""
+    pad = (0, 0, 0, W - 1) if flip else (0, 0, W - 1, 0)
+    return torch.nn.functional.pad(x, pad)
+
+
+def masked_conv1d(x, w, s, seed=0, off=0, mode="sample", tau=0.5,
+                  n_logical=None, flip=False):
+    """Depthwise causal conv y[b,s,c] = sum_t x_pad[b,s+t,c] * wm[t,c]
+    with wm = conv_weight(...), accumulated tap by tap in t order (the
+    reference's order), f32 output.  `flip` reverses the taps (wm[W-1-t]
+    at shift t) over trailing padding: the dL/dx correlation of the
+    causal conv with the same mask.  x: (B, S, C) unpadded."""
+    wm = conv_weight(w, s, seed, off, n_logical, mode, tau)
+    W = wm.shape[0]
+    S = x.shape[1]
+    xp = _shifted(x, W, flip)
+    row = (lambda t: W - 1 - t) if flip else (lambda t: t)
+    out = xp[:, 0:S].float() * wm[row(0)]
+    for t in range(1, W):
+        out = out + xp[:, t:t + S].float() * wm[row(t)]
+    return out
+
+
+def masked_conv1d_ds(x, g, w, s, epilogue="ste"):
+    """ds[t,c] = (sum_{b,s} x_pad[b,s+t,c] g[b,s,c]) * w * sigmoid'(s)
+    (f32, the STE score gradient), or with epilogue "dw" the raw
+    correlation, the plain conv's weight gradient.  x: (B, S, C)
+    unpadded; g: (B, S, C); w, s: (W, C)."""
+    W = w.shape[0]
+    S = x.shape[1]
+    xp = _shifted(x, W, False).float()
+    gf = g.float()
+    xg = torch.stack([torch.sum(xp[:, t:t + S] * gf, dim=(0, 1))
+                      for t in range(W)])
+    if epilogue == "dw":
+        return xg
+    sig = torch.sigmoid(s.float())
+    return xg * w.float() * sig * (1.0 - sig)
+
+
+def masked_conv1d_bwd(x, w, s, seed, g, off=0, mode="sample", tau=0.5):
+    """The masked conv's STE backward (dx in x.dtype, ds in s.dtype)
+    from the plain versions."""
+    dx = masked_conv1d(g, w, s, seed, off, mode, tau, flip=True)
+    return dx.to(x.dtype), masked_conv1d_ds(x, g, w, s).to(s.dtype)
+
+
+def conv1d_plain(x, w):
+    """Depthwise causal conv with a plain (W, C) kernel, f32 output."""
+    return masked_conv1d(x, w, None, mode="plain")
+
+
+def conv1d_plain_dw(x, g, w):
+    """Weight gradient of `conv1d_plain` with (W, C) kernel w (f32)."""
+    return masked_conv1d_ds(x, g, w, None, epilogue="dw")
+
+
 def sample_rows(s2: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     """(C, n) score rows + (C,) uint32 seeds -> (C, n) uint8 masks; row c
     draws flat indices 0..n-1 of seeds[c]'s stream."""

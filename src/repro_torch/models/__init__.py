@@ -2,8 +2,11 @@
 
 `forward(params, batch)` takes a params tree whose maskable leaves are
 plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
-`layers.masked_dense_apply` / `masked_grouped_apply` dispatch decides
-per leaf.  The dense and MoE transformer families are ported so far.
+`layers.masked_dense_apply` / `masked_grouped_apply` /
+`masked_conv1d_apply` dispatch decides per leaf.  Ported so far: the
+dense and MoE transformers, the ssm family (mamba2) and the hybrid
+family (recurrentgemma), their training forwards; every family's loss
+is `transformer.lm_loss`.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,16 +25,21 @@ class ModelApi:
     loss: Callable               # (outputs, batch) -> scalar
 
 
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
+             "hybrid": hybrid}
+
+
 def build_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense and "
-            f"moe only)")
+            f"model family {cfg.family!r} is not ported yet (dense, moe, "
+            f"ssm and hybrid only)")
+    mod = _FAMILIES[cfg.family]
 
     def fwd(params, batch):
         if "vis_embeds" in batch:
             raise NotImplementedError("VLM inputs are not ported yet")
-        return transformer.forward(params, cfg, batch["tokens"])
+        return mod.forward(params, cfg, batch["tokens"])
 
-    return ModelApi(cfg, lambda gen: transformer.init_params(gen, cfg), fwd,
+    return ModelApi(cfg, lambda gen: mod.init_params(gen, cfg), fwd,
                     transformer.lm_loss)

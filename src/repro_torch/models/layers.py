@@ -1,12 +1,13 @@
-"""Transformer layers (the dense, MLA and MoE parts of
+"""Model layers (the dense, MLA, MoE and causal-conv parts of
 `repro.models.layers`).
 
 Conventions follow the reference: activations x are (B, S, D), params
 are nested dicts of tensors, maskable tensors are named "w_*" and norms
 and the router carry "scale" / "router".  Every maskable projection goes
-through `masked_dense_apply` (2-D weights) or `masked_grouped_apply`
-(stacked (E, K, N) expert weights), which run the fused kernels for a
-`MaskedLeaf` and a plain product for a plain tensor (float baselines,
+through `masked_dense_apply` (2-D weights), `masked_grouped_apply`
+(stacked (E, K, N) expert weights) or `masked_conv1d_apply` (depthwise
+(W, C) conv kernels), which run the fused kernels for a `MaskedLeaf` and
+a plain product or conv for a plain tensor (float baselines,
 materialized effective params).
 """
 from __future__ import annotations
@@ -28,7 +29,9 @@ def masked_dense_apply(x: torch.Tensor, p) -> torch.Tensor:
         if p.mode == "threshold":
             return ops.masked_dense_threshold(x, p.w, p.s, p.tau)
         return ops.masked_dense(x, p.w, p.s, int(p.seed), int(p.off))
-    return x @ p
+    # JAX's promotion: an f32 activation times a bf16 weight is f32
+    dt = torch.promote_types(x.dtype, p.dtype)
+    return x.to(dt) @ p.to(dt)
 
 
 def masked_grouped_apply(x: torch.Tensor, p) -> torch.Tensor:
@@ -43,6 +46,18 @@ def masked_grouped_apply(x: torch.Tensor, p) -> torch.Tensor:
     dt = torch.promote_types(x.dtype, p.dtype)
     y = torch.bmm(x.reshape(shape[0], -1, shape[-1]).to(dt), p.to(dt))
     return y.reshape(*shape[:-1], p.shape[-1])
+
+
+def masked_conv1d_apply(x: torch.Tensor, p) -> torch.Tensor:
+    """Depthwise causal conv y[b,s,c] = sum_t x[b,s+t-(W-1),c] w_eff[t,c]
+    for a (W, C) kernel leaf, f32 output (bias and cast stay with the
+    caller).  A `MaskedLeaf` runs the fused masked conv kernels, a plain
+    tensor the same kernels mask-free."""
+    if isinstance(p, MaskedLeaf):
+        if p.mode == "threshold":
+            return ops.masked_conv1d_threshold(x, p.w, p.s, p.tau)
+        return ops.masked_conv1d(x, p.w, p.s, int(p.seed), int(p.off))
+    return ops.conv1d_plain(x, p)
 
 
 # ---------------------------------------------------------------------------
@@ -108,18 +123,23 @@ def gqa_init(gen, d_model, n_heads, n_kv, head_dim, dtype=DEFAULT_DTYPE,
     }
 
 
-def _causal_mask(q_pos, k_pos):
-    """(Sq, Sk) additive mask: 0 where attended, -1e30 elsewhere."""
-    ok = (q_pos[:, None] - k_pos[None, :]) >= 0
+def _causal_mask(q_pos, k_pos, window=None):
+    """(Sq, Sk) additive mask: 0 where attended (0 <= q - k, and
+    q - k < window for a sliding window), -1e30 elsewhere."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = diff >= 0
+    if window is not None:
+        ok = ok & (diff < window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def attention_core(q, k, v, q_pos, k_pos):
-    """Causal attention. q: (B, Sq, H, Hd); k: (B, Sk, Kv, Hd);
-    v: (B, Sk, Kv, Dv).  GQA by head repetition, f32 scores and softmax,
-    output in q.dtype: the reference's unchunked branch (its sliding
-    window, soft cap and chunked online softmax are not ported yet)."""
+def attention_core(q, k, v, q_pos, k_pos, window=None):
+    """Causal attention, optionally within a sliding window.
+    q: (B, Sq, H, Hd); k: (B, Sk, Kv, Hd); v: (B, Sk, Kv, Dv).  GQA (and
+    MQA) by head repetition, f32 scores and softmax, output in q.dtype:
+    the reference's unchunked branch (its soft cap and chunked online
+    softmax are not ported yet)."""
     B, Sq, H, Hd = q.shape
     Kv = k.shape[2]
     Dv = v.shape[-1]
@@ -127,21 +147,23 @@ def attention_core(q, k, v, q_pos, k_pos):
     scale = 1.0 / math.sqrt(Hd)
     qf = (q.float() * scale).reshape(B, Sq, Kv, rep, Hd)
     s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
-    s = s + _causal_mask(q_pos, k_pos)
+    s = s + _causal_mask(q_pos, k_pos, window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgh->bqgrh", p, v.float())
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
-def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0):
-    """Causal self-attention block (no norm); returns (out, (k, v))."""
+def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
+              window=None):
+    """Causal self-attention block (no norm), attending to the last
+    `window` positions if set; returns (out, (k, v))."""
     B, S, _ = x.shape
     q = masked_dense_apply(x, p["w_q"]).reshape(B, S, n_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = masked_dense_apply(x, p["w_k"]).reshape(B, S, n_kv, head_dim)
     v = masked_dense_apply(x, p["w_v"]).reshape(B, S, n_kv, head_dim)
     k = apply_rope(k, positions, rope_theta)
-    o = attention_core(q, k, v, positions, positions)
+    o = attention_core(q, k, v, positions, positions, window)
     return masked_dense_apply(o.reshape(B, S, n_heads * head_dim),
                               p["w_o"]), (k, v)
 
@@ -215,10 +237,29 @@ def mlp_init(gen, d_model, d_ff, dtype=DEFAULT_DTYPE, lead=()):
             "w_down": dense_init(gen, lead + (d_ff, d_model), dtype)}
 
 
-def mlp_apply(p, x):
-    """Gated SiLU MLP (the ported configs' activation)."""
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, logaddexp(x, 0) (no linear cut-off as in torch's)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+# the reference's table; its "gelu" is jax.nn.gelu, which defaults to the
+# tanh approximation (torch's default is the erf form)
+ACTIVATIONS = {"silu": F.silu, "gelu": _gelu_tanh, "gelu_tanh": _gelu_tanh,
+               "relu": F.relu}
+
+
+def mlp_apply(p, x, act="silu"):
+    """MLP, gated when the params carry "w_gate"."""
+    a = ACTIVATIONS[act]
     up = masked_dense_apply(x, p["w_up"])
-    up = F.silu(masked_dense_apply(x, p["w_gate"])) * up
+    if "w_gate" in p:
+        up = a(masked_dense_apply(x, p["w_gate"])) * up
+    else:
+        up = a(up)
     return masked_dense_apply(up, p["w_down"])
 
 
@@ -299,6 +340,26 @@ def moe_apply(p, x, n_experts, k, capacity_factor=1.25):
     me = probs.mean(dim=0)
     ce = onehot.sum(1).mean(dim=0)
     return y, n_experts * (me * ce).sum()
+
+
+# ---------------------------------------------------------------------------
+# Causal temporal conv (mamba2 / recurrentgemma frontends)
+# ---------------------------------------------------------------------------
+
+
+def conv1d_init(gen, width, channels, dtype=DEFAULT_DTYPE, lead=()):
+    lead = tuple(lead)
+    return {"w_conv": dense_init(gen, lead + (width, channels), dtype,
+                                 fan_in=width),
+            "bias_conv": torch.zeros(lead + (channels,), dtype=torch.float32,
+                                     device=gen.device)}
+
+
+def conv1d_causal(p, x):
+    """Depthwise causal conv with bias: x (B, S, C) -> (B, S, C) in
+    x.dtype (f32 sum plus f32 bias, then the cast)."""
+    out = masked_conv1d_apply(x, p["w_conv"])
+    return (out + p["bias_conv"]).to(x.dtype)
 
 
 def embed_lookup(table, tokens):

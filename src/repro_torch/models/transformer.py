@@ -78,7 +78,7 @@ def layer_slice(stacked: Pytree, l: int) -> Pytree:
         lambda a: a.block(l) if isinstance(a, MaskedLeaf) else a[l], stacked)
 
 
-def _depth(stacked: Pytree) -> int:
+def depth(stacked: Pytree) -> int:
     a = tu.leaves(stacked)[0]
     return (a.w if isinstance(a, MaskedLeaf) else a).shape[0]
 
@@ -114,7 +114,7 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
     for key, moe in (("layers", False), ("moe_layers", True)):
         if key not in params:
             continue
-        for l in range(_depth(params[key])):
+        for l in range(depth(params[key])):
             x, aux = _block(cfg, moe, x, layer_slice(params[key], l),
                             positions, theta)
             aux_total = aux_total + aux

@@ -48,6 +48,26 @@ def test_cli_trains_the_moe_family_on_cpu(capsys):
     assert not any(mm.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("arch,extra", [
+    ("mamba2-370m", []), ("recurrentgemma-9b", ["--seq", "16"])])
+def test_cli_trains_the_recurrent_families_on_cpu(capsys, arch, extra):
+    """mamba2 SMOKE (SSD, masked depthwise conv) and recurrentgemma SMOKE
+    (RG-LRU, windowed MQA, a stacked rec tail) through the launcher:
+    round lines with uplink Bpp in (0, 1], finite losses, no kernel
+    launches on the CPU."""
+    mm.reset_launch_counts()
+    out = train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--steps", "4", "--round-every", "2", "--cohorts",
+                      "2", "--batch", "2"] + extra)
+    rounds = [m for m in map(ROUND.match, capsys.readouterr().out
+                             .splitlines()) if m]
+    assert [int(m.group(1)) for m in rounds] == [2, 4]
+    assert all(0.0 < float(m.group(3)) <= 1.0 for m in rounds)
+    assert len(out["losses"]) == 4 and all(
+        0.0 < v < 20.0 for v in out["losses"])
+    assert not any(mm.LAUNCHES.values())
+
+
 def test_cli_raises_on_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
