@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the nine CUDA kernels from src/repro_torch/kernels/csrc (one
+1. build the eleven CUDA kernels from src/repro_torch/kernels/csrc (one
    nvcc per source, in parallel) and print each `-Xptxas -v` report;
 2. print the card's name and power limit (nvidia-smi);
 3. hold every kernel against its plain PyTorch version on the card:
@@ -18,13 +18,18 @@ Phases (any failure exits non-zero and prints no result line):
    offset, every mode (the conv also mask-free and flipped, its ds with
    both epilogues) and a ragged shape, and the dense kernels on the f32
    activations recurrentgemma's gate projections feed them: masks and
-   words exactly, sums within float32 rounding;
+   words exactly, sums within float32 rounding.  The bit-packing kernels
+   bit for bit (torch.equal) at internlm2's largest leaf (402,653,184
+   bits in one row), at a round's 2 rows of it, at a ragged row length
+   with misaligned row starts, on a misaligned view, and pack -> unpack;
 4. time each kernel, its plain version and a PyTorch call computing the
-   same function on the pre-masked weight (the library yardstick) with
-   CUDA events;
+   same function on the pre-masked weight (the library yardstick; none
+   packs bits) with CUDA events;
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
-   mamba2 and recurrentgemma SMOKE configs;
+   mamba2 and recurrentgemma SMOKE configs, and the KV-cache decode of
+   internlm2 and deepseek-v2-lite SMOKE likewise, and the serving
+   engine's tenant isolation on the card (bit-identical to a solo run);
 6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
    with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
    downlink: full-size internlm2-1.8b (all 24 layers), then
@@ -32,11 +37,20 @@ Phases (any failure exits non-zero and prints no result line):
    (the dense layer and 3 MoE layers; 27 do not fit one card's memory),
    full-size mamba2-370m (all 48 layers), and recurrentgemma-9b at full
    width with its depth cut to 5 layers (one rec, rec, attn group and
-   the 2-layer rec tail; 38 do not fit).  Before each path the kernels'
-   launch counters are zeroed, after it they are read, and every kernel
-   must have run the expected number of times;
-7. profile one more step and round of each path (torch.profiler):
-   device time by kernel and the device's busy share.
+   the 2-layer rec tail; 38 do not fit).  Every round unpacks each
+   masked leaf's cohort words once (the unpack kernel).  Then serving
+   on full-size internlm2-1.8b: `repro_torch.launch.serve` single tenant
+   (batch 4, 16-token prompts, 16 tokens) and multi-tenant (4 tenants
+   on 2 slots, freeze-cache capacity 2), and the artifact path of
+   examples/serve_masked.py (`init_server` -> `final_artifact`, one
+   pack per masked leaf -> `save_artifact` -> `load_artifact` -> unpack,
+   one per leaf -> m * w over weights regenerated from the seed -> 16
+   decode steps at batch 8 after a 32-token prompt).  Before each path
+   the kernels' launch counters are zeroed, after it they are read, and
+   every kernel must have run the expected number of times;
+7. profile one more step and round of each training path, and eight
+   decode steps of the served internlm2-1.8b (torch.profiler): device
+   time by kernel and the device's busy share.
 
 The last two lines are a JSON object per kernel and
 {"ok": true, "device": {...}}.
@@ -73,6 +87,11 @@ CONV_W, CONV_B, CONV_S = 4, 2, 128
 CONV_SHAPES = {"mamba2-370m": 2304, "recurrentgemma-9b": 4096}
 CONV_RAGGED = (3, 37, 1000)
 MAMBA_LAYERS, RG_LAYERS = 48, 5   # recurrentgemma: 5 of its 38 layers
+BITPACK_RAGGED = (3, 37_005)  # (R, n): row starts off the 16-byte grid
+# masked leaves a round unpacks: internlm2 7, deepseek-v2-lite at 4
+# layers 19, mamba2 3, recurrentgemma at 5 layers 34
+ROUND_LEAVES = {"internlm2-1.8b": 7, "deepseek-v2-lite-16b": 19,
+                "mamba2-370m": 3, "recurrentgemma-9b": 34}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16, published
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -88,6 +107,8 @@ REPLACES = {
     "masked_matmul_grouped_ds": "src/repro/kernels/masked_matmul.py:574",
     "masked_conv1d": "src/repro/kernels/masked_matmul.py:649",
     "masked_conv1d_ds": "src/repro/kernels/masked_matmul.py:710",
+    "pack_bits": "src/repro/kernels/bitpack.py:36",
+    "unpack_bits": "src/repro/kernels/bitpack.py:57",
 }
 
 
@@ -167,7 +188,8 @@ def mask_exact(torch, got, want, u, theta, what):
 def kernel_phase(torch, mm, ref, dev):
     """Kernels vs plain versions at the main path's shapes; returns
     {kernel: max_abs_err} (sample_and_pack: differing bits)."""
-    err = {k: 0.0 for k in mm.KERNELS[:4]}
+    from repro_torch.kernels.dispatch import KERNELS
+    err = {k: 0.0 for k in KERNELS[:4]}
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def operands(m, k, n):
@@ -257,7 +279,8 @@ def grouped_kernel_phase(torch, mm, ref, dev):
     shapes (E = 64, M = 30) with layer 2's stream offsets
     ((2*E + e)*K*N mod 2**32) and a ragged shape, both mask modes;
     returns {kernel: max_abs_err}."""
-    err = {k: 0.0 for k in mm.KERNELS[4:7]}
+    from repro_torch.kernels.dispatch import KERNELS
+    err = {k: 0.0 for k in KERNELS[4:7]}
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = [(N_EXPERTS, CAP, K, N)
               for K, N in sorted(set(EXPERT_SHAPES.values()))]
@@ -611,6 +634,76 @@ def conv_timing_phase(torch, mm, ref, dev):
     return res, per_shape
 
 
+def bitpack_kernel_phase(torch, bp, dev):
+    """The bit-packing kernels against their plain versions, bit for bit
+    (torch.equal): internlm2's largest leaf as one row (the artifact's
+    pack and unpack), a round's 2 cohort rows of it (the round mean's
+    unpack), a ragged row length whose row starts are off the 16-byte
+    grid, a misaligned view, padding bits set in the words, and pack ->
+    unpack.  Returns {kernel: max_abs_err} (0 when equal)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_big = N_LAYERS * max(K * N for K, N in LAYER_SHAPES.values())
+    for R, n in ((1, n_big), (COHORTS, n_big), BITPACK_RAGGED):
+        bits = (torch.rand(R, n, generator=gen, device=dev) < 0.3).to(
+            torch.uint8)
+        rows = bits[0] if R == 1 else bits
+        words = bp.pack_bits(rows)
+        check(torch.equal(words, bp.pack_bits_plain(rows)),
+              f"pack_bits R={R} n={n}: words differ from the plain version")
+        back = bp.unpack_bits(words, n)
+        check(torch.equal(back, rows), f"unpack_bits R={R} n={n}: the "
+              f"round trip does not give the bits back")
+        noisy = torch.randint(-2**31, 2**31, words.shape, generator=gen,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+        check(torch.equal(bp.unpack_bits(noisy, n),
+                          bp.unpack_bits_plain(noisy, n)),
+              f"unpack_bits R={R} n={n}: bits differ from the plain version")
+        del bits, rows, words, back, noisy
+        torch.cuda.empty_cache()
+    buf = (torch.rand(2 * 4096 + 3, generator=gen, device=dev) < 0.5).to(
+        torch.uint8)
+    view = buf[3:].view(2, 4096)
+    check(torch.equal(bp.pack_bits(view), bp.pack_bits_plain(view)),
+          "pack_bits on a misaligned view")
+    torch.cuda.synchronize()
+    return {"pack_bits": 0.0, "unpack_bits": 0.0}
+
+
+def bitpack_timing_phase(torch, bp, dev):
+    """Times of the bit-packing kernels at the internlm2 leaves: pack per
+    artifact (7 leaves, one row each) and unpack per round (7 leaves, 2
+    cohort rows), kernel and plain version, with their bounds (bytes: n
+    bits as bytes one way, n/8 the other; no library call packs bits)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res, per_shape = {}, {"pack_bits": {}, "unpack_bits": {}}
+    tot = {k: [0.0, 0.0, 0] for k in per_shape}
+    for name, (K, N) in LAYER_SHAPES.items():
+        n = N_LAYERS * K * N
+        bits = (torch.rand(n, generator=gen, device=dev) < 0.5).to(
+            torch.uint8)
+        words = torch.randint(-2**31, 2**31, (COHORTS, n // 32),
+                              generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        for kname, kern, plain, R in (
+                ("pack_bits", lambda: bp.pack_bits(bits),
+                 lambda: bp.pack_bits_plain(bits), 1),
+                ("unpack_bits", lambda: bp.unpack_bits(words, n),
+                 lambda: bp.unpack_bits_plain(words, n), COHORTS)):
+            tk = time_ms(torch, [kern], 10)[0]
+            tp = time_ms(torch, [plain], 2)[0]
+            nb = R * (n + n // 8)
+            per_shape[kname][name] = (tk, tp, None, bound(nb, 0)[0])
+            t = tot[kname]
+            t[0], t[1], t[2] = t[0] + tk, t[1] + tp, t[2] + nb
+        del bits, words
+        torch.cuda.empty_cache()
+    for kname, (tk, tp, nb) in tot.items():
+        b_ms, b_by = bound(nb, 0)
+        res[kname] = dict(ms=tk, plain_ms=tp, library_ms=None, bound_ms=b_ms,
+                          bound_by=b_by)
+    return res, per_shape
+
+
 def smoke_reference_phase(torch, dev, arch):
     """The port's round and train step on the card against the same
     steps on the CPU (plain versions) from one SMOKE state of `arch`."""
@@ -649,6 +742,214 @@ def smoke_reference_phase(torch, dev, arch):
           f"{float(metrics[1]['bpp']):.6f} "
           f"bits {float(metrics[1]['bits_measured']):.0f} equal on cpu "
           f"and card; train loss cpu {losses[0]:.6f} card {losses[1]:.6f}")
+
+
+def decode_reference_phase(torch, dev):
+    """KV-cache decode on the card against the CPU at the internlm2 and
+    deepseek-v2-lite SMOKE configs (one frozen tree, 8 tokens): bf16
+    products in another order, within 3% of the logit scale, the bound
+    the CPU tests hold the port to against the JAX package.  Then the
+    serving engine's tenant isolation on the card: 3 tenants interleaved
+    on 2 slots give logits bit-identical to each tenant decoded alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking, tree
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_engine import ServeEngine
+    for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):
+        api = build_model(get_config(arch, smoke=True))
+        gen = torch.Generator().manual_seed(3)
+        mp = masking.init_masked(gen, api.init_params(gen),
+                                 masking.MaskSpec())
+        frozen = masking.freeze_identity(mp, masking.MaskIdentity(seed=11))
+        toks = torch.randint(0, api.cfg.vocab, (2, 8),
+                             generator=torch.Generator().manual_seed(4))
+        err, scale = 0.0, 0.0
+        trees = {d: tree.tree_map(lambda t: None if t is None else t.to(d),
+                                  frozen) for d in ("cpu", dev)}
+        caches = {d: api.init_cache(2, 8, d) for d in ("cpu", dev)}
+        for t in range(8):
+            out = {}
+            for d in ("cpu", dev):
+                out[d], caches[d] = api.decode_step(
+                    trees[d], caches[d], toks[:, t].to(d), t)
+            err = max(err, float((out[dev].cpu() - out["cpu"]).abs().max()))
+            scale = max(scale, float(out["cpu"].abs().max()))
+        check(err <= 0.03 * scale, f"decode {arch}: card vs cpu max |diff| "
+              f"{err} at logit scale {scale}")
+        print(f"decode reference {arch}: 8 tokens, card vs cpu max |diff| "
+              f"{err:.3g} at logit scale {scale:.3g}")
+
+    api = build_model(get_config("internlm2-1.8b", smoke=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mp = masking.init_masked(gen, api.init_params(gen), masking.MaskSpec())
+    prompts = torch.randint(0, api.cfg.vocab, (3, 10),
+                            generator=torch.Generator().manual_seed(2))
+    lens = [(10, 6), (7, 8), (4, 5)]
+
+    def engine(slots, cap):
+        return ServeEngine(api, mp, slots=slots, cache_capacity=cap,
+                           max_seq=18)
+
+    eng = engine(2, 3)
+    rids = []
+    for i, (P, G) in enumerate(lens):
+        eng.register_tenant(f"t{i}", seed=100 + i, mode="sample")
+        rids.append(eng.submit(f"t{i}", prompts[i, :P].numpy(), G))
+    done = eng.run()
+    for i, (P, G) in enumerate(lens):
+        solo = engine(1, 1)
+        solo.register_tenant("solo", seed=100 + i, mode="sample")
+        rid = solo.submit("solo", prompts[i, :P].numpy(), G)
+        want = solo.run()[rid]
+        got = done[rids[i]]
+        check(got.tokens == want.tokens and all(
+            torch.equal(a, b) for a, b in zip(got.decode_logits,
+                                              want.decode_logits)),
+              f"engine tenant t{i}: logits differ from its solo session")
+    print(f"engine isolation on the card: 3 tenants on 2 slots "
+          f"({eng.mixed_ticks} mixed ticks), logits bit-identical to solo "
+          f"sessions")
+
+
+def serve_phase(torch, dispatch, dev):
+    """`repro_torch.launch.serve` at full internlm2-1.8b width, single
+    tenant and 4 tenants on 2 slots with freeze-cache capacity 2.  The
+    frozen decode runs plain products and the threshold freeze no kernel
+    of the port, so no kernel launches here."""
+    from repro_torch.launch import serve
+    for tag, extra in (("single", []), ("multi", [
+            "--tenants", "4", "--slots", "2", "--cache-capacity", "2"])):
+        argv = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
+                "16", "--tokens", "16"] + extra
+        print(f"serve path: python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t0 = time.time()
+        out = serve.main(argv)
+        torch.cuda.synchronize()
+        got = dict(dispatch.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(not any(got.values()), f"serve {tag}: unexpected kernel "
+              f"launches {got}")
+        if tag == "single":
+            check(bool(torch.isfinite(out["last_logits"]).all()),
+                  "serve single: non-finite logits")
+            per_tenant = out["freeze_s"]
+        else:
+            check(out["served"] == 4, f"serve multi: {out['served']}/4 "
+                  f"served")
+            check(out["evictions"] >= 1, "serve multi: no eviction")
+            check(out["max_occupancy"] <= 2, f"serve multi: freeze-cache "
+                  f"occupancy reached {out['max_occupancy']}")
+            check(all(bool(torch.isfinite(l).all())
+                      for c in out["completions"].values()
+                      for l in c.decode_logits),
+                  "serve multi: non-finite logits")
+            per_tenant = out["freeze_s"] / out["freezes"]
+        print(f"serve {tag}: {time.time() - t0:.1f}s; prefill "
+              f"{out['prefill_tok_s']:.1f} tok/s, decode "
+              f"{out['decode_tok_s']:.1f} tok/s; freeze "
+              f"{per_tenant * 1e3:.1f} ms per tenant "
+              f"({out['freezes']} freezes); max memory allocated "
+              f"{peak / 2**30:.2f} GiB")
+        del out
+    torch.cuda.empty_cache()
+
+
+def artifact_phase(torch, dispatch, dev):
+    """The artifact path of examples/serve_masked.py at full internlm2
+    width: `init_server` -> `final_artifact` (one pack launch per masked
+    leaf) -> `save_artifact` -> `load_artifact` -> `artifact_masks`
+    (`BitpackedMasks.to_masks`, one unpack launch per leaf), checked bit
+    for bit against `final_mask`, its `bpp` against the unpacked masks'
+    share -> `served_params`, m * w over weights regenerated from the
+    artifact's seed (checked equal to the server's) -> 16 greedy
+    `decode_step`s at batch 8 after a 32-token prompt.  Returns the
+    launch counts."""
+    import tempfile
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import federated, masking, regularizer, tree
+    from repro_torch.models import build_model
+    cfg = get_config("internlm2-1.8b")
+    api = build_model(cfg)
+    spec = masking.MaskSpec()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    server = federated.init_server(gen, api.init_params(gen), spec)
+    art = federated.final_artifact(
+        server, torch.Generator(device=dev).manual_seed(22))
+    scores = masking.scores_from_theta(server.theta)
+    want = dict(masking.leaves_with_paths(masking.final_mask(
+        masking.MaskedParams(server.weights, scores, server.floats),
+        torch.Generator(device=dev).manual_seed(22))))
+    del scores
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "internlm2.npz")
+        nbytes = checkpoint.save_artifact(path, art)
+        loaded = checkpoint.load_artifact(path, dev)
+    n = sum(math.prod(sh) for _, sh in loaded["masks"].values())
+    fbytes = sum(t.numel() * t.element_size()
+                 for t in loaded["floats"].values())
+    check(abs(nbytes - (n / 8 + fbytes)) <= 0.01 * (n / 8 + fbytes),
+          f"artifact {nbytes} B, expected about n/8 + floats = "
+          f"{n / 8 + fbytes:.0f} B")
+    masks, packed = checkpoint.artifact_masks(loaded)
+    check(set(masks) == set(want), "artifact leaves differ from the mask's")
+    for p, m in want.items():
+        check(torch.equal(masks[p], m),
+              f"artifact mask {p} differs from final_mask")
+    # eq. 13 from the words' popcount against the unpacked masks' share
+    ones = sum(int(m.sum()) for m in masks.values())
+    bpp, bpp_plain = float(packed.bpp()), float(regularizer.binary_entropy(
+        torch.tensor(ones / n, dtype=torch.float64)))
+    check(packed.num_params() == n and abs(bpp - bpp_plain) <= 2.0 ** -23,
+          f"artifact bpp {bpp} against {bpp_plain} from the masks")
+    server_weights = server.weights
+    del server, art, want
+
+    # serve side: regenerate w from the seed, apply the masks
+    gen = torch.Generator(device=dev).manual_seed(loaded["seed"])
+    weights = masking.init_masked(gen, api.init_params(gen), spec).weights
+    for a, b in zip(tree.leaves(weights), tree.leaves(server_weights)):
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              "weights regenerated from the seed differ from the server's")
+    del server_weights
+    eff = checkpoint.served_params(weights, masks, loaded["floats"])
+    del weights, masks
+    got = dict(dispatch.LAUNCHES)
+    build_s = time.time() - t0
+
+    B, P, G = 8, 32, 16
+    cache = api.init_cache(B, P + G, dev)
+    prompt = torch.randint(0, cfg.vocab, (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               23))
+    tok = prompt[:, 0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for t in range(P + G - 1):
+        logits, cache = api.decode_step(eff, cache, tok, t)
+        tok = prompt[:, t + 1] if t + 1 < P else torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    check(bool(torch.isfinite(logits).all()), "artifact decode: non-finite")
+    print(f"artifact path internlm2-1.8b: {n} masked params -> {nbytes} B "
+          f"file ({8 * (nbytes - fbytes) / n:.4f} bits/param beside "
+          f"{fbytes} B of floats, bpp {bpp:.6f}); build, save, load, "
+          f"unpack, regenerate "
+          f"{build_s:.1f}s; launches {json.dumps(got)}; {P + G - 1} steps "
+          f"at batch {B} in {dt:.3f}s ({B * (P + G - 1) / dt:.1f} tok/s); "
+          f"max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eff, cache, logits
+    torch.cuda.empty_cache()
+    return got
 
 
 def profile_phase(torch, dev, cfg):
@@ -698,13 +999,60 @@ def profile_phase(torch, dev, cfg):
     check(busy > 0, "the profiler saw no device time")
 
 
+def serve_profile_phase(torch, dev):
+    """Eight decode steps of full-size internlm2-1.8b at batch 4 (the
+    serve launcher's frozen threshold tree) under torch.profiler, after
+    two warm-up steps: device time by kernel, the device's busy share of
+    the wall time, and the launches a step makes."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking
+    from repro_torch.models import build_model
+    api = build_model(get_config("internlm2-1.8b"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eff = masking.freeze_identity(
+        masking.init_masked(gen, api.init_params(gen), masking.MaskSpec()),
+        masking.MaskIdentity(seed=0))
+    B, S, n = 4, 32, 8
+    cache = api.init_cache(B, S, dev)
+    toks = torch.randint(0, api.cfg.vocab, (B, S), generator=gen,
+                         device=dev)
+    for t in range(2):
+        api.decode_step(eff, cache, toks[:, t], t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(2, 2 + n):
+            api.decode_step(eff, cache, toks[:, t], t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"profile serve internlm2-1.8b: {n} decode steps at batch {B}, "
+          f"wall {wall:.1f} ms ({wall / n:.2f} ms a step), device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%), {launches / n:.0f} "
+          f"device ops a step; device ms by kernel:")
+    for key, count, ms in rows[:12]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    check(busy > 0, "the profiler saw no device time in decoding")
+    del eff, cache
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import ref
     from repro_torch.launch import train
@@ -728,6 +1076,7 @@ def main():
     err.update(grouped_kernel_phase(torch, mm, ref, dev))
     for k, v in conv_kernel_phase(torch, mm, ref, dev).items():
         err[k] = max(err.get(k, 0.0), v)
+    err.update(bitpack_kernel_phase(torch, bp, dev))
     print(f"kernel phase: all kernels agree with their plain versions "
           f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
     t0 = time.time()
@@ -736,9 +1085,13 @@ def main():
         p_timing, p_per_shape = phase(torch, mm, ref, dev)
         timing.update(p_timing)
         per_shape.update(p_per_shape)
+    p_timing, p_per_shape = bitpack_timing_phase(torch, bp, dev)
+    timing.update(p_timing)
+    per_shape.update(p_per_shape)
     print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
           f"at M={M}, grouped at E={N_EXPERTS} M={CAP}; conv per layer at "
-          f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds): kernel / plain / "
+          f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds; pack per leaf, "
+          f"one row; unpack per leaf, {COHORTS} rows): kernel / plain / "
           f"library / bound")
     for kname, rows in per_shape.items():
         for leaf, (tk, tp, tl, tb) in rows.items():
@@ -749,6 +1102,7 @@ def main():
     for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
                  "recurrentgemma-9b"):
         smoke_reference_phase(torch, dev, arch)
+    decode_reference_phase(torch, dev)
     print(f"smoke reference phase: {time.time() - t0:.1f}s")
 
     steps_, every = 4, 2
@@ -803,9 +1157,12 @@ def main():
             "masked_conv1d": 2 * 4 * per_pass,
             "masked_conv1d_ds": 4 * per_pass}),
     ]
-    paths = [(cfg, {k: expect.get(k, 0) for k in mm.KERNELS})
+    # each round unpacks every masked leaf's cohort rows once (the mean)
+    paths = [(cfg, dict(expect, unpack_bits=ROUND_LEAVES[cfg.name] * rounds))
              for cfg, expect in paths]
-    launches = {k: 0 for k in mm.KERNELS}
+    paths = [(cfg, {k: expect.get(k, 0) for k in dispatch.KERNELS})
+             for cfg, expect in paths]
+    launches = {k: 0 for k in dispatch.KERNELS}
     for cfg, expect in paths:
         args = train.parse_args(["--arch", cfg.name] + argv)
         print(f"main path: python -m repro_torch.launch.train --arch "
@@ -813,11 +1170,11 @@ def main():
               f"{get_config(cfg.name).n_layers}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        mm.reset_launch_counts()
+        dispatch.reset_launch_counts()
         t0 = time.time()
         out = train.run(cfg, args)
         torch.cuda.synchronize()
-        got = dict(mm.LAUNCHES)
+        got = dict(dispatch.LAUNCHES)
         wall = time.time() - t0
         print(f"main path {cfg.name}: {wall:.1f}s; launches "
               f"{json.dumps(got)}; step seconds "
@@ -839,14 +1196,25 @@ def main():
         del out
         torch.cuda.empty_cache()
 
+    t0 = time.time()
+    serve_phase(torch, dispatch, dev)
+    got = artifact_phase(torch, dispatch, dev)
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(pack_bits=len(LAYER_SHAPES), unpack_bits=len(LAYER_SHAPES))
+    check(got == expect, f"artifact path launch counts {got}, expected "
+          f"{expect}")
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"serve and artifact paths: {time.time() - t0:.1f}s")
+
     for cfg, _ in paths:
         t0 = time.time()
         profile_phase(torch, dev, cfg)
         print(f"profile phase {cfg.name}: {time.time() - t0:.1f}s")
         torch.cuda.empty_cache()
+    serve_profile_phase(torch, dev)
 
     kernels = []
-    for name in mm.KERNELS:
+    for name in dispatch.KERNELS:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",

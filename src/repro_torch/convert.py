@@ -35,3 +35,14 @@ def state_from_jax(np_state: dict, device) -> dict:
              if k != "step"}
     state["step"] = int(np.asarray(np_state["step"]))
     return state
+
+
+def server_from_jax(np_server, device):
+    """A JAX `ServerState` (theta / floats / weights trees with numpy
+    leaves, seed, round) -> the port's `federated.ServerState`."""
+    from repro_torch.core.federated import ServerState
+    return ServerState(theta=tree_to_torch(np_server.theta, device),
+                       floats=tree_to_torch(np_server.floats, device),
+                       weights=tree_to_torch(np_server.weights, device),
+                       seed=int(np.asarray(np_server.seed)) & 0xFFFFFFFF,
+                       round=int(np.asarray(np_server.round)))

@@ -3,7 +3,8 @@ and the stochastic k-bit theta downlink.
 
 Packed words are int32 tensors holding uint32 bit patterns: bit i of
 word w is stream position 32*w + i (little-endian), the reference's
-layout.
+layout.  `pack_bits` and `unpack_bits` run the bit-packing kernels for a
+CUDA tensor and their plain versions for a CPU one (`kernels.ops`).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import tree as tu
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 Pytree = Any
 
@@ -22,12 +23,13 @@ def pack_bits(mask_flat: torch.Tensor) -> torch.Tensor:
     if mask_flat.ndim != 1 or mask_flat.numel() % 32:
         raise ValueError("pack_bits takes a flat vector of 32k bits; "
                          "pad with pad_to_words first")
-    return ref.pack_bits(mask_flat)
+    return ops.pack_bits(mask_flat)
 
 
 def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
-    """Inverse of pack_bits -> uint8 vector of length n."""
-    return ref.unpack_bits(words, n)
+    """Inverse of pack_bits -> uint8 vector of length n; (R, W) word rows
+    give (R, n) (one launch for a round's cohorts)."""
+    return ops.unpack_bits(words, n)
 
 
 def pad_to_words(x: torch.Tensor, word_bits: int = 32):

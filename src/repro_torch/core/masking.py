@@ -14,12 +14,17 @@ those through the fused kernels (`repro_torch.models.layers`).  Every
 mask is drawn from the counter hash at the leaf's stream coordinates
 (seed, off), so the forward's mask of a leaf equals the bits
 `sample_and_pack` packs for it under the same seed.
+
+The serving half (`MaskIdentity`, `freeze_identity`, `FreezeCache`)
+materializes a tenant's m * w once for decoding, and `final_mask` draws
+the deployable artifact's mask.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -215,6 +220,13 @@ def materialize_leaf(leaf: MaskedLeaf) -> torch.Tensor:
     return _STE.apply(theta, m).to(leaf.w.dtype) * leaf.w
 
 
+def leaves_with_paths(tree: Pytree) -> list:
+    """[(path, leaf)] of the non-None leaves in flatten order, paths as
+    the reference's `_path_str` writes them ('/'-joined dict keys and
+    sequence indices)."""
+    return [(p, l) for p, l in tu.flatten_with_paths(tree) if l is not None]
+
+
 def masked_forward_tree(mp: MaskedParams, seed_fn: Callable,
                         mode: str = "sample", tau: float = 0.5) -> Pytree:
     """Merge MaskedParams into one params tree: maskable leaves become
@@ -238,4 +250,150 @@ def hash_effective(mp: MaskedParams, seed_fn: Callable,
     return tu.tree_map(
         lambda p: materialize_leaf(p) if isinstance(p, MaskedLeaf) else p,
         masked_forward_tree(mp, seed_fn, mode, tau))
+
+
+def freeze_for_decode(tree: Pytree) -> Pytree:
+    """Materialize every `MaskedLeaf` of a forward tree once for a decode
+    session, so decoding consumes plain tensors and never resamples a
+    mask; float leaves pass through.  Runs without autograd: a frozen
+    tree holds m * w only, not the graph back to the scores."""
+    with torch.no_grad():
+        return tu.tree_map(
+            lambda p: materialize_leaf(p) if isinstance(p, MaskedLeaf)
+            else p, tree)
+
+
+# ---------------------------------------------------------------------------
+# Serving: per-tenant mask identities and the bounded freeze-cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskIdentity:
+    """Hashable identity of one tenant's sub-network: the stream
+    coordinates that regenerate its mask over the shared frozen `w`.
+
+      seed:   the artifact's run seed (`mask_stream_seed(..., run_seed)`)
+      mode:   "threshold" (the deployed FedMask-style mask, the serve
+              launcher's convention) or "sample"
+      tau:    threshold of mode "threshold"
+      cohort: stream cohort coordinate (0 for a single artifact)
+      tag:    tells apart tenants with equal coordinates but their own
+              score trees (else the freeze-cache would alias them)
+
+    The freeze-cache key and the serving engine's per-slot identity."""
+    seed: int
+    mode: str = "threshold"
+    tau: float = 0.5
+    cohort: int = 0
+    tag: str = ""
+
+
+def freeze_identity(mp: MaskedParams, ident: MaskIdentity,
+                    scores: Optional[Pytree] = None) -> Pytree:
+    """The decode tree of one tenant over the shared `MaskedParams`: the
+    forward tree at the identity's stream coordinates (step 0, shard 0),
+    frozen once.  `scores` substitutes a tenant's own score tree over the
+    same weights."""
+    if scores is not None:
+        mp = MaskedParams(mp.weights, scores, mp.floats)
+    seed_fn = lambda i: mask_stream_seed(0, 0, i, ident.cohort,
+                                         run_seed=ident.seed)
+    return freeze_for_decode(masked_forward_tree(
+        mp, seed_fn, mode=ident.mode, tau=ident.tau))
+
+
+class FreezeCache:
+    """Bounded exact-LRU cache of frozen decode trees, so serving holds
+    one copy of `w` and at most `capacity` materialized trees however
+    many tenants rotate through.
+
+    `get(key)` returns the cached tree on a hit (making it most recently
+    used) or builds it with `build_fn(key)` on a miss, evicting the least
+    recently used entry when occupancy would exceed `capacity`.  An
+    evicted tree is dropped here; its device memory is freed once no
+    slot holds it.  `hits` / `misses` / `evictions` count the calls."""
+
+    def __init__(self, build_fn: Callable[[Any], Pytree], capacity: int):
+        if capacity < 1:
+            raise ValueError(f"FreezeCache capacity must be >= 1, "
+                             f"got {capacity}")
+        self._build = build_fn
+        self.capacity = int(capacity)
+        self._store = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key) -> Pytree:
+        if key in self._store:
+            self._store.move_to_end(key)
+            self.hits += 1
+            return self._store[key]
+        self.misses += 1
+        tree = self._build(key)
+        self._store[key] = tree
+        if len(self._store) > self.capacity:
+            self._store.popitem(last=False)
+            self.evictions += 1
+        return tree
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def __contains__(self, key) -> bool:
+        return key in self._store
+
+    def keys(self) -> list:
+        """Resident keys in LRU -> MRU order (eviction order)."""
+        return list(self._store.keys())
+
+    def stats(self) -> dict:
+        return {"capacity": self.capacity, "occupancy": len(self._store),
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}
+
+
+def masked_delta_bytes(mp: MaskedParams) -> int:
+    """Bytes of one frozen tree's masked leaves (m * w at w's dtype): a
+    resident tenant's device-memory delta."""
+    return sum(l.numel() * l.element_size() for l in tu.leaves(mp.weights)
+               if l is not None)
+
+
+def mask_artifact_bytes(mp: MaskedParams) -> int:
+    """Wire size of one tenant's packed 1-bit mask (uint32 words per
+    leaf): what a tenant costs to ship."""
+    return sum(4 * ((l.numel() + 31) // 32) for l in tu.leaves(mp.scores)
+               if l is not None)
+
+
+def final_mask(mp: MaskedParams, generator: Optional[torch.Generator] = None,
+               u: Optional[list] = None) -> Pytree:
+    """The deployable mask m ~ Bern(sigmoid(s)): uint8 {0,1} leaves where
+    scores exist, None elsewhere.  The uniforms come from `generator`,
+    one draw per leaf in flatten order, or are injected as `u` (a list
+    over the non-None leaves), as `aggregation.quantize_theta` takes
+    them."""
+    it = iter(u) if u is not None else None
+
+    def one(s):
+        if s is None:
+            return None
+        uu = next(it).to(s.device) if it is not None else torch.rand(
+            s.shape, generator=generator, device=s.device)
+        return (uu < torch.sigmoid(s.float())).to(torch.uint8)
+
+    with torch.no_grad():
+        return tu.tree_map(one, mp.scores)
+
+
+def scores_from_theta(theta_tree: Pytree) -> Pytree:
+    """Client-side round start: s = logit(theta) (eq. 4)."""
+    return tu.tree_map(
+        lambda t: None if t is None else logit(t.float()), theta_tree)
+
+
+def count_params(tree: Pytree) -> int:
+    return sum(l.numel() for l in tu.leaves(tree) if l is not None)
 

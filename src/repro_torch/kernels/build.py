@@ -28,7 +28,8 @@ HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
            "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
-           "masked_conv1d", "masked_conv1d_ds")
+           "masked_conv1d", "masked_conv1d_ds", "pack_bits",
+           "unpack_bits")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,8 @@ ARGTYPES = {
     "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
                       _F, _I, _I, _P],
     "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pack_bits": [_P, _P, _I64, _I64, _I, _P],
+    "unpack_bits": [_P, _P, _I64, _I64, _I64, _I, _P],
 }
 
 _LOADED: dict = {}

@@ -1,5 +1,6 @@
-"""Wrappers of the nine hand-written CUDA kernels, each beside its plain
-PyTorch version.
+"""Wrappers of the nine hand-written CUDA kernels of mask training, each
+beside its plain PyTorch version (the bit-packing kernels 10-11 have
+theirs in `kernels.bitpack`).
 
     masked_matmul             y  = x @ (m * w)          csrc/masked_matmul_fwd.cu
     masked_matmul_dx          dx = g @ (m * w)^T        csrc/masked_matmul_dx.cu
@@ -27,8 +28,9 @@ pre-materialized weights) and with the taps flipped (dL/dx).
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
-raises.  Nothing falls back.  Each launch adds one to `LAUNCHES[name]`,
-so a run can show that it went through the kernels.
+raises.  Nothing falls back.  Each launch adds one to
+`dispatch.LAUNCHES[name]`, so a run can show that it went through the
+kernels.
 
 The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
 f32 activation (recurrentgemma's gate projections); the grouped ones f32
@@ -42,13 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, dispatch, ref
 
-KERNELS = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
-           "sample_and_pack", "masked_matmul_grouped",
-           "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
-           "masked_conv1d", "masked_conv1d_ds")
-LAUNCHES = {name: 0 for name in KERNELS}
 
 masked_matmul_plain = ref.masked_matmul
 masked_matmul_dx_plain = ref.masked_matmul_dx
@@ -63,21 +60,6 @@ masked_conv1d_ds_plain = ref.masked_conv1d_ds
 _MODES = {"sample": 0, "threshold": 1, "plain": 2}
 _EPILOGUES = {"ste": 0, "dw": 1}
 _ACTS = (torch.bfloat16, torch.float32)   # activation types built for
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"operands must all lie on the CPU or on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    return False
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -99,10 +81,6 @@ def _mask_mode(mode: str) -> str:
     if mode not in ("sample", "threshold"):
         raise ValueError(f"mask mode {mode!r}: sample or threshold")
     return mode
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _u32(v) -> int:
@@ -136,7 +114,7 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
                   tau=0.5):
     """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
     mode = _mask_mode(mode)
-    if _on_cpu(x, w, s):
+    if dispatch.on_cpu(x, w, s):
         return masked_matmul_plain(x, w, s, seed, off, n_logical, mode, tau)
     M, K = x.shape
     N = w.shape[1]
@@ -148,8 +126,8 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
         build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(x), _stream(x))
-        LAUNCHES["masked_matmul_fwd"] += 1
+                     _MODES[mode], float(tau), _f32(x), dispatch.stream(x))
+        dispatch.LAUNCHES["masked_matmul_fwd"] += 1
     return y
 
 
@@ -157,7 +135,7 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
                      mode="sample", tau=0.5):
     """g: (M, N); w, s: (K, N) -> dx = g @ (m * w)^T : (M, K) in g.dtype."""
     mode = _mask_mode(mode)
-    if _on_cpu(g, w, s):
+    if dispatch.on_cpu(g, w, s):
         return masked_matmul_dx_plain(g, w, s, seed, off, n_logical, mode,
                                       tau)
     M, N = g.shape
@@ -170,14 +148,14 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
         build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(g), _stream(g))
-        LAUNCHES["masked_matmul_dx"] += 1
+                     _MODES[mode], float(tau), _f32(g), dispatch.stream(g))
+        dispatch.LAUNCHES["masked_matmul_dx"] += 1
     return dx
 
 
 def masked_matmul_ds(x, g, w, s):
     """x: (M, K); g: (M, N); w, s: (K, N) -> ds : (K, N) in s.dtype."""
-    if _on_cpu(x, g, w, s):
+    if dispatch.on_cpu(x, g, w, s):
         return masked_matmul_ds_plain(x, g, w, s)
     M, K = x.shape
     N = g.shape[1]
@@ -189,8 +167,8 @@ def masked_matmul_ds(x, g, w, s):
     if K and N:
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
-                     _f32(x), _stream(x))
-        LAUNCHES["masked_matmul_ds"] += 1
+                     _f32(x), dispatch.stream(x))
+        dispatch.LAUNCHES["masked_matmul_ds"] += 1
     return ds
 
 
@@ -201,7 +179,7 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     mode = _mask_mode(mode)
     seeds = torch.as_tensor([_u32(v) for v in seeds], dtype=torch.int64,
                             device=s.device)
-    if _on_cpu(s):
+    if dispatch.on_cpu(s):
         return sample_and_pack_plain(s, seeds, mode, tau)
     C, n = s.shape
     _require(s, "s", torch.float32, (C, n))
@@ -211,8 +189,8 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
         seeds32 = _i32_bits(seeds)
         build.launch("sample_and_pack", s.data_ptr(), seeds32.data_ptr(),
                      words.data_ptr(), C, n, _MODES[mode], float(tau),
-                     _stream(s))
-        LAUNCHES["sample_and_pack"] += 1
+                     dispatch.stream(s))
+        dispatch.LAUNCHES["sample_and_pack"] += 1
     return words
 
 
@@ -225,7 +203,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     E = x.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
-    if _on_cpu(x, w, s):
+    if dispatch.on_cpu(x, w, s):
         return masked_matmul_grouped_plain(x, w, s, seeds, offs, n_logical,
                                            mode, tau)
     _, M, K = x.shape
@@ -240,8 +218,8 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), y.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _stream(x))
-        LAUNCHES["masked_matmul_grouped"] += 1
+                     _MODES[mode], float(tau), dispatch.stream(x))
+        dispatch.LAUNCHES["masked_matmul_grouped"] += 1
     return y
 
 
@@ -253,7 +231,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     E = g.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
-    if _on_cpu(g, w, s):
+    if dispatch.on_cpu(g, w, s):
         return masked_matmul_grouped_dx_plain(g, w, s, seeds, offs,
                                               n_logical, mode, tau)
     _, M, N = g.shape
@@ -268,15 +246,15 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), dx.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _stream(g))
-        LAUNCHES["masked_matmul_grouped_dx"] += 1
+                     _MODES[mode], float(tau), dispatch.stream(g))
+        dispatch.LAUNCHES["masked_matmul_grouped_dx"] += 1
     return dx
 
 
 def masked_matmul_grouped_ds(x, g, w, s):
     """x: (E, M, K); g: (E, M, N); w, s: (E, K, N) -> ds : (E, K, N) in
     s.dtype."""
-    if _on_cpu(x, g, w, s):
+    if dispatch.on_cpu(x, g, w, s):
         return masked_matmul_grouped_ds_plain(x, g, w, s)
     E, M, K = x.shape
     N = g.shape[2]
@@ -288,8 +266,8 @@ def masked_matmul_grouped_ds(x, g, w, s):
     if E and K and N:
         build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
-                     _stream(x))
-        LAUNCHES["masked_matmul_grouped_ds"] += 1
+                     dispatch.stream(x))
+        dispatch.LAUNCHES["masked_matmul_grouped_ds"] += 1
     return ds
 
 
@@ -303,7 +281,7 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     if mode not in _MODES:
         raise ValueError(f"conv mode {mode!r}: sample, threshold or plain")
     plain = mode == "plain"
-    if _on_cpu(x, w, *(() if plain else (s,))):
+    if dispatch.on_cpu(x, w, *(() if plain else (s,))):
         return masked_conv1d_plain(x, w, s, seed, off, mode, tau, n_logical,
                                    flip)
     B, S, C = x.shape
@@ -319,8 +297,8 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
                      _u32(seed), _u32(off),
                      _u32(C if n_logical is None else n_logical),
                      _MODES[mode], float(tau), int(flip), _f32(x),
-                     _stream(x))
-        LAUNCHES["masked_conv1d"] += 1
+                     dispatch.stream(x))
+        dispatch.LAUNCHES["masked_conv1d"] += 1
     return y
 
 
@@ -332,7 +310,7 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r}: ste or dw")
     dw = epilogue == "dw"
-    if _on_cpu(x, g, w, *(() if dw else (s,))):
+    if dispatch.on_cpu(x, g, w, *(() if dw else (s,))):
         return masked_conv1d_ds_plain(x, g, w, s, epilogue)
     B, S, C = x.shape
     W = w.shape[0]
@@ -345,6 +323,7 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     if C:
         build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), 0 if dw else s.data_ptr(), ds.data_ptr(),
-                     B, S, C, W, _EPILOGUES[epilogue], _f32(x), _stream(x))
-        LAUNCHES["masked_conv1d_ds"] += 1
+                     B, S, C, W, _EPILOGUES[epilogue], _f32(x),
+                     dispatch.stream(x))
+        dispatch.LAUNCHES["masked_conv1d_ds"] += 1
     return ds

@@ -34,12 +34,16 @@ with the mask drawn at off + t*C + c (C the logical channel count; the
 reference pads C to 128 for its vector unit, which the CUDA kernels do
 not need).  `conv1d_plain` runs the same kernels mask-free for a
 pre-materialized kernel, its weight gradient the raw correlation.
+
+`pack_bits` / `unpack_bits` are the mask artifact's and the round mean's
+bit packing (`kernels.bitpack`), with the reference's zero-pad to 32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import bitpack
 from repro_torch.kernels import masked_matmul as mm
 
 
@@ -190,3 +194,17 @@ def sample_and_pack(scores, seeds, mode="sample", tau=0.5):
     """Fused uplink sampler: (C, n) score rows + C uint32 seeds ->
     (C, ceil(n/32)) int32-stored uint32 words of the row masks."""
     return mm.sample_and_pack(scores, seeds, mode=mode, tau=tau)
+
+
+def pack_bits(mask_flat: torch.Tensor) -> torch.Tensor:
+    """(n,) or (R, n) {0,1} values of any dtype -> (ceil(n/32),) or
+    (R, ceil(n/32)) int32-stored uint32 words, zero-padded to 32 bits as
+    `repro.kernels.ops.pack_bits` pads (the kernel pads by index)."""
+    if mask_flat.dtype not in (torch.uint8, torch.bool):
+        mask_flat = mask_flat.to(torch.uint8)
+    return bitpack.pack_bits(mask_flat.contiguous())
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(W,) or (R, W) words -> (n,) or (R, n) uint8."""
+    return bitpack.unpack_bits(words.contiguous(), n)

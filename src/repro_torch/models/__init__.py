@@ -6,7 +6,9 @@ plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
 `masked_conv1d_apply` dispatch decides per leaf.  Ported so far: the
 dense and MoE transformers, the ssm family (mamba2) and the hybrid
 family (recurrentgemma), their training forwards; every family's loss
-is `transformer.lm_loss`.
+is `transformer.lm_loss`.  KV-cache decoding (`init_cache`,
+`decode_step`) is ported for the dense and MoE transformers; the ssm and
+hybrid decode steps raise.
 """
 from __future__ import annotations
 
@@ -17,12 +19,23 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid, ssm, transformer
 
 
+def _decode_not_ported(cfg: ArchConfig) -> Callable:
+    def fail(*args, **kwargs):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's decode step is not "
+            f"ported yet (ROADMAP Queue 1 item 1)")
+    return fail
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     cfg: ArchConfig
     init_params: Callable        # (generator) -> params on its device
     forward: Callable            # (params, batch) -> (logits, aux)
     loss: Callable               # (outputs, batch) -> scalar
+    init_cache: Callable         # (batch, max_seq, device) -> cache
+    decode_step: Callable        # (params, cache, token, pos) -> logits,
+    #                              cache
 
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
@@ -41,5 +54,12 @@ def build_model(cfg: ArchConfig) -> ModelApi:
             raise NotImplementedError("VLM inputs are not ported yet")
         return mod.forward(params, cfg, batch["tokens"])
 
+    if mod is transformer:
+        init_cache = lambda b, s, device: transformer.init_cache(
+            cfg, b, s, device)
+        decode = lambda params, cache, token, pos: transformer.decode_step(
+            params, cfg, cache, token, pos)
+    else:
+        init_cache = decode = _decode_not_ported(cfg)
     return ModelApi(cfg, lambda gen: mod.init_params(gen, cfg), fwd,
-                    transformer.lm_loss)
+                    transformer.lm_loss, init_cache, decode)

@@ -154,16 +154,24 @@ def attention_core(q, k, v, q_pos, k_pos, window=None):
 
 
 def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
-              window=None):
+              window=None, kv_override=None, k_positions=None):
     """Causal self-attention block (no norm), attending to the last
-    `window` positions if set; returns (out, (k, v))."""
+    `window` positions if set; returns (out, (k, v)).  `kv_override`
+    = (k, v) attends over given keys and values instead (cached decode:
+    the keys are already roped) at `k_positions` (default arange)."""
     B, S, _ = x.shape
     q = masked_dense_apply(x, p["w_q"]).reshape(B, S, n_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
-    k = masked_dense_apply(x, p["w_k"]).reshape(B, S, n_kv, head_dim)
-    v = masked_dense_apply(x, p["w_v"]).reshape(B, S, n_kv, head_dim)
-    k = apply_rope(k, positions, rope_theta)
-    o = attention_core(q, k, v, positions, positions, window)
+    if kv_override is not None:
+        k, v = kv_override
+        k_pos = (k_positions if k_positions is not None
+                 else torch.arange(k.shape[1], device=x.device))
+    else:
+        k = masked_dense_apply(x, p["w_k"]).reshape(B, S, n_kv, head_dim)
+        v = masked_dense_apply(x, p["w_v"]).reshape(B, S, n_kv, head_dim)
+        k = apply_rope(k, positions, rope_theta)
+        k_pos = positions
+    o = attention_core(q, k, v, positions, k_pos, window)
     return masked_dense_apply(o.reshape(B, S, n_heads * head_dim),
                               p["w_o"]), (k, v)
 
@@ -198,11 +206,13 @@ def mla_init(gen, d_model, n_heads, kv_lora, q_lora, qk_nope, qk_rope,
 
 
 def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
-              rope_theta=10000.0):
+              rope_theta=10000.0, cache_kv=None):
     """MLA forward (training / prefill); returns (out, (c_kv, k_rope)).
     q and k carry nope + rope dims, so the softmax scale is
     1/sqrt(qk_nope + qk_rope); the decoupled rope key is shared by all
-    heads and the compressed c_kv is RMS-normed with `kv_norm_scale`."""
+    heads and the compressed c_kv is RMS-normed with `kv_norm_scale`.
+    `cache_kv` = (c_kv, k_rope) attends over a decode cache (already
+    holding this step's entries) at key positions arange."""
     B, S, _ = x.shape
     if "w_dq" in p:
         cq = rms_norm({"scale": p["q_norm_scale"]},
@@ -217,12 +227,20 @@ def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
     c_kv = rms_norm({"scale": p["kv_norm_scale"]}, dkv[..., :kv_lora])
     k_rope = apply_rope(dkv[..., kv_lora:][:, :, None, :], positions,
                         rope_theta)                      # (B, S, 1, rope)
-    k_nope = masked_dense_apply(c_kv, p["w_uk"]).reshape(
-        B, S, n_heads, qk_nope)
-    v = masked_dense_apply(c_kv, p["w_uv"]).reshape(B, S, n_heads, v_head)
-    k = torch.cat([k_nope, k_rope.expand(B, S, n_heads, qk_rope)], dim=-1)
+    if cache_kv is not None:
+        c_kv_all, k_rope_all = cache_kv
+        k_pos = torch.arange(c_kv_all.shape[1], device=x.device)
+    else:
+        c_kv_all, k_rope_all, k_pos = c_kv, k_rope, positions
+    Sk = c_kv_all.shape[1]
+    k_nope = masked_dense_apply(c_kv_all, p["w_uk"]).reshape(
+        B, Sk, n_heads, qk_nope)
+    v = masked_dense_apply(c_kv_all, p["w_uv"]).reshape(B, Sk, n_heads,
+                                                        v_head)
+    k = torch.cat([k_nope, k_rope_all.expand(B, Sk, n_heads, qk_rope)],
+                  dim=-1)
     q = torch.cat([q[..., :qk_nope], q_rope], dim=-1)
-    o = attention_core(q, k, v, positions, positions)
+    o = attention_core(q, k, v, positions, k_pos)
     return masked_dense_apply(o.reshape(B, S, -1), p["w_o"]), (c_kv, k_rope)
 
 

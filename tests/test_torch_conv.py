@@ -28,6 +28,7 @@ except ImportError:  # a card machine without JAX runs the cuda tests only
 
 from repro_torch.convert import to_torch
 from repro_torch.core import aggregation, masking
+from repro_torch.kernels import dispatch
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.kernels import ops, ref
 
@@ -323,10 +324,10 @@ def test_card_masked_conv1d_matches_plain(card, shape, mode, flip):
     x, w, s, g = _card_operands(Bc, Sc, C, 1, card)
     inp = g if flip else x
     off = (47 * W * C) & M32   # mamba2's last layer
-    before = mm.LAUNCHES["masked_conv1d"]
+    before = dispatch.LAUNCHES["masked_conv1d"]
     y = mm.masked_conv1d(inp, w, s, 7, off, mode=mode, tau=0.45, flip=flip)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES["masked_conv1d"] == before + 1
+    assert dispatch.LAUNCHES["masked_conv1d"] == before + 1
     want = ref.masked_conv1d(inp, w, s, 7, off, mode, 0.45, flip=flip)
     assert torch.equal(y, want)
 
@@ -354,10 +355,10 @@ def test_card_conv_masks_bit_exact_by_identity_probe(card, mode):
 def test_card_masked_conv1d_ds_matches_plain(card, shape, epilogue, x_dtype):
     Bc, Sc, C = shape
     x, w, s, g = _card_operands(Bc, Sc, C, 3, card, x_dtype)
-    before = mm.LAUNCHES["masked_conv1d_ds"]
+    before = dispatch.LAUNCHES["masked_conv1d_ds"]
     ds = mm.masked_conv1d_ds(x, g, w, s, epilogue=epilogue)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES["masked_conv1d_ds"] == before + 1
+    assert dispatch.LAUNCHES["masked_conv1d_ds"] == before + 1
     want = ref.masked_conv1d_ds(x, g, w, s, epilogue)
     # f32 sums over B*S terms in another order
     assert torch.allclose(ds, want, rtol=1e-5, atol=1e-5 * want.abs().max())

@@ -30,6 +30,7 @@ except ImportError:  # a card machine without JAX runs the cuda tests only
 
 from repro_torch.api import payloads
 from repro_torch.convert import to_torch
+from repro_torch.kernels import dispatch
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.kernels import ops, ref
 
@@ -286,12 +287,12 @@ def test_card_masked_matmul_fwd_dx_match_plain(card, shape, mode):
     M, K, N = shape
     x, w, s, gy = _card_operands(M, K, N, 1, card)
     kw = dict(mode=mode, tau=0.45)
-    before = dict(mm.LAUNCHES)
+    before = dict(dispatch.LAUNCHES)
     y = mm.masked_matmul(x, w, s, 7, 5 * K * N, **kw)
     dx = mm.masked_matmul_dx(gy, w, s, 7, 5 * K * N, **kw)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES["masked_matmul_fwd"] == before["masked_matmul_fwd"] + 1
-    assert mm.LAUNCHES["masked_matmul_dx"] == before["masked_matmul_dx"] + 1
+    for name in ("masked_matmul_fwd", "masked_matmul_dx"):
+        assert dispatch.LAUNCHES[name] == before[name] + 1
     assert _close_bf16(y, ref.masked_matmul(x, w, s, 7, 5 * K * N, **kw))
     assert _close_bf16(dx, ref.masked_matmul_dx(gy, w, s, 7, 5 * K * N,
                                                 **kw))
@@ -369,12 +370,12 @@ def test_card_grouped_fwd_dx_match_plain(card, shape, mode):
     x, w, s, gy = _card_grouped_operands(E, M, K, N, 4, card)
     seeds, offs = _grouped_coords(E, K, N)
     kw = dict(mode=mode, tau=0.45)
-    before = dict(mm.LAUNCHES)
+    before = dict(dispatch.LAUNCHES)
     y = mm.masked_matmul_grouped(x, w, s, seeds, offs, **kw)
     dx = mm.masked_matmul_grouped_dx(gy, w, s, seeds, offs, **kw)
     torch.cuda.synchronize()
     for name in ("masked_matmul_grouped", "masked_matmul_grouped_dx"):
-        assert mm.LAUNCHES[name] == before[name] + 1
+        assert dispatch.LAUNCHES[name] == before[name] + 1
     # f32 sums over bf16-exact weights in another order
     for got, want in ((y, ref.masked_matmul_grouped(x, w, s, seeds, offs,
                                                     **kw)),

@@ -5,7 +5,7 @@ import re
 import pytest
 import torch
 
-from repro_torch.kernels import masked_matmul as mm
+from repro_torch.kernels import dispatch
 from repro_torch.launch import train
 
 ROUND = re.compile(r"step (\d+): loss=([\d.]+) uplink=([\d.]+)Bpp "
@@ -15,7 +15,7 @@ ROUND = re.compile(r"step (\d+): loss=([\d.]+) uplink=([\d.]+)Bpp "
 @pytest.mark.parametrize("algo,codec", [("fedpm_reg", "arithmetic"),
                                         ("fedmask", "bitpack")])
 def test_cli_prints_round_lines_on_cpu(capsys, algo, codec):
-    mm.reset_launch_counts()
+    dispatch.reset_launch_counts()
     out = train.main(["--smoke", "--device", "cpu", "--algo", algo,
                       "--codec", codec, "--steps", "4", "--round-every",
                       "2", "--cohorts", "2", "--batch", "2", "--seq", "16"])
@@ -28,14 +28,14 @@ def test_cli_prints_round_lines_on_cpu(capsys, algo, codec):
     assert len(out["losses"]) == 4 and len(out["rounds"]) == 2
     assert all(0.0 < r["bpp"] <= 1.0 for r in out["rounds"])
     # CPU tensors take the plain versions: no kernel launches
-    assert not any(mm.LAUNCHES.values())
+    assert not any(dispatch.LAUNCHES.values())
 
 
 def test_cli_trains_the_moe_family_on_cpu(capsys):
     """deepseek-v2-lite SMOKE (MLA, routed and shared experts) through
     the launcher: round lines with uplink Bpp in (0, 1], finite losses,
     no kernel launches on the CPU."""
-    mm.reset_launch_counts()
+    dispatch.reset_launch_counts()
     out = train.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
                       "--device", "cpu", "--steps", "4", "--round-every",
                       "2", "--cohorts", "2", "--batch", "2", "--seq", "16"])
@@ -45,7 +45,7 @@ def test_cli_trains_the_moe_family_on_cpu(capsys):
     assert all(0.0 < float(m.group(3)) <= 1.0 for m in rounds)
     assert len(out["losses"]) == 4 and all(
         0.0 < v < 20.0 for v in out["losses"])
-    assert not any(mm.LAUNCHES.values())
+    assert not any(dispatch.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("arch,extra", [
@@ -55,7 +55,7 @@ def test_cli_trains_the_recurrent_families_on_cpu(capsys, arch, extra):
     (RG-LRU, windowed MQA, a stacked rec tail) through the launcher:
     round lines with uplink Bpp in (0, 1], finite losses, no kernel
     launches on the CPU."""
-    mm.reset_launch_counts()
+    dispatch.reset_launch_counts()
     out = train.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--steps", "4", "--round-every", "2", "--cohorts",
                       "2", "--batch", "2"] + extra)
@@ -65,7 +65,7 @@ def test_cli_trains_the_recurrent_families_on_cpu(capsys, arch, extra):
     assert all(0.0 < float(m.group(3)) <= 1.0 for m in rounds)
     assert len(out["losses"]) == 4 and all(
         0.0 < v < 20.0 for v in out["losses"])
-    assert not any(mm.LAUNCHES.values())
+    assert not any(dispatch.LAUNCHES.values())
 
 
 def test_cli_raises_on_cuda_without_a_card(monkeypatch):
