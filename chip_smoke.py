@@ -24,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
    with misaligned row starts, on a misaligned view, and pack -> unpack;
 4. time each kernel, its plain version and a PyTorch call computing the
    same function on the pre-masked weight (the library yardstick; none
-   packs bits) with CUDA events;
+   packs bits) with CUDA events (kernels 1-2 at bf16 activations, the
+   tensor-core body, and 8-9 by CUDA-graph replay, their per-call times
+   beside), with each internlm2 shape's share of its bound for kernels
+   1-2, and kernels 1-2 on f32 activations (the SIMT body) at
+   recurrentgemma's gate shape (M 256, K = N = 4096);
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
    mamba2 and recurrentgemma SMOKE configs, and the KV-cache decode of
@@ -357,7 +361,13 @@ def grouped_kernel_phase(torch, mm, ref, dev):
 def timing_phase(torch, mm, ref, dev):
     """Per-layer (7 projections, one cohort) times of kernels 1-3 and
     per-round (7 leaves, C = 2) times of sample_and_pack: kernel, plain
-    version and library yardstick, in ms, with their bounds."""
+    version and library yardstick, in ms, with their bounds.  Kernels 1-2
+    (the tensor-core body at bf16 activations) and their yardsticks run
+    tens of microseconds a shape, so they are timed by CUDA-graph replay
+    (`graph_ms`); their per-call times with the host's launch cost (CUDA
+    events around each call) are printed beside, with each shape's plan
+    and share of its bound.  Then kernels 1-2 on f32 activations (the
+    SIMT body) at recurrentgemma's gate shape, rows of their own."""
     gen = torch.Generator(device=dev).manual_seed(1)
     ops = []
     for name, (K, N) in LAYER_SHAPES.items():
@@ -386,9 +396,15 @@ def timing_phase(torch, mm, ref, dev):
             lambda K, N: (2 * M * K + 2 * M * N + 10 * K * N, 2 * M * K * N)),
     }
     for kname, (kern, plain, lib, cost) in specs.items():
-        t_k = time_ms(torch, [kern(o) for o in ops], 10)
+        if kname == "masked_matmul_ds":
+            t_k = time_ms(torch, [kern(o) for o in ops], 10)
+            t_l = time_ms(torch, [lib(o) for o in ops], 10)
+        else:
+            t_k = graph_ms(torch, [kern(o) for o in ops], 20)
+            t_l = graph_ms(torch, [lib(o) for o in ops], 20)
+            t_call = time_ms(torch, [kern(o) for o in ops] +
+                             [lib(o) for o in ops], 10)
         t_p = time_ms(torch, [plain(o) for o in ops], 2)
-        t_l = time_ms(torch, [lib(o) for o in ops], 10)
         nbytes = sum(cost(o[1], o[2])[0] for o in ops)
         flops = sum(cost(o[1], o[2])[1] for o in ops)
         b_ms, b_by = bound(nbytes, flops)
@@ -396,6 +412,28 @@ def timing_phase(torch, mm, ref, dev):
                           library_ms=sum(t_l), bound_ms=b_ms, bound_by=b_by)
         per_shape[kname] = {o[0]: (tk, tp, tl, bound(*cost(o[1], o[2]))[0])
                             for o, tk, tp, tl in zip(ops, t_k, t_p, t_l)}
+        if kname == "masked_matmul_ds":
+            continue
+        dx = kname == "masked_matmul_dx"
+        print(f"  {kname} per shape at M={M} (graph replay; per call with "
+              f"launch cost in brackets), share of the bound, plan:")
+        for i, o in enumerate(ops):
+            R, C = (o[2], o[1]) if dx else (o[1], o[2])
+            plan = mm.card_plan(kname, dev.index or 0, M, R, C)
+            tb = per_shape[kname][o[0]][3]
+            print(f"    {o[0]:7s} {t_k[i]:.4f} [{t_call[i]:.4f}] ms, library "
+                  f"{t_l[i]:.4f} [{t_call[len(ops) + i]:.4f}], bound "
+                  f"{tb:.4f}: {100 * tb / t_k[i]:.1f}% of the bound; width "
+                  f"{plan['bc']}, cluster {plan['split']}, "
+                  f"{plan['split'] * plan['grid'][1] * plan['grid'][2]} "
+                  f"blocks")
+        print(f"    layer   {sum(t_k):.4f} [{sum(t_call[:len(ops)]):.4f}] ms, "
+              f"library {sum(t_l):.4f}, bound {b_ms:.4f}: "
+              f"{100 * b_ms / sum(t_k):.1f}% of the bound")
+    cap = mm.card_capacity("masked_matmul_fwd")
+    print(f"  blocks the card holds at once in clusters of 1.."
+          f"{mm.MAX_CLUSTER} (occupancy query, width 128): "
+          f"{[cap(128, k, mm.wgmma_smem(128, 2)) for k in range(1, 9)]}")
     del ops
     torch.cuda.empty_cache()
 
@@ -417,6 +455,29 @@ def timing_phase(torch, mm, ref, dev):
     b_ms, b_by = bound(nbytes, 0)
     res["sample_and_pack"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
                                   bound_ms=b_ms, bound_by=b_by)
+
+    # kernels 1-2 on f32 activations (the SIMT body) at recurrentgemma's
+    # gate projections w_rg / w_ri: bound by f32 flops on the CUDA cores;
+    # the yardstick an f32 torch.matmul (TF32 off) on the pre-masked w
+    K = N = CONV_SHAPES["recurrentgemma-9b"]
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+    s = torch.randn(K, N, generator=gen, device=dev)
+    g = torch.randn(M, N, generator=gen, device=dev)
+    wm = ref.sample_mask(s, 7, 0).float() * w.float()
+    nb = 4 * M * K + 6 * K * N + 4 * M * N
+    for kname, kern, plain, lib in (
+            ("masked_matmul_fwd", lambda: mm.masked_matmul(x, w, s, 7, 0),
+             lambda: ref.masked_matmul(x, w, s, 7, 0), lambda: x @ wm),
+            ("masked_matmul_dx", lambda: mm.masked_matmul_dx(g, w, s, 7, 0),
+             lambda: ref.masked_matmul_dx(g, w, s, 7, 0),
+             lambda: g @ wm.T)):
+        tk, tl = time_ms(torch, [kern, lib], 5)
+        tp = time_ms(torch, [plain], 2)[0]
+        per_shape[kname][f"f32 {K}x{N}"] = (
+            tk, tp, tl, bound(nb, 2 * M * K * N, F32_FLOPS_PER_S)[0])
+    del x, w, s, g, wm
+    torch.cuda.empty_cache()
     return res, per_shape
 
 
@@ -992,7 +1053,7 @@ def profile_phase(torch, dev, cfg):
           f"{walls['round'] * 1e3:.1f}), device busy {busy:.1f} ms "
           f"({100 * busy / wall:.1f}%); device ms by kernel:")
     # the 15 largest, then every other hand-written kernel of the port
-    own = ("masked_", "sample_and_pack")
+    own = ("masked_", "sample_and_pack", "gated_gemm")
     for key, count, ms in rows[:15] + [r for r in rows[15:]
                                        if any(k in r[0] for k in own)]:
         print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
@@ -1096,7 +1157,7 @@ def main():
     for kname, rows in per_shape.items():
         for leaf, (tk, tp, tl, tb) in rows.items():
             lib = "-" if tl is None else f"{tl:.4f}"
-            print(f"  {kname:24s} {leaf:7s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
+            print(f"  {kname:24s} {leaf:9s} {tk:9.4f} {tp:9.4f} {lib:>9s} "
                   f"{tb:9.4f}")
     t0 = time.time()
     for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",

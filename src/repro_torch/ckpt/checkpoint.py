@@ -66,9 +66,16 @@ def save_artifact(path: str, artifact: dict) -> int:
     return os.path.getsize(path)
 
 
-def load_artifact(path: str, device="cpu") -> dict:
+def load_artifact(path: str, device="cuda") -> dict:
     """{"seed": int, "masks": {path: (int32 words, shape)}, "floats":
-    {path: tensor}} on `device`, from a file either package wrote."""
+    {path: tensor}} on `device`, from a file either package wrote.  The
+    card by default, where the masks unpack on the kernels; pass
+    device="cpu" for the plain versions.  Raises if the card is asked
+    for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_artifact: device 'cuda' requested but no "
+                           "CUDA device is available (pass device='cpu')")
     data = np.load(path)
     with open(path + ".json") as f:
         meta = json.load(f)

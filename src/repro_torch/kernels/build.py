@@ -11,7 +11,8 @@ in .gitignore), named by a digest of their sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  `build()`
 starts one nvcc per source, all at once, and raises if any fails; the
 first wrapper call builds whatever is missing.  Nothing here runs at
-import time.
+import time.  The tensor-core body of kernels 1-2 fetches the driver's
+cuTensorMapEncodeTiled through the runtime, so no library links -lcuda.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh")
+HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh",
+           "masked_matmul_wgmma.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
            "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
@@ -35,13 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _I64, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                           ctypes.c_uint32, ctypes.c_float)
-# argtypes of each library's one C entry point (named as the source);
-# every entry returns cudaGetLastError() as an int
+# argtypes of each C entry point: a library's kernel entry is named as
+# its source and returns cudaGetLastError() as an int; the entries of
+# ENTRY_LIBRARY live in another entry's library and return a value
 ARGTYPES = {
     "masked_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _U32, _U32, _U32, _I,
-                          _F, _I, _P],
+                          _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_dx": [_P, _P, _P, _P, _I, _I, _I, _U32, _U32, _U32, _I,
-                         _F, _I, _P],
+                         _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
@@ -54,7 +57,11 @@ ARGTYPES = {
     "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pack_bits": [_P, _P, _I64, _I64, _I, _P],
     "unpack_bits": [_P, _P, _I64, _I64, _I64, _I, _P],
+    "masked_matmul_fwd_capacity": [_I, _I, _I],
+    "masked_matmul_dx_capacity": [_I, _I, _I],
 }
+ENTRY_LIBRARY = {"masked_matmul_fwd_capacity": "masked_matmul_fwd",
+                 "masked_matmul_dx_capacity": "masked_matmul_dx"}
 
 _LOADED: dict = {}
 
@@ -108,23 +115,31 @@ def build(names=SOURCES) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built on first use."""
+    """The loaded library of kernel `name`, built on first use, with the
+    argtypes of every entry point it holds set."""
     lib = _LOADED.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for entry in ARGTYPES:
+            if ENTRY_LIBRARY.get(entry, entry) == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = ARGTYPES[entry]
+                fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
 
 
+def call(entry: str, *args) -> int:
+    """Call C entry point `entry` and return its int."""
+    return getattr(library(ENTRY_LIBRARY.get(entry, entry)), entry)(*args)
+
+
 def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point; raise on a CUDA error."""
-    err = getattr(library(name), name)(*args)
+    err = call(name, *args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")

@@ -33,13 +33,18 @@ raises.  Nothing falls back.  Each launch adds one to
 kernels.
 
 The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
-f32 activation (recurrentgemma's gate projections); the grouped ones f32
+f32 activation (recurrentgemma's gate projections).  Kernels 1-2 run a
+tensor-core body for bf16 x/g (csrc/masked_matmul_wgmma.cuh) whose
+launch plan `wgmma_plan` computes here, from the card's occupancy query
+(`card_capacity`), and a tiled SIMT body for f32 x/g; the grouped ones f32
 x/g (the MoE expert chain stays in f32, as in the reference); the conv
 kernels bf16 or f32 x and f32 g, with an f32 output.  All take bf16 w,
 f32 scores and contiguous operands.  The wrappers raise on anything else
 rather than copy.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -56,6 +61,18 @@ masked_matmul_grouped_dx_plain = ref.masked_matmul_grouped_dx
 masked_matmul_grouped_ds_plain = ref.masked_matmul_grouped_ds
 masked_conv1d_plain = ref.masked_conv1d
 masked_conv1d_ds_plain = ref.masked_conv1d_ds
+
+# The bf16 body of kernels 1-2 (csrc/masked_matmul_wgmma.cuh): a block
+# owns ROWS rows and BC output columns, walks its share of the reduction
+# axis in stages of BR, and the blocks of a cluster (<= MAX_CLUSTER) split
+# that axis.  Its shared memory: A_STAGES A tiles (ROWS x BR bf16), two
+# gated B tiles (BC x BR bf16), w_stages raw (w bf16, s f32) tiles
+# (BR x BC), 16 bytes of mbarriers a stage, and 1024 bytes of alignment.
+WG_ROWS, WG_BR, WG_A_STAGES = 256, 64, 2
+WG_WIDTHS = (32, 48, 64, 80, 96, 112, 128)   # as REPRO_WG_WIDTHS
+WG_MAX_W_STAGES, MAX_CLUSTER = 8, 8
+SMEM_LIMIT = 232_448            # bytes of shared memory a block can use
+SMS = 132                       # streaming multiprocessors of an H100 SXM
 
 _MODES = {"sample": 0, "threshold": 1, "plain": 2}
 _EPILOGUES = {"ste": 0, "dw": 1}
@@ -110,6 +127,100 @@ def _group_coords(seeds: list, offs: list, dev) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_smem(bc: int, w_stages: int) -> int:
+    """Dynamic shared-memory bytes of the bf16 body at width `bc`."""
+    return (1024 + WG_A_STAGES * WG_ROWS * WG_BR * 2 + 2 * bc * WG_BR * 2
+            + w_stages * WG_BR * bc * 6 + 16 * (WG_A_STAGES + w_stages))
+
+
+def ideal_capacity(bc: int, split: int, smem: int) -> int:
+    """Blocks the card would hold at once if clusters of `split` could
+    take any SMs: one per SM (the shared memory allows no second)."""
+    return SMS // split * split
+
+
+def wgmma_plan(M: int, R: int, C: int, capacity=ideal_capacity) -> dict:
+    """Launch plan of kernels 1-2's bf16 body for out (M, C) = A (M, R) @
+    B (R, C) (forward: R = K, C = N; dx: R = N, C = K): the width `bc`,
+    the cluster size `split` over the reduction axis, the raw stages
+    `w_stages`, the shared-memory bytes `smem` and the `grid`.  Block q
+    of a cluster sums the stages [steps*q // split, steps*(q+1) // split)
+    of WG_BR.
+
+    Each stage moves BR x (6 bc) bytes of w and s from device memory and
+    a (256 x BR) tile of A from L2; a block's time is its stages plus one
+    for set-up and the cluster reduction, and the blocks beyond what the
+    card holds at once, `capacity(bc, split, smem)` (on the card: the
+    occupancy query of the kernel's library), run in further waves.  The
+    plan minimizes waves x that time, then the block count: one full wave
+    of short blocks beats a second, partly empty wave."""
+    steps, mblocks = _cdiv(R, WG_BR), _cdiv(M, WG_ROWS)
+    best = None
+    for bc in WG_WIDTHS:
+        w_stages = WG_MAX_W_STAGES
+        while wgmma_smem(bc, w_stages) > SMEM_LIMIT:
+            w_stages -= 1
+        tiles = _cdiv(C, bc) * mblocks
+        for split in range(1, min(MAX_CLUSTER, max(steps, 1)) + 1):
+            blocks = tiles * split
+            per_block = ((_cdiv(steps, split) + 1) * WG_BR
+                         * (6 * bc + 2 * WG_ROWS))
+            waves = _cdiv(blocks, capacity(bc, split,
+                                           wgmma_smem(bc, w_stages)))
+            key = (waves * per_block, blocks, split)
+            if best is None or key < best[0]:
+                best = (key, dict(bc=bc, split=split, w_stages=w_stages,
+                                  smem=wgmma_smem(bc, w_stages),
+                                  grid=(split, _cdiv(C, bc), mblocks)))
+    return best[1]
+
+
+def _tma_flags(a, w, s, R: int, N: int) -> int:
+    """Bit 0, 1, 2: A, w, s go by TMA (a row pitch and a base on the
+    16-byte grid); the kernel loads the others element by element."""
+    if R == 0:
+        return 0
+    flags = 0
+    for bit, (t, pitch) in enumerate(((a, 2 * R), (w, 2 * N), (s, 4 * N))):
+        if pitch % 16 == 0 and t.data_ptr() % 16 == 0:
+            flags |= 1 << bit
+    return flags
+
+
+def card_capacity(kernel: str):
+    """`capacity` for `wgmma_plan` from kernel `kernel`'s occupancy query
+    on the current card."""
+    def capacity(bc: int, split: int, smem: int) -> int:
+        n = build.call(f"{kernel}_capacity", bc, split, smem)
+        if n <= 0:
+            raise RuntimeError(f"{kernel}: occupancy query for bc={bc} "
+                               f"split={split} failed: {n}")
+        return n
+    return capacity
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(kernel: str, device: int, M: int, R: int, C: int) -> dict:
+    """`wgmma_plan` on card `device`, computed once per shape."""
+    with torch.cuda.device(device):
+        return wgmma_plan(M, R, C, card_capacity(kernel))
+
+
+def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
+               N: int) -> tuple:
+    """(bc, split, w_stages, smem, tma) for the C entry point; the plan
+    only steers bf16 activations (f32 ones run the SIMT body)."""
+    if a.dtype != torch.bfloat16:
+        return (0, 1, 1, 0, 0)
+    plan = card_plan(kernel, a.device.index, M, R, C)
+    return (plan["bc"], plan["split"], plan["w_stages"], plan["smem"],
+            _tma_flags(a, w, s, R, N))
+
+
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
                   tau=0.5):
     """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
@@ -126,7 +237,9 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
         build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(x), dispatch.stream(x))
+                     _MODES[mode], float(tau), _f32(x),
+                     *_plan_args("masked_matmul_fwd", x, w, s, M, K, N, N),
+                     dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_fwd"] += 1
     return y
 
@@ -148,7 +261,9 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
         build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(g), dispatch.stream(g))
+                     _MODES[mode], float(tau), _f32(g),
+                     *_plan_args("masked_matmul_dx", g, w, s, M, N, K, N),
+                     dispatch.stream(g))
         dispatch.LAUNCHES["masked_matmul_dx"] += 1
     return dx
 

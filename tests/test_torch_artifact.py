@@ -129,7 +129,7 @@ def test_jax_file_loads_in_port(tmp_path):
     _, art, _ = _jax_artifact()
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save_artifact(path, art)
-    got = checkpoint.load_artifact(path)
+    got = checkpoint.load_artifact(path, device="cpu")
     assert got["seed"] == int(np.asarray(art["seed"]))
     for k, (jwords, jshape) in art["masks"].items():
         words, shape = got["masks"][k]
@@ -160,7 +160,7 @@ def test_artifact_round_trip_in_port(tmp_path):
         u=[torch.from_numpy(a) for a in u])
     path = str(tmp_path / "a.npz")
     checkpoint.save_artifact(path, tart)
-    got = checkpoint.load_artifact(path)
+    got = checkpoint.load_artifact(path, device="cpu")
     want = dict(masking.leaves_with_paths(mask))
     n = 0
     for k, (words, shape) in got["masks"].items():
@@ -181,7 +181,7 @@ def test_served_params_match_reference(tmp_path):
     server, art, _ = _jax_artifact()
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save_artifact(path, art)
-    loaded = checkpoint.load_artifact(path)
+    loaded = checkpoint.load_artifact(path, device="cpu")
     masks, packed = checkpoint.artifact_masks(loaded)
     tserver = convert.server_from_jax(_np(server), "cpu")
     got = dict(tree.flatten_with_paths(checkpoint.served_params(
@@ -232,3 +232,17 @@ def test_bitpacked_masks_match_jax():
     back = tp.to_masks()
     for a, b in zip(tree.leaves(back), tree.leaves(tm)):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_load_artifact_defaults_to_the_card(tmp_path, monkeypatch):
+    """Without `device`, `load_artifact` puts the artifact on the card:
+    where there is none it raises rather than hand back CPU tensors (the
+    plain versions run only when the caller asks for the CPU)."""
+    _, tart = _port_artifact()
+    path = str(tmp_path / "a.npz")
+    checkpoint.save_artifact(path, tart)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_artifact(path)
+    got = checkpoint.load_artifact(path, device="cpu")
+    assert all(w.device.type == "cpu" for w, _ in got["masks"].values())

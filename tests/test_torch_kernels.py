@@ -277,7 +277,11 @@ def _close_bf16(a, b):
     return bool(((a - b).abs() <= tol).all())
 
 
-CARD_SHAPES = [(256, 128, 192), (33, 70, 45), (256, 2048, 1024)]
+# (M, K, N): M = 1, M = 600 (three 256-row blocks), mamba2's w_in (N
+# ragged against 64) and internlm2's w_k and w_down at the main path's M
+CARD_SHAPES = [(256, 128, 192), (33, 70, 45), (256, 2048, 1024),
+               (1, 2048, 2048), (600, 512, 384), (256, 1024, 4384),
+               (256, 8192, 2048)]
 
 
 @pytest.mark.cuda
@@ -296,6 +300,40 @@ def test_card_masked_matmul_fwd_dx_match_plain(card, shape, mode):
     assert _close_bf16(y, ref.masked_matmul(x, w, s, 7, 5 * K * N, **kw))
     assert _close_bf16(dx, ref.masked_matmul_dx(gy, w, s, 7, 5 * K * N,
                                                 **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 8192, 2048), (200, 1000, 1500)])
+def test_card_masked_matmul_fwd_dx_deterministic(card, shape):
+    """The reduction split over a cluster is summed in a fixed order: two
+    launches on the same inputs give the same bits."""
+    M, K, N = shape
+    x, w, s, gy = _card_operands(M, K, N, 4, card)
+    for f, a in ((mm.masked_matmul, x), (mm.masked_matmul_dx, gy)):
+        first = f(a, w, s, 11, 77)
+        second = f(a, w, s, 11, 77)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sample", "threshold"])
+def test_card_masked_matmul_f32_activations_match_plain(card, mode):
+    """f32 x and g (recurrentgemma's gate projections) run the SIMT body:
+    f32 results within float32 rounding of the plain version."""
+    M, K, N = 70, 300, 200
+    x, w, s, gy = _card_operands(M, K, N, 5, card)
+    x, gy = x.float(), gy.float()
+    kw = dict(mode=mode, tau=0.45)
+    for got, want in ((mm.masked_matmul(x, w, s, 3, 999, **kw),
+                       ref.masked_matmul(x, w, s, 3, 999, **kw)),
+                      (mm.masked_matmul_dx(gy, w, s, 3, 999, **kw),
+                       ref.masked_matmul_dx(gy, w, s, 3, 999, **kw))):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        # f32 sums of bf16-exact weights in another order
+        assert torch.allclose(got, want, rtol=1e-5,
+                              atol=1e-5 * want.abs().max())
 
 
 @pytest.mark.cuda
