@@ -11,7 +11,7 @@ in .gitignore), named by a digest of their sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  `build()`
 starts one nvcc per source, all at once, and raises if any fails; the
 first wrapper call builds whatever is missing.  Nothing here runs at
-import time.  The tensor-core body of kernels 1-2 fetches the driver's
+import time.  The tensor-core bodies of kernels 1-3 fetch the driver's
 cuTensorMapEncodeTiled through the runtime, so no library links -lcuda.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh",
-           "masked_matmul_wgmma.cuh")
+           "masked_matmul_wgmma.cuh", "masked_matmul_ds_wgmma.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
            "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
@@ -45,7 +45,8 @@ ARGTYPES = {
                           _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_dx": [_P, _P, _P, _P, _I, _I, _I, _U32, _U32, _U32, _I,
                          _F, _I, _I, _I, _I, _I, _I, _P],
-    "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
                               _I, _F, _P],

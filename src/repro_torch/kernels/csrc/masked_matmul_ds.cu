@@ -2,48 +2,40 @@
 // the straight-through score gradient.
 //
 // Replaces the Pallas kernel `_ds_kernel` / `masked_matmul_ds` in
-// src/repro/kernels/masked_matmul.py.
+// src/repro/kernels/masked_matmul.py:297.
 //
 // w: bf16, s: f32, ds: f32 (the reference casts to s.dtype); x and g:
 // both bf16, or both f32 (an f32 forward and its cotangent).
 //
-// Design: `ds_tile` in masked_matmul_tiles.cuh: each block owns one 64x64
-// tile of ds over (K, N) and loops over all of M inside the block, in
-// steps of 16, so there are no atomics and no second pass.  The epilogue
-// multiplies the f32 accumulator by w * sigmoid(s) * (1 - sigmoid(s)) in
-// registers: neither x^T g nor the sigmoid is ever written to device
-// memory.
+// Bound on this card: every weight costs 10 bytes of device memory (w
+// bf16 2, s f32 4, ds f32 4), plus x and g read once, against 2*M flops:
+// 0.195 ms per internlm2-1.8b layer (M = 256) at 3.35 TB/s, where its
+// 32 GFLOP take 0.033 ms on the bf16 tensor cores (0.48 ms on the f32
+// CUDA cores, which is why the product must leave them).  The reference
+// keeps x^T g and sigmoid(s) out of device memory; so does this kernel.
 //
-// Bound on this card: reading w and s and writing ds, 10 bytes per weight
-// against 2*M = 512 flops per weight at M = 256; this SIMT kernel is
-// limited by its f32 flops on the CUDA cores instead.
-#include "masked_matmul_tiles.cuh"
+// Design (masked_matmul_ds_wgmma.cuh): persistent blocks walk 128 x BN
+// tiles of ds (BN 64 or 128), each tile's product over all of M on wgmma
+// (bf16 in, f32 accumulators; f32 x and g split into three bf16 parts),
+// then an epilogue that streams w and s in through shared memory by TMA
+// and ds out from registers in 16-byte stores, while the load warps
+// fetch the next tile's operands.  The 10 bytes a weight are the only
+// traffic to device memory that scales with K*N; x and g (at most
+// 8.4 MB, at recurrentgemma's ffn) stay in L2.
+// L2 traffic of a tile: its x and g slices, 2*M*(128 + BN) bytes, against
+// 10*128*BN bytes of device memory: 0.80x at BN = 128 and 1.20x at
+// BN = 64 for M = 256, within the L2's bandwidth (a multiple of the
+// device memory's); the plan takes BN = 128 wherever that still gives
+// every SM a tile.  M is never split across blocks: no atomics, no
+// partial sums in device memory, the same bits on every launch.
+#include "masked_matmul_ds_wgmma.cuh"
 
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(repro::THREADS)
-masked_matmul_ds_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                        const __nv_bfloat16* __restrict__ w,
-                        const float* __restrict__ s, float* __restrict__ ds,
-                        int M, int K, int N) {
-  repro::ds_tile(x, g, w, s, ds, M, K, N);
-}
-
-}  // namespace
-
+// bn, stages, chunks, smem, grid, tma: the launch plan
+// (kernels.masked_matmul.ds_plan and the wrapper's 16-byte-grid flags).
 extern "C" int masked_matmul_ds(const void* x, const void* g, const void* w,
                                 const void* s, void* ds, int M, int K, int N,
-                                int x_f32, void* stream) {
-  const dim3 grid = repro::tile_grid(K, N);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (x_f32)
-    masked_matmul_ds_kernel<float><<<grid, repro::THREADS, 0, st>>>(
-        (const float*)x, (const float*)g, (const __nv_bfloat16*)w,
-        (const float*)s, (float*)ds, M, K, N);
-  else
-    masked_matmul_ds_kernel<__nv_bfloat16><<<grid, repro::THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
-        (const __nv_bfloat16*)w, (const float*)s, (float*)ds, M, K, N);
-  return (int)cudaGetLastError();
+                                int x_f32, int bn, int stages, int chunks,
+                                int smem, int grid, int tma, void* stream) {
+  return repro::dsw::launch(x, g, w, s, ds, M, K, N, x_f32, bn, stages,
+                            chunks, smem, grid, tma, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 // Tile bodies of the masked-matmul kernels, shared by the dense entry
-// points (masked_matmul_{fwd,dx,ds}.cu, one (M,K)x(K,N) problem) and the
-// grouped ones (masked_matmul_grouped{,_dx,_ds}.cu, E stacked problems,
-// group e = blockIdx.z with its own seed and stream offset).
+// points on f32 activations (masked_matmul_{fwd,dx}.cu, one (M,K)x(K,N)
+// problem) and the grouped ones (masked_matmul_grouped{,_dx,_ds}.cu, E
+// stacked problems, group e = blockIdx.z with its own seed and stream
+// offset).
 //
 // Each body is a tiled SIMT GEMM: a block of THREADS threads owns one
 // TILE x TILE output tile (its position in blockIdx.x / blockIdx.y) and

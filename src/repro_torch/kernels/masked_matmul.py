@@ -36,11 +36,13 @@ The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
 f32 activation (recurrentgemma's gate projections).  Kernels 1-2 run a
 tensor-core body for bf16 x/g (csrc/masked_matmul_wgmma.cuh) whose
 launch plan `wgmma_plan` computes here, from the card's occupancy query
-(`card_capacity`), and a tiled SIMT body for f32 x/g; the grouped ones f32
-x/g (the MoE expert chain stays in f32, as in the reference); the conv
-kernels bf16 or f32 x and f32 g, with an f32 output.  All take bf16 w,
-f32 scores and contiguous operands.  The wrappers raise on anything else
-rather than copy.
+(`card_capacity`), and a tiled SIMT body for f32 x/g.  Kernel 3 runs a
+tensor-core body for both (csrc/masked_matmul_ds_wgmma.cuh; f32 x/g
+split into three bf16 parts) under the launch plan `ds_plan`.  The
+grouped kernels take f32 x/g (the MoE expert chain stays in f32, as in
+the reference); the conv kernels bf16 or f32 x and f32 g, with an f32
+output.  All take bf16 w, f32 scores and contiguous operands.  The
+wrappers raise on anything else rather than copy.
 """
 from __future__ import annotations
 
@@ -179,16 +181,18 @@ def wgmma_plan(M: int, R: int, C: int, capacity=ideal_capacity) -> dict:
     return best[1]
 
 
+def _grid_flags(*pairs) -> int:
+    """Bit i: tensor i of the (tensor, row pitch in bytes) pairs lies on
+    the 16-byte grid (its base and its pitch), so the kernel may move it
+    by TMA (or by 16-byte vectors); element by element otherwise."""
+    return sum(1 << i for i, (t, pitch) in enumerate(pairs)
+               if pitch % 16 == 0 and t.data_ptr() % 16 == 0)
+
+
 def _tma_flags(a, w, s, R: int, N: int) -> int:
     """Bit 0, 1, 2: A, w, s go by TMA (a row pitch and a base on the
     16-byte grid); the kernel loads the others element by element."""
-    if R == 0:
-        return 0
-    flags = 0
-    for bit, (t, pitch) in enumerate(((a, 2 * R), (w, 2 * N), (s, 4 * N))):
-        if pitch % 16 == 0 and t.data_ptr() % 16 == 0:
-            flags |= 1 << bit
-    return flags
+    return _grid_flags((a, 2 * R), (w, 2 * N), (s, 4 * N)) if R else 0
 
 
 def card_capacity(kernel: str):
@@ -219,6 +223,60 @@ def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
     plan = card_plan(kernel, a.device.index, M, R, C)
     return (plan["bc"], plan["split"], plan["w_stages"], plan["smem"],
             _tma_flags(a, w, s, R, N))
+
+
+# Kernel 3's tensor-core body (csrc/masked_matmul_ds_wgmma.cuh): a block
+# owns a DS_BK x bn tile of ds and all of M; bf16 x/g come in a ring of
+# `stages` stages of DS_BMS rows (x: DS_BK, g: bn columns), f32 x/g are
+# split into 3 bf16 parts in 2 stages of DS_BMF rows; w and s come in a
+# ring of `chunks` chunks of DS_WR rows x bn (6 bytes an element), one
+# for each of the DS_BK / DS_WR consumer warps a tile; 16 bytes of
+# mbarriers a stage and a chunk, and 1024 bytes of alignment.
+DS_BK, DS_BMS, DS_BMF, DS_WR = 128, 64, 32, 16
+DS_WIDTHS = (64, 128)                         # as REPRO_DS_WIDTHS
+DS_MAX_STAGES = 4
+DS_RING_BYTES = 96 * 1024     # of (w, s) chunks: a tile at bn = 128
+
+
+def ds_smem(bn: int, stages: int, chunks: int, f32: bool) -> int:
+    """Dynamic shared-memory bytes of kernel 3's body."""
+    rows = 2 * 3 * DS_BMF if f32 else stages * DS_BMS
+    return (1024 + rows * (DS_BK + bn) * 2 + chunks * DS_WR * bn * 6
+            + 16 * (stages + chunks))
+
+
+def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
+            sms: int = SMS) -> dict:
+    """Launch plan of kernel 3's body for ds (K, N) from x (M, K) and
+    g (M, N) of type `act`: the tile (`bk`, `bn`), the x/g `stages`, the
+    (w, s) `chunks`, the shared-memory bytes `smem` and the persistent
+    `grid` (one block an SM: the shared memory holds no second).
+
+    The wider tile reads fewer bytes of x and g from L2 per byte of w, s
+    and ds (2*M*(bk + bn) against 10*bk*bn), so bn = 128 unless its
+    tiles would leave SMs without one; then bn = 64.  The (w, s) ring
+    holds DS_RING_BYTES: a tile's chunks at bn = 128, two tiles' at 64.
+    bf16 stages: as many as fit beside it, at most DS_MAX_STAGES (256
+    rows, the main path's M); f32: two, which the consumers fill while
+    the other is multiplied."""
+    f32 = act == torch.float32
+    tiles = {bn: _cdiv(K, DS_BK) * _cdiv(N, bn) for bn in DS_WIDTHS}
+    bn = 128 if tiles[128] >= sms else 64
+    chunks = DS_RING_BYTES // (DS_WR * bn * 6)
+    stages = 2 if f32 else DS_MAX_STAGES
+    while ds_smem(bn, stages, chunks, f32) > SMEM_LIMIT:
+        stages -= 1
+    return dict(bk=DS_BK, bn=bn, stages=stages, chunks=chunks,
+                smem=ds_smem(bn, stages, chunks, f32),
+                grid=max(1, min(tiles[bn], sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def card_ds_plan(device: int, M: int, K: int, N: int, f32: bool) -> dict:
+    """`ds_plan` on card `device` (its SM count), computed once per
+    shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return ds_plan(M, K, N, torch.float32 if f32 else torch.bfloat16, sms)
 
 
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
@@ -280,9 +338,15 @@ def masked_matmul_ds(x, g, w, s):
     _require(s, "s", torch.float32, (K, N))
     ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
     if K and N:
+        plan = card_ds_plan(x.device.index, M, K, N, bool(_f32(x)))
+        e = x.element_size()
+        # no x, g rows at M = 0: nothing to map
+        tma = _grid_flags((x, e * K), (g, e * N), (w, 2 * N), (s, 4 * N),
+                          (ds, 4 * N)) & (31 if M else 28)
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
-                     _f32(x), dispatch.stream(x))
+                     _f32(x), plan["bn"], plan["stages"], plan["chunks"],
+                     plan["smem"], plan["grid"], tma, dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_ds"] += 1
     return ds
 

@@ -368,6 +368,59 @@ def test_card_masked_matmul_ds_matches_plain(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_card_masked_matmul_ds_f32_activations_match_plain(card, shape):
+    """f32 x and g (recurrentgemma's gate projections): the tensor-core
+    body multiplies three bf16 parts of each and drops the three
+    smallest cross products; f32 results within float32 rounding of the
+    plain version."""
+    M, K, N = shape
+    x, w, s, gy = _card_operands(M, K, N, 6, card)
+    x = x.float() + 1e-3 * torch.randn(M, K, device=card)
+    gy = gy.float() + 1e-3 * torch.randn(M, N, device=card)
+    ds = mm.masked_matmul_ds(x, gy, w, s)
+    torch.cuda.synchronize()
+    want = ref.masked_matmul_ds(x, gy, w, s)
+    assert ds.dtype == torch.float32
+    assert torch.allclose(ds, want, rtol=1e-5, atol=1e-5 * want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 128, 192), (33, 70, 45)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_masked_matmul_ds_layout_probe(card, shape, dtype):
+    """x = [I; 0] makes x^T g the first rows of g exactly, so ds equals
+    the plain version to a few float32 ulps (the sigmoid's): a wrong
+    operand layout or transpose flag moves whole rows or columns."""
+    M, K, N = shape
+    _, w, s, gy = _card_operands(M, K, N, 7, card)
+    gy = gy.to(dtype)
+    x = torch.zeros(M, K, device=card, dtype=dtype)
+    r = min(M, K)
+    x[:r, :r] = torch.eye(r, device=card, dtype=dtype)
+    ds = mm.masked_matmul_ds(x, gy, w, s)
+    torch.cuda.synchronize()
+    want = ref.masked_matmul_ds(x, gy, w, s)
+    assert torch.allclose(ds, want, rtol=4 * ULP, atol=0.0)
+    assert not ds[r:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 8192, 2048), (200, 1000, 1500)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_masked_matmul_ds_deterministic(card, shape, dtype):
+    """Each tile sums all of M in one block, in a fixed order: two
+    launches on the same inputs give the same bits."""
+    M, K, N = shape
+    x, w, s, gy = _card_operands(M, K, N, 8, card)
+    x, gy = x.to(dtype), gy.to(dtype)
+    first = mm.masked_matmul_ds(x, gy, w, s)
+    second = mm.masked_matmul_ds(x, gy, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,n", [(2, 4096), (3, 1000), (1, 31)])
 @pytest.mark.parametrize("mode", ["sample", "threshold"])
 def test_card_sample_and_pack_matches_plain(card, C, n, mode):
