@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    the dense kernels at the internlm2-1.8b leaf shapes with M = 256
    tokens (one cohort's batch 2 x seq 128), the grouped (MoE expert)
    kernels at the deepseek-v2-lite expert shapes (64 experts, the
-   capacity M = 30 rows each), the masked depthwise conv kernels at the
+   capacity M = 30 rows each) and at 8 experts of 64, 65, 240 and 300
+   rows, kernels 5-6 also on f32 rows spanning 2**-60 .. 2**60 and on a
+   repeated launch (the same bits), the masked depthwise conv kernels at the
    mamba2-370m and recurrentgemma-9b conv shapes (B 2, S 128, C 2304 and
    4096) with the last layer's offset, each with a non-zero stream
    offset, every mode (the conv also mask-free and flipped, its ds with
@@ -26,9 +28,10 @@ Phases (any failure exits non-zero and prints no result line):
    same function on the pre-masked weight (the library yardstick; none
    packs bits) with CUDA events (kernels 1-3, the tensor-core bodies,
    and 8-9 by CUDA-graph replay, their per-call times beside), with each
-   internlm2 shape's share of its bound and launch plan for kernels 1-3,
-   and kernels 1-3 on f32 activations at recurrentgemma's gate shape
-   (M 256, K = N = 4096);
+   internlm2 shape's share of its bound and launch plan for kernels 1-3
+   and each deepseek-v2-lite shape's for kernels 5-6 (also at M = 240, a
+   2048-token cohort's capacity), and kernels 1-3 on f32 activations at
+   recurrentgemma's gate shape (M 256, K = N = 4096);
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
    mamba2 and recurrentgemma SMOKE configs: the round exactly, the train
@@ -87,6 +90,10 @@ N_EXPERTS, CAP = 64, 30
 EXPERT_SHAPES = {"w_gate": (2048, 1408), "w_up": (2048, 1408),
                  "w_down": (1408, 2048)}
 GROUPED_RAGGED = (5, 29, 1000, 1500)
+# a few groups at the row counts where kernels 5-6's blocks change: one
+# 64-row wgmma tile full, two, four, and two M blocks of 256
+GROUPED_ROWS = [(8, m, 2048, 1408) for m in (64, 65, 240, 300)]
+CAP_2048 = 240                # the capacity of a 2048-token cohort
 MOE_LAYERS = 4                # 1 dense + 3 MoE layers of the 27
 # masked depthwise convs: W = 4 taps over (B 2, S 128) at mamba2-370m's
 # C = d_in + 2*G*N = 2304 (48 layers) and recurrentgemma-9b's lru width
@@ -295,14 +302,16 @@ def kernel_phase(torch, mm, ref, dev):
 def grouped_kernel_phase(torch, mm, ref, dev):
     """Grouped kernels vs plain versions at the deepseek-v2-lite expert
     shapes (E = 64, M = 30) with layer 2's stream offsets
-    ((2*E + e)*K*N mod 2**32) and a ragged shape, both mask modes;
+    ((2*E + e)*K*N mod 2**32), a ragged shape and E = 8 groups at
+    M = 64, 65, 240 and 300, both mask modes; kernels 5-6 also on f32
+    inputs whose rows span 2**-60 .. 2**60 and on a repeated launch;
     returns {kernel: max_abs_err}."""
     from repro_torch.kernels.dispatch import KERNELS
     err = {k: 0.0 for k in KERNELS[4:7]}
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = [(N_EXPERTS, CAP, K, N)
               for K, N in sorted(set(EXPERT_SHAPES.values()))]
-    for (E, m, K, N) in shapes + [GROUPED_RAGGED]:
+    for (E, m, K, N) in shapes + [GROUPED_RAGGED] + GROUPED_ROWS:
         x = torch.randn(E, m, K, generator=gen, device=dev)
         w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
         s = 2 * torch.randn(E, K, N, generator=gen, device=dev)
@@ -368,6 +377,37 @@ def grouped_kernel_phase(torch, mm, ref, dev):
                                               d)
         del x, w, s, g, ds, want
         torch.cuda.empty_cache()
+
+    # kernels 5-6 multiply three bf16 parts of each f32 value: rows of x
+    # and g scaled by 2**-60 .. 2**60 hold each row to its own scale (f32
+    # sums of exact products in another order), and a repeated launch
+    # gives the same bits (the cluster's partials are summed in rank order)
+    E, m, K, N = 8, CAP, 2048, 1408
+    scale = torch.exp2(torch.linspace(-60, 60, E * m, device=dev).round())
+    x = torch.randn(E, m, K, generator=gen, device=dev) * scale.view(E, m, 1)
+    g = torch.randn(E, m, N, generator=gen, device=dev) * scale.view(E, m, 1)
+    w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
+    s = 2 * torch.randn(E, K, N, generator=gen, device=dev)
+    seeds = [0x5EED0000 + e for e in range(E)]
+    offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
+    for name, kern, plain, a in (
+            ("masked_matmul_grouped", mm.masked_matmul_grouped,
+             ref.masked_matmul_grouped, x),
+            ("masked_matmul_grouped_dx", mm.masked_matmul_grouped_dx,
+             ref.masked_matmul_grouped_dx, g)):
+        got = kern(a, w, s, seeds, offs)
+        again = kern(a, w, s, seeds, offs)
+        want = plain(a, w, s, seeds, offs)
+        rowmax = want.abs().amax(dim=-1, keepdim=True)
+        d = (got - want).abs()
+        check(bool((d <= 1e-5 * want.abs() + 1e-5 * rowmax).all()),
+              f"{name} rows at 2**-60..2**60: max |diff| / row max "
+              f"{float((d / rowmax).max())}")
+        check(torch.equal(got, again), f"{name}: a repeated launch gives "
+              f"other bits")
+        del got, again, want, rowmax, d
+    del x, g, w, s
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return err
 
@@ -514,61 +554,101 @@ def grouped_timing_phase(torch, mm, ref, dev):
     """Per-MoE-layer (3 expert projections, one cohort) times of the
     grouped kernels at E = 64, M = 30: kernel, plain version and the
     library yardstick (torch.bmm on the pre-masked f32 weights, TF32
-    off; for ds the x^T g product only), in ms, with their bounds (the
-    inputs are f32: flops over the f32 peak)."""
+    off; for ds the x^T g product only), in ms, with their bounds and,
+    for kernels 5-6, each shape's plan and share of its bound; then
+    kernels 5-6 at M = 240 (a 2048-token cohort's capacity, where all
+    four warpgroups multiply), a row of their own.  The bound of kernels
+    5-6 counts their three split products at the bf16 tensor-core rate,
+    that of kernel 7 its f32 products on the CUDA cores."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    E, M_ = N_EXPERTS, CAP
+    E = N_EXPERTS
     seeds = [7] * E
-    ops = []
-    for name, (K, N) in EXPERT_SHAPES.items():
-        offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
-        x = torch.randn(E, M_, K, generator=gen, device=dev)
-        w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
-        s = torch.randn(E, K, N, generator=gen, device=dev)
-        g = torch.randn(E, M_, N, generator=gen, device=dev)
-        wm = ref.grouped_mask(s, seeds, offs).float() * w.float()
-        ops.append((name, K, N, x, w, s, g, wm, offs))
-    specs = {
-        "masked_matmul_grouped": (
-            lambda o: (lambda: mm.masked_matmul_grouped(o[3], o[4], o[5],
-                                                        seeds, o[8])),
-            lambda o: (lambda: ref.masked_matmul_grouped(o[3], o[4], o[5],
-                                                         seeds, o[8])),
-            lambda o: (lambda: torch.bmm(o[3], o[7])),
-            lambda K, N: (4 * E * M_ * K + 6 * E * K * N + 4 * E * M_ * N,
-                          2 * E * M_ * K * N)),
-        "masked_matmul_grouped_dx": (
-            lambda o: (lambda: mm.masked_matmul_grouped_dx(
-                o[6], o[4], o[5], seeds, o[8])),
-            lambda o: (lambda: ref.masked_matmul_grouped_dx(
-                o[6], o[4], o[5], seeds, o[8])),
-            lambda o: (lambda: torch.bmm(o[6], o[7].transpose(1, 2))),
-            lambda K, N: (4 * E * M_ * N + 6 * E * K * N + 4 * E * M_ * K,
-                          2 * E * M_ * K * N)),
-        "masked_matmul_grouped_ds": (
-            lambda o: (lambda: mm.masked_matmul_grouped_ds(o[3], o[6], o[4],
-                                                           o[5])),
-            lambda o: (lambda: ref.masked_matmul_grouped_ds(o[3], o[6], o[4],
-                                                            o[5])),
-            lambda o: (lambda: torch.bmm(o[3].transpose(1, 2), o[6])),
-            lambda K, N: (4 * E * M_ * K + 4 * E * M_ * N + 10 * E * K * N,
-                          2 * E * M_ * K * N)),
-    }
     res, per_shape = {}, {}
-    for kname, (kern, plain, lib, cost) in specs.items():
-        t_k = time_ms(torch, [kern(o) for o in ops], 10)
-        t_p = time_ms(torch, [plain(o) for o in ops], 2)
-        t_l = time_ms(torch, [lib(o) for o in ops], 10)
-        nbytes = sum(cost(o[1], o[2])[0] for o in ops)
-        flops = sum(cost(o[1], o[2])[1] for o in ops)
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-        res[kname] = dict(ms=sum(t_k), plain_ms=sum(t_p),
-                          library_ms=sum(t_l), bound_ms=b_ms, bound_by=b_by)
-        per_shape[kname] = {
-            o[0]: (tk, tp, tl, bound(*cost(o[1], o[2]), F32_FLOPS_PER_S)[0])
-            for o, tk, tp, tl in zip(ops, t_k, t_p, t_l)}
-    del ops
-    torch.cuda.empty_cache()
+    for M_ in (CAP, CAP_2048):
+        ops = []
+        for name, (K, N) in EXPERT_SHAPES.items():
+            offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
+            x = torch.randn(E, M_, K, generator=gen, device=dev)
+            w = torch.randn(E, K, N, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            s = torch.randn(E, K, N, generator=gen, device=dev)
+            g = torch.randn(E, M_, N, generator=gen, device=dev)
+            wm = ref.grouped_mask(s, seeds, offs).float() * w.float()
+            ops.append((name, K, N, x, w, s, g, wm, offs))
+        specs = {
+            "masked_matmul_grouped": (
+                lambda o: (lambda: mm.masked_matmul_grouped(
+                    o[3], o[4], o[5], seeds, o[8])),
+                lambda o: (lambda: ref.masked_matmul_grouped(
+                    o[3], o[4], o[5], seeds, o[8])),
+                lambda o: (lambda: torch.bmm(o[3], o[7])),
+                lambda K, N: (4 * E * M_ * K + 6 * E * K * N
+                              + 4 * E * M_ * N, 3 * 2 * E * M_ * K * N,
+                              BF16_FLOPS_PER_S)),
+            "masked_matmul_grouped_dx": (
+                lambda o: (lambda: mm.masked_matmul_grouped_dx(
+                    o[6], o[4], o[5], seeds, o[8])),
+                lambda o: (lambda: ref.masked_matmul_grouped_dx(
+                    o[6], o[4], o[5], seeds, o[8])),
+                lambda o: (lambda: torch.bmm(o[6], o[7].transpose(1, 2))),
+                lambda K, N: (4 * E * M_ * N + 6 * E * K * N
+                              + 4 * E * M_ * K, 3 * 2 * E * M_ * K * N,
+                              BF16_FLOPS_PER_S)),
+            "masked_matmul_grouped_ds": (
+                lambda o: (lambda: mm.masked_matmul_grouped_ds(
+                    o[3], o[6], o[4], o[5])),
+                lambda o: (lambda: ref.masked_matmul_grouped_ds(
+                    o[3], o[6], o[4], o[5])),
+                lambda o: (lambda: torch.bmm(o[3].transpose(1, 2), o[6])),
+                lambda K, N: (4 * E * M_ * K + 4 * E * M_ * N
+                              + 10 * E * K * N, 2 * E * M_ * K * N,
+                              F32_FLOPS_PER_S)),
+        }
+        if M_ != CAP:
+            del specs["masked_matmul_grouped_ds"]
+        for kname, (kern, plain, lib, cost) in specs.items():
+            t_k = time_ms(torch, [kern(o) for o in ops], 10)
+            t_p = time_ms(torch, [plain(o) for o in ops], 2)
+            t_l = time_ms(torch, [lib(o) for o in ops], 10)
+            costs = [cost(o[1], o[2]) for o in ops]
+            b_ms, b_by = bound(sum(c[0] for c in costs),
+                               sum(c[1] for c in costs), costs[0][2])
+            if M_ == CAP:
+                res[kname] = dict(ms=sum(t_k), plain_ms=sum(t_p),
+                                  library_ms=sum(t_l), bound_ms=b_ms,
+                                  bound_by=b_by)
+                per_shape[kname] = {
+                    o[0]: (tk, tp, tl, bound(*c)[0])
+                    for o, tk, tp, tl, c in zip(ops, t_k, t_p, t_l, costs)}
+            else:
+                per_shape[kname][f"layer M={M_}"] = (sum(t_k), sum(t_p),
+                                                     sum(t_l), b_ms)
+            if kname == "masked_matmul_grouped_ds":
+                continue
+            dx = kname == "masked_matmul_grouped_dx"
+            print(f"  {kname} per shape at E={E} M={M_} (events per call), "
+                  f"share of the bound, plan:")
+            for o, tk, tl, c in zip(ops, t_k, t_l, costs):
+                R, C = (o[2], o[1]) if dx else (o[1], o[2])
+                plan = mm.card_grouped_plan(kname, dev.index or 0, E, M_, R,
+                                            C)
+                tb = bound(*c)[0]
+                print(f"    {o[0]:7s} {tk:.4f} ms, library {tl:.4f}, bound "
+                      f"{tb:.4f}: {100 * tb / tk:.1f}% of the bound; width "
+                      f"{plan['bc']}, cluster {plan['split']}, "
+                      f"{plan['split'] * plan['grid'][1] * plan['grid'][2]} "
+                      f"blocks, {plan['w_stages']} raw stages, "
+                      f"{plan['a_bufs']} A buffers")
+            print(f"    layer   {sum(t_k):.4f} ms, library {sum(t_l):.4f}, "
+                  f"plain {sum(t_p):.4f}, bound {b_ms:.4f} ({b_by}): "
+                  f"{100 * b_ms / sum(t_k):.1f}% of the bound")
+        del ops
+        torch.cuda.empty_cache()
+    cap = mm.card_capacity("masked_matmul_grouped")
+    smem = mm.grouped_smem(128, 64, 2, 3)
+    print(f"  grouped blocks the card holds at once in clusters of 1.."
+          f"{mm.MAX_CLUSTER} (occupancy query, width 128, 64 rows): "
+          f"{[cap(128, k, smem) for k in range(1, 9)]}")
     return res, per_shape
 
 

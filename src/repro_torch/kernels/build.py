@@ -11,8 +11,9 @@ in .gitignore), named by a digest of their sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  `build()`
 starts one nvcc per source, all at once, and raises if any fails; the
 first wrapper call builds whatever is missing.  Nothing here runs at
-import time.  The tensor-core bodies of kernels 1-3 fetch the driver's
-cuTensorMapEncodeTiled through the runtime, so no library links -lcuda.
+import time.  The tensor-core bodies of kernels 1-3 and 5-6 fetch the
+driver's cuTensorMapEncodeTiled through the runtime, so no library links
+-lcuda.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 HEADERS = ("hash.cuh", "masked_matmul_tiles.cuh",
-           "masked_matmul_wgmma.cuh", "masked_matmul_ds_wgmma.cuh")
+           "masked_matmul_wgmma.cuh", "masked_matmul_ds_wgmma.cuh",
+           "masked_matmul_grouped_wgmma.cuh")
 SOURCES = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "sample_and_pack", "masked_matmul_grouped",
            "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
@@ -49,9 +51,9 @@ ARGTYPES = {
                          _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
-                              _I, _F, _P],
+                              _I, _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _U32, _I, _F, _P],
+                                 _U32, _I, _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
                       _F, _I, _I, _P],
@@ -60,9 +62,14 @@ ARGTYPES = {
     "unpack_bits": [_P, _P, _I64, _I64, _I64, _I, _P],
     "masked_matmul_fwd_capacity": [_I, _I, _I],
     "masked_matmul_dx_capacity": [_I, _I, _I],
+    "masked_matmul_grouped_capacity": [_I, _I, _I],
+    "masked_matmul_grouped_dx_capacity": [_I, _I, _I],
 }
 ENTRY_LIBRARY = {"masked_matmul_fwd_capacity": "masked_matmul_fwd",
-                 "masked_matmul_dx_capacity": "masked_matmul_dx"}
+                 "masked_matmul_dx_capacity": "masked_matmul_dx",
+                 "masked_matmul_grouped_capacity": "masked_matmul_grouped",
+                 "masked_matmul_grouped_dx_capacity":
+                     "masked_matmul_grouped_dx"}
 
 _LOADED: dict = {}
 

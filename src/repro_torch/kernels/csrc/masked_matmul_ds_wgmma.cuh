@@ -49,6 +49,7 @@ using wg::mbar_arrive_tx;
 using wg::mbar_init;
 using wg::mbar_wait;
 using wg::smem_u32;
+using wg::split3;
 using wg::sw128_offset;
 using wg::tma_load;
 
@@ -233,18 +234,6 @@ __device__ __forceinline__ void load_mn_tile(uint8_t* dst,
                               sw128_offset(row, chunk)) =
         make_uint4(v[0], v[1], v[2], v[3]);
   }
-}
-
-// Three bf16 parts of v, each exact: v = p0 + p1 + p2 up to the last
-// bits of the third.
-__device__ __forceinline__ void split3(float v, uint16_t* p) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(v);
-  const float r1 = v - __bfloat162float(h0);
-  const __nv_bfloat16 h1 = __float2bfloat16_rn(r1);
-  const float r2 = r1 - __bfloat162float(h1);
-  p[0] = __bfloat16_as_ushort(h0);
-  p[1] = __bfloat16_as_ushort(h1);
-  p[2] = __bfloat16_as_ushort(__float2bfloat16_rn(r2));
 }
 
 // f32 stage: rows m0.. of x's columns k0.. and g's columns n0.., split

@@ -2,7 +2,7 @@
 // problems (the MoE expert projections), one launch for all groups.
 //
 // Replaces the Pallas kernel `_g_kernel` / `masked_matmul_grouped` in
-// src/repro/kernels/masked_matmul.py.
+// src/repro/kernels/masked_matmul.py:443.
 //
 // Group e's mask is drawn at flat index offs[e] + k*n_logical + n of
 // seeds[e]'s stream (mode 0), or is 1[sigmoid(s) > tau] (mode 1); with
@@ -11,45 +11,43 @@
 // uint32 device arrays.  x: (E, M, K) f32 (the reference keeps the expert
 // chain in f32), w: (E, K, N) bf16, s: (E, K, N) f32, y: (E, M, N) f32.
 //
-// Design: the dense forward's tiled SIMT GEMM (`fwd_tile` in
-// masked_matmul_tiles.cuh) with the group on the grid's z axis; each block
-// reads its group's seed and offset and offsets its pointers by the
-// group.  Ragged M, K and N are masked in the loads and stores.
-//
 // Bound on this card: at the main path's expert shapes (E = 64, M = the
-// capacity 30, K x N = 2048 x 1408) the bytes of w and s, 6 per weight
-// (1.1 GB, 0.34 ms at 3.35 TB/s), against 2*M = 60 f32 flops per weight
-// (0.17 ms on the CUDA cores).  A 64-row tile at M = 30 leaves half its
-// rows idle, and each weight's hash and sigmoid are computed once per
-// launch; the kernel's time is written beside the bound in PERF.md.
-#include "masked_matmul_tiles.cuh"
+// capacity 30, K x N = 2048 x 1408 and 1408 x 2048) the bytes of w and s,
+// 6 a weight: 1.015 ms per deepseek-v2-lite MoE layer (3 projections,
+// 553.6 M weights, with x and y) at 3.35 TB/s.  The products, three bf16
+// parts of x against m*w at wgmma's 64 rows, take 0.22 ms of it at
+// 989 TFLOP/s, and gating each weight (hash, expf, division) ~0.7 ms on
+// the CUDA cores, so gating, streaming and products must overlap.
+//
+// Design (masked_matmul_grouped_wgmma.cuh): one block owns all of group
+// e's rows of an M block (64 rows at M = 30) and BC columns of y, so each
+// weight is gated once per launch.  m*w is exact in bf16, so three
+// products of the exact bf16 parts of x (hi + mid + lo = x) are all of the
+// f32 product, on the tensor cores.  Warps 0-15 all gate stage i+1 of w[e]
+// and s[e] into a swizzled bf16 tile and split x's next stage while the
+// one warpgroup that holds rows runs wgmma on stage i; warp 16 keeps TMA
+// loads of the raw (w, s) stages in flight.  The K axis is split over a
+// cluster of <= 8 blocks, reduced through distributed shared memory in
+// rank order: the same bits on every launch, no atomics.
+#include "masked_matmul_grouped_wgmma.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(repro::THREADS)
-masked_matmul_grouped_kernel(const float* __restrict__ x,
-                             const __nv_bfloat16* __restrict__ w,
-                             const float* __restrict__ s,
-                             const uint32_t* __restrict__ seeds,
-                             const uint32_t* __restrict__ offs,
-                             float* __restrict__ y, int M, int K, int N,
-                             uint32_t n_logical, int mode, float tau) {
-  const int64_t e = blockIdx.z;
-  repro::fwd_tile(x + e * M * K, w + e * K * N, s + e * K * N, y + e * M * N,
-                  M, K, N, seeds[e], offs[e], n_logical, mode, tau);
-}
-
-}  // namespace
-
+// bc, split, w_stages, a_bufs, smem: the launch plan
+// (kernels.masked_matmul.grouped_plan); tma: the wrapper's flags of which
+// operands lie on the 16-byte grid.
 extern "C" int masked_matmul_grouped(const void* x, const void* w,
                                      const void* s, const void* seeds,
                                      const void* offs, void* y, int E, int M,
                                      int K, int N, uint32_t n_logical,
-                                     int mode, float tau, void* stream) {
-  masked_matmul_grouped_kernel<<<repro::tile_grid(M, N, E), repro::THREADS,
-                                 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const __nv_bfloat16*)w, (const float*)s,
-      (const uint32_t*)seeds, (const uint32_t*)offs, (float*)y, M, K, N,
-      n_logical, mode, tau);
-  return (int)cudaGetLastError();
+                                     int mode, float tau, int bc, int split,
+                                     int w_stages, int a_bufs, int smem,
+                                     int tma, void* stream) {
+  return repro::gw::launch<false>(x, w, s, seeds, offs, y, E, M, K, N,
+                                  n_logical, mode, tau, bc, split, w_stages,
+                                  a_bufs, smem, tma, (cudaStream_t)stream);
+}
+
+// Blocks of the body at width bc and cluster size split that the card
+// holds at once, for the launch plan; a negative cudaError on failure.
+extern "C" int masked_matmul_grouped_capacity(int bc, int split, int smem) {
+  return repro::gw::capacity<false>(bc, split, smem);
 }

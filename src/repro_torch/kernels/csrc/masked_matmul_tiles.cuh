@@ -1,8 +1,9 @@
 // Tile bodies of the masked-matmul kernels, shared by the dense entry
 // points on f32 activations (masked_matmul_{fwd,dx}.cu, one (M,K)x(K,N)
-// problem) and the grouped ones (masked_matmul_grouped{,_dx,_ds}.cu, E
-// stacked problems, group e = blockIdx.z with its own seed and stream
-// offset).
+// problem: fwd_tile, dx_tile) and the grouped score gradient
+// (masked_matmul_grouped_ds.cu: ds_tile on E stacked problems, group
+// e = blockIdx.z).  The grouped forward and dx run the tensor-core body
+// of masked_matmul_grouped_wgmma.cuh.
 //
 // Each body is a tiled SIMT GEMM: a block of THREADS threads owns one
 // TILE x TILE output tile (its position in blockIdx.x / blockIdx.y) and

@@ -194,6 +194,18 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Three bf16 parts of v, each exact: v = p0 + p1 + p2 up to the last
+// bits of the third.
+__device__ __forceinline__ void split3(float v, uint16_t* p) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(h0);
+  const __nv_bfloat16 h1 = __float2bfloat16_rn(r1);
+  const float r2 = r1 - __bfloat162float(h1);
+  p[0] = __bfloat16_as_ushort(h0);
+  p[1] = __bfloat16_as_ushort(h1);
+  p[2] = __bfloat16_as_ushort(__float2bfloat16_rn(r2));
+}
+
 // Keeps the compiler from touching accumulators across an async wgmma.
 template <int NREG>
 __device__ __forceinline__ void fence_regs(float* d) {

@@ -40,8 +40,11 @@ launch plan `wgmma_plan` computes here, from the card's occupancy query
 tensor-core body for both (csrc/masked_matmul_ds_wgmma.cuh; f32 x/g
 split into three bf16 parts) under the launch plan `ds_plan`.  The
 grouped kernels take f32 x/g (the MoE expert chain stays in f32, as in
-the reference); the conv kernels bf16 or f32 x and f32 g, with an f32
-output.  All take bf16 w, f32 scores and contiguous operands.  The
+the reference): kernels 5-6 run a tensor-core body
+(csrc/masked_matmul_grouped_wgmma.cuh; x/g split into three bf16 parts,
+m*w exact in bf16) under the launch plan `grouped_plan`, kernel 7 a
+tiled SIMT body.  The conv kernels take bf16 or f32 x and f32 g, with
+an f32 output.  All take bf16 w, f32 scores and contiguous operands.  The
 wrappers raise on anything else rather than copy.
 """
 from __future__ import annotations
@@ -196,8 +199,8 @@ def _tma_flags(a, w, s, R: int, N: int) -> int:
 
 
 def card_capacity(kernel: str):
-    """`capacity` for `wgmma_plan` from kernel `kernel`'s occupancy query
-    on the current card."""
+    """`capacity` for `wgmma_plan` or `grouped_plan` from kernel
+    `kernel`'s occupancy query on the current card."""
     def capacity(bc: int, split: int, smem: int) -> int:
         n = build.call(f"{kernel}_capacity", bc, split, smem)
         if n <= 0:
@@ -269,6 +272,94 @@ def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
     return dict(bk=DS_BK, bn=bn, stages=stages, chunks=chunks,
                 smem=ds_smem(bn, stages, chunks, f32),
                 grid=max(1, min(tiles[bn], sms)))
+
+
+# Kernels 5-6's body (csrc/masked_matmul_grouped_wgmma.cuh): a block owns
+# `rows` = 64*ceil(min(M, GW_MAX_ROWS)/64) rows of one group's M block and
+# BC output columns, walks its share of the reduction axis in stages of
+# WG_BR, and the blocks of a cluster (<= MAX_CLUSTER) split that axis.
+# Its shared memory: a_bufs A buffers (3 bf16 parts of rows x WG_BR), two
+# gated B tiles (BC x WG_BR bf16), w_stages raw (w bf16, s f32) tiles
+# (WG_BR x BC), an 8-byte mbarrier a stage, and 1024 bytes of alignment.
+GW_WIDTHS = (64, 128)                    # as REPRO_GW_WIDTHS
+GW_MAX_ROWS, GW_PARTS, GW_MAX_W_STAGES = 256, 3, 8
+
+
+def grouped_rows(M: int) -> int:
+    """Rows of A a block of kernels 5-6 holds: whole 64-row wgmma tiles
+    of the M block, at most GW_MAX_ROWS."""
+    return 64 * _cdiv(min(M, GW_MAX_ROWS), 64)
+
+
+def grouped_smem(bc: int, rows: int, a_bufs: int, w_stages: int) -> int:
+    """Dynamic shared-memory bytes of kernels 5-6's body."""
+    return (1024 + a_bufs * GW_PARTS * rows * WG_BR * 2 + 2 * bc * WG_BR * 2
+            + w_stages * WG_BR * bc * 6 + 8 * w_stages)
+
+
+def grouped_plan(E: int, M: int, R: int, C: int,
+                 capacity=ideal_capacity) -> dict:
+    """Launch plan of kernels 5-6's body for out[e] (M, C) = A[e] (M, R) @
+    B[e] (R, C), e < E (forward: R = K, C = N; dx: R = N, C = K): the
+    width `bc`, the cluster size `split` over the reduction axis, the
+    block's `rows`, the A buffers `a_bufs`, the raw stages `w_stages`,
+    the shared-memory bytes `smem` and the `grid` (split, column tiles,
+    E x M blocks).  Block q of a cluster sums the stages
+    [steps*q // split, steps*(q+1) // split) of WG_BR.
+
+    Two A buffers (the split of stage i+1 beside the products of stage i)
+    where two raw stages still fit beside them, else one; then as many
+    raw stages as fit, at most GW_MAX_W_STAGES.  Each stage moves
+    BR x (6 bc) bytes of w and s from device memory and rows x BR f32 of
+    A from L2; a block's time is its stages plus one for set-up and the
+    cluster reduction, and the blocks beyond what the card holds at once
+    (`capacity(bc, split, smem)`, on the card the occupancy query) run in
+    further waves.  The plan minimizes waves x that time, then the block
+    count: the E x column-tile blocks of the deepseek-v2-lite shapes (704
+    or 1024 at E = 64) do not divide into whole waves of 132, and a
+    cluster split of 2 makes 704 into 10.7 waves of shorter blocks."""
+    steps, mblocks = _cdiv(R, WG_BR), _cdiv(M, GW_MAX_ROWS)
+    rows = grouped_rows(M)
+    best = None
+    for bc in GW_WIDTHS:
+        a_bufs = 2 if grouped_smem(bc, rows, 2, 2) <= SMEM_LIMIT else 1
+        w_stages = GW_MAX_W_STAGES
+        while grouped_smem(bc, rows, a_bufs, w_stages) > SMEM_LIMIT:
+            w_stages -= 1
+        smem = grouped_smem(bc, rows, a_bufs, w_stages)
+        tiles = E * _cdiv(C, bc) * mblocks
+        for split in range(1, min(MAX_CLUSTER, max(steps, 1)) + 1):
+            blocks = tiles * split
+            per_block = ((_cdiv(steps, split) + 1) * WG_BR
+                         * (6 * bc + 4 * rows))
+            waves = _cdiv(blocks, capacity(bc, split, smem))
+            key = (waves * per_block, blocks, split)
+            if best is None or key < best[0]:
+                best = (key, dict(bc=bc, split=split, rows=rows,
+                                  a_bufs=a_bufs, w_stages=w_stages,
+                                  smem=smem,
+                                  grid=(split, _cdiv(C, bc), E * mblocks)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def card_grouped_plan(kernel: str, device: int, E: int, M: int, R: int,
+                      C: int) -> dict:
+    """`grouped_plan` on card `device`, computed once per shape."""
+    with torch.cuda.device(device):
+        return grouped_plan(E, M, R, C, card_capacity(kernel))
+
+
+def _grouped_args(kernel: str, a, w, s, out, E: int, M: int, R: int,
+                  C: int, N: int) -> tuple:
+    """(bc, split, w_stages, a_bufs, smem, tma) for kernels 5-6's C entry
+    point.  tma bit 0: A (a row pitch of 4 R bytes) by 16-byte vectors;
+    1, 2: w, s by TMA; 3: out by 16-byte vectors; no w or s rows to map
+    when R is 0."""
+    plan = card_grouped_plan(kernel, a.device.index, E, M, R, C)
+    tma = _grid_flags((a, 4 * R), (w, 2 * N), (s, 4 * N), (out, 4 * C))
+    return (plan["bc"], plan["split"], plan["w_stages"], plan["a_bufs"],
+            plan["smem"], tma if R else tma & 9)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,7 +488,10 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), y.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), dispatch.stream(x))
+                     _MODES[mode], float(tau),
+                     *_grouped_args("masked_matmul_grouped", x, w, s, y, E,
+                                    M, K, N, N),
+                     dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_grouped"] += 1
     return y
 
@@ -425,7 +519,10 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), dx.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), dispatch.stream(g))
+                     _MODES[mode], float(tau),
+                     *_grouped_args("masked_matmul_grouped_dx", g, w, s, dx,
+                                    E, M, N, K, N),
+                     dispatch.stream(g))
         dispatch.LAUNCHES["masked_matmul_grouped_dx"] += 1
     return dx
 

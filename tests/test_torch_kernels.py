@@ -434,8 +434,14 @@ def test_card_sample_and_pack_matches_plain(card, C, n, mode):
     assert torch.equal(words, want)
 
 
+# (E, M, K, N): the main path's experts, the ragged misaligned cell (w's
+# row pitch of 3000 bytes off the 16-byte grid), and 8 experts at the row
+# counts where kernels 5-6's blocks change (one 64-row wgmma tile full,
+# two, four, two M blocks of 256)
 GROUPED_CARD_SHAPES = [(8, 30, 256, 192), (3, 33, 70, 45),
-                       (64, 30, 2048, 1408)]
+                       (64, 30, 2048, 1408), (5, 29, 1000, 1500),
+                       (8, 64, 2048, 1408), (8, 65, 2048, 1408),
+                       (8, 240, 2048, 1408), (8, 300, 2048, 1408)]
 
 
 def _card_grouped_operands(E, M, K, N, seed, dev):
@@ -475,6 +481,64 @@ def test_card_grouped_fwd_dx_match_plain(card, shape, mode):
         assert got.dtype == torch.float32
         assert torch.allclose(got, want, rtol=1e-5,
                               atol=1e-5 * want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 30, 1408, 2048), (5, 29, 1000, 1500),
+                                   (8, 300, 2048, 1408)])
+def test_card_grouped_fwd_dx_deterministic(card, shape):
+    """The reduction split over a cluster is summed in rank order: two
+    launches on the same inputs give the same bits."""
+    E, M, K, N = shape
+    x, w, s, gy = _card_grouped_operands(E, M, K, N, 7, card)
+    seeds, offs = _grouped_coords(E, K, N)
+    for f, a in ((mm.masked_matmul_grouped, x),
+                 (mm.masked_matmul_grouped_dx, gy)):
+        first = f(a, w, s, seeds, offs)
+        second = f(a, w, s, seeds, offs)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_card_grouped_launch_after_plans_of_other_rows(card):
+    """The occupancy query behind a plan for 256 rows asks for fewer bytes
+    of shared memory than a 64-row launch needs: a 64-row launch after
+    it still launches and agrees with the plain version."""
+    E, K, N = 3, 512, 384
+    seeds, offs = _grouped_coords(E, K, N)
+    for M in (30, 240, 30):
+        x, w, s, _ = _card_grouped_operands(E, M, K, N, 9, card)
+        y = mm.masked_matmul_grouped(x, w, s, seeds, offs)
+        torch.cuda.synchronize()
+        want = ref.masked_matmul_grouped(x, w, s, seeds, offs)
+        assert torch.allclose(y, want, rtol=1e-5,
+                              atol=1e-5 * want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["fwd", "dx"])
+def test_card_grouped_f32_rows_across_the_exponent_range(card, orient):
+    """Kernels 5-6 multiply three bf16 parts of each f32 value of x or g:
+    with its rows scaled by 2**-60 .. 2**60, every output row holds to
+    float32 rounding of its own scale."""
+    E, M, K, N = 8, 30, 2048, 1408
+    x, w, s, gy = _card_grouped_operands(E, M, K, N, 8, card)
+    scale = torch.exp2(torch.linspace(-60, 60, E * M, device=card).round())
+    seeds, offs = _grouped_coords(E, K, N)
+    if orient == "fwd":
+        a = x * scale.view(E, M, 1)
+        got = mm.masked_matmul_grouped(a, w, s, seeds, offs)
+        want = ref.masked_matmul_grouped(a, w, s, seeds, offs)
+    else:
+        a = gy * scale.view(E, M, 1)
+        got = mm.masked_matmul_grouped_dx(a, w, s, seeds, offs)
+        want = ref.masked_matmul_grouped_dx(a, w, s, seeds, offs)
+    torch.cuda.synchronize()
+    rowmax = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(got.isfinite().all())
+    assert bool(((got - want).abs() <= 1e-5 * want.abs()
+                 + 1e-5 * rowmax).all())
 
 
 @pytest.mark.cuda
