@@ -13,25 +13,27 @@ Phases (any failure exits non-zero and prints no result line):
    tokens (one cohort's batch 2 x seq 128), the grouped (MoE expert)
    kernels at the deepseek-v2-lite expert shapes (64 experts, the
    capacity M = 30 rows each) and at 8 experts of 64, 65, 240 and 300
-   rows, kernels 5-6 also on f32 rows spanning 2**-60 .. 2**60 and on a
+   rows, kernels 5-7 also on f32 rows spanning 2**-60 .. 2**60 and on a
    repeated launch (the same bits), the masked depthwise conv kernels at the
    mamba2-370m and recurrentgemma-9b conv shapes (B 2, S 128, C 2304 and
    4096) with the last layer's offset, each with a non-zero stream
    offset, every mode (the conv also mask-free and flipped, its ds with
-   both epilogues) and a ragged shape, and the dense kernels on the f32
-   activations recurrentgemma's gate projections feed them: masks and
-   words exactly, sums within float32 rounding.  The bit-packing kernels
+   both epilogues and the same bits on a repeated launch) and a ragged
+   shape, and the dense kernels on the f32 activations recurrentgemma's
+   gate projections feed them: masks and words exactly, sums within
+   float32 rounding.  The bit-packing kernels
    bit for bit (torch.equal) at internlm2's largest leaf (402,653,184
    bits in one row), at a round's 2 rows of it, at a ragged row length
    with misaligned row starts, on a misaligned view, and pack -> unpack;
 4. time each kernel, its plain version and a PyTorch call computing the
    same function on the pre-masked weight (the library yardstick; none
    packs bits) with CUDA events (kernels 1-3, the tensor-core bodies,
-   and 8-9 by CUDA-graph replay, their per-call times beside), with each
-   internlm2 shape's share of its bound and launch plan for kernels 1-3
-   and each deepseek-v2-lite shape's for kernels 5-6 (also at M = 240, a
-   2048-token cohort's capacity), and kernels 1-3 on f32 activations at
-   recurrentgemma's gate shape (M 256, K = N = 4096);
+   and 8-9 by CUDA-graph replay, their per-call times and an empty
+   kernel's replay time beside), with each internlm2 shape's share of
+   its bound and launch plan for kernels 1-3 and each deepseek-v2-lite
+   shape's for kernels 5-7 (also at M = 240, a 2048-token cohort's
+   capacity), and kernels 1-3 on f32 activations at recurrentgemma's gate
+   shape (M 256, K = N = 4096);
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
    mamba2 and recurrentgemma SMOKE configs: the round exactly, the train
@@ -303,7 +305,7 @@ def grouped_kernel_phase(torch, mm, ref, dev):
     """Grouped kernels vs plain versions at the deepseek-v2-lite expert
     shapes (E = 64, M = 30) with layer 2's stream offsets
     ((2*E + e)*K*N mod 2**32), a ragged shape and E = 8 groups at
-    M = 64, 65, 240 and 300, both mask modes; kernels 5-6 also on f32
+    M = 64, 65, 240 and 300, both mask modes; kernels 5-7 also on f32
     inputs whose rows span 2**-60 .. 2**60 and on a repeated launch;
     returns {kernel: max_abs_err}."""
     from repro_torch.kernels.dispatch import KERNELS
@@ -406,7 +408,23 @@ def grouped_kernel_phase(torch, mm, ref, dev):
         check(torch.equal(got, again), f"{name}: a repeated launch gives "
               f"other bits")
         del got, again, want, rowmax, d
-    del x, g, w, s
+    # kernel 7 multiplies three bf16 parts of x and of g: rows of x at
+    # 2**-60 .. 2**60 against rows of g at 2**60 .. 2**-60 (each product
+    # row near 1), held to the bound of an f32 sum of the terms,
+    # (|x[e]|^T |g[e]|) * |w[e]| * sigmoid'(s[e]), and a repeated launch
+    # gives the same bits
+    g = g / scale.view(E, m, 1) * scale.flip(0).view(E, m, 1)
+    got = mm.masked_matmul_grouped_ds(x, g, w, s)
+    again = mm.masked_matmul_grouped_ds(x, g, w, s)
+    want = ref.masked_matmul_grouped_ds(x, g, w, s)
+    terms = ref.masked_matmul_grouped_ds(x.abs(), g.abs(), w.abs(), s)
+    d = (got - want).abs()
+    check(bool((d <= 1e-5 * terms).all()), "masked_matmul_grouped_ds rows "
+          f"at 2**-60..2**60: max |diff| / bound "
+          f"{float((d / terms.clamp_min(1e-30)).max())}")
+    check(torch.equal(got, again), "masked_matmul_grouped_ds: a repeated "
+          "launch gives other bits")
+    del x, g, w, s, got, again, want, terms, d
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return err
@@ -554,12 +572,12 @@ def grouped_timing_phase(torch, mm, ref, dev):
     """Per-MoE-layer (3 expert projections, one cohort) times of the
     grouped kernels at E = 64, M = 30: kernel, plain version and the
     library yardstick (torch.bmm on the pre-masked f32 weights, TF32
-    off; for ds the x^T g product only), in ms, with their bounds and,
-    for kernels 5-6, each shape's plan and share of its bound; then
-    kernels 5-6 at M = 240 (a 2048-token cohort's capacity, where all
-    four warpgroups multiply), a row of their own.  The bound of kernels
-    5-6 counts their three split products at the bf16 tensor-core rate,
-    that of kernel 7 its f32 products on the CUDA cores."""
+    off; for ds the x^T g product only), in ms, with their bounds and
+    each shape's plan and share of its bound; then the same at M = 240
+    (a 2048-token cohort's capacity, where all four warpgroups of
+    kernels 5-6 multiply and kernel 7 sums 8 stages a tile), a row of
+    their own.  The bound counts the split products at the bf16
+    tensor-core rate: three of kernels 5-6, six of kernel 7."""
     gen = torch.Generator(device=dev).manual_seed(3)
     E = N_EXPERTS
     seeds = [7] * E
@@ -601,11 +619,9 @@ def grouped_timing_phase(torch, mm, ref, dev):
                     o[3], o[6], o[4], o[5])),
                 lambda o: (lambda: torch.bmm(o[3].transpose(1, 2), o[6])),
                 lambda K, N: (4 * E * M_ * K + 4 * E * M_ * N
-                              + 10 * E * K * N, 2 * E * M_ * K * N,
-                              F32_FLOPS_PER_S)),
+                              + 10 * E * K * N, 6 * 2 * E * M_ * K * N,
+                              BF16_FLOPS_PER_S)),
         }
-        if M_ != CAP:
-            del specs["masked_matmul_grouped_ds"]
         for kname, (kern, plain, lib, cost) in specs.items():
             t_k = time_ms(torch, [kern(o) for o in ops], 10)
             t_p = time_ms(torch, [plain(o) for o in ops], 2)
@@ -623,22 +639,28 @@ def grouped_timing_phase(torch, mm, ref, dev):
             else:
                 per_shape[kname][f"layer M={M_}"] = (sum(t_k), sum(t_p),
                                                      sum(t_l), b_ms)
-            if kname == "masked_matmul_grouped_ds":
-                continue
             dx = kname == "masked_matmul_grouped_dx"
             print(f"  {kname} per shape at E={E} M={M_} (events per call), "
                   f"share of the bound, plan:")
             for o, tk, tl, c in zip(ops, t_k, t_l, costs):
                 R, C = (o[2], o[1]) if dx else (o[1], o[2])
-                plan = mm.card_grouped_plan(kname, dev.index or 0, E, M_, R,
-                                            C)
+                if kname == "masked_matmul_grouped_ds":
+                    plan = mm.card_ds_plan(dev.index or 0, M_, R, C, True, E)
+                    tiles = E * -(-R // plan["bk"]) * -(-C // plan["bn"])
+                    desc = (f"tile {plan['bk']}x{plan['bn']}, {tiles} tiles "
+                            f"on {plan['grid']} persistent blocks "
+                            f"({plan['per_sm']} an SM), {plan['stages']} "
+                            f"stages, {plan['chunks']} (w, s) chunks")
+                else:
+                    plan = mm.card_grouped_plan(kname, dev.index or 0, E, M_,
+                                                R, C)
+                    blocks = plan["split"] * plan["grid"][1] * plan["grid"][2]
+                    desc = (f"width {plan['bc']}, cluster {plan['split']}, "
+                            f"{blocks} blocks, {plan['w_stages']} raw stages, "
+                            f"{plan['a_bufs']} A buffers")
                 tb = bound(*c)[0]
                 print(f"    {o[0]:7s} {tk:.4f} ms, library {tl:.4f}, bound "
-                      f"{tb:.4f}: {100 * tb / tk:.1f}% of the bound; width "
-                      f"{plan['bc']}, cluster {plan['split']}, "
-                      f"{plan['split'] * plan['grid'][1] * plan['grid'][2]} "
-                      f"blocks, {plan['w_stages']} raw stages, "
-                      f"{plan['a_bufs']} A buffers")
+                      f"{tb:.4f}: {100 * tb / tk:.1f}% of the bound; {desc}")
             print(f"    layer   {sum(t_k):.4f} ms, library {sum(t_l):.4f}, "
                   f"plain {sum(t_p):.4f}, bound {b_ms:.4f} ({b_by}): "
                   f"{100 * b_ms / sum(t_k):.1f}% of the bound")
@@ -658,7 +680,9 @@ def conv_kernel_phase(torch, mm, ref, dev):
     shape: masked_conv1d in all three modes, forward (bf16 x) and
     flipped (f32 g), bit for bit (the same separately rounded products
     in the same order); masks exactly by an identity probe; ds with both
-    epilogues and bf16 or f32 x within float32 rounding.  Then kernels
+    epilogues and bf16 or f32 x within float32 rounding, and the same
+    bits on a repeated launch (the cluster's partials are summed in rank
+    order).  Then kernels
     1-3 on the f32 activations of recurrentgemma's gate projections
     (M = 256, K = N = 4096).  Returns {kernel: max_abs_err}."""
     err = {"masked_conv1d": 0.0, "masked_conv1d_ds": 0.0,
@@ -706,6 +730,10 @@ def conv_kernel_phase(torch, mm, ref, dev):
                 check(bool(torch.allclose(ds, want, rtol=1e-5, atol=1e-5
                                           * float(want.abs().max()))),
                       f"conv ds C={C} {epi} {xin.dtype}: max |diff| {d}")
+                check(torch.equal(ds, mm.masked_conv1d_ds(xin, g, w, s,
+                                                          epilogue=epi)),
+                      f"conv ds C={C} {epi} {xin.dtype}: a repeated launch "
+                      f"gives other bits")
                 err["masked_conv1d_ds"] = max(err["masked_conv1d_ds"], d)
         del x, g, w, s
     # kernels 1-3 on f32 activations (recurrentgemma's w_rg, w_ri)
@@ -746,9 +774,10 @@ def conv_timing_phase(torch, mm, ref, dev):
     beforehand; torch.nn.grad.conv1d_weight for kernel 9's correlation),
     in ms, with their bounds (f32 arithmetic: flops over the f32 peak).
     Kernel and library run a few microseconds each, so they are timed by
-    CUDA-graph replay (`graph_ms`); the per-call times with the host's
-    launch cost included (CUDA events around each call) are printed
-    beside them."""
+    CUDA-graph replay (`graph_ms`), beside the replay time of an empty
+    kernel (`torch.cuda._sleep(0)`: one thread, no work), the floor of
+    any kernel timed so; the per-call times with the host's launch cost
+    included (CUDA events around each call) are printed beside them."""
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(6)
     W, B, S = CONV_W, CONV_B, CONV_S
@@ -778,10 +807,16 @@ def conv_timing_phase(torch, mm, ref, dev):
             lambda: ref.masked_conv1d(g, w, s, 7, 0, flip=True),
             lambda: ref.masked_conv1d_ds(x, g, w, s)], 5)
         t_call = time_ms(torch, kern + lib, 20)
-        print(f"  conv {arch} C={C} per call with launch cost (events), "
-              f"ms: kernel fwd/flip/ds "
+        t_empty = graph_ms(torch, [lambda: torch.cuda._sleep(0)], 50)[0]
+        plan = mm.conv_ds_plan(B, S, C)
+        print(f"  conv {arch} C={C} by graph replay, ms: kernel fwd/flip/ds "
+              f"{' '.join(f'{t:.4f}' for t in t_k)}; library "
+              f"{' '.join(f'{t:.4f}' for t in t_l)}; an empty kernel "
+              f"{t_empty:.4f}.  Per call with launch cost (events): kernel "
               f"{' '.join(f'{t:.4f}' for t in t_call[:3])}; library "
-              f"{' '.join(f'{t:.4f}' for t in t_call[3:])}")
+              f"{' '.join(f'{t:.4f}' for t in t_call[3:])}.  ds plan: "
+              f"cluster {plan['cluster']} x {plan['grid'][1]} channel "
+              f"tiles, {plan['threads']} threads, {plan['chunks']} chunks")
         n = B * S * C
         # bytes: each input read once, each output written once
         costs = ((2 * n + 6 * W * C + 4 * n, 2 * W * n),   # bf16 x -> f32 y

@@ -11,7 +11,7 @@ in .gitignore), named by a digest of their sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  `build()`
 starts one nvcc per source, all at once, and raises if any fails; the
 first wrapper call builds whatever is missing.  Nothing here runs at
-import time.  The tensor-core bodies of kernels 1-3 and 5-6 fetch the
+import time.  The tensor-core bodies of kernels 1-3 and 5-7 fetch the
 driver's cuTensorMapEncodeTiled through the runtime, so no library links
 -lcuda.
 """
@@ -54,10 +54,12 @@ ARGTYPES = {
                               _I, _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _U32, _I, _F, _I, _I, _I, _I, _I, _I, _P],
-    "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P],
     "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
                       _F, _I, _I, _P],
-    "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
     "pack_bits": [_P, _P, _I64, _I64, _I, _P],
     "unpack_bits": [_P, _P, _I64, _I64, _I64, _I, _P],
     "masked_matmul_fwd_capacity": [_I, _I, _I],

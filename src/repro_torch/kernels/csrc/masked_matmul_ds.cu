@@ -14,9 +14,10 @@
 // CUDA cores, which is why the product must leave them).  The reference
 // keeps x^T g and sigmoid(s) out of device memory; so does this kernel.
 //
-// Design (masked_matmul_ds_wgmma.cuh): persistent blocks walk 128 x BN
-// tiles of ds (BN 64 or 128), each tile's product over all of M on wgmma
-// (bf16 in, f32 accumulators; f32 x and g split into three bf16 parts),
+// Design (masked_matmul_ds_wgmma.cuh, which kernel 7 runs on E groups;
+// this is its E = 1 case): persistent blocks walk 128 x BN tiles of ds
+// (BN 64 or 128), each tile's product over all of M on wgmma (bf16 in,
+// f32 accumulators; f32 x and g split into three bf16 parts),
 // then an epilogue that streams w and s in through shared memory by TMA
 // and ds out from registers in 16-byte stores, while the load warps
 // fetch the next tile's operands.  The 10 bytes a weight are the only
@@ -36,6 +37,6 @@ extern "C" int masked_matmul_ds(const void* x, const void* g, const void* w,
                                 const void* s, void* ds, int M, int K, int N,
                                 int x_f32, int bn, int stages, int chunks,
                                 int smem, int grid, int tma, void* stream) {
-  return repro::dsw::launch(x, g, w, s, ds, M, K, N, x_f32, bn, stages,
+  return repro::dsw::launch(x, g, w, s, ds, 1, M, K, N, x_f32, bn, stages,
                             chunks, smem, grid, tma, (cudaStream_t)stream);
 }

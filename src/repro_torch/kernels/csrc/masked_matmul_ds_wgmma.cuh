@@ -1,14 +1,20 @@
-// Tensor-core body of kernel 3 (masked_matmul_ds.cu):
-//     ds (K, N) f32 = (x^T g) * w * sigmoid(s) * (1 - sigmoid(s))
-// for x (M, K) and g (M, N) both bf16 or both f32, w (K, N) bf16 and
-// s (K, N) f32.
+// Tensor-core body of kernels 3 and 7 (masked_matmul_ds.cu,
+// masked_matmul_grouped_ds.cu): for E stacked problems (kernel 3: E = 1)
+//     ds[e] (K, N) f32 = (x[e]^T g[e]) * w[e] * sigmoid'(s[e]),
+//     sigmoid'(s) = sigmoid(s) * (1 - sigmoid(s)),
+// for x (E, M, K) and g (E, M, N) both bf16 or both f32, w (E, K, N) bf16
+// and s (E, K, N) f32.
 //
-// A block owns a BK x BN tile of ds (BK = 128 rows of K: two consumer
-// warpgroups of 64; BN = 64 or 128 columns of N) and walks all of M for
-// it, so the reduction is never split: no atomics, no partial sums in
-// device memory, the same bits on every launch.  The blocks are
-// persistent: block b takes tiles b, b + gridDim.x, ..., numbered with
-// the N tiles fastest, so the blocks running together share x's slice.
+// A block owns a BK x BN tile of one group's ds (BK = 128 rows of K: two
+// consumer warpgroups of 64; BN = 64 or 128 columns of N) and walks all
+// of M for it, so the reduction is never split: no atomics, no partial
+// sums in device memory, the same bits on every launch.  The blocks are
+// persistent: block b takes tiles b, b + gridDim.x, ..., numbered (group,
+// K tile, N tile) with the N tiles fastest, so that the blocks running
+// together read whole rows of w and s (in device memory's pages) and
+// share x[e]'s slice.  Every operand goes through 3-d tensor
+// maps (E, rows, columns) or through loads bounded by the group's own
+// rows, so a tile never reads another group's rows.
 //
 // The product x^T g runs on wgmma (f32 accumulators in registers) with
 // both operands MN-major in shared memory (the transpose flags): A = x^T
@@ -18,19 +24,25 @@
 // 64-row stages of x and g in flight behind mbarriers (TMA, or element
 // loads where a row pitch is off the 16-byte grid); rows past M are zero.
 // f32 activations: the consumer warps load 32-row stages of x and g
-// themselves, split each value into three bf16 parts (v = v0 + v1 + v2,
-// each part exact) and write them into a double-buffered stage, and six
-// products (v0w0, v0w1, v1w0, v0w2, v1w1, v2w0; the three smallest
-// terms dropped) accumulate on the tensor cores.
+// into registers one stage ahead (the next tile's first stage is in
+// flight through this tile's epilogue), split each value into three bf16
+// parts (v = v0 + v1 + v2, each part exact) and write them into a
+// double-buffered stage, and six products (v0w0, v0w1, v1w0, v0w2, v1w1,
+// v2w0; the three smallest terms dropped) accumulate on the tensor cores.
+// The consumers' work is latency-bound (split, products and the sigmoid
+// epilogue in series, 8 warps): where a tile has one stage (M <= BMF,
+// kernel 7 at the MoE capacity) the stage has one buffer and the plan
+// runs two blocks of width 64 an SM, each in half the shared memory and
+// at most 96 registers a thread, so that 16 consumer warps hide it.
 //
 // The epilogue streams: a second load warp keeps a ring of (w, s) chunks
-// in flight by TMA, running up to a tile ahead of the products.  A chunk
-// is the 16 rows x BN columns of a tile that one consumer warp's
+// in flight by TMA, running up to two tiles ahead of the products.  A
+// chunk is the 16 rows x BN columns of a tile that one consumer warp's
 // accumulators cover, so that each TMA box reads rows of 128 contiguous
-// bytes and each warp waits for its own rows only.  The warp reads its
-// w and s, hands the chunk back at once, computes
-// acc * w * sigmoid(s) * (1 - sigmoid(s)) in the reference's order
-// (sigmoid of hash.cuh, no fast math) and stores ds from registers:
+// bytes and each warp waits for its own rows only.  The warp computes
+// acc * w * sigmoid(s) * (1 - sigmoid(s)) from its chunk in the
+// reference's order (sigmoid of hash.cuh, no fast math), hands the chunk
+// back, and stores ds from registers:
 // neighbouring lanes swap halves so that each stores 16 bytes and a warp
 // writes 8 rows of 64 contiguous bytes (element stores where ds's pitch
 // is off the 16-byte grid).  The launch plan (BN, the stages, the
@@ -42,6 +54,11 @@
 
 namespace repro {
 namespace dsw {
+// Kernels 3 and 7 are two libraries that instantiate the same kernels;
+// loaded in one process, the second library's launches were refused
+// (cudaErrorInvalidValue) while the symbols were shared, so each library
+// keeps its own copy.
+namespace {
 
 using wg::fence_async_smem;
 using wg::mbar_arrive;
@@ -51,7 +68,6 @@ using wg::mbar_wait;
 using wg::smem_u32;
 using wg::split3;
 using wg::sw128_offset;
-using wg::tma_load;
 
 constexpr int BK = 128;          // rows of K in a tile: 2 warpgroups
 constexpr int BMS = 64;          // rows of M in a bf16 stage
@@ -64,16 +80,40 @@ constexpr int BAR_CONSUMERS = 1;
 #define REPRO_DS_WIDTHS(X) X(64) X(128)
 
 struct Params {
-  const void* x;       // (M, K) bf16 or f32
-  const void* g;       // (M, N) bf16 or f32
-  const uint16_t* w;   // (K, N) bf16 bits
-  const float* s;      // (K, N)
-  float* ds;           // (K, N)
-  int M, K, N;
-  int stages;          // bf16: stages of BMS rows in the x/g ring
+  const void* x;       // (E, M, K) bf16 or f32
+  const void* g;       // (E, M, N) bf16 or f32
+  const uint16_t* w;   // (E, K, N) bf16 bits
+  const float* s;      // (E, K, N)
+  float* ds;           // (E, K, N)
+  int E, M, K, N;
+  int stages;          // bf16: stages of BMS rows in the x/g ring; f32:
+                       // split stages of BMF rows, 2 (one split while the
+                       // other is multiplied) or 1 where M <= BMF
   int chunks;          // chunks of (w, s) in the epilogue ring
   int tma;             // bit 0 x, 1 g, 2 w, 3 s, 4 ds on the 16-byte grid
 };
+
+// A tile of ds: group e, rows k0.. of K, columns n0.. of N.  Tile t of
+// the E * tiles_k * tiles_n, numbered with N fastest, then K, then E.
+struct Tile {
+  int e, k0, n0;
+};
+template <int BN>
+__device__ __forceinline__ Tile tile_at(int t, int tiles_n, int per_group) {
+  const int r = t % per_group;
+  return Tile{t / per_group, r / tiles_n * BK, r % tiles_n * BN};
+}
+
+// 3-d TMA load of the box at (x = inner, y, z = group) into `dst`.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          int x, int y, int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(BAR_CONSUMERS), "n"(CONSUMERS)
@@ -174,8 +214,9 @@ __device__ __forceinline__ void wgmma_mn<128>(float* d, uint64_t da,
 
 // Shared memory, in bytes from the 1024-aligned base:
 //   x/g stages: bf16, `stages` x (x: BK/64 boxes, g: BN/64 boxes, each
-//     BMS rows of 128 bytes); f32, 2 x (3 x-parts, 3 g-parts, boxes of
-//     BMF rows) |
+//     BMS rows of 128 bytes); f32, `stages` (2, or 1 where M <= BMF: the
+//     tile before has finished its products) x (3 x-parts, 3 g-parts,
+//     boxes of BMF rows) |
 //   (w, s) chunks (chunks x CHUNK: WR rows of w, then of s) |
 //   mbarriers: full_xg, empty_xg (stages each), full_ws, empty_ws (chunks)
 template <int BN, bool F32>
@@ -196,7 +237,7 @@ struct Layout {
     return base + st * STAGE + (F32 ? 3 : 1) * X_BYTES + part * G_BYTES;
   }
   __device__ uint32_t w(int c) const {
-    return base + (F32 ? 2 : stages) * STAGE + c * CHUNK;
+    return base + stages * STAGE + c * CHUNK;
   }
   __device__ uint32_t s(int c) const { return w(c) + W_CHUNK; }
   __device__ uint32_t bar(int i) const { return w(chunks) + 8 * i; }
@@ -236,52 +277,68 @@ __device__ __forceinline__ void load_mn_tile(uint8_t* dst,
   }
 }
 
-// f32 stage: rows m0.. of x's columns k0.. and g's columns n0.., split
-// into three bf16 parts each, written by the consumer threads into the
-// stage's swizzled boxes.  Vector loads where a row lies on the 16-byte
-// grid, element loads (zero past the matrix) elsewhere.
+// f32 stage, in two halves so that the loads of the next stage are in
+// flight while this one is multiplied: `load_stage` reads rows m0.. of
+// x[e]'s columns k0.. and g[e]'s columns n0.. into registers (vector
+// loads where a row lies on the 16-byte grid, element loads, zero past
+// the group's matrix, elsewhere), `store_stage` splits them into three
+// bf16 parts each and writes them into the stage's swizzled boxes.
 template <int BN>
-__device__ __forceinline__ void split_stage(uint8_t* st_x, uint8_t* st_g,
-                                            const Params& p, int m0, int k0,
-                                            int n0, int tid) {
-  using L = Layout<BN, true>;
-  constexpr int X_TASKS = BMF * BK / 8, TASKS = BMF * (BK + BN) / 8;
-  constexpr int PER = TASKS / CONSUMERS;
+struct F32Stage {
+  static constexpr int X_TASKS = BMF * BK / 8, TASKS = BMF * (BK + BN) / 8;
+  static constexpr int PER = TASKS / CONSUMERS;
   static_assert(TASKS % CONSUMERS == 0, "whole tasks per thread");
   float v[PER][8];
+};
+
+template <int BN>
+__device__ __forceinline__ void load_stage(F32Stage<BN>& f, const Params& p,
+                                           const Tile& tl, int m0, int tid) {
+  using F = F32Stage<BN>;
+  const float* xe = static_cast<const float*>(p.x) + (int64_t)tl.e * p.M * p.K;
+  const float* ge = static_cast<const float*>(p.g) + (int64_t)tl.e * p.M * p.N;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
+  for (int i = 0; i < F::PER; ++i) {
     const int e = tid + i * CONSUMERS;
-    const bool is_x = e < X_TASKS;
-    const int cols = is_x ? BK / 8 : BN / 8, t = is_x ? e : e - X_TASKS;
+    const bool is_x = e < F::X_TASKS;
+    const int cols = is_x ? BK / 8 : BN / 8, t = is_x ? e : e - F::X_TASKS;
     const int row = t / cols, gm = m0 + row;
-    const int C = is_x ? p.K : p.N, gc = (is_x ? k0 : n0) + (t % cols) * 8;
-    const float* src = static_cast<const float*>(is_x ? p.x : p.g);
+    const int C = is_x ? p.K : p.N;
+    const int gc = (is_x ? tl.k0 : tl.n0) + (t % cols) * 8;
+    const float* src = is_x ? xe : ge;
     const bool vec = (p.tma >> (is_x ? 0 : 1)) & 1;
     if (vec && gm < p.M && gc + 8 <= C) {
       const float4* q =
           reinterpret_cast<const float4*>(src + (int64_t)gm * C + gc);
       const float4 a = q[0], b = q[1];
-      v[i][0] = a.x; v[i][1] = a.y; v[i][2] = a.z; v[i][3] = a.w;
-      v[i][4] = b.x; v[i][5] = b.y; v[i][6] = b.z; v[i][7] = b.w;
+      f.v[i][0] = a.x; f.v[i][1] = a.y; f.v[i][2] = a.z; f.v[i][3] = a.w;
+      f.v[i][4] = b.x; f.v[i][5] = b.y; f.v[i][6] = b.z; f.v[i][7] = b.w;
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        v[i][j] = (gm < p.M && gc + j < C) ? src[(int64_t)gm * C + gc + j]
-                                           : 0.0f;
+        f.v[i][j] = (gm < p.M && gc + j < C) ? src[(int64_t)gm * C + gc + j]
+                                             : 0.0f;
     }
   }
+}
+
+template <int BN>
+__device__ __forceinline__ void store_stage(const F32Stage<BN>& f,
+                                            uint8_t* st_x, uint8_t* st_g,
+                                            int tid) {
+  using F = F32Stage<BN>;
+  using L = Layout<BN, true>;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
+  for (int i = 0; i < F::PER; ++i) {
     const int e = tid + i * CONSUMERS;
-    const bool is_x = e < X_TASKS;
-    const int cols = is_x ? BK / 8 : BN / 8, t = is_x ? e : e - X_TASKS;
+    const bool is_x = e < F::X_TASKS;
+    const int cols = is_x ? BK / 8 : BN / 8, t = is_x ? e : e - F::X_TASKS;
     const int row = t / cols, cg = t % cols;
     uint16_t parts[3][8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       uint16_t q[3];
-      split3(v[i][j], q);
+      split3(f.v[i][j], q);
       parts[0][j] = q[0]; parts[1][j] = q[1]; parts[2][j] = q[2];
     }
     uint8_t* dst = (is_x ? st_x : st_g) + (cg >> 3) * L::BOX +
@@ -294,8 +351,10 @@ __device__ __forceinline__ void split_stage(uint8_t* st_x, uint8_t* st_g,
   }
 }
 
+// Width 64 at f32 runs two blocks an SM (the plan of M <= BMF), so that
+// 16 consumer warps hide the epilogue's latency: at most 96 registers.
 template <int BN, bool F32>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, (F32 && BN == 64) ? 2 : 1)
     ds_gemm(const __grid_constant__ CUtensorMap map_x,
             const __grid_constant__ CUtensorMap map_g,
             const __grid_constant__ CUtensorMap map_w,
@@ -309,7 +368,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto gen = [&](uint32_t addr) { return gbase + (addr - base); };
 
   const int tiles_n = (p.N + BN - 1) / BN;
-  const int tiles = (p.K + BK - 1) / BK * tiles_n;
+  const int per_group = (p.K + BK - 1) / BK * tiles_n;
+  const int tiles = p.E * per_group;
+  const int64_t wsize = (int64_t)p.K * p.N;   // w, s, ds of one group
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -332,27 +393,31 @@ __global__ void __launch_bounds__(THREADS, 1)
                                                        L::G_BYTES;
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int k0 = tile / tiles_n * BK, n0 = tile % tiles_n * BN;
+      const Tile tl = tile_at<BN>(tile, tiles_n, per_group);
+      const uint16_t* xe =
+          static_cast<const uint16_t*>(p.x) + (int64_t)tl.e * p.M * p.K;
+      const uint16_t* ge =
+          static_cast<const uint16_t*>(p.g) + (int64_t)tl.e * p.M * p.N;
       for (int m0 = 0; m0 < p.M; m0 += BMS, ++it) {
         const int st = it % p.stages;
         mbar_wait(lay.empty_xg(st), ((it / p.stages) & 1) ^ 1);
         if (!(p.tma & 1))
-          load_mn_tile(gen(lay.x(st)), static_cast<const uint16_t*>(p.x),
-                       p.M, p.K, m0, k0, BMS, BK / 64, lane);
+          load_mn_tile(gen(lay.x(st)), xe, p.M, p.K, m0, tl.k0, BMS, BK / 64,
+                       lane);
         if (!(p.tma & 2))
-          load_mn_tile(gen(lay.g(st)), static_cast<const uint16_t*>(p.g),
-                       p.M, p.N, m0, n0, BMS, BN / 64, lane);
+          load_mn_tile(gen(lay.g(st)), ge, p.M, p.N, m0, tl.n0, BMS, BN / 64,
+                       lane);
         fence_async_smem();
         if (lane == 0) {
           mbar_arrive_tx(lay.full_xg(st), tx);
           if (p.tma & 1)
             for (int b = 0; b < BK / 64; ++b)
-              tma_load(lay.x(st) + b * L::BOX, &map_x, k0 + 64 * b, m0,
-                       lay.full_xg(st));
+              tma_load3(lay.x(st) + b * L::BOX, &map_x, tl.k0 + 64 * b, m0,
+                        tl.e, lay.full_xg(st));
           if (p.tma & 2)
             for (int b = 0; b < BN / 64; ++b)
-              tma_load(lay.g(st) + b * L::BOX, &map_g, n0 + 64 * b, m0,
-                       lay.full_xg(st));
+              tma_load3(lay.g(st) + b * L::BOX, &map_g, tl.n0 + 64 * b, m0,
+                        tl.e, lay.full_xg(st));
         } else {
           mbar_arrive(lay.full_xg(st));
         }
@@ -369,9 +434,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                         ((p.tma >> 3) & 1) * L::S_CHUNK;
     int q = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int k0 = tile / tiles_n * BK, n0 = tile % tiles_n * BN;
+      const Tile tl = tile_at<BN>(tile, tiles_n, per_group);
+      const uint16_t* we = p.w + tl.e * wsize;
+      const float* se = p.s + tl.e * wsize;
       for (int v = 0; v < CONSUMERS / 32; ++v, ++q) {
-        const int st = q % p.chunks, r0 = k0 + v * WR;
+        const int st = q % p.chunks, r0 = tl.k0 + v * WR;
         mbar_wait(lay.empty_ws(st), ((q / p.chunks) & 1) ^ 1);
         const bool in_k = r0 < p.K;
         if (in_k && (p.tma & 12) != 12) {   // element loads, zero past N
@@ -379,15 +446,15 @@ __global__ void __launch_bounds__(THREADS, 1)
           uint8_t* sd = gen(lay.s(st));
           for (int e = lane; e < WR * BN; e += 32) {
             const int row = e / BN, col = e % BN;
-            const int gk = r0 + row, gn = n0 + col;
+            const int gk = r0 + row, gn = tl.n0 + col;
             const bool in = gk < p.K && gn < p.N;
             const int64_t o = (int64_t)gk * p.N + gn;
             if (!(p.tma & 4))
               *reinterpret_cast<uint16_t*>(wd + w_offset(row, col)) =
-                  in ? p.w[o] : uint16_t(0);
+                  in ? we[o] : uint16_t(0);
             if (!(p.tma & 8))
               *reinterpret_cast<float*>(sd + s_offset(row, col)) =
-                  in ? p.s[o] : 0.0f;
+                  in ? se[o] : 0.0f;
           }
         }
         fence_async_smem();
@@ -395,12 +462,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_arrive_tx(lay.full_ws(st), in_k ? tx : 0);
           if (in_k && (p.tma & 4))
             for (int b = 0; b < BN / 64; ++b)
-              tma_load(lay.w(st) + b * WR * 128, &map_w, n0 + 64 * b, r0,
-                       lay.full_ws(st));
+              tma_load3(lay.w(st) + b * WR * 128, &map_w, tl.n0 + 64 * b, r0,
+                        tl.e, lay.full_ws(st));
           if (in_k && (p.tma & 8))
             for (int b = 0; b < BN / 32; ++b)
-              tma_load(lay.s(st) + b * WR * 128, &map_s, n0 + 32 * b, r0,
-                       lay.full_ws(st));
+              tma_load3(lay.s(st) + b * WR * 128, &map_s, tl.n0 + 32 * b, r0,
+                        tl.e, lay.full_ws(st));
         } else {
           mbar_arrive(lay.full_ws(st));
         }
@@ -415,11 +482,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x, wgi = tid >> 7;
   float acc[BN / 2];
   int it = 0, q = tid >> 5;   // q: this warp's (w, s) chunk
+  // f32: the registers of the next stage to split, loaded one stage ahead
+  F32Stage<BN> next;
+  if (F32 && p.M > 0 && (int)blockIdx.x < tiles)
+    load_stage<BN>(next, p, tile_at<BN>(blockIdx.x, tiles_n, per_group), 0,
+                   tid);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int k0 = tile / tiles_n * BK, n0 = tile % tiles_n * BN;
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    const Tile tl = tile_at<BN>(tile, tiles_n, per_group);
     if (!F32) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       for (int m0 = 0; m0 < p.M; m0 += BMS, ++it) {
         const int st = it % p.stages;
         mbar_wait(lay.full_xg(st), (it / p.stages) & 1);
@@ -442,13 +514,26 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncwarp();
       if (p.M > 0 && lane == 0) mbar_arrive(lay.empty_xg((it - 1) % p.stages));
     } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       for (int m0 = 0; m0 < p.M; m0 += BMF, ++it) {
-        const int st = it & 1;
+        const int st = it % p.stages;
         wgmma_wait<1>();     // this warpgroup's products of stage it - 2
+                             // (with one buffer, M <= BMF: of the tile
+                             // before, which waited for all of them)
         consumers_sync();    // ... and the other's: the buffer is free
-        split_stage<BN>(gen(lay.x(st)), gen(lay.g(st)), p, m0, k0, n0, tid);
+        store_stage<BN>(next, gen(lay.x(st)), gen(lay.g(st)), tid);
         fence_async_smem();
         consumers_sync();
+        // the next stage's loads: this tile's next rows, or the first
+        // rows of this block's next tile, in flight through the products
+        // and the epilogue
+        if (m0 + BMF < p.M)
+          load_stage<BN>(next, p, tl, m0 + BMF, tid);
+        else if (tile + (int)gridDim.x < tiles)
+          load_stage<BN>(next, p,
+                         tile_at<BN>(tile + gridDim.x, tiles_n, per_group), 0,
+                         tid);
         wg::fence_regs<BN / 2>(acc);
         wg::wgmma_fence();
         // x part a times g part b: the six significant cross products,
@@ -468,8 +553,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       wg::fence_regs<BN / 2>(acc);
     }
 
-    // ---- the epilogue: this warp's chunk of WR rows, handed back as soon
-    // as it is read; ds overwrites the accumulators
+    // ---- the epilogue: this warp's chunk of WR rows, handed back once
+    // the warp's ds is computed; ds overwrites the accumulators
     {
       const int st = q % p.chunks;
       mbar_wait(lay.full_ws(st), (q / p.chunks) & 1);
@@ -499,10 +584,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       q += CONSUMERS / 32;
     }
     const int odd = lane & 1;
+    float* const dse = p.ds + tl.e * wsize;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gk = k0 + (tid >> 5) * WR + (lane >> 2) + 8 * h;
-      float* o = p.ds + (int64_t)gk * p.N + n0;
+      const int gk = tl.k0 + (tid >> 5) * WR + (lane >> 2) + 8 * h;
+      float* o = dse + (int64_t)gk * p.N + tl.n0;
 #pragma unroll
       for (int j = 0; j < BN / 8; j += 2) {
         const float2 dj =
@@ -518,7 +604,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               make_float2(__shfl_xor_sync(0xFFFFFFFFu, theirs.x, 1),
                           __shfl_xor_sync(0xFFFFFFFFu, theirs.y, 1));
           const int gn = 8 * (j + odd) + 4 * ((lane & 3) >> 1);
-          if (gk < p.K && n0 + gn < p.N)
+          if (gk < p.K && tl.n0 + gn < p.N)
             *reinterpret_cast<float4*>(o + gn) =
                 odd ? make_float4(got.x, got.y, mine.x, mine.y)
                     : make_float4(mine.x, mine.y, got.x, got.y);
@@ -527,8 +613,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int u = 0; u < 2; ++u) {
             const float2 d = u ? dk : dj;
             const int gn = 8 * (j + u) + 2 * (lane & 3);
-            if (gk < p.K && n0 + gn < p.N) o[gn] = d.x;
-            if (gk < p.K && n0 + gn + 1 < p.N) o[gn + 1] = d.y;
+            if (gk < p.K && tl.n0 + gn < p.N) o[gn] = d.x;
+            if (gk < p.K && tl.n0 + gn + 1 < p.N) o[gn + 1] = d.y;
           }
         }
       }
@@ -538,22 +624,27 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---- host side
 
-// Map of a row-major (rows, cols) matrix in boxes of (box_r, box_c);
-// false if the driver refuses it.
-inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-                     const void* ptr, int rows, int cols, int box_r,
-                     int box_c, CUtensorMapSwizzle swizzle) {
+// Map of E stacked row-major (rows, cols) matrices in boxes of
+// (1, box_r, box_c) with the 128-byte swizzle: a box past a group's rows
+// or columns is filled with zeros, never with the next group's; false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool make_map3(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                      const void* ptr, int E, int rows, int cols, int box_r,
+                      int box_c) {
   const wg::EncodeTiled encode = wg::encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_c),
-                             static_cast<cuuint32_t>(box_r)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * esize,
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_c),
+                             static_cast<cuuint32_t>(box_r), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -562,24 +653,28 @@ int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
   using L = Layout<BN, F32>;
   constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr auto FP32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  constexpr auto SW128 = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap maps[4] = {};
   if ((!F32 && (p.tma & 1) &&
-       !make_map(&maps[0], BF16, 2, p.x, p.M, p.K, L::ROWS, 64, SW128)) ||
+       !make_map3(&maps[0], BF16, 2, p.x, p.E, p.M, p.K, L::ROWS, 64)) ||
       (!F32 && (p.tma & 2) &&
-       !make_map(&maps[1], BF16, 2, p.g, p.M, p.N, L::ROWS, 64, SW128)) ||
+       !make_map3(&maps[1], BF16, 2, p.g, p.E, p.M, p.N, L::ROWS, 64)) ||
       ((p.tma & 4) &&
-       !make_map(&maps[2], BF16, 2, p.w, p.K, p.N, WR, 64, SW128)) ||
+       !make_map3(&maps[2], BF16, 2, p.w, p.E, p.K, p.N, WR, 64)) ||
       ((p.tma & 8) &&
-       !make_map(&maps[3], FP32, 4, p.s, p.K, p.N, WR, 32, SW128)))
+       !make_map3(&maps[3], FP32, 4, p.s, p.E, p.K, p.N, WR, 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = ds_gemm<BN, F32>;
   static int smem_set[64] = {};   // largest size allowed, per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64 || smem > smem_set[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // all of the SM's shared memory for blocks: two of width 64 at f32
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) smem_set[dev] = smem;
   }
@@ -588,17 +683,20 @@ int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 3 under the plan (bn, stages, chunks, smem, grid, tma) of
-// `kernels.masked_matmul.ds_plan`.
+// Kernel 3 (E = 1) or 7 under the plan (bn, stages, chunks, smem, grid,
+// tma) of `kernels.masked_matmul.ds_plan`.
 inline int launch(const void* x, const void* g, const void* w, const void* s,
-                  void* ds, int M, int K, int N, int x_f32, int bn,
+                  void* ds, int E, int M, int K, int N, int x_f32, int bn,
                   int stages, int chunks, int smem, int grid, int tma,
                   cudaStream_t stream) {
-  if (stages < 2 || chunks < 1 || grid < 1 || (x_f32 && stages != 2))
+  // a ring of fewer chunks than consumer warps would let a warp wait on
+  // a slot two phases ahead, which an mbarrier's parity cannot tell apart
+  if (E < 1 || stages < (x_f32 ? 1 : 2) || chunks < CONSUMERS / 32 ||
+      grid < 1 || (x_f32 && (stages > 2 || (stages == 1 && M > BMF))))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x, g, static_cast<const uint16_t*>(w),
                  static_cast<const float*>(s), static_cast<float*>(ds),
-                 M, K, N, stages, chunks, tma};
+                 E, M, K, N, stages, chunks, tma};
   switch (bn) {
 #define REPRO_DS_CASE(W)                                        \
   case W:                                                       \
@@ -610,5 +708,6 @@ inline int launch(const void* x, const void* g, const void* w, const void* s,
   }
 }
 
+}  // namespace
 }  // namespace dsw
 }  // namespace repro

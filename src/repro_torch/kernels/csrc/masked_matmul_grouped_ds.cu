@@ -3,46 +3,41 @@
 // grouped (MoE expert) projection.
 //
 // Replaces the Pallas kernel `_g_ds_kernel` / `masked_matmul_grouped_ds` in
-// src/repro/kernels/masked_matmul.py.
+// src/repro/kernels/masked_matmul.py:574.
 //
 // x: (E, M, K) f32, g: (E, M, N) f32, w: (E, K, N) bf16, s: (E, K, N) f32,
 // ds: (E, K, N) f32 (the reference casts to s.dtype).
 //
-// Design: `ds_tile` in masked_matmul_tiles.cuh with the group on the
-// grid's z axis: one block per (e, K-tile, N-tile), looping over all of M
-// inside the block, the epilogue acc * w * sigmoid(s)(1 - sigmoid(s))
-// applied in registers; no atomics, no second pass.
-//
 // Bound on this card: reading w (bf16) and s (f32) and writing ds (f32),
 // 10 bytes per weight (1.85 GB, 0.55 ms at 3.35 TB/s at E = 64,
-// K x N = 2048 x 1408), against 2*M = 60 f32 flops per weight at the
-// capacity M = 30: bytes bind.
-#include "masked_matmul_tiles.cuh"
+// K x N = 2048 x 1408), against 2*M = 60 flops per weight at the
+// capacity M = 30: bytes bind, as long as the products leave the CUDA
+// cores, whose issue slots the sigmoid epilogue needs.
+//
+// Design: kernel 3's persistent tensor-core body
+// (masked_matmul_ds_wgmma.cuh) on E stacked problems, its f32 path: the
+// tiles are numbered (group, K tile, N tile) with N fastest; each tile's
+// x[e]^T g[e] over all of M runs on wgmma as six products of three exact
+// bf16 parts of x and g (one 32-row stage at M = 30, loaded into
+// registers while the tile before is in its epilogue), and the epilogue
+// streams w and s in by TMA through a ring that runs up to a tile and a
+// half ahead, and ds out in 16-byte stores.  At M = 30 the plan runs two
+// blocks of 128 x 64 tiles an SM: the consumers' split, products and
+// sigmoids run in series, and 16 warps hide their latency where 8 did
+// not.  3-d tensor maps (E, K, N) and loads bounded by the group's rows
+// keep every tile inside its group.  No atomics, no partial sums in
+// device memory: the same bits on every launch.
+#include "masked_matmul_ds_wgmma.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(repro::THREADS)
-masked_matmul_grouped_ds_kernel(const float* __restrict__ x,
-                                const float* __restrict__ g,
-                                const __nv_bfloat16* __restrict__ w,
-                                const float* __restrict__ s,
-                                float* __restrict__ ds, int M, int K,
-                                int N) {
-  const int64_t e = blockIdx.z;
-  repro::ds_tile(x + e * M * K, g + e * M * N, w + e * K * N, s + e * K * N,
-                 ds + e * K * N, M, K, N);
-}
-
-}  // namespace
-
+// bn, stages, chunks, smem, grid, tma: the launch plan
+// (kernels.masked_matmul.ds_plan at E groups and the wrapper's
+// 16-byte-grid flags).
 extern "C" int masked_matmul_grouped_ds(const void* x, const void* g,
                                         const void* w, const void* s,
                                         void* ds, int E, int M, int K, int N,
+                                        int bn, int stages, int chunks,
+                                        int smem, int grid, int tma,
                                         void* stream) {
-  masked_matmul_grouped_ds_kernel<<<repro::tile_grid(K, N, E),
-                                    repro::THREADS, 0,
-                                    (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const __nv_bfloat16*)w,
-      (const float*)s, (float*)ds, M, K, N);
-  return (int)cudaGetLastError();
+  return repro::dsw::launch(x, g, w, s, ds, E, M, K, N, 1, bn, stages, chunks,
+                            smem, grid, tma, (cudaStream_t)stream);
 }

@@ -1,9 +1,9 @@
-// Tile bodies of the masked-matmul kernels, shared by the dense entry
-// points on f32 activations (masked_matmul_{fwd,dx}.cu, one (M,K)x(K,N)
-// problem: fwd_tile, dx_tile) and the grouped score gradient
-// (masked_matmul_grouped_ds.cu: ds_tile on E stacked problems, group
-// e = blockIdx.z).  The grouped forward and dx run the tensor-core body
-// of masked_matmul_grouped_wgmma.cuh.
+// Tile bodies of the dense masked-matmul kernels on f32 activations
+// (masked_matmul_{fwd,dx}.cu, one (M,K)x(K,N) problem: fwd_tile,
+// dx_tile), their only users: kernels 1-2 on bf16 activations run the
+// tensor-core body of masked_matmul_wgmma.cuh, the grouped kernels and
+// both score gradients (kernels 3 and 7) run tensor-core bodies of their
+// own.
 //
 // Each body is a tiled SIMT GEMM: a block of THREADS threads owns one
 // TILE x TILE output tile (its position in blockIdx.x / blockIdx.y) and
@@ -14,10 +14,10 @@
 // depends only on (seed, off + k*n_logical + n), never on the tiling.
 // Ragged edges are masked in the loads and the stores: no padding copies.
 //
-// Activations are bf16 (dense layers) or f32 (the MoE expert chain, which
-// the reference keeps in f32); they are widened to f32 on load and the
-// result is cast back to the activation type, as the reference casts its
-// f32 accumulator to x.dtype / g.dtype.
+// The bodies are templates over the activation type (the entry points
+// instantiate f32); values are widened to f32 on load and the result is
+// cast back to the activation type, as the reference casts its f32
+// accumulator to x.dtype / g.dtype.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -170,67 +170,9 @@ __device__ __forceinline__ void dx_tile(const T* __restrict__ g,
   }
 }
 
-// ds = (x^T @ g) * w * sigmoid(s)(1 - sigmoid(s)): x (M, K), g (M, N),
-// ds (K, N) f32; tile (blockIdx.y, blockIdx.x) of ds, looping over all of
-// M inside the block (no atomics, no second pass), the epilogue applied to
-// the f32 accumulator in registers.
-template <typename T>
-__device__ __forceinline__ void ds_tile(const T* __restrict__ x,
-                                        const T* __restrict__ g,
-                                        const __nv_bfloat16* __restrict__ w,
-                                        const float* __restrict__ s,
-                                        float* __restrict__ ds, int M, int K,
-                                        int N) {
-  __shared__ float xs[STEP][TILE];
-  __shared__ float gs[STEP][TILE];
-  const int tid = threadIdx.x;
-  const int tx = tid % (TILE / SUB), ty = tid / (TILE / SUB);
-  const int k0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  float acc[SUB][SUB] = {};
-
-  for (int m0 = 0; m0 < M; m0 += STEP) {
-    for (int e = tid; e < STEP * TILE; e += THREADS) {
-      const int mm = e / TILE, kk = e % TILE;
-      xs[mm][kk] = load_or_zero(x, m0 + mm, k0 + kk, M, K);
-    }
-    for (int e = tid; e < STEP * TILE; e += THREADS) {
-      const int mm = e / TILE, nn = e % TILE;
-      gs[mm][nn] = load_or_zero(g, m0 + mm, n0 + nn, M, N);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < STEP; ++mm) {
-      float a[SUB], b[SUB];
-#pragma unroll
-      for (int i = 0; i < SUB; ++i) a[i] = xs[mm][ty * SUB + i];
-#pragma unroll
-      for (int j = 0; j < SUB; ++j) b[j] = gs[mm][tx * SUB + j];
-#pragma unroll
-      for (int i = 0; i < SUB; ++i)
-#pragma unroll
-        for (int j = 0; j < SUB; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < SUB; ++i) {
-    const int gk = k0 + ty * SUB + i;
-    if (gk >= K) continue;
-#pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      const int gn = n0 + tx * SUB + j;
-      if (gn >= N) continue;
-      const int64_t o = (int64_t)gk * N + gn;
-      const float sig = sigmoid(s[o]);
-      ds[o] = acc[i][j] * __bfloat162float(w[o]) * sig * (1.0f - sig);
-    }
-  }
-}
-
-// Grid of one problem's output tiles, E problems along z.
-inline dim3 tile_grid(int rows, int cols, int groups = 1) {
-  return dim3((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE, groups);
+// Grid of one problem's output tiles.
+inline dim3 tile_grid(int rows, int cols) {
+  return dim3((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE);
 }
 
 }  // namespace repro

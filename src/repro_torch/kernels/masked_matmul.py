@@ -13,10 +13,12 @@ theirs in `kernels.bitpack`).
                                                csrc/masked_matmul_grouped_dx.cu
     masked_matmul_grouped_ds  ds[e] = (x[e]^T g[e]) * w[e] * s'(s[e])
                                                csrc/masked_matmul_grouped_ds.cu
+                              (on kernel 3's body: masked_matmul_ds_wgmma.cuh)
     masked_conv1d             y[b,s,c] = sum_t x_pad[b,s+t,c] (m * w)[t,c]
                                                   csrc/masked_conv1d.cu
     masked_conv1d_ds          ds[t,c] = (sum_{b,s} x_pad[b,s+t,c] g[b,s,c])
                                         * w * s'(s)  csrc/masked_conv1d_ds.cu
+                              (split over a thread-block cluster)
 
 m = 1[hash_u(seed, off + row*n_logical + col) < sigmoid(s)] in "sample"
 mode, 1[sigmoid(s) > tau] in "threshold" mode; the hash index is uint32
@@ -37,15 +39,17 @@ f32 activation (recurrentgemma's gate projections).  Kernels 1-2 run a
 tensor-core body for bf16 x/g (csrc/masked_matmul_wgmma.cuh) whose
 launch plan `wgmma_plan` computes here, from the card's occupancy query
 (`card_capacity`), and a tiled SIMT body for f32 x/g.  Kernel 3 runs a
-tensor-core body for both (csrc/masked_matmul_ds_wgmma.cuh; f32 x/g
-split into three bf16 parts) under the launch plan `ds_plan`.  The
-grouped kernels take f32 x/g (the MoE expert chain stays in f32, as in
-the reference): kernels 5-6 run a tensor-core body
+persistent tensor-core body for both (csrc/masked_matmul_ds_wgmma.cuh;
+f32 x/g split into three bf16 parts) under the launch plan `ds_plan`.
+The grouped kernels take f32 x/g (the MoE expert chain stays in f32, as
+in the reference): kernels 5-6 run a tensor-core body
 (csrc/masked_matmul_grouped_wgmma.cuh; x/g split into three bf16 parts,
-m*w exact in bf16) under the launch plan `grouped_plan`, kernel 7 a
-tiled SIMT body.  The conv kernels take bf16 or f32 x and f32 g, with
-an f32 output.  All take bf16 w, f32 scores and contiguous operands.  The
-wrappers raise on anything else rather than copy.
+m*w exact in bf16) under the launch plan `grouped_plan`, kernel 7 kernel
+3's body on E groups under `ds_plan(..., E=E)`.  The conv kernels take
+bf16 or f32 x and f32 g, with an f32 output; kernel 9 splits its time
+rows over a thread-block cluster under the launch plan `conv_ds_plan`.
+All take bf16 w, f32 scores and contiguous operands.  The wrappers raise
+on anything else rather than copy.
 """
 from __future__ import annotations
 
@@ -77,6 +81,8 @@ WG_ROWS, WG_BR, WG_A_STAGES = 256, 64, 2
 WG_WIDTHS = (32, 48, 64, 80, 96, 112, 128)   # as REPRO_WG_WIDTHS
 WG_MAX_W_STAGES, MAX_CLUSTER = 8, 8
 SMEM_LIMIT = 232_448            # bytes of shared memory a block can use
+SM_SMEM = 233_472               # bytes of shared memory an SM holds
+BLOCK_RESERVED = 1024           # of them the system keeps for each block
 SMS = 132                       # streaming multiprocessors of an H100 SXM
 
 _MODES = {"sample": 0, "threshold": 1, "plain": 2}
@@ -231,7 +237,8 @@ def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
 # Kernel 3's tensor-core body (csrc/masked_matmul_ds_wgmma.cuh): a block
 # owns a DS_BK x bn tile of ds and all of M; bf16 x/g come in a ring of
 # `stages` stages of DS_BMS rows (x: DS_BK, g: bn columns), f32 x/g are
-# split into 3 bf16 parts in 2 stages of DS_BMF rows; w and s come in a
+# split into 3 bf16 parts in `stages` stages of DS_BMF rows (2, or 1
+# where M <= DS_BMF); w and s come in a
 # ring of `chunks` chunks of DS_WR rows x bn (6 bytes an element), one
 # for each of the DS_BK / DS_WR consumer warps a tile; 16 bytes of
 # mbarriers a stage and a chunk, and 1024 bytes of alignment.
@@ -243,35 +250,50 @@ DS_RING_BYTES = 96 * 1024     # of (w, s) chunks: a tile at bn = 128
 
 def ds_smem(bn: int, stages: int, chunks: int, f32: bool) -> int:
     """Dynamic shared-memory bytes of kernel 3's body."""
-    rows = 2 * 3 * DS_BMF if f32 else stages * DS_BMS
+    rows = stages * 3 * DS_BMF if f32 else stages * DS_BMS
     return (1024 + rows * (DS_BK + bn) * 2 + chunks * DS_WR * bn * 6
             + 16 * (stages + chunks))
 
 
 def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
-            sms: int = SMS) -> dict:
+            sms: int = SMS, E: int = 1) -> dict:
     """Launch plan of kernel 3's body for ds (K, N) from x (M, K) and
-    g (M, N) of type `act`: the tile (`bk`, `bn`), the x/g `stages`, the
-    (w, s) `chunks`, the shared-memory bytes `smem` and the persistent
-    `grid` (one block an SM: the shared memory holds no second).
+    g (M, N) of type `act`, or of kernel 7's for E stacked such problems:
+    the tile (`bk`, `bn`), the x/g `stages`, the (w, s) `chunks`, the
+    shared-memory bytes `smem`, the blocks an SM holds (`per_sm`) and
+    the persistent `grid`, at most per_sm blocks an SM.  The blocks take
+    the E * (K / bk) * (N / bn) tiles in turn.
 
     The wider tile reads fewer bytes of x and g from L2 per byte of w, s
     and ds (2*M*(bk + bn) against 10*bk*bn), so bn = 128 unless its
-    tiles would leave SMs without one; then bn = 64.  The (w, s) ring
-    holds DS_RING_BYTES: a tile's chunks at bn = 128, two tiles' at 64.
-    bf16 stages: as many as fit beside it, at most DS_MAX_STAGES (256
-    rows, the main path's M); f32: two, which the consumers fill while
-    the other is multiplied."""
+    tiles would leave SMs without one; then bn = 64, one block an SM.
+    bf16: the (w, s) ring holds DS_RING_BYTES, a tile's chunks at
+    bn = 128, two tiles' at 64, and as many x/g stages as fit beside it,
+    at most DS_MAX_STAGES (256 rows, the main path's M).  f32: two
+    stages, which the consumers fill while the other is multiplied, and
+    as many chunks as fit beside them, at most two tiles': the deeper
+    ring lets the (w, s) loads of the next tile run while this one's
+    epilogue holds its chunks.  f32 at M <= DS_BMF (the MoE capacity):
+    a tile's only stage in one buffer, and two blocks an SM at bn = 64
+    (the kernel's 96-register build), so that 16 consumer warps hide the
+    latency of the sigmoid epilogue, each block in half the SM's shared
+    memory."""
     f32 = act == torch.float32
-    tiles = {bn: _cdiv(K, DS_BK) * _cdiv(N, bn) for bn in DS_WIDTHS}
-    bn = 128 if tiles[128] >= sms else 64
-    chunks = DS_RING_BYTES // (DS_WR * bn * 6)
-    stages = 2 if f32 else DS_MAX_STAGES
-    while ds_smem(bn, stages, chunks, f32) > SMEM_LIMIT:
-        stages -= 1
+    tiles = {bn: E * _cdiv(K, DS_BK) * _cdiv(N, bn) for bn in DS_WIDTHS}
+    bn, per_sm, budget = (128 if tiles[128] >= sms else 64), 1, SMEM_LIMIT
+    if f32 and M <= DS_BMF:
+        bn, per_sm, budget = 64, 2, SM_SMEM // 2 - BLOCK_RESERVED
+    if f32:
+        stages, chunks = (1 if M <= DS_BMF else 2), 2 * DS_BK // DS_WR
+        while ds_smem(bn, stages, chunks, f32) > budget:
+            chunks -= 1
+    else:
+        stages, chunks = DS_MAX_STAGES, DS_RING_BYTES // (DS_WR * bn * 6)
+        while ds_smem(bn, stages, chunks, f32) > budget:
+            stages -= 1
     return dict(bk=DS_BK, bn=bn, stages=stages, chunks=chunks,
-                smem=ds_smem(bn, stages, chunks, f32),
-                grid=max(1, min(tiles[bn], sms)))
+                smem=ds_smem(bn, stages, chunks, f32), per_sm=per_sm,
+                grid=max(1, min(tiles[bn], per_sm * sms)))
 
 
 # Kernels 5-6's body (csrc/masked_matmul_grouped_wgmma.cuh): a block owns
@@ -363,11 +385,52 @@ def _grouped_args(kernel: str, a, w, s, out, E: int, M: int, R: int,
 
 
 @functools.lru_cache(maxsize=None)
-def card_ds_plan(device: int, M: int, K: int, N: int, f32: bool) -> dict:
+def card_ds_plan(device: int, M: int, K: int, N: int, f32: bool,
+                 E: int = 1) -> dict:
     """`ds_plan` on card `device` (its SM count), computed once per
     shape."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return ds_plan(M, K, N, torch.float32 if f32 else torch.bfloat16, sms)
+    act = torch.float32 if f32 else torch.bfloat16
+    return ds_plan(M, K, N, act, sms, E)
+
+
+def _ds_args(x, g, w, s, ds, E: int, M: int, K: int, N: int) -> tuple:
+    """(bn, stages, chunks, smem, grid, tma) for kernel 3's or 7's C entry
+    point.  tma bit 0, 1: x, g; 2, 3: w, s; 4: ds, each on the 16-byte
+    grid (its base and its row pitch, and so every group's rows); no x,
+    g rows to map at M = 0."""
+    plan = card_ds_plan(x.device.index, M, K, N, bool(_f32(x)), E)
+    e = x.element_size()
+    tma = _grid_flags((x, e * K), (g, e * N), (w, 2 * N), (s, 4 * N),
+                      (ds, 4 * N)) & (31 if M else 28)
+    return (plan["bn"], plan["stages"], plan["chunks"], plan["smem"],
+            plan["grid"], tma)
+
+
+# Kernel 9 (csrc/masked_conv1d_ds.cu): the B*S time rows in chunks of
+# CONV_RT rows of one batch row, split over a cluster of at most
+# CONV_MAX_CLUSTER blocks; a block owns CONV_CB channels in quads of
+# CONV_QUAD (one a thread) and at most CONV_MAX_LANES row lanes.
+CONV_QUAD, CONV_CB, CONV_RT = 4, 64, 4
+CONV_MAX_LANES, CONV_MAX_CLUSTER, CONV_MAX_W = 8, 8, 8
+
+
+def conv_ds_plan(B: int, S: int, C: int) -> dict:
+    """Launch plan of kernel 9 for ds (W, C) from x, g (B, S, C): the
+    `chunks` of CONV_RT time rows, the `cluster` size P that splits them
+    (rank q takes chunks [q*chunks // P, (q+1)*chunks // P)), the row
+    `lanes` of a block (lane r takes every lanes-th chunk of its rank's
+    range), its `threads` and the `grid` (cluster ranks, channel
+    tiles).  As many ranks and lanes as there are chunks, up to the
+    largest cluster and block: at the main paths' (2, 128) every thread
+    takes one chunk, so that all of a launch's loads are in flight at
+    once (the bytes take about as long as one round trip)."""
+    chunks = B * _cdiv(S, CONV_RT)
+    cluster = max(1, min(CONV_MAX_CLUSTER, chunks))
+    lanes = max(1, min(CONV_MAX_LANES, _cdiv(chunks, cluster)))
+    return dict(chunks=chunks, cluster=cluster, lanes=lanes,
+                threads=lanes * CONV_CB // CONV_QUAD,
+                grid=(cluster, _cdiv(C, CONV_CB)))
 
 
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
@@ -429,15 +492,10 @@ def masked_matmul_ds(x, g, w, s):
     _require(s, "s", torch.float32, (K, N))
     ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
     if K and N:
-        plan = card_ds_plan(x.device.index, M, K, N, bool(_f32(x)))
-        e = x.element_size()
-        # no x, g rows at M = 0: nothing to map
-        tma = _grid_flags((x, e * K), (g, e * N), (w, 2 * N), (s, 4 * N),
-                          (ds, 4 * N)) & (31 if M else 28)
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
-                     _f32(x), plan["bn"], plan["stages"], plan["chunks"],
-                     plan["smem"], plan["grid"], tma, dispatch.stream(x))
+                     _f32(x), *_ds_args(x, g, w, s, ds, 1, M, K, N),
+                     dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_ds"] += 1
     return ds
 
@@ -542,6 +600,7 @@ def masked_matmul_grouped_ds(x, g, w, s):
     if E and K and N:
         build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
+                     *_ds_args(x, g, w, s, ds, E, M, K, N),
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_grouped_ds"] += 1
     return ds
@@ -597,9 +656,12 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
         _require(s, "s", torch.float32, (W, C))
     ds = torch.empty((W, C), dtype=torch.float32, device=x.device)
     if C:
+        plan = conv_ds_plan(B, S, C)
+        vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (g, 0)) == 3)
         build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), 0 if dw else s.data_ptr(), ds.data_ptr(),
                      B, S, C, W, _EPILOGUES[epilogue], _f32(x),
+                     plan["cluster"], plan["lanes"], vec,
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_conv1d_ds"] += 1
     return ds

@@ -105,17 +105,20 @@ E, M = 64, 30
 SHAPES = ((2048, 1408), (2048, 1408), (1408, 2048))   # w_gate, w_up, w_down
 
 
-def _lib(name: str) -> Path:
-    return OUT / name / "lib.so"
+def _lib(name: str, out: Path = OUT) -> Path:
+    return out / name / "lib.so"
 
 
-def build_all() -> None:
-    """Patch copies of the headers and build every variant at once."""
+def build_all(variants: dict = VARIANTS,
+              source: str = "masked_matmul_grouped.cu",
+              out: Path = OUT) -> None:
+    """Patch copies of the headers and `source` and build every variant
+    at once, each into `out/<variant>/lib.so`."""
     procs = {}
-    for name, patches in VARIANTS.items():
-        d = OUT / name
+    for name, patches in variants.items():
+        d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        for f in build.HEADERS + ("masked_matmul_grouped.cu",):
+        for f in build.HEADERS + (source,):
             text = (build.CSRC / f).read_text()
             for header, old, new in patches:
                 if header == f:
@@ -123,8 +126,8 @@ def build_all() -> None:
                         raise RuntimeError(f"{name}: patch not found in {f}")
                     text = text.replace(old, new)
             (d / f).write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(_lib(name)),
-               str(d / "masked_matmul_grouped.cu")]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(_lib(name, out)),
+               str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():

@@ -223,3 +223,45 @@ def test_argtypes_match_the_c_signature(entry):
 
 def test_every_c_entry_has_argtypes():
     assert set(_c_signatures()) == set(build.ARGTYPES)
+
+
+def _c_args(entry):
+    """Argument names of extern "C" entry point `entry` in csrc/."""
+    for src in build.CSRC.glob("*.cu"):
+        got = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src.read_text())
+        if got:
+            return [a.split()[-1].lstrip("*") for a in got.group(1).split(",")]
+    raise AssertionError(f"no extern \"C\" {entry} in csrc/")
+
+
+@pytest.mark.parametrize("entry,header", [
+    ("masked_matmul_ds", "masked_matmul_ds_wgmma.cuh"),
+    ("masked_matmul_grouped_ds", "masked_matmul_ds_wgmma.cuh"),
+    ("masked_matmul_fwd", "masked_matmul_tiles.cuh"),
+    ("masked_matmul_dx", "masked_matmul_tiles.cuh")])
+def test_each_body_has_its_entry_points(entry, header):
+    """Kernels 3 and 7 run the tensor-core body of
+    masked_matmul_ds_wgmma.cuh; the SIMT tiles of masked_matmul_tiles.cuh
+    serve only kernels 1-2 on f32 activations (no score-gradient tile is
+    left in it)."""
+    text = (build.CSRC / f"{entry}.cu").read_text()
+    assert f'#include "{header}"' in text
+    users = sorted(src.stem for src in build.CSRC.glob("*.cu")
+                   if f'#include "{header}"' in src.read_text())
+    assert entry in users
+    if header == "masked_matmul_tiles.cuh":
+        assert users == ["masked_matmul_dx", "masked_matmul_fwd"]
+        assert "ds_tile" not in (build.CSRC / header).read_text()
+
+
+def test_score_gradient_signatures_carry_the_plan():
+    """Kernel 7's entry takes kernel 3's launch plan in kernel 3's order,
+    with the group count E before the shapes and no activation flag (its
+    x, g are f32); kernel 9's takes its cluster plan and the vector flag
+    before the stream."""
+    k3, k7 = _c_args("masked_matmul_ds"), _c_args("masked_matmul_grouped_ds")
+    assert k7 == k3[:5] + ["E"] + [a for a in k3[5:] if a != "x_f32"]
+    assert k3[-7:] == ["bn", "stages", "chunks", "smem", "grid", "tma",
+                       "stream"]
+    assert _c_args("masked_conv1d_ds")[-4:] == ["cluster", "lanes", "vec",
+                                                "stream"]
