@@ -18,10 +18,14 @@ Phases (any failure exits non-zero and prints no result line):
    mamba2-370m and recurrentgemma-9b conv shapes (B 2, S 128, C 2304 and
    4096) with the last layer's offset, each with a non-zero stream
    offset, every mode (the conv also mask-free and flipped, its ds with
-   both epilogues and the same bits on a repeated launch) and a ragged
-   shape, and the dense kernels on the f32 activations recurrentgemma's
-   gate projections feed them: masks and words exactly, sums within
-   float32 rounding.  The bit-packing kernels
+   both epilogues and the same bits on a repeated launch), a ragged
+   shape and one of C % 4 != 0, and the dense kernels on the f32
+   activations recurrentgemma's gate projections feed them: masks and
+   words exactly, sums within float32 rounding.  sample_and_pack on
+   every full internlm2 leaf of a round (C = 2), on ragged rows (n =
+   100,003: the scalar path), on n = 100,004 (the vector path's tail)
+   and on a base off the 16-byte grid, both modes, 0 differing bits and
+   the same words on a repeated launch.  The bit-packing kernels
    bit for bit (torch.equal) at internlm2's largest leaf (402,653,184
    bits in one row), at a round's 2 rows of it, at a ragged row length
    with misaligned row starts, on a misaligned view, and pack -> unpack;
@@ -103,6 +107,7 @@ MOE_LAYERS = 4                # 1 dense + 3 MoE layers of the 27
 CONV_W, CONV_B, CONV_S = 4, 2, 128
 CONV_SHAPES = {"mamba2-370m": 2304, "recurrentgemma-9b": 4096}
 CONV_RAGGED = (3, 37, 1000)
+CONV_ODD = (2, 21, 1001)      # C % 4 != 0: the kernels' element path
 MAMBA_LAYERS, RG_LAYERS = 48, 5   # recurrentgemma: 5 of its 38 layers
 BITPACK_RAGGED = (3, 37_005)  # (R, n): row starts off the 16-byte grid
 # masked leaves a round unpacks: internlm2 7, deepseek-v2-lite at 4
@@ -282,19 +287,38 @@ def kernel_phase(torch, mm, ref, dev):
         del x, w, s, g, wm, idx, u, theta, mask, px, got, want
         torch.cuda.empty_cache()
 
-    # sample_and_pack: every full layer-stacked leaf of one round (C = 2)
-    # and a ragged row length, both modes: words exactly
+    # sample_and_pack: every full layer-stacked leaf of one round (C = 2),
+    # a ragged row length (the scalar path), one of n % 4 == 0 off the
+    # 128-element chunk (the vector path's tail) and a base off the
+    # 16-byte grid (the scalar path), both modes: words exactly, and the
+    # same words on a repeated launch
     lens = sorted({N_LAYERS * K * N for K, N in LAYER_SHAPES.values()})
-    for n in lens + [100_003]:
-        s = 2 * torch.randn(COHORTS, n, generator=gen, device=dev)
-        seeds = [0x9E3779B9 * (c + 1) & 0xFFFFFFFF for c in range(COHORTS)]
+    seeds = [0x9E3779B9 * (c + 1) & 0xFFFFFFFF for c in range(COHORTS)]
+    for n in lens + [100_003, 100_004, "misaligned"]:
+        if n == "misaligned":
+            n = 100_004
+            s = torch.empty(COHORTS * n + 1, device=dev)[1:].view(COHORTS, n)
+            s.copy_(2 * torch.randn(COHORTS, n, generator=gen, device=dev))
+            tag = f"n={n} misaligned"
+        else:
+            s = 2 * torch.randn(COHORTS, n, generator=gen, device=dev)
+            tag = f"n={n}"
+        plan = mm.sap_plan(COHORTS, n, mm.card_sms(dev.index or 0),
+                           aligned=s.data_ptr() % 16 == 0)
+        check(plan["vec"] == (n % 4 == 0 and s.data_ptr() % 16 == 0),
+              f"sample_and_pack {tag}: plan {plan}")
         for mode in ("sample", "threshold"):
             words = mm.sample_and_pack(s, seeds, mode=mode, tau=0.45)
             want = ref.sample_and_pack(s, torch.tensor(seeds, device=dev),
                                        mode, 0.45)
             diff = int(ref.popcount32(words ^ want).sum())
-            check(diff == 0, f"sample_and_pack n={n} {mode}: {diff} bits")
+            check(diff == 0, f"sample_and_pack {tag} {mode}: {diff} bits "
+                  f"(vector path {plan['vec']})")
             del want
+            check(torch.equal(words, mm.sample_and_pack(s, seeds, mode=mode,
+                                                        tau=0.45)),
+                  f"sample_and_pack {tag} {mode}: a repeated launch gives "
+                  f"other words")
             torch.cuda.empty_cache()
         del s
     torch.cuda.synchronize()
@@ -522,6 +546,12 @@ def timing_phase(torch, mm, ref, dev):
         nb = COHORTS * n * 4 + COHORTS * ((n + 31) // 32) * 4
         per_shape["sample_and_pack"][name] = (tk, tp, None, bound(nb, 0)[0])
         t_k, t_p, nbytes = t_k + tk, t_p + tp, nbytes + nb
+        plan = mm.sap_plan(COHORTS, n, mm.card_sms(dev.index or 0),
+                           aligned=s.data_ptr() % 16 == 0)
+        print(f"  sample_and_pack {name} C={COHORTS} n={n}: {tk:.4f} ms, "
+              f"bound {bound(nb, 0)[0]:.4f}; plan: vector path "
+              f"{plan['vec']}, {plan['per_thread']} elements a thread in "
+              f"flight, {plan['grid']} blocks of {plan['threads']}")
         del s
         torch.cuda.empty_cache()
     b_ms, b_by = bound(nbytes, 0)
@@ -676,8 +706,8 @@ def grouped_timing_phase(torch, mm, ref, dev):
 
 def conv_kernel_phase(torch, mm, ref, dev):
     """Conv kernels vs plain versions at the mamba2 and recurrentgemma
-    conv shapes with the last layer's stream offset and at a ragged
-    shape: masked_conv1d in all three modes, forward (bf16 x) and
+    conv shapes with the last layer's stream offset, at a ragged shape
+    and at one of C % 4 != 0 (kernels 8-9's element path): masked_conv1d in all three modes, forward (bf16 x) and
     flipped (f32 g), bit for bit (the same separately rounded products
     in the same order); masks exactly by an identity probe; ds with both
     epilogues and bf16 or f32 x within float32 rounding, and the same
@@ -691,7 +721,7 @@ def conv_kernel_phase(torch, mm, ref, dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     W = CONV_W
     shapes = [(CONV_B, CONV_S, C) for C in CONV_SHAPES.values()]
-    for (B, S, C) in shapes + [CONV_RAGGED]:
+    for (B, S, C) in shapes + [CONV_RAGGED, CONV_ODD]:
         x = torch.randn(B, S, C, generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn(B, S, C, generator=gen, device=dev)
         w = torch.randn(W, C, generator=gen, device=dev).to(torch.bfloat16)
@@ -809,6 +839,10 @@ def conv_timing_phase(torch, mm, ref, dev):
         t_call = time_ms(torch, kern + lib, 20)
         t_empty = graph_ms(torch, [lambda: torch.cuda._sleep(0)], 50)[0]
         plan = mm.conv_ds_plan(B, S, C)
+        fplan = mm.conv_plan(B, S, C)
+        print(f"  conv {arch} C={C} plan: fwd/flip {fplan['grid'][0]} row "
+              f"blocks x {fplan['grid'][1]} channel tiles of "
+              f"{fplan['threads']} threads, {fplan['chunks']} chunks")
         print(f"  conv {arch} C={C} by graph replay, ms: kernel fwd/flip/ds "
               f"{' '.join(f'{t:.4f}' for t in t_k)}; library "
               f"{' '.join(f'{t:.4f}' for t in t_l)}; an empty kernel "

@@ -49,7 +49,7 @@ ARGTYPES = {
                          _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
-    "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _P],
+    "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _I, _I, _I, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
                               _I, _F, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -57,7 +57,7 @@ ARGTYPES = {
     "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _P],
     "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
-                      _F, _I, _I, _P],
+                      _F, _I, _I, _I, _I, _P],
     "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     "pack_bits": [_P, _P, _I64, _I64, _I, _P],

@@ -7,6 +7,7 @@ theirs in `kernels.bitpack`).
     masked_matmul_ds          ds = (x^T g) * w * s'(s)  csrc/masked_matmul_ds.cu
     sample_and_pack           (C, n) scores -> (C, n/32) words
                                                         csrc/sample_and_pack.cu
+                              (a persistent grid of 16-byte loads)
     masked_matmul_grouped     y[e]  = x[e] @ (m[e] * w[e])
                                                   csrc/masked_matmul_grouped.cu
     masked_matmul_grouped_dx  dx[e] = g[e] @ (m[e] * w[e])^T
@@ -16,6 +17,7 @@ theirs in `kernels.bitpack`).
                               (on kernel 3's body: masked_matmul_ds_wgmma.cuh)
     masked_conv1d             y[b,s,c] = sum_t x_pad[b,s+t,c] (m * w)[t,c]
                                                   csrc/masked_conv1d.cu
+                              (time rows over the whole launch)
     masked_conv1d_ds          ds[t,c] = (sum_{b,s} x_pad[b,s+t,c] g[b,s,c])
                                         * w * s'(s)  csrc/masked_conv1d_ds.cu
                               (split over a thread-block cluster)
@@ -46,8 +48,14 @@ in the reference): kernels 5-6 run a tensor-core body
 (csrc/masked_matmul_grouped_wgmma.cuh; x/g split into three bf16 parts,
 m*w exact in bf16) under the launch plan `grouped_plan`, kernel 7 kernel
 3's body on E groups under `ds_plan(..., E=E)`.  The conv kernels take
-bf16 or f32 x and f32 g, with an f32 output; kernel 9 splits its time
-rows over a thread-block cluster under the launch plan `conv_ds_plan`.
+bf16 or f32 x and f32 g, with an f32 output; kernel 8 gives each thread
+4 channels of 4 time rows, all of its loads in flight before the block
+gates its taps once, under the launch plan `conv_plan`, and kernel 9
+splits its time rows over a thread-block cluster under `conv_ds_plan`.
+Kernel 4 runs a persistent grid whose warps issue several 16-byte score
+loads each before they gate, and decides each bit from a cheap sigmoid
+with an error band (the exact gating inside it), under the launch plan
+`sap_plan`.
 All take bf16 w, f32 scores and contiguous operands.  The wrappers raise
 on anything else rather than copy.
 """
@@ -385,13 +393,18 @@ def _grouped_args(kernel: str, a, w, s, out, E: int, M: int, R: int,
 
 
 @functools.lru_cache(maxsize=None)
+def card_sms(device: int) -> int:
+    """Streaming multiprocessors of card `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def card_ds_plan(device: int, M: int, K: int, N: int, f32: bool,
                  E: int = 1) -> dict:
     """`ds_plan` on card `device` (its SM count), computed once per
     shape."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     act = torch.float32 if f32 else torch.bfloat16
-    return ds_plan(M, K, N, act, sms, E)
+    return ds_plan(M, K, N, act, card_sms(device), E)
 
 
 def _ds_args(x, g, w, s, ds, E: int, M: int, K: int, N: int) -> tuple:
@@ -431,6 +444,64 @@ def conv_ds_plan(B: int, S: int, C: int) -> dict:
     return dict(chunks=chunks, cluster=cluster, lanes=lanes,
                 threads=lanes * CONV_CB // CONV_QUAD,
                 grid=(cluster, _cdiv(C, CONV_CB)))
+
+
+# Kernel 8 (csrc/masked_conv1d.cu): the B*S time rows in chunks of
+# CONV_RT rows of one batch row; a block owns CONV_FWD_CB channels in
+# quads of CONV_QUAD (one a thread) and at most CONV_FWD_LANES chunks,
+# one a row lane.
+CONV_FWD_CB, CONV_FWD_LANES = 128, 8
+
+
+def conv_plan(B: int, S: int, C: int) -> dict:
+    """Launch plan of kernel 8 for y (B, S, C): the `chunks` of CONV_RT
+    time rows, the row `lanes` of a block (block i takes chunks [i*lanes,
+    (i+1)*lanes), one a lane), its `threads` and the `grid` (row blocks,
+    channel tiles).  As many lanes as there are chunks, up to the
+    largest block: every thread takes one chunk, so that all of a
+    launch's loads are in flight at once; at the main paths' (2, 128)
+    the 64 chunks make 8 row blocks, x 18 (mamba2) or 32 (recurrentgemma)
+    channel tiles."""
+    chunks = B * _cdiv(S, CONV_RT)
+    lanes = max(1, min(CONV_FWD_LANES, chunks))
+    return dict(chunks=chunks, lanes=lanes,
+                threads=lanes * CONV_FWD_CB // CONV_QUAD,
+                grid=(_cdiv(chunks, lanes), _cdiv(C, CONV_FWD_CB)))
+
+
+# Kernel 4 (csrc/sample_and_pack.cu): a persistent grid of blocks of
+# SAP_THREADS threads, at most SAP_PER_SM an SM, whose warps stride over
+# the (row, piece) space; a piece is `unroll` chunks of 128 elements (16
+# bytes a lane, vector path) or `unroll` words of 32 (4 bytes a lane,
+# scalar path).
+SAP_THREADS, SAP_PER_SM = 256, 4
+SAP_UNROLLS = (1, 2, 4, 8)                    # as the C entry's builds
+SAP_UNROLL_VEC, SAP_UNROLL_SCALAR = 4, 8
+
+
+def sap_plan(C: int, n: int, sms: int = SMS, aligned: bool = True,
+             unroll: int | None = None) -> dict:
+    """Launch plan of kernel 4 for (C, n) scores: the vector flag `vec`
+    (n % 4 == 0, so that every row starts on the 16-byte grid, and the
+    base `aligned` on it), the `unroll` (vector or word loads a warp
+    issues before it gates: 4 x 16 bytes a lane, or 8 x 4), the elements
+    a thread loads at once (`per_thread`), the `piece` of a row a warp
+    takes (elements), the pieces of a row (`per_row`) and in all
+    (`items`), and the persistent `grid`: as many blocks as have pieces,
+    at most SAP_PER_SM an SM, so that every block is resident at once."""
+    vec = n % 4 == 0 and aligned
+    if unroll is None:
+        unroll = SAP_UNROLL_VEC if vec else SAP_UNROLL_SCALAR
+    if unroll not in SAP_UNROLLS:
+        raise ValueError(f"unroll {unroll}: one of {SAP_UNROLLS}")
+    piece = (128 if vec else 32) * unroll
+    per_row = _cdiv(n, piece)
+    items = C * per_row
+    warps = SAP_THREADS // 32
+    return dict(vec=vec, unroll=unroll, per_thread=(4 if vec else 1) * unroll,
+                piece=piece, per_row=per_row, items=items,
+                threads=SAP_THREADS,
+                grid=max(1, min(_cdiv(items, warps), sms * SAP_PER_SM)))
 
 
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
@@ -515,8 +586,11 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
                         device=s.device)
     if C and n:
         seeds32 = _i32_bits(seeds)
+        plan = sap_plan(C, n, card_sms(s.device.index),
+                        aligned=s.data_ptr() % 16 == 0)
         build.launch("sample_and_pack", s.data_ptr(), seeds32.data_ptr(),
                      words.data_ptr(), C, n, _MODES[mode], float(tau),
+                     int(plan["vec"]), plan["unroll"], plan["grid"],
                      dispatch.stream(s))
         dispatch.LAUNCHES["sample_and_pack"] += 1
     return words
@@ -627,12 +701,13 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
         _require(s, "s", torch.float32, (W, C))
     y = torch.empty((B, S, C), dtype=torch.float32, device=x.device)
     if B and S and C:
+        vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (y, 0)) == 3)
         build.launch("masked_conv1d", x.data_ptr(), w.data_ptr(),
                      0 if plain else s.data_ptr(), y.data_ptr(), B, S, C, W,
                      _u32(seed), _u32(off),
                      _u32(C if n_logical is None else n_logical),
                      _MODES[mode], float(tau), int(flip), _f32(x),
-                     dispatch.stream(x))
+                     conv_plan(B, S, C)["lanes"], vec, dispatch.stream(x))
         dispatch.LAUNCHES["masked_conv1d"] += 1
     return y
 

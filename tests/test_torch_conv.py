@@ -309,8 +309,10 @@ def _card_operands(Bc, Sc, C, seed, dev, x_dtype=torch.bfloat16):
     return x, w, s, g
 
 
-# (B, S, C): mamba2-370m's conv, recurrentgemma-9b's, and a ragged one
-CARD_CONV_SHAPES = [(2, 128, 2304), (2, 128, 4096), (3, 37, 1000)]
+# (B, S, C): mamba2-370m's conv, recurrentgemma-9b's, a ragged one, and
+# one of C % 4 != 0 (the kernels' element path)
+CARD_CONV_SHAPES = [(2, 128, 2304), (2, 128, 4096), (3, 37, 1000),
+                    (2, 21, 1001)]
 
 
 @pytest.mark.cuda

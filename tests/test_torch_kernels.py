@@ -421,7 +421,8 @@ def test_card_masked_matmul_ds_deterministic(card, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,n", [(2, 4096), (3, 1000), (1, 31)])
+@pytest.mark.parametrize("C,n", [(2, 4096), (3, 1000), (1, 31),
+                                 (2, 100_003), (2, 100_004), (4, 33)])
 @pytest.mark.parametrize("mode", ["sample", "threshold"])
 def test_card_sample_and_pack_matches_plain(card, C, n, mode):
     g = torch.Generator(device=card).manual_seed(n)
