@@ -28,7 +28,10 @@ Phases (any failure exits non-zero and prints no result line):
    the same words on a repeated launch.  The bit-packing kernels
    bit for bit (torch.equal) at internlm2's largest leaf (402,653,184
    bits in one row), at a round's 2 rows of it, at a ragged row length
-   with misaligned row starts, on a misaligned view, and pack -> unpack;
+   with misaligned row starts, on a misaligned view, and pack -> unpack.
+   The masked matmul at the decode's M = 1, 2, 4, 8 rows: bf16 x at
+   internlm2's and gemma3-4b's leaf shapes, f32 x at recurrentgemma's
+   4096 x 4096;
 4. time each kernel, its plain version and a PyTorch call computing the
    same function on the pre-masked weight (the library yardstick; none
    packs bits) with CUDA events (kernels 1-3, the tensor-core bodies,
@@ -43,10 +46,12 @@ Phases (any failure exits non-zero and prints no result line):
    mamba2 and recurrentgemma SMOKE configs: the round exactly, the train
    step's loss, and its backward leaf by leaf (each score leaf's update
    and first moment, each float leaf's update), on the configs' bf16
-   activations and, but for the hybrid, on f32 ones; and the KV-cache
-   decode of internlm2 and deepseek-v2-lite SMOKE likewise, and the
-   serving engine's tenant isolation on the card (bit-identical to a solo
-   run);
+   activations and, but for the hybrid, on f32 ones; and the decode of
+   every family's SMOKE config likewise (internlm2, deepseek-v2-lite,
+   mamba2, recurrentgemma, gemma3), gemma3's ring caches against its
+   full cache, the serving engine's tenant isolation on the card
+   (bit-identical to a solo run), and the lockstep engine against the
+   exact one (tokens equal, logits within atol = rtol = 1e-5);
 6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
    with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
    downlink: full-size internlm2-1.8b (all 24 layers), then
@@ -55,19 +60,26 @@ Phases (any failure exits non-zero and prints no result line):
    full-size mamba2-370m (all 48 layers), and recurrentgemma-9b at full
    width with its depth cut to 5 layers (one rec, rec, attn group and
    the 2-layer rec tail; 38 do not fit).  Every round unpacks each
-   masked leaf's cohort words once (the unpack kernel).  Then serving
-   on full-size internlm2-1.8b: `repro_torch.launch.serve` single tenant
-   (batch 4, 16-token prompts, 16 tokens) and multi-tenant (4 tenants
-   on 2 slots, freeze-cache capacity 2), and the artifact path of
-   examples/serve_masked.py (`init_server` -> `final_artifact`, one
-   pack per masked leaf -> `save_artifact` -> `load_artifact` -> unpack,
-   one per leaf -> m * w over weights regenerated from the seed -> 16
-   decode steps at batch 8 after a 32-token prompt).  Before each path
-   the kernels' launch counters are zeroed, after it they are read, and
-   every kernel must have run the expected number of times;
-7. profile one more step and round of each training path, and eight
-   decode steps of the served internlm2-1.8b (torch.profiler): device
-   time by kernel and the device's busy share.
+   masked leaf's cohort words once (the unpack kernel).  Then decoding
+   through masked trees at the mamba2, recurrentgemma and gemma3 SMOKE
+   configs: frozen decode against the fused training forward (kernels 1
+   and 8), and the unfrozen `MaskedLeaf` tree against the frozen one
+   (kernel 1 at M = 1).  Then serving with `repro_torch.launch.serve`
+   (batch 4, 16-token prompts, 16 tokens; multi-tenant: 4 tenants on 2
+   slots, freeze-cache capacity 2) at the published widths: internlm2-1.8b
+   and mamba2-370m single and multi, gemma3-4b single, multi and
+   lockstep, recurrentgemma-9b single at full depth and multi cut to 5
+   layers; and the artifact path of examples/serve_masked.py for
+   internlm2-1.8b and mamba2-370m (`init_server` -> `final_artifact`,
+   one pack per masked leaf -> `save_artifact` -> `load_artifact` ->
+   unpack, one per leaf -> m * w over weights regenerated from the seed
+   -> 16 decode steps at batch 8 after a 32-token prompt).  Before each
+   path the kernels' launch counters are zeroed, after it they are read,
+   and every kernel must have run the expected number of times;
+7. profile one more step and round of each training path, eight decode
+   steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
+   on 2 slots, exact and lockstep (torch.profiler): device time by
+   kernel, the device's busy share and operations a step or tick.
 
 The last two lines are a JSON object per kernel and
 {"ok": true, "device": {...}}.
@@ -114,6 +126,31 @@ BITPACK_RAGGED = (3, 37_005)  # (R, n): row starts off the 16-byte grid
 # layers 19, mamba2 3, recurrentgemma at 5 layers 34
 ROUND_LEAVES = {"internlm2-1.8b": 7, "deepseek-v2-lite-16b": 19,
                 "mamba2-370m": 3, "recurrentgemma-9b": 34}
+# gemma3-4b masked leaves, (K, N), and the decode's row counts (batch 1-8)
+GEMMA3_SHAPES = {
+    "w_q": (2560, 2048), "w_k": (2560, 1024), "w_v": (2560, 1024),
+    "w_o": (2048, 2560), "w_gate": (2560, 10240), "w_up": (2560, 10240),
+    "w_down": (10240, 2560)}
+SMALL_M = (1, 2, 4, 8)
+# decode through an unfrozen masked tree, SMOKE configs: (arch, kernel-1
+# launches a token at batch 1, bound against the frozen tree; None: bit
+# for bit).  mamba2: 2 layers of w_in, w_out; recurrentgemma: 4 rec
+# blocks of 8 projections and 1 attention block of 7; gemma3: 6 layers
+# of 7
+# the serve paths at the published widths: (arch, layers or None for all,
+# mode).  recurrentgemma-9b serves one tenant at full depth (its w, f32
+# scores and one frozen tree, ~65 GiB), and several at the training
+# cell's 5-layer cut (two resident trees do not fit beside w and scores)
+SERVE_RUNS = (("internlm2-1.8b", None, "single"),
+              ("internlm2-1.8b", None, "multi"),
+              ("gemma3-4b", None, "single"), ("gemma3-4b", None, "multi"),
+              ("gemma3-4b", None, "lockstep"),
+              ("mamba2-370m", None, "single"), ("mamba2-370m", None, "multi"),
+              ("recurrentgemma-9b", None, "single"),
+              ("recurrentgemma-9b", RG_LAYERS, "multi"))
+MASKED_DECODE = (("mamba2-370m", 2 * 2, None),
+                 ("recurrentgemma-9b", 4 * 8 + 7, 0.15),
+                 ("gemma3-4b", 6 * 7, 0.02))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16, published
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -1105,22 +1142,43 @@ def smoke_reference_phase(torch, dev, arch):
                   for kind, (rel, cos, n) in agree.items()))
 
 
-def decode_reference_phase(torch, dev):
-    """KV-cache decode on the card against the CPU at the internlm2 and
-    deepseek-v2-lite SMOKE configs (one frozen tree, 8 tokens): bf16
-    products in another order, within 3% of the logit scale, the bound
-    the CPU tests hold the port to against the JAX package.  Then the
-    serving engine's tenant isolation on the card: 3 tenants interleaved
-    on 2 slots give logits bit-identical to each tenant decoded alone."""
+def _smoke_serving(torch, arch, gen_seed, windowed=False):
+    """A SMOKE model of `arch` (gemma3 over ring caches if `windowed`) and
+    its MaskedParams on the CPU, from one seeded generator."""
     from repro_torch.configs import get_config
-    from repro_torch.core import masking, tree
+    from repro_torch.core import masking
     from repro_torch.models import build_model
+    cfg = get_config(arch, smoke=True)
+    if windowed:
+        cfg = dataclasses.replace(cfg, window_kv_cache=True)
+    api = build_model(cfg)
+    gen = torch.Generator().manual_seed(gen_seed)
+    return api, masking.init_masked(gen, api.init_params(gen),
+                                    masking.MaskSpec())
+
+
+# the families whose decode the smoke reference phase checks
+DECODE_ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
+                "recurrentgemma-9b", "gemma3-4b")
+
+
+def decode_reference_phase(torch, dev):
+    """KV-cache and recurrent decode on the card against the CPU at every
+    ported family's SMOKE config (one frozen tree, 8 tokens): bf16
+    products in another order, within 3% of the logit scale, the bound
+    the CPU tests hold the port to against the JAX package.  gemma3's
+    ring caches (`window_kv_cache`) over 24 tokens, a window of 8,
+    against its full-cache decode on the card (the reference's 0.05).
+    The serving engine's tenant isolation on the card: 3 tenants
+    interleaved on 2 slots give logits bit-identical to each tenant
+    decoded alone.  Then the lockstep engine against the exact one on
+    the card, on the reference's traffic (3 tenants, 6-token prompts, 5
+    generated, 2 slots) and every family: tokens equal, logits within
+    the reference's atol = rtol = 1e-5."""
+    from repro_torch.core import masking, tree
     from repro_torch.runtime.serve_engine import ServeEngine
-    for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):
-        api = build_model(get_config(arch, smoke=True))
-        gen = torch.Generator().manual_seed(3)
-        mp = masking.init_masked(gen, api.init_params(gen),
-                                 masking.MaskSpec())
+    for arch in DECODE_ARCHS:
+        api, mp = _smoke_serving(torch, arch, 3)
         frozen = masking.freeze_identity(mp, masking.MaskIdentity(seed=11))
         toks = torch.randint(0, api.cfg.vocab, (2, 8),
                              generator=torch.Generator().manual_seed(4))
@@ -1140,25 +1198,46 @@ def decode_reference_phase(torch, dev):
         print(f"decode reference {arch}: 8 tokens, card vs cpu max |diff| "
               f"{err:.3g} at logit scale {scale:.3g}")
 
-    api = build_model(get_config("internlm2-1.8b", smoke=True))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    mp = masking.init_masked(gen, api.init_params(gen), masking.MaskSpec())
+    full, mp = _smoke_serving(torch, "gemma3-4b", 5)
+    ring, _ = _smoke_serving(torch, "gemma3-4b", 5, windowed=True)
+    params = tree.tree_map(lambda t: None if t is None else t.to(dev),
+                           masking.freeze_identity(
+                               mp, masking.MaskIdentity(seed=2)))
+    S = 24
+    toks = torch.randint(0, full.cfg.vocab, (2, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    c1, c2 = full.init_cache(2, S, dev), ring.init_cache(2, S, dev)
+    err = 0.0
+    for t in range(S):
+        l1, c1 = full.decode_step(params, c1, toks[:, t], t)
+        l2, c2 = ring.decode_step(params, c2, toks[:, t], t)
+        err = max(err, float((l2 - l1).abs().max()))
+    check(err < 0.05, f"gemma3 ring caches: max |diff| {err} from the full "
+          f"cache")
+    print(f"decode gemma3 window_kv_cache on the card: {S} tokens over a "
+          f"window of {ring.cfg.sliding_window}, max |diff| {err:.3g} from "
+          f"the full-cache decode (bound 0.05)")
+
+    api, mp = _smoke_serving(torch, "internlm2-1.8b", 0)
+    mp = masking.MaskedParams(*(tree.tree_map(
+        lambda t: None if t is None else t.to(dev), x)
+        for x in (mp.weights, mp.scores, mp.floats)))
     prompts = torch.randint(0, api.cfg.vocab, (3, 10),
                             generator=torch.Generator().manual_seed(2))
     lens = [(10, 6), (7, 8), (4, 5)]
 
-    def engine(slots, cap):
+    def engine(api, mp, slots, cap, max_seq, lockstep=False):
         return ServeEngine(api, mp, slots=slots, cache_capacity=cap,
-                           max_seq=18)
+                           max_seq=max_seq, lockstep=lockstep)
 
-    eng = engine(2, 3)
+    eng = engine(api, mp, 2, 3, 18)
     rids = []
     for i, (P, G) in enumerate(lens):
         eng.register_tenant(f"t{i}", seed=100 + i, mode="sample")
         rids.append(eng.submit(f"t{i}", prompts[i, :P].numpy(), G))
     done = eng.run()
     for i, (P, G) in enumerate(lens):
-        solo = engine(1, 1)
+        solo = engine(api, mp, 1, 1, 18)
         solo.register_tenant("solo", seed=100 + i, mode="sample")
         rid = solo.submit("solo", prompts[i, :P].numpy(), G)
         want = solo.run()[rid]
@@ -1171,57 +1250,210 @@ def decode_reference_phase(torch, dev):
           f"({eng.mixed_ticks} mixed ticks), logits bit-identical to solo "
           f"sessions")
 
+    for arch in DECODE_ARCHS + ("gemma3-4b ring",):
+        api, mp = _smoke_serving(torch, arch.split()[0], 3,
+                                 windowed=arch.endswith("ring"))
+        mp = masking.MaskedParams(*(tree.tree_map(
+            lambda t: None if t is None else t.to(dev), x)
+            for x in (mp.weights, mp.scores, mp.floats)))
+        prompts = torch.randint(0, api.cfg.vocab, (3, 6),
+                                generator=torch.Generator().manual_seed(3))
+        runs = []
+        for lockstep in (False, True):
+            eng = engine(api, mp, 2, 3, 12, lockstep)
+            rids = []
+            for i in range(3):
+                eng.register_tenant(f"t{i}", seed=50 + i)
+                rids.append(eng.submit(f"t{i}", prompts[i].numpy(), 5))
+            done = eng.run()
+            runs.append([done[r] for r in rids])
+        tol = 1e-5
+        err, worst = 0.0, 0.0
+        for e, l in zip(*runs):
+            check(e.tokens == l.tokens, f"lockstep {arch}: tokens "
+                  f"{l.tokens} against the exact mode's {e.tokens}")
+            for a, b in zip(e.decode_logits, l.decode_logits):
+                err = max(err, float((a - b).abs().max()))
+                worst = max(worst, float(((a - b).abs()
+                                          / (tol + tol * a.abs())).max()))
+        print(f"lockstep vs exact on the card, {arch}: tokens equal, "
+              f"logits max |diff| {err:.3g} (atol = rtol = {tol:g}: "
+              f"{worst:.3g} of the bound)")
+        check(worst <= 1.0, f"lockstep {arch}: logits max |diff| {err} "
+              f"beyond atol = rtol = {tol}")
+
+
+def small_m_kernel_phase(torch, mm, ref, dev):
+    """Kernel 1 at the decode's row counts M = 1, 2, 4, 8 against its
+    plain version: bf16 x at internlm2-1.8b's and gemma3-4b's leaf
+    shapes (one bf16 ulp, as `kernel_phase`), f32 x at recurrentgemma's
+    4096 x 4096 gate projections (f32 rounding), both modes.  Returns
+    the largest |diff|."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = sorted(set(LAYER_SHAPES.values()) | set(GEMMA3_SHAPES.values()))
+    cases = [(K, N, torch.bfloat16) for K, N in shapes]
+    cases.append((CONV_SHAPES["recurrentgemma-9b"],) * 2 + (torch.float32,))
+    err = 0.0
+    for K, N, dt in cases:
+        w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(K, N, generator=gen, device=dev)
+        off = (3 * K * N) & M32
+        for m in SMALL_M:
+            x = torch.randn(m, K, generator=gen, device=dev).to(dt)
+            for mode in ("sample", "threshold"):
+                kw = dict(mode=mode, tau=0.45)
+                got = mm.masked_matmul(x, w, s, 77, off, **kw).float()
+                want = ref.masked_matmul(x, w, s, 77, off, **kw).float()
+                d = (got - want).abs()
+                if dt == torch.bfloat16:
+                    ok = (d <= BF16_RTOL * want.abs()
+                          + 1e-4 * want.abs().max()).all()
+                else:
+                    ok = torch.allclose(got, want, rtol=1e-5,
+                                        atol=1e-5 * float(want.abs().max()))
+                check(bool(ok), f"kernel 1 at M={m} K={K} N={N} {dt} {mode}: "
+                      f"max |diff| {float(d.max())}")
+                err = max(err, float(d.max()))
+        del w, s
+    torch.cuda.empty_cache()
+    print(f"kernel 1 at M in {SMALL_M}: {len(cases)} shapes (bf16 x at "
+          f"internlm2 and gemma3 widths, f32 x at 4096 x 4096), both modes, "
+          f"agree with the plain version; max |diff| {err:.3g}")
+    return err
+
+
+def masked_decode_phase(torch, dispatch, dev):
+    """Serving through masked trees on the card, SMOKE configs: for
+    mamba2, recurrentgemma and gemma3, 10 tokens of frozen decode against
+    the fused masked training forward on the same tokens (kernels 1 and
+    8; the reference's 0.02, 0.15 for the hybrid), then 6 tokens decoded
+    through the unfrozen `MaskedLeaf` tree (kernel 1 at M = 1 for every
+    projection; the conv step materializes its kernel, as the
+    reference's) against the frozen tree: mamba2 bit for bit,
+    recurrentgemma within 0.15, as tests/test_serving.py holds them.
+    Launch counts are read around each pass.  Returns them summed."""
+    from repro_torch.core import masking, tree
+    total = {k: 0 for k in dispatch.KERNELS}
+    seed_fn = lambda i: masking.mask_stream_seed(0, 0, i, 0, run_seed=9)
+    for arch, per_step, tol in MASKED_DECODE:
+        api, mp = _smoke_serving(torch, arch, 5)
+        mp = masking.MaskedParams(*(tree.tree_map(
+            lambda t: None if t is None else t.to(dev), x)
+            for x in (mp.weights, mp.scores, mp.floats)))
+        fused = masking.masked_forward_tree(mp, seed_fn, mode="sample")
+        toks = torch.randint(0, api.cfg.vocab, (2, 10), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            want = api.forward(fused, {"tokens": toks})[0]
+        torch.cuda.synchronize()
+        fwd = dict(dispatch.LAUNCHES)
+        frozen = masking.freeze_for_decode(fused)
+        cache = api.init_cache(2, 10, dev)
+        err = 0.0
+        for t in range(10):
+            logits, cache = api.decode_step(frozen, cache, toks[:, t], t)
+            err = max(err, float((logits - want[:, t]).abs().max()))
+        bound_fwd = 0.15 if api.cfg.family == "hybrid" else 0.02
+        check(err < bound_fwd, f"{arch}: frozen decode vs fused forward on "
+              f"the card, max |diff| {err}")
+        check(fwd["masked_matmul_fwd"] > 0, f"{arch}: fused forward "
+              f"launched no kernel 1: {fwd}")
+
+        c1, c2 = api.init_cache(1, 6, dev), api.init_cache(1, 6, dev)
+        dispatch.reset_launch_counts()
+        diff = 0.0
+        for t in range(6):
+            l1, c1 = api.decode_step(frozen, c1, toks[:1, t], t)
+            l2, c2 = api.decode_step(fused, c2, toks[:1, t], t)
+            diff = max(diff, float((l1 - l2).abs().max()))
+            if tol is None:
+                check(torch.equal(l1, l2), f"{arch}: unfrozen decode "
+                      f"differs from the frozen one at t={t} by "
+                      f"{float((l1 - l2).abs().max())}")
+        torch.cuda.synchronize()
+        got = dict(dispatch.LAUNCHES)
+        check(tol is None or diff <= tol, f"{arch}: unfrozen decode max "
+              f"|diff| {diff} from the frozen one")
+        expect = {k: 0 for k in dispatch.KERNELS}
+        expect["masked_matmul_fwd"] = 6 * per_step
+        check(got == expect, f"{arch}: unfrozen decode launches {got}, "
+              f"expected {expect}")
+        print(f"masked decode {arch}: frozen decode vs fused forward "
+              f"(launches {json.dumps({k: v for k, v in fwd.items() if v})})"
+              f" max |diff| {err:.3g} (bound {bound_fwd}); unfrozen vs "
+              f"frozen decode over 6 tokens max |diff| {diff:.3g} "
+              f"({'bit for bit' if tol is None else f'bound {tol}'}), "
+              f"kernel 1 launched {got['masked_matmul_fwd']} times at M = 1")
+        total = {k: total[k] + fwd[k] + got[k] for k in total}
+        del mp, fused, frozen, cache, c1, c2
+    return total
+
 
 def serve_phase(torch, dispatch, dev):
-    """`repro_torch.launch.serve` at full internlm2-1.8b width, single
-    tenant and 4 tenants on 2 slots with freeze-cache capacity 2.  The
-    frozen decode runs plain products and the threshold freeze no kernel
-    of the port, so no kernel launches here."""
+    """`repro_torch.launch.serve` at the published widths (SERVE_RUNS):
+    single tenant (batch 4), 4 tenants on 2 slots with freeze-cache
+    capacity 2, and for gemma3-4b the same in lockstep.  The frozen
+    decode runs plain products and the threshold freeze no kernel of the
+    port, so no kernel launches here.  Returns {(arch, tag): summary}."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    for tag, extra in (("single", []), ("multi", [
-            "--tenants", "4", "--slots", "2", "--cache-capacity", "2"])):
-        argv = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
-                "16", "--tokens", "16"] + extra
+    multi = ["--tenants", "4", "--slots", "2", "--cache-capacity", "2"]
+    extra = {"single": [], "multi": multi, "lockstep": multi + ["--lockstep"]}
+    out_all = {}
+    for arch, layers, tag in SERVE_RUNS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "16",
+                "--tokens", "16"] + extra[tag]
         print(f"serve path: python -m repro_torch.launch.serve "
-              f"{' '.join(argv)}")
+              f"{' '.join(argv)} at {cfg.n_layers} layers of "
+              f"{get_config(arch).n_layers}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_launch_counts()
         t0 = time.time()
-        out = serve.main(argv)
+        out = serve.run(cfg, serve.parse_args(argv))
         torch.cuda.synchronize()
         got = dict(dispatch.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        check(not any(got.values()), f"serve {tag}: unexpected kernel "
-              f"launches {got}")
+        check(not any(got.values()), f"serve {arch} {tag}: unexpected "
+              f"kernel launches {got}")
         if tag == "single":
             check(bool(torch.isfinite(out["last_logits"]).all()),
-                  "serve single: non-finite logits")
+                  f"serve {arch} single: non-finite logits")
             per_tenant = out["freeze_s"]
         else:
-            check(out["served"] == 4, f"serve multi: {out['served']}/4 "
-                  f"served")
-            check(out["evictions"] >= 1, "serve multi: no eviction")
-            check(out["max_occupancy"] <= 2, f"serve multi: freeze-cache "
-                  f"occupancy reached {out['max_occupancy']}")
+            check(out["served"] == 4, f"serve {arch} {tag}: "
+                  f"{out['served']}/4 served")
+            check(out["lockstep"] == (tag == "lockstep"),
+                  f"serve {arch} {tag}: lockstep {out['lockstep']}")
+            check(out["evictions"] >= 1, f"serve {arch} {tag}: no eviction")
+            check(out["max_occupancy"] <= 2, f"serve {arch} {tag}: "
+                  f"freeze-cache occupancy reached {out['max_occupancy']}")
             check(all(bool(torch.isfinite(l).all())
                       for c in out["completions"].values()
                       for l in c.decode_logits),
-                  "serve multi: non-finite logits")
+                  f"serve {arch} {tag}: non-finite logits")
             per_tenant = out["freeze_s"] / out["freezes"]
-        print(f"serve {tag}: {time.time() - t0:.1f}s; prefill "
+        print(f"serve {arch} {tag}: {time.time() - t0:.1f}s; prefill "
               f"{out['prefill_tok_s']:.1f} tok/s, decode "
               f"{out['decode_tok_s']:.1f} tok/s; freeze "
               f"{per_tenant * 1e3:.1f} ms per tenant "
               f"({out['freezes']} freezes); max memory allocated "
               f"{peak / 2**30:.2f} GiB")
+        out_all[(arch, tag)] = {k: out[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "freeze_s", "freezes")}
         del out
     torch.cuda.empty_cache()
+    return out_all
 
 
-def artifact_phase(torch, dispatch, dev):
-    """The artifact path of examples/serve_masked.py at full internlm2
-    width: `init_server` -> `final_artifact` (one pack launch per masked
+def artifact_phase(torch, dispatch, dev, arch):
+    """The artifact path of examples/serve_masked.py at the full width of
+    `arch`: `init_server` -> `final_artifact` (one pack launch per masked
     leaf) -> `save_artifact` -> `load_artifact` -> `artifact_masks`
     (`BitpackedMasks.to_masks`, one unpack launch per leaf), checked bit
     for bit against `final_mask`, its `bpp` against the unpacked masks'
@@ -1234,7 +1466,7 @@ def artifact_phase(torch, dispatch, dev):
     from repro_torch.configs import get_config
     from repro_torch.core import federated, masking, regularizer, tree
     from repro_torch.models import build_model
-    cfg = get_config("internlm2-1.8b")
+    cfg = get_config(arch)
     api = build_model(cfg)
     spec = masking.MaskSpec()
     torch.cuda.empty_cache()
@@ -1251,7 +1483,7 @@ def artifact_phase(torch, dispatch, dev):
         torch.Generator(device=dev).manual_seed(22))))
     del scores
     with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "internlm2.npz")
+        path = str(Path(tmp) / f"{arch}.npz")
         nbytes = checkpoint.save_artifact(path, art)
         loaded = checkpoint.load_artifact(path, dev)
     n = sum(math.prod(sh) for _, sh in loaded["masks"].values())
@@ -1300,7 +1532,7 @@ def artifact_phase(torch, dispatch, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     check(bool(torch.isfinite(logits).all()), "artifact decode: non-finite")
-    print(f"artifact path internlm2-1.8b: {n} masked params -> {nbytes} B "
+    print(f"artifact path {arch}: {n} masked params -> {nbytes} B "
           f"file ({8 * (nbytes - fbytes) / n:.4f} bits/param beside "
           f"{fbytes} B of floats, bpp {bpp:.6f}); build, save, load, "
           f"unpack, regenerate "
@@ -1406,6 +1638,56 @@ def serve_profile_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+def lockstep_profile_phase(torch, dev):
+    """The serving engine on full-size gemma3-4b, 2 tenants on 2 slots
+    (8-token prompts, 8 generated), exact per-slot steps against the
+    lockstep step: after 2 warm-up ticks, 6 ticks under torch.profiler,
+    their wall time, the device's busy share and the device operations
+    a tick."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_engine import ServeEngine
+    api = build_model(get_config("gemma3-4b"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mp = masking.init_masked(gen, api.init_params(gen), masking.MaskSpec())
+    prompts = torch.randint(0, api.cfg.vocab, (2, 8), generator=gen,
+                            device=dev).cpu().numpy()
+    cuda = torch.autograd.DeviceType.CUDA
+    for lockstep in (False, True):
+        eng = ServeEngine(api, mp, slots=2, cache_capacity=2, max_seq=16,
+                          lockstep=lockstep)
+        for i in range(2):
+            eng.register_tenant(f"t{i}", seed=i)
+            eng.submit(f"t{i}", prompts[i], 8)
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(6):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == cuda and e.self_device_time_total > 0]
+        busy = sum(r[2] for r in rows)
+        ops = sum(r[1] for r in rows)
+        mode = "lockstep" if lockstep else "exact"
+        print(f"profile serve gemma3-4b {mode}, 2 slots: 6 ticks, wall "
+              f"{wall:.1f} ms ({wall / 6:.2f} ms a tick, "
+              f"{2 * 6 / wall * 1e3:.1f} tok/s), device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.1f}%), {ops / 6:.0f} device ops a tick")
+        check(busy > 0, f"the profiler saw no device time ({mode})")
+        del eng
+        torch.cuda.empty_cache()
+    del mp
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1438,6 +1720,8 @@ def main():
     for k, v in conv_kernel_phase(torch, mm, ref, dev).items():
         err[k] = max(err.get(k, 0.0), v)
     err.update(bitpack_kernel_phase(torch, bp, dev))
+    err["masked_matmul_fwd"] = max(err["masked_matmul_fwd"],
+                                   small_m_kernel_phase(torch, mm, ref, dev))
     print(f"kernel phase: all kernels agree with their plain versions "
           f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
     t0 = time.time()
@@ -1558,13 +1842,21 @@ def main():
         torch.cuda.empty_cache()
 
     t0 = time.time()
-    serve_phase(torch, dispatch, dev)
-    got = artifact_phase(torch, dispatch, dev)
-    expect = {k: 0 for k in dispatch.KERNELS}
-    expect.update(pack_bits=len(LAYER_SHAPES), unpack_bits=len(LAYER_SHAPES))
-    check(got == expect, f"artifact path launch counts {got}, expected "
-          f"{expect}")
+    got = masked_decode_phase(torch, dispatch, dev)
     launches = {k: launches[k] + got[k] for k in launches}
+    print(f"masked decode paths: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    serve_phase(torch, dispatch, dev)
+    # masked leaves of an artifact: internlm2 7, mamba2 3 (w_in, the
+    # conv, w_out)
+    for arch, n_leaves in (("internlm2-1.8b", len(LAYER_SHAPES)),
+                           ("mamba2-370m", 3)):
+        got = artifact_phase(torch, dispatch, dev, arch)
+        expect = {k: 0 for k in dispatch.KERNELS}
+        expect.update(pack_bits=n_leaves, unpack_bits=n_leaves)
+        check(got == expect, f"artifact path {arch} launch counts {got}, "
+              f"expected {expect}")
+        launches = {k: launches[k] + got[k] for k in launches}
     print(f"serve and artifact paths: {time.time() - t0:.1f}s")
 
     for cfg, _ in paths:
@@ -1573,6 +1865,7 @@ def main():
         print(f"profile phase {cfg.name}: {time.time() - t0:.1f}s")
         torch.cuda.empty_cache()
     serve_profile_phase(torch, dev)
+    lockstep_profile_phase(torch, dev)
 
     kernels = []
     for name in dispatch.KERNELS:

@@ -1,9 +1,10 @@
 """Config registry: --arch <id> resolution (the port's configs so far)."""
 from repro_torch.configs.base import ArchConfig  # noqa: F401
-from repro_torch.configs import (deepseek_v2_lite_16b, internlm2_1_8b,
-                                 mamba2_370m, recurrentgemma_9b)
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b,
+                                 internlm2_1_8b, mamba2_370m,
+                                 recurrentgemma_9b)
 
-_REGISTRY = {m.CONFIG.name: m for m in (internlm2_1_8b,
+_REGISTRY = {m.CONFIG.name: m for m in (gemma3_4b, internlm2_1_8b,
                                         deepseek_v2_lite_16b, mamba2_370m,
                                         recurrentgemma_9b)}
 

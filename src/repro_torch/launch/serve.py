@@ -2,9 +2,9 @@
 or the multi-tenant continuous-batching engine over one shared frozen
 weight copy.
 
-    python -m repro_torch.launch.serve --arch internlm2-1.8b --tokens 16
-    python -m repro_torch.launch.serve --arch internlm2-1.8b \
-        --tenants 4 --slots 2 --cache-capacity 2 --tokens 16
+    python -m repro_torch.launch.serve --arch gemma3-4b --tokens 16
+    python -m repro_torch.launch.serve --arch gemma3-4b \
+        --tenants 4 --slots 2 --cache-capacity 2 --tokens 16 [--lockstep]
 
 Runs on the CUDA card by default and raises if there is none; the CPU is
 used only when asked for (`--device cpu`, with `--smoke` for the reduced
@@ -13,14 +13,15 @@ config).  A deployed mask is static, so each tenant's tree is frozen once
 and every decode step reuses plain m * w products: no mask is resampled
 while serving.
 
-`--arch` defaults to internlm2-1.8b, the port's main model.  The JAX
-launcher defaults to gemma3-4b, whose sliding-window layers decode over
-ring caches; windowed decode is not ported yet (ROADMAP Queue 1 item 5).
+`--arch` defaults to gemma3-4b, as the reference launcher does, and takes
+every arch the port has (dense, MoE, ssm and hybrid).
 
 Single tenant: one warm-up step off the clock, then `time.perf_counter`
 after a device synchronize around each step, prefill and decode tok/s
 reported apart.  Multi-tenant (`--tenants` > 1): one request per tenant,
-distinct mask seeds, through `runtime.serve_engine.ServeEngine`.
+distinct mask seeds, through `runtime.serve_engine.ServeEngine`; with
+`--lockstep` the engine advances all slots in one vmapped step a tick
+(numerically equivalent to the exact per-slot mode, not bit-exact).
 `main` returns a summary (tok/s, seconds, cache stats, bytes).
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import masking
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
@@ -101,7 +102,8 @@ def _serve_multi(args, cfg, api, gen, mp, dev) -> dict:
 
     eng = ServeEngine(api, mp, slots=args.slots,
                       cache_capacity=args.cache_capacity,
-                      max_seq=args.prompt_len + args.tokens)
+                      max_seq=args.prompt_len + args.tokens,
+                      lockstep=args.lockstep)
     prompts = torch.randint(0, cfg.vocab, (args.tenants, args.prompt_len),
                             generator=gen, device=dev).cpu().numpy()
     for i in range(args.tenants):
@@ -122,12 +124,13 @@ def _serve_multi(args, cfg, api, gen, mp, dev) -> dict:
           f"({st['delta_bytes_per_tree']} B) = {st['resident_bytes']} B "
           f"for {st['tenants']} tenants "
           f"(mask artifact {st['mask_artifact_bytes']} B/tenant)")
-    return dict(st, served=len(done), completions=done)
+    return dict(st, served=len(done), completions=done,
+                lockstep=args.lockstep)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="gemma3-4b", choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -142,16 +145,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="concurrent batch slots (multi-tenant)")
     ap.add_argument("--cache-capacity", type=int, default=2,
                     help="freeze-cache bound on resident trees")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="one vmapped step for all slots a tick "
+                         "(multi-tenant; not bit-exact)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    return run(get_config(args.arch, smoke=args.smoke), args)
+
+
+def run(cfg, args: argparse.Namespace) -> dict:
+    """Serve `cfg` as the parsed command line `args` asks (its --arch and
+    --smoke aside), so that a caller may serve a config cut in depth."""
     dev = resolve_device(args.device)
     # the reference's attention and unembed products are full f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch, smoke=args.smoke)
     api = build_model(cfg)
     # --seed picks the frozen random network; the deployed threshold mask
     # is a function of the scores

@@ -15,6 +15,9 @@ mask stream is keyed by.
   kernel, theta is the (survivor-weighted) mean of the words, crosses
   the optional k-bit downlink, and resets every cohort's scores; the
   codec meters each cohort's pooled words.
+* `make_multi_serve_step` — the lockstep serving step: one vmapped
+  decode over B slots, each with its own frozen tree, cache, token and
+  position.
 
 The reference vmaps over cohorts and returns new state; here the cohorts
 run in a loop and the steps update the state's tensors in place (scores,
@@ -274,3 +277,32 @@ def make_round_step(api, cfg: StepConfig, codec=None):
         return state, metrics
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# Lockstep serving: one vmapped decode over slots
+# ---------------------------------------------------------------------------
+
+
+def make_multi_serve_step(api):
+    """Slot-major multi-tenant decode, the lockstep mode of
+    `runtime.serve_engine.ServeEngine`: `torch.func.vmap` of
+    `api.decode_step` over B slots, each carrying its own frozen params
+    tree, cache, token and position, in one call for all of them.
+
+    (params, caches, tokens, poss) -> (logits (B, 1, V), caches): params
+    and caches are trees of (B, ...) stacks, tokens (B, 1) (an inner
+    batch of 1 a slot), poss (B,) int, so slots at different positions
+    (prefill and decode) advance together.  Each slot's cache is written
+    in place, as `decode_step` writes it.  Numerically equivalent to B
+    separate `decode_step` calls, not bit-exact (batched products sum in
+    another order); the engine's exact per-slot mode is the bit-identity
+    contract."""
+    vstep = torch.func.vmap(
+        lambda params, cache, token, pos: api.decode_step(
+            params, cache, token, pos)[0])
+
+    def multi_serve_step(params, caches, tokens, poss):
+        return vstep(params, caches, tokens, poss), caches
+
+    return multi_serve_step

@@ -1,14 +1,12 @@
-"""Model dispatcher: family -> (init, forward, loss).
+"""Model dispatcher: family -> (init, forward, loss, cache, decode).
 
 `forward(params, batch)` takes a params tree whose maskable leaves are
 plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
 `layers.masked_dense_apply` / `masked_grouped_apply` /
-`masked_conv1d_apply` dispatch decides per leaf.  Ported so far: the
-dense and MoE transformers, the ssm family (mamba2) and the hybrid
-family (recurrentgemma), their training forwards; every family's loss
-is `transformer.lm_loss`.  KV-cache decoding (`init_cache`,
-`decode_step`) is ported for the dense and MoE transformers; the ssm and
-hybrid decode steps raise.
+`masked_conv1d_apply` dispatch decides per leaf.  Ported: the dense and
+MoE transformers (gemma3's sliding windows included), the ssm family
+(mamba2) and the hybrid family (recurrentgemma), their training forwards
+and their decode steps; every family's loss is `transformer.lm_loss`.
 """
 from __future__ import annotations
 
@@ -19,16 +17,18 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid, ssm, transformer
 
 
-def _decode_not_ported(cfg: ArchConfig) -> Callable:
-    def fail(*args, **kwargs):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's decode step is not "
-            f"ported yet (ROADMAP Queue 1 item 1)")
-    return fail
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
+    """One family's entry points for `cfg`.
+
+    The decode cache convention, the same for every family:
+    `init_cache(batch, max_seq, device)` makes a dict of zeroed tensors
+    (KV caches, ring caches with their key positions, recurrent states,
+    conv buffers), and `decode_step(params, cache, token, pos)` writes
+    this token's entries into those tensors in place and returns
+    (logits f32 (B, V), the same cache).  token: (B,) int; pos: an int
+    or a 0-d integer tensor (batched under `torch.func.vmap`, as the
+    lockstep serve step runs it), never read back to the host."""
     cfg: ArchConfig
     init_params: Callable        # (generator) -> params on its device
     forward: Callable            # (params, batch) -> (logits, aux)
@@ -54,12 +54,12 @@ def build_model(cfg: ArchConfig) -> ModelApi:
             raise NotImplementedError("VLM inputs are not ported yet")
         return mod.forward(params, cfg, batch["tokens"])
 
-    if mod is transformer:
-        init_cache = lambda b, s, device: transformer.init_cache(
-            cfg, b, s, device)
-        decode = lambda params, cache, token, pos: transformer.decode_step(
-            params, cfg, cache, token, pos)
-    else:
-        init_cache = decode = _decode_not_ported(cfg)
-    return ModelApi(cfg, lambda gen: mod.init_params(gen, cfg), fwd,
-                    transformer.lm_loss, init_cache, decode)
+    init_cache, decode = mod.init_cache, mod.decode_step
+    if mod is transformer and transformer.windowed(cfg):
+        init_cache = transformer.init_cache_windowed
+        decode = transformer.decode_step_windowed
+    return ModelApi(
+        cfg, lambda gen: mod.init_params(gen, cfg), fwd, transformer.lm_loss,
+        lambda b, s, device: init_cache(cfg, b, s, device),
+        lambda params, cache, token, pos: decode(params, cfg, cache, token,
+                                                 pos))

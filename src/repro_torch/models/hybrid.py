@@ -12,9 +12,14 @@ recurrence is a log-depth (Hillis-Steele) scan over time in plain torch,
 as the reference's `lax.associative_scan` is plain XLA.
 
 Float (non-masked) params: the recurrence decay `a_param`, the conv and
-gate biases and the norms.  Decode (the O(1) recurrent step and the ring
-KV cache) belongs to the serving slice and is not ported yet; a tail of
-mixed block kinds, which the reference keeps as a list, raises.
+gate biases and the norms.  A tail of mixed block kinds, which the
+reference keeps as a list, raises.
+
+Decode is O(1) in the sequence length: each rec block keeps its RG-LRU
+state and conv buffer, each attention block a ring KV cache of
+min(sliding_window, max_seq) slots (`transformer.attn_ring`, the ring
+logic gemma3's windowed decode shares); `decode_step` advances them in
+place.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import depth, layer_slice
+from repro_torch.models.transformer import (NEG_BIG, attn_ring,
+                                            decode_pos, depth, layer_slice)
 
 Pytree = Any
 
@@ -178,3 +184,104 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
     x = L.rms_norm(params["final_norm"], x)
     logits = L.unembed(params["embed"]["table"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode: O(1) recurrent state and ring-buffer local-attention caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
+               dtype=torch.bfloat16) -> Pytree:
+    """Zeroed decode state, laid out as the reference's: per group "h"
+    (n_groups, n_rec, B, lru) f32 and "conv" (n_groups, n_rec, B, W-1,
+    lru); the ring "k"/"v" (n_groups, n_attn, B, Wr, n_kv, hd) of Wr =
+    min(sliding_window, max_seq) slots and their positions "k_pos"
+    (n_groups, n_attn, Wr) int32 at -NEG_BIG; the rec tail's "tail_h"
+    and "tail_conv"."""
+    n_groups, n_tail = _group_counts(cfg)
+    w = _lru_width(cfg)
+    Wr = min(cfg.sliding_window or max_seq, max_seq)
+    n_rec = cfg.block_pattern.count("rec")
+    n_attn = len(cfg.block_pattern) - n_rec
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    cache = {
+        "h": z(n_groups, n_rec, batch, w, dt=torch.float32),
+        "conv": z(n_groups, n_rec, batch, cfg.conv_width - 1, w),
+        "k": z(n_groups, n_attn, batch, Wr, cfg.n_kv_heads, cfg.hd),
+        "v": z(n_groups, n_attn, batch, Wr, cfg.n_kv_heads, cfg.hd),
+        "k_pos": torch.full((n_groups, n_attn, Wr), -NEG_BIG,
+                            dtype=torch.int32, device=device),
+    }
+    if n_tail:
+        cache["tail_h"] = z(n_tail, batch, w, dt=torch.float32)
+        cache["tail_conv"] = z(n_tail, batch, cfg.conv_width - 1, w)
+    return cache
+
+
+def _rec_step(cfg, lp, x_t, h_prev, conv_buf):
+    """One RG-LRU decode step.  x_t: (B, D); h_prev: (B, lru) f32 and
+    conv_buf (B, W-1, lru), both advanced in place.  Returns (B, D)."""
+    gate = L.ACTIVATIONS["gelu"](
+        L.masked_dense_apply(x_t, lp["w_y"]).float())
+    u = L.masked_dense_apply(x_t, lp["w_x"])
+    u = L.conv1d_step(lp["conv"], conv_buf, u).float()
+    r = torch.sigmoid(L.masked_dense_apply(u, lp["w_rg"]).float()
+                      + lp["bias_rg"])
+    i = torch.sigmoid(L.masked_dense_apply(u, lp["w_ri"]).float()
+                      + lp["bias_ri"])
+    log_a = -_C * L.softplus(lp["a_param"]) * r
+    h = torch.exp(log_a) * h_prev + torch.sqrt(torch.clamp(
+        1 - torch.exp(2 * log_a), min=1e-12)) * (i * u)
+    h_prev.copy_(h)
+    return L.masked_dense_apply((h * gate).to(x_t.dtype), lp["w_out"])
+
+
+def _attn_step_ring(cfg, lp, x_t, kc, vc, kpos, pos):
+    """Decode attention of an attn block over its ring cache.  x_t:
+    (B, D); kc/vc: (B, Wr, n_kv, hd), kpos: (Wr,), written in place."""
+    return attn_ring(cfg, lp["attn"], x_t[:, None], kc, vc, kpos, pos,
+                     cfg.sliding_window, cfg.rope_theta)[:, 0]
+
+
+def _block_step(cfg, kind, lp, x, pos, state):
+    """One block of decode: the mixer over `state` (the rec block's (h,
+    conv) or the attn block's (k, v, k_pos)), then the MLP."""
+    hin = L.rms_norm(lp["norm"], x)
+    if kind == "rec":
+        x = x + _rec_step(cfg, lp, hin, *state)
+    else:
+        x = x + _attn_step_ring(cfg, lp, hin, *state, pos)
+    return x + L.mlp_apply(lp["mlp"], L.rms_norm(lp["mlp_norm"], x),
+                           cfg.act)
+
+
+@torch.no_grad()
+def decode_step(params: Pytree, cfg: ArchConfig, cache: Pytree,
+                token: torch.Tensor, pos):
+    """One-token decode.  token: (B,) int; pos: the token's position (an
+    int or a 0-d tensor).  Advances `cache` in place; returns (logits f32
+    (B, V), cache)."""
+    x = L.embed_lookup(params["embed"]["table"], token)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                         device=x.device)
+    pos = decode_pos(pos, x.device)
+    groups = params["groups"]
+    for g in range(depth(groups)):
+        gp = layer_slice(groups, g)
+        ri = ai = 0
+        for i, kind in enumerate(cfg.block_pattern):
+            if kind == "rec":
+                state = (cache["h"][g, ri], cache["conv"][g, ri])
+                ri += 1
+            else:
+                state = (cache["k"][g, ai], cache["v"][g, ai],
+                         cache["k_pos"][g, ai])
+                ai += 1
+            x = _block_step(cfg, kind, gp[f"b{i}_{kind}"], x, pos, state)
+    if "tail" in params:
+        for l in range(depth(params["tail"])):
+            x = _block_step(cfg, "rec", layer_slice(params["tail"], l), x,
+                            pos, (cache["tail_h"][l], cache["tail_conv"][l]))
+    x = L.rms_norm(params["final_norm"], x)
+    return L.unembed(params["embed"]["table"], x), cache

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import masking
 from repro_torch.core.masking import MaskedLeaf
 from repro_torch.kernels import ops
 
@@ -58,6 +59,26 @@ def masked_conv1d_apply(x: torch.Tensor, p) -> torch.Tensor:
             return ops.masked_conv1d_threshold(x, p.w, p.s, p.tau)
         return ops.masked_conv1d(x, p.w, p.s, int(p.seed), int(p.off))
     return ops.conv1d_plain(x, p)
+
+
+def effective_weight(p) -> torch.Tensor:
+    """m * w of a `MaskedLeaf` from the fused kernels' stream (one
+    weight-sized temporary), a plain tensor as it is.  Only the per-token
+    conv step (`conv1d_step`) uses it: a decode session that froze its
+    tree (`masking.freeze_for_decode`) passes plain tensors through."""
+    if isinstance(p, MaskedLeaf):
+        return masking.materialize_leaf(p)
+    return p
+
+
+def write_at(buf: torch.Tensor, dim: int, idx: torch.Tensor,
+             val: torch.Tensor) -> None:
+    """buf[..., idx, ...] = val along `dim`, in place; `idx` is a
+    1-element integer tensor and `val` has size 1 along `dim`.  Through
+    `index_put_`, which has a batching rule under `torch.func.vmap` (the
+    lockstep serve step), and with no host read of `idx`."""
+    buf.movedim(dim, 0).index_put_((idx.reshape(1),),
+                                   val.movedim(dim, 0).to(buf.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +146,8 @@ def gqa_init(gen, d_model, n_heads, n_kv, head_dim, dtype=DEFAULT_DTYPE,
 
 def _causal_mask(q_pos, k_pos, window=None):
     """(Sq, Sk) additive mask: 0 where attended (0 <= q - k, and
-    q - k < window for a sliding window), -1e30 elsewhere."""
+    q - k < window for a sliding window), -1e30 elsewhere.  A ring
+    cache's unwritten slot sits at k = -2**30, out of every window."""
     diff = q_pos[:, None] - k_pos[None, :]
     ok = diff >= 0
     if window is not None:
@@ -378,6 +400,25 @@ def conv1d_causal(p, x):
     x.dtype (f32 sum plus f32 bias, then the cast)."""
     out = masked_conv1d_apply(x, p["w_conv"])
     return (out + p["bias_conv"]).to(x.dtype)
+
+
+def conv1d_step(p, buf, x_t):
+    """One decode step of the causal conv.  buf: (B, W-1, C), the last
+    W-1 inputs, shifted by one and `x_t` appended in place; x_t: (B, C)
+    -> (B, C) in x_t.dtype (an f32 sum over the W taps plus the f32 bias,
+    then the cast).  A `MaskedLeaf` kernel is materialized every step
+    (`effective_weight`), as in the reference.  The taps are summed in
+    order, each a fused multiply-add (`addcmul`), as the reference's f32
+    contraction sums them on the CPU, so f32 steps agree bit for bit."""
+    w = effective_weight(p["w_conv"]).float()
+    dt = torch.promote_types(buf.dtype, x_t.dtype)
+    full = torch.cat([buf.to(dt), x_t[:, None].to(dt)], dim=1)  # (B, W, C)
+    taps = full.float().transpose(0, 1).contiguous()            # (W, B, C)
+    acc = taps[0] * w[0]
+    for t in range(1, w.shape[0]):
+        acc = torch.addcmul(acc, taps[t], w[t])
+    buf.copy_(full[:, 1:])
+    return (acc + p["bias_conv"]).to(x_t.dtype)
 
 
 def embed_lookup(table, tokens):

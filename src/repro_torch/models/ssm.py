@@ -7,8 +7,10 @@ its `lax.scan` over them is a Python loop, layer l running on block l of
 every leaf.  The maskable tensors are `w_in`, the depthwise conv kernel
 `conv/w_conv` (through the masked conv kernels) and `w_out`; the
 dynamical-system params (A_log, dt_bias, D) and the norms stay float.
-The recurrent decode step belongs to the serving slice and is not
-ported yet.
+
+Decode is the recurrent form: `init_cache` holds each layer's SSM state
+(f32) and the conv's last W-1 inputs, and `decode_step` advances both
+in place by one token, constant memory in the sequence length.
 """
 from __future__ import annotations
 
@@ -155,3 +157,62 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
     x = L.rms_norm(params["final_norm"], x)
     logits = L.unembed(params["embed"]["table"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent decode (constant memory in the sequence length)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
+               dtype=torch.bfloat16) -> Pytree:
+    """Zeroed decode state: "ssm_state" (L, B, nh, P, N) f32 and
+    "conv_buf" (L, B, W-1, conv channels) in `dtype`; `max_seq` does not
+    size it."""
+    d_in, nh = _dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    return {
+        "ssm_state": torch.zeros((cfg.n_layers, batch, nh, P, N),
+                                 dtype=torch.float32, device=device),
+        "conv_buf": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1,
+                                 d_in + 2 * G * N), dtype=dtype,
+                                device=device),
+    }
+
+
+@torch.no_grad()
+def decode_step(params: Pytree, cfg: ArchConfig, cache: Pytree,
+                token: torch.Tensor, pos):
+    """One-token decode.  token: (B,) int; `pos` is not read (the state
+    carries the past).  Advances `cache` in place; returns (logits f32
+    (B, V), cache)."""
+    d_in, nh = _dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    B_ = token.shape[0]
+    rep = nh // G
+    x = L.embed_lookup(params["embed"]["table"], token)         # (B, D)
+    for l in range(depth(params["layers"])):
+        lp = layer_slice(params["layers"], l)
+        st = cache["ssm_state"][l]
+        h = L.rms_norm(lp["norm"], x)
+        zxbcdt = L.masked_dense_apply(h, lp["w_in"])
+        z, xin, Bm, Cm, dt = torch.split(
+            zxbcdt, [d_in, d_in, G * N, G * N, nh], dim=-1)
+        conv_out = F.silu(L.conv1d_step(lp["conv"], cache["conv_buf"][l],
+                                        torch.cat([xin, Bm, Cm], dim=-1)))
+        xin = conv_out[..., :d_in].reshape(B_, nh, P).float()
+        Bm = conv_out[..., d_in:d_in + G * N].reshape(B_, G, N)
+        Cm = conv_out[..., d_in + G * N:].reshape(B_, G, N)
+        dt = L.softplus(dt.float() + lp["dt_bias"])             # (B, nh)
+        dA = torch.exp(dt * -torch.exp(lp["A_log"]))
+        # heads map to groups in blocks of rep (jnp.repeat's order)
+        Bh = torch.repeat_interleave(Bm, rep, dim=1).float()    # (B, nh, N)
+        Ch = torch.repeat_interleave(Cm, rep, dim=1).float()
+        st.copy_(st * dA[..., None, None]
+                 + torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, xin))
+        y = torch.einsum("bhpn,bhn->bhp", st, Ch) + xin * lp["D"][..., None]
+        y = L.rms_norm({"scale": lp["gate_norm_scale"]},
+                       y.reshape(B_, d_in).to(x.dtype) * F.silu(z))
+        x = x + L.masked_dense_apply(y, lp["w_out"])
+    x = L.rms_norm(params["final_norm"], x)
+    return L.unembed(params["embed"]["table"], x), cache

@@ -1,6 +1,5 @@
 """Multi-tenant serving engine: continuous batching over one shared
-frozen weight copy (the exact per-slot mode of
-`repro.runtime.serve_engine`).
+frozen weight copy (`repro.runtime.serve_engine`).
 
 A deployed tenant is a 1-bit mask over the same frozen random network
 `w`, a `masking.MaskIdentity`.  The engine holds one `MaskedParams` (one
@@ -13,14 +12,18 @@ rotate through.
 Each tick admits queued requests into free slots and advances every
 active slot by one token: a newly admitted request prefills (consumes
 its next prompt token) while resident slots decode, and a freed slot
-admits the next request on the same tick.  Every slot steps through the
-same single-request `api.decode_step` with its own KV cache, so a
-tenant's logits are bit-identical to that tenant decoded alone, whatever
-traffic shares the engine.  The reference's opt-in lockstep mode (one
-vmapped step over all slots) is not ported yet (ROADMAP Queue 1 item 1).
+admits the next request on the same tick.  By default every slot steps
+through the same single-request `api.decode_step` with its own KV cache,
+so a tenant's logits are bit-identical to that tenant decoded alone,
+whatever traffic shares the engine.  `lockstep=True` instead keeps the
+slots' trees and caches as slot-major (B, ...) stacks, written at
+admission (`_scatter_slot`), and advances all slots in one vmapped call
+a tick (`launch.steps.make_multi_serve_step`): fewer dispatches, but
+numerically equivalent rather than bit-exact, so it is opt-in.
 
 Timing: the first admission runs one step on a scratch cache off the
-clock; every step is timed with `time.perf_counter` after a device
+clock; every step (lockstep: every tick, its time shared evenly by the
+active slots' tokens) is timed with `time.perf_counter` after a device
 synchronize, prefill and decode on separate clocks, and each tree's
 freeze likewise (`freeze_s`).
 """
@@ -37,6 +40,7 @@ import torch
 from repro_torch.core import masking
 from repro_torch.core import tree as tu
 from repro_torch.core.masking import FreezeCache, MaskedParams, MaskIdentity
+from repro_torch.launch import steps as steplib
 
 Pytree = Any
 
@@ -97,6 +101,32 @@ class _Slot:
         self.logits = []
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Freezer:
+    """The freeze-cache's build function: one tenant's frozen tree, its
+    build timed after a device synchronize.  It holds no reference to the
+    engine (a bound method would make a cycle through the cache), so an
+    engine's trees and caches are freed as soon as its caller drops it."""
+
+    def __init__(self, mp: MaskedParams, scores: dict, device):
+        self.mp, self.scores, self.device = mp, scores, device
+        self.seconds, self.count = 0.0, 0
+
+    def __call__(self, ident: MaskIdentity) -> Pytree:
+        _sync(self.device)
+        t0 = time.perf_counter()
+        tree = masking.freeze_identity(self.mp, ident,
+                                       scores=self.scores.get(ident))
+        _sync(self.device)
+        self.seconds += time.perf_counter() - t0
+        self.count += 1
+        return tree
+
+
 class ServeEngine:
     """Continuous-batching scheduler over one shared frozen `w`.
 
@@ -107,10 +137,14 @@ class ServeEngine:
     slots:          concurrent batch slots (in-flight requests).
     cache_capacity: bound on resident frozen trees (exact LRU).
     max_seq:        per-slot KV-cache length (>= prompt + generated).
+    lockstep:       False: per-slot `decode_step` calls (the bit-identity
+                    contract); True: one vmapped step for all slots a
+                    tick.
     """
 
     def __init__(self, api, mp: MaskedParams, *, slots: int = 4,
-                 cache_capacity: int = 2, max_seq: int = 64):
+                 cache_capacity: int = 2, max_seq: int = 64,
+                 lockstep: bool = False):
         if slots < 1:
             raise ValueError(f"need >= 1 slot, got {slots}")
         self.api = api
@@ -118,9 +152,16 @@ class ServeEngine:
         self.device = next(w for w in tu.leaves(mp.weights)
                            if w is not None).device
         self.max_seq = int(max_seq)
+        self.lockstep = bool(lockstep)
+        self._vstep = steplib.make_multi_serve_step(api) if lockstep \
+            else None
+        # lockstep state: the slots' trees and caches, slot-major stacks
+        self._stacked_tree = None
+        self._stacked_cache = None
         self._tenants: Dict[str, MaskIdentity] = {}
         self._scores: Dict[MaskIdentity, Pytree] = {}
-        self.cache = FreezeCache(self._freeze, cache_capacity)
+        self._freezer = _Freezer(mp, self._scores, self.device)
+        self.cache = FreezeCache(self._freezer, cache_capacity)
         self.slots = [_Slot() for _ in range(slots)]
         self.queue: collections.deque = collections.deque()
         self.completions: Dict[int, Completion] = {}
@@ -132,13 +173,7 @@ class ServeEngine:
         self.decode_s = 0.0
         self.prefill_tokens = 0
         self.decode_tokens = 0
-        self.freeze_s = 0.0
-        self.freezes = 0
         self.max_occupancy = 0
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # -- tenants ------------------------------------------------------------
 
@@ -167,16 +202,6 @@ class ServeEngine:
         if scores is not None:
             self._scores[ident] = scores
         return ident
-
-    def _freeze(self, ident: MaskIdentity) -> Pytree:
-        self._sync()
-        t0 = time.perf_counter()
-        tree = masking.freeze_identity(self.mp, ident,
-                                       scores=self._scores.get(ident))
-        self._sync()
-        self.freeze_s += time.perf_counter() - t0
-        self.freezes += 1
-        return tree
 
     # -- requests -----------------------------------------------------------
 
@@ -213,13 +238,39 @@ class ServeEngine:
         slot.tokens = []
         slot.logits = []
         slot.last_token = int(req.prompt[0])
+        if self.lockstep:
+            self._scatter_slot(i, slot)
         if not self._warm:
             # first-use costs (allocator, library handles) off the clock:
             # one throwaway step on a scratch cache
-            scratch = self.api.init_cache(1, self.max_seq, self.device)
-            self.api.decode_step(slot.tree, scratch, self._token(slot.last_token), 0)
-            self._sync()
+            if self.lockstep:
+                B = len(self.slots)
+                scratch = tu.tree_map(torch.clone, self._stacked_cache)
+                self._vstep(self._stacked_tree, scratch,
+                            torch.zeros((B, 1), dtype=torch.int64,
+                                        device=self.device),
+                            torch.zeros((B,), dtype=torch.int64,
+                                        device=self.device))
+            else:
+                scratch = self.api.init_cache(1, self.max_seq, self.device)
+                self.api.decode_step(slot.tree, scratch,
+                                     self._token(slot.last_token), 0)
+            _sync(self.device)
             self._warm = True
+
+    def _scatter_slot(self, i: int, slot: _Slot):
+        """Write the slot's frozen tree and fresh cache into row i of the
+        slot-major stacks (lockstep mode); the first admission allocates
+        the stacks, every row a copy of this slot's."""
+        if self._stacked_tree is None:
+            B = len(self.slots)
+            stack = lambda a: a[None].expand(B, *a.shape).clone()
+            self._stacked_tree = tu.tree_map(stack, slot.tree)
+            self._stacked_cache = tu.tree_map(stack, slot.cache)
+            return
+        copy = lambda b, a: b[i].copy_(a)
+        tu.tree_map(copy, self._stacked_tree, slot.tree)
+        tu.tree_map(copy, self._stacked_cache, slot.cache)
 
     def step(self) -> bool:
         """One tick: admit queued requests into free slots, then advance
@@ -232,9 +283,12 @@ class ServeEngine:
             return False
         if any(phases) and not all(phases):
             self.mixed_ticks += 1
-        for slot in self.slots:
-            if slot.active:
-                self._advance_exact(slot)
+        if self.lockstep:
+            self._tick_lockstep()
+        else:
+            for slot in self.slots:
+                if slot.active:
+                    self._advance_exact(slot)
         self.ticks += 1
         return True
 
@@ -248,13 +302,38 @@ class ServeEngine:
 
     def _advance_exact(self, slot: _Slot):
         tok = self._token(slot.last_token)
-        self._sync()
+        _sync(self.device)
         t0 = time.perf_counter()
         logits, slot.cache = self.api.decode_step(slot.tree, slot.cache, tok,
                                                   slot.pos)
-        self._sync()
+        _sync(self.device)
         dt = time.perf_counter() - t0
         self._consume(slot, logits[0], dt)
+
+    # -- lockstep (vmapped) execution ---------------------------------------
+
+    def _tick_lockstep(self):
+        """One vmapped step over every slot; an idle slot steps on token 0
+        at position 0 of its stale row, which its next admission
+        overwrites."""
+        B = len(self.slots)
+        toks = torch.zeros((B, 1), dtype=torch.int64)
+        poss = torch.zeros((B,), dtype=torch.int64)
+        for i, slot in enumerate(self.slots):
+            if slot.active:
+                toks[i, 0] = slot.last_token
+                poss[i] = slot.pos
+        toks, poss = toks.to(self.device), poss.to(self.device)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, self._stacked_cache = self._vstep(
+            self._stacked_tree, self._stacked_cache, toks, poss)
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        rows = logits[:, 0].float().cpu()
+        active = [i for i, slot in enumerate(self.slots) if slot.active]
+        for i in active:
+            self._consume(self.slots[i], rows[i], dt / len(active))
 
     def _consume(self, slot: _Slot, logits_row: torch.Tensor, dt: float):
         req = slot.req
@@ -310,7 +389,8 @@ class ServeEngine:
                                  if self.prefill_s > 0 else 0.0),
                "decode_tok_s": (self.decode_tokens / self.decode_s
                                 if self.decode_s > 0 else 0.0),
-               "freeze_s": self.freeze_s, "freezes": self.freezes,
+               "freeze_s": self._freezer.seconds,
+               "freezes": self._freezer.count,
                "max_occupancy": self.max_occupancy}
         out.update(self.cache.stats())
         out.update(self.hbm_report())
