@@ -76,7 +76,23 @@ Phases (any failure exits non-zero and prints no result line):
    -> 16 decode steps at batch 8 after a 32-token prompt).  Before each
    path the kernels' launch counters are zeroed, after it they are read,
    and every kernel must have run the expected number of times;
-7. profile one more step and round of each training path, eight decode
+7. the paper's CNNs (`repro_torch.models.cnn`): (a) with the kernel
+   phase, kernels 1-3 at CONV6's im2col shapes (img 32, batch 32: M
+   32768 / 8192 / 2048 for the conv pairs, 32 for the denses; K from 27
+   to 4096; N from 10 to 256) on f32 activations, against their plain
+   versions (masks exactly) and timed beside their bounds and
+   torch.matmul on the materialized m * w, and kernels 10-11 bit for bit
+   at CONV10's leaf sizes; (b) one fused forward and backward of CONV6
+   through `masked_forward_tree` on the card against the CPU, within
+   four times the f32 spread of the plain versions on the card; (c)
+   CONV4, CONV6 and CONV10 at the published widths through the host-sim
+   API (fedpm_reg, 10 clients, 3 local steps, batch 32, adam), 2 rounds
+   each with their seconds, client-update seconds, peak memory and the
+   launches of kernels 10 and 11 a round, and one CONV6 round profiled;
+   (d) the torch Fig. 1 benchmark (`python -m
+   repro_torch.benchmarks.fig1_iid`) at its defaults for 12 rounds,
+   gated on invariants and launch counts;
+8. profile one more step and round of each training path, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
    on 2 slots, exact and lockstep (torch.profiler): device time by
    kernel, the device's busy share and operations a step or tick.
@@ -1688,6 +1704,432 @@ def lockstep_profile_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The paper's CNNs: kernels 1-3 at their im2col shapes, the fused step,
+# the host-sim API at the published widths and the Fig. 1 benchmark
+# ---------------------------------------------------------------------------
+
+CNN_BATCH = 32                # the host-sim local batch (run_fedpm_variant)
+HOSTSIM = dict(k=10, local_steps=3, rounds=2, n=1024, seed=31)
+FIG1_ROUNDS = 12              # the reference benchmark's default
+
+
+def cnn_shapes(cfg, batch=CNN_BATCH):
+    """(name, M, K, N) of every masked leaf's one launch in the fused CNN
+    forward: a conv's im2col (B*H*W, 9*ci) against its (9*ci, co)
+    reshape, a dense's (B, din) against (din, dout)."""
+    out, side, cin = [], cfg.img_size, cfg.in_channels
+    for i, cout in enumerate(cfg.conv_planes):
+        out.append((f"conv{i + 1}", batch * side * side, 9 * cin, cout))
+        cin = cout
+        if i % 2 == 1:
+            side //= 2
+    din = side * side * cin
+    for j, dout in enumerate(cfg.dense_sizes + (cfg.n_classes,)):
+        out.append((f"dense{j + 1}", batch, din, dout))
+        din = dout
+    return out
+
+
+def cnn_kernel_phase(torch, mm, ref, bp, dev):
+    """Kernels 1-3 against their plain versions at CONV6's shapes (img 32,
+    batch 32) on the CNN's f32 activations, both mask modes: masks read
+    back exactly by identity probes, sums within f32 rounding (1e-5 of the
+    scale); each shape timed beside its bound and beside torch.matmul on
+    the materialized f32 m * w (TF32 off; for kernel 3 the x^T g product
+    alone).  Kernels 10-11 bit for bit at CONV10's leaf sizes (one row to
+    pack, the 10 clients' rows to unpack).  Returns ({kernel: max abs
+    err}, {kernel: {shape: (ms, plain ms, library ms, bound ms)}})."""
+    from repro_torch.models import cnn
+    gen = torch.Generator(device=dev).manual_seed(23)
+    err = {k: 0.0 for k in ("masked_matmul_fwd", "masked_matmul_dx",
+                            "masked_matmul_ds", "pack_bits", "unpack_bits")}
+    per_shape = {k: {} for k in err if k.startswith("masked")}
+    seed, off = 0x2545F491, 0
+    print(f"cnn kernel phase: kernels 1-3 at conv6's shapes, f32 x, "
+          f"ms per launch (graph replay): kernel / plain / torch.matmul on "
+          f"m*w / bound (share of the bound)")
+    for name, M, K, N in cnn_shapes(cnn.CONV6):
+        x = torch.randn(M, K, generator=gen, device=dev)
+        w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(K, N, generator=gen, device=dev)
+        g = torch.randn(M, N, generator=gen, device=dev)
+        for mode in ("sample", "threshold"):
+            kw = dict(mode=mode, tau=0.45)
+            tag = f"cnn {name} M={M} K={K} N={N} {mode}"
+            for kname, got, want in (
+                    ("masked_matmul_fwd",
+                     mm.masked_matmul(x, w, s, seed, off, **kw),
+                     ref.masked_matmul(x, w, s, seed, off, **kw)),
+                    ("masked_matmul_dx",
+                     mm.masked_matmul_dx(g, w, s, seed, off, **kw),
+                     ref.masked_matmul_dx(g, w, s, seed, off, **kw))):
+                d = float((got - want).abs().max())
+                check(got.dtype == torch.float32 and bool(torch.allclose(
+                    got, want, rtol=1e-5,
+                    atol=1e-5 * float(want.abs().max()))),
+                    f"{kname} {tag}: max |diff| {d}")
+                err[kname] = max(err[kname], d)
+            # identity probes: rows (fwd) and columns (dx) of m * w exactly
+            r = min(M, K, N)
+            mask = (ref.threshold_mask(s, 0.45) if mode == "threshold"
+                    else ref.sample_mask(s, seed, off))
+            wm = mask.float() * w.float()
+            u = (ref.hash_uniform(ref.flat_index(K, N, off, N, dev), seed)
+                 if mode == "sample" else torch.full_like(s, 0.45))
+            theta = torch.sigmoid(s)
+            eye = torch.eye(r, device=dev)
+            px = torch.zeros(r, K, device=dev)
+            px[:, :r] = eye
+            y = mm.masked_matmul(px, w, s, seed, off, **kw)
+            n_f = mask_exact(torch, y != 0, wm[:r] != 0, u[:r], theta[:r],
+                             "fwd probe " + tag)
+            check(n_f or torch.equal(y, wm[:r]), "fwd probe values " + tag)
+            pg = torch.zeros(r, N, device=dev)
+            pg[:, :r] = eye
+            dx = mm.masked_matmul_dx(pg, w, s, seed, off, **kw)
+            n_d = mask_exact(torch, dx.T != 0, wm[:, :r] != 0, u[:, :r],
+                             theta[:, :r], "dx probe " + tag)
+            check(n_d or torch.equal(dx.T, wm[:, :r]),
+                  "dx probe values " + tag)
+        ds = mm.masked_matmul_ds(x, g, w, s)
+        want = ref.masked_matmul_ds(x, g, w, s)
+        d = float((ds - want).abs().max())
+        check(bool(torch.allclose(ds, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max()))),
+              f"masked_matmul_ds cnn {name}: max |diff| {d}")
+        err["masked_matmul_ds"] = max(err["masked_matmul_ds"], d)
+
+        wm = ref.sample_mask(s, seed, off).float() * w.float()
+        nb = 4 * M * K + 6 * K * N + 4 * M * N
+        for kname, kern, plain, lib, cost in (
+                ("masked_matmul_fwd",
+                 lambda: mm.masked_matmul(x, w, s, seed, off),
+                 lambda: ref.masked_matmul(x, w, s, seed, off),
+                 lambda: x @ wm, (nb, 2 * M * K * N, F32_FLOPS_PER_S)),
+                ("masked_matmul_dx",
+                 lambda: mm.masked_matmul_dx(g, w, s, seed, off),
+                 lambda: ref.masked_matmul_dx(g, w, s, seed, off),
+                 lambda: g @ wm.T, (nb, 2 * M * K * N, F32_FLOPS_PER_S)),
+                ("masked_matmul_ds", lambda: mm.masked_matmul_ds(x, g, w, s),
+                 lambda: ref.masked_matmul_ds(x, g, w, s), lambda: x.T @ g,
+                 (4 * M * K + 4 * M * N + 10 * K * N, 6 * 2 * M * K * N,
+                  BF16_FLOPS_PER_S))):
+            tk, tl = graph_ms(torch, [kern, lib], 10)
+            tp = time_ms(torch, [plain], 2)[0]
+            tb, by = bound(*cost)
+            per_shape[kname][name] = (tk, tp, tl, tb)
+            print(f"  {kname:18s} {name:7s} M={M:5d} K={K:4d} N={N:3d} "
+                  f"{tk:8.4f} {tp:8.4f} {tl:8.4f} {tb:8.4f} "
+                  f"({100 * tb / tk:.1f}%, by {by})")
+        del x, w, s, g, wm, mask, u, theta, px, pg, y, dx, ds, want
+        torch.cuda.empty_cache()
+
+    # kernels 10-11 at CONV10's leaf sizes: a client packs each leaf, a
+    # round unpacks the 10 clients' rows of it
+    k = HOSTSIM["k"]
+    for name, M, K, N in cnn_shapes(cnn.CONV10):
+        n = K * N
+        bits = (torch.rand(k, n, generator=gen, device=dev) < 0.4).to(
+            torch.uint8)
+        words = torch.stack([bp.pack_bits(bits[i]) for i in range(k)])
+        check(torch.equal(words, bp.pack_bits_plain(bits)),
+              f"pack_bits cnn {name} n={n}: words differ from the plain "
+              f"version")
+        back = bp.unpack_bits(words, n)
+        check(torch.equal(back, bp.unpack_bits_plain(words, n))
+              and torch.equal(back, bits),
+              f"unpack_bits cnn {name} n={n}: bits differ")
+    torch.cuda.synchronize()
+    return err, per_shape
+
+
+def _cnn_step(torch, cnn, masking, tree, mp, cfg, images, labels, seed_fn,
+              device):
+    """One fused forward and backward of the CE loss through
+    `masked_forward_tree` on `device`: (loss, [per-leaf score gradient as
+    f64 on the CPU])."""
+    mv = lambda t: tree.tree_map(
+        lambda a: None if a is None else a.to(device), t)
+    scores = tree.tree_map(lambda a: None if a is None else
+                           a.to(device).requires_grad_(), mp.scores)
+    fwd = masking.masked_forward_tree(
+        masking.MaskedParams(mv(mp.weights), scores, mv(mp.floats)), seed_fn)
+    loss = cnn.ce_loss(cnn.forward(fwd, cfg, images.to(device)),
+                       {"labels": labels.to(device)})
+    leaves = [s for s in tree.leaves(scores) if s is not None]
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach().double().cpu() for g in grads]
+
+
+def _rel_cos(a, b):
+    na = float(a.norm())
+    rel = float((b - a).norm()) / na if na else math.inf
+    cos = float(a.ravel() @ b.ravel()) / (na * float(b.norm()))
+    return rel, cos
+
+
+def fused_cnn_phase(torch, dispatch, mm, dev):
+    """One forward and backward of CONV6 (img 32, batch 32) through
+    `masked_forward_tree` (kernels 1-3 on every conv's im2col and every
+    dense) on the card against the same on the CPU (plain versions): the
+    loss, and each score leaf's gradient by relative norm and cosine.
+    The bounds are four times the f32 spread the same step shows with the
+    kernels swapped for their plain versions on the card (cuBLAS against
+    the CPU's sums), never below 1e-6.  The launches of the kernel run
+    are counted: every conv and dense once forward and once for ds, and
+    once for dx but the first conv (the images need no gradient).
+    Returns the launch counts."""
+    from repro_torch.core import masking, tree
+    from repro_torch.models import cnn
+    cfg = cnn.CONV6
+    gen = torch.Generator().manual_seed(41)
+    mp = masking.init_masked(gen, cnn.init_params(gen, cfg),
+                             masking.MaskSpec())
+    images = torch.randn(CNN_BATCH, cfg.img_size, cfg.img_size,
+                         cfg.in_channels, generator=gen)
+    labels = torch.randint(0, cfg.n_classes, (CNN_BATCH,), generator=gen)
+    seed_fn = lambda i: masking.mask_stream_seed(0, 0, i, 0, run_seed=41)
+    step = lambda device: _cnn_step(torch, cnn, masking, tree, mp, cfg,
+                                    images, labels, seed_fn, device)
+    cpu_loss, cpu_g = step("cpu")
+    plain = {"masked_matmul": mm.masked_matmul_plain,
+             "masked_matmul_dx": mm.masked_matmul_dx_plain,
+             "masked_matmul_ds": mm.masked_matmul_ds_plain}
+    kernels = {k: getattr(mm, k) for k in plain}
+    try:
+        for k, f in plain.items():
+            setattr(mm, k, f)
+        plain_loss, plain_g = step(dev)
+    finally:
+        for k, f in kernels.items():
+            setattr(mm, k, f)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    card_loss, card_g = step(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(dispatch.LAUNCHES)
+    n = len(cfg.conv_planes) + len(cfg.dense_sizes) + 1   # masked leaves
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(masked_matmul_fwd=n, masked_matmul_dx=n - 1,
+                  masked_matmul_ds=n)
+    check(got == expect, f"fused conv6 step launch counts {got}, expected "
+          f"{expect}")
+    spread = [_rel_cos(a, b) for a, b in zip(cpu_g, plain_g)]
+    s_rel = max(r for r, _ in spread)
+    s_cos = min(c for _, c in spread)
+    rel_b, cos_b = max(4 * s_rel, 1e-6), 1 - max(4 * (1 - s_cos), 1e-9)
+    l_b = max(4 * abs(plain_loss - cpu_loss), 1e-6 * abs(cpu_loss))
+    check(abs(card_loss - cpu_loss) <= l_b, f"fused conv6 loss card "
+          f"{card_loss} cpu {cpu_loss} (bound {l_b})")
+    worst = (0.0, 1.0)
+    for i, (a, b) in enumerate(zip(cpu_g, card_g)):
+        rel, cos = _rel_cos(a, b)
+        check(rel <= rel_b and cos >= cos_b, f"fused conv6 leaf {i}: "
+              f"relative norm {rel:.4g}, cosine {cos:.9f} (bounds "
+              f"{rel_b:.4g}, {cos_b:.9f})")
+        worst = (max(worst[0], rel), min(worst[1], cos))
+    print(f"fused conv6 step (batch {CNN_BATCH}): loss card {card_loss:.7f} "
+          f"cpu {cpu_loss:.7f} (plain on card {plain_loss:.7f}); score "
+          f"gradients, worst leaf of {n}: relative norm {worst[0]:.4g}, "
+          f"cosine {worst[1]:.9f}; f32 spread (plain versions on the card "
+          f"against the cpu) {s_rel:.4g}, {s_cos:.9f}; bounds {rel_b:.4g}, "
+          f"{cos_b:.9f}; launches {json.dumps({k: v for k, v in got.items() if v})}; "
+          f"wall {wall * 1e3:.1f} ms")
+    return got
+
+
+def hostsim_phase(torch, dispatch, dev):
+    """The paper's widths through the host-sim API: CONV4, CONV6 and
+    CONV10 as `models/cnn.py` defines them, each on a cifar10-like task
+    at img 32 (1024 images), fedpm_reg at lam 1 with run_fedpm_variant's
+    settings (10 clients, 3 local steps of batch 32, adam at lr 0.1 on
+    the scores, 1e-3 on the floats), 2 rounds and an evaluation each.
+    Per round: its seconds, the client updates' seconds, the launches of
+    kernels 10 (each client packs each masked leaf) and 11 (the round
+    unpacks each leaf's 10 rows once); Bpp in (0, 1], theta in [0, 1].
+    Then one more CONV6 round under torch.profiler.  Returns the launch
+    counts of the whole path."""
+    from repro_torch import api
+    from repro_torch.benchmarks import common
+    from repro_torch.core import tree
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    k, H, R = HOSTSIM["k"], HOSTSIM["local_steps"], HOSTSIM["rounds"]
+    dispatch.reset_launch_counts()
+    total = {kk: 0 for kk in dispatch.KERNELS}
+    prof_args = None
+    for cfg in (cnn.CONV4, cnn.CONV6, cnn.CONV10):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(dev).manual_seed(HOSTSIM["seed"])
+        task = synthetic.make_image_task(gen, n=HOSTSIM["n"],
+                                         img=cfg.img_size,
+                                         channels=cfg.in_channels,
+                                         n_classes=cfg.n_classes,
+                                         proto_scale=1.0, noise=0.7)
+        setup = common.setup_from(cfg, task, k, None, HOSTSIM["seed"], gen)
+        algo = api.get_algorithm(
+            "fedpm_reg", setup["apply_fn"], setup["loss_fn"],
+            spec=common.SPEC, local_steps=H, lam=1.0, lr=0.1,
+            optimizer="adam", float_lr=1e-3)
+        client = algo.client_update
+        t_client = [0.0]
+
+        def timed(*a, _client=client, _t=t_client):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _client(*a)
+            torch.cuda.synchronize()
+            _t[0] += time.perf_counter() - t
+            return out
+
+        algo.client_update = timed
+        st = algo.init(gen, setup["params"])
+        n_leaves = sum(1 for a in tree.leaves(st.theta) if a is not None)
+        n_params = sum(a.numel() for a in tree.leaves(st.theta)
+                       if a is not None)
+        sizes = torch.tensor([len(c) for c in setup["cidx"]],
+                             dtype=torch.float32, device=dev)
+        part = torch.ones(k, dtype=torch.bool, device=dev)
+        for r in range(R):
+            data = synthetic.federated_batches(gen, task, setup["cidx"], k,
+                                               H, CNN_BATCH)
+            before = dict(dispatch.LAUNCHES)
+            t_client[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = algo.round(st, data, part, sizes, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {kk: dispatch.LAUNCHES[kk] - before[kk] for kk in before}
+            expect = {kk: 0 for kk in dispatch.KERNELS}
+            expect.update(pack_bits=k * n_leaves, unpack_bits=n_leaves)
+            check(got == expect, f"host-sim {cfg.name} round {r} launch "
+                  f"counts {got}, expected {expect}")
+            bpp, bpp_m = float(m["uplink_bpp"]), float(m["uplink_bpp_measured"])
+            check(0.0 < bpp <= 1.0 and 0.0 < bpp_m <= 1.1,
+                  f"host-sim {cfg.name}: Bpp {bpp}, measured {bpp_m}")
+            # theta is a weighted mean of bits: [0, 1] up to the f32
+            # rounding of the weights' sum
+            for t in tree.leaves(st.theta):
+                if t is not None:
+                    check(bool(torch.isfinite(t).all()) and
+                          float(t.min()) >= 0.0
+                          and float(t.max()) <= 1.0 + 1e-6,
+                          f"host-sim {cfg.name}: theta in [{float(t.min())}"
+                          f", {float(t.max())}]")
+            check(math.isfinite(float(m["loss"])),
+                  f"host-sim {cfg.name}: non-finite loss")
+            print(f"host-sim {cfg.name} ({n_params} masked weights in "
+                  f"{n_leaves} leaves) round {r}: {wall:.3f} s, client "
+                  f"updates {t_client[0]:.3f} s, launches pack_bits "
+                  f"{got['pack_bits']} unpack_bits {got['unpack_bits']}; "
+                  f"loss {float(m['loss']):.4f} bpp {bpp:.6f} measured "
+                  f"{bpp_m:.6f} sparsity {float(m['sparsity']):.4f}")
+        acc = float(api.evaluate(algo, st, setup["test"], setup["apply_fn"],
+                                 setup["metric_fn"], gen, n_samples=2))
+        check(0.0 <= acc <= 1.0, f"host-sim {cfg.name}: accuracy {acc}")
+        print(f"host-sim {cfg.name}: accuracy after {R} rounds {acc:.4f}; "
+              f"max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if cfg is cnn.CONV6:
+            prof_args = (algo, st, setup, gen, sizes, part)
+        total = {kk: total[kk] + v for kk, v in dispatch.LAUNCHES.items()}
+        dispatch.reset_launch_counts()
+    cnn_profile(torch, dev, *prof_args)
+    return total
+
+
+def cnn_profile(torch, dev, algo, st, setup, gen, sizes, part):
+    """One more CONV6 host-sim round under torch.profiler: device time by
+    kernel, device operations and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import synthetic
+    data = synthetic.federated_batches(gen, setup["task"], setup["cidx"],
+                                       setup["k"], HOSTSIM["local_steps"],
+                                       CNN_BATCH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        algo.round(st, data, part, sizes, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    n_ops = sum(r[1] for r in rows)
+    print(f"profile host-sim conv6 round (10 clients x 3 steps): wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}"
+          f"%), {n_ops} device operations; device ms by kernel:")
+    for key, count, ms in rows[:12] + [r for r in rows[12:]
+                                       if "pack_bits" in r[0]]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    check(busy > 0, "the profiler saw no device time")
+
+
+def fig1_phase(torch, dispatch, dev):
+    """The torch Fig. 1 benchmark (`repro_torch.benchmarks.fig1_iid.main`)
+    at its defaults on the card (the reduced widths of
+    `benchmarks/common.py`, 10 clients) for FIG1_ROUNDS rounds: its CSV
+    and summary, gated on invariants only (the header, one row per
+    dataset, variant and round, accuracy in [0, 1], Bpp in (0, 1] and the
+    measured rate at or above it, the cumulative MB growing) and on the
+    launches of kernels 10 and 11.  Returns the launch counts."""
+    import io
+    from repro_torch.benchmarks import common, fig1_iid
+    out, err = io.StringIO(), io.StringIO()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    fig1_iid.main(rounds=FIG1_ROUNDS, k=HOSTSIM["k"], device=str(dev),
+                  out=out, err=err)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(dispatch.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    print(f"fig1 (python -m repro_torch.benchmarks.fig1_iid --rounds "
+          f"{FIG1_ROUNDS}): {wall:.1f}s")
+    print("\n".join(lines))
+    print(err.getvalue().rstrip())
+    check(lines[0] == "dataset,algo,round,acc,bpp,bpp_measured,sparsity,"
+          "cum_mb", f"fig1 header {lines[0]!r}")
+    rows = [l.split(",") for l in lines[1:]]
+    variants = [v for _, v, _ in fig1_iid.VARIANTS]
+    check([tuple(r[:3]) for r in rows] == [
+        (ds, v, str(r)) for ds in fig1_iid.DATASETS for v in variants
+        for r in range(FIG1_ROUNDS)], "fig1: rows missing or out of order")
+    last = {}
+    for r in rows:
+        acc, bpp, bpp_m, sp, cum = map(float, r[3:])
+        check(0.0 <= acc <= 1.0 and 0.0 < bpp <= 1.0 and 0.0 <= sp <= 1.0
+              and bpp - 1e-6 <= bpp_m <= 1.1, f"fig1 row out of range: {r}")
+        check(cum > last.get(tuple(r[:2]), 0.0), f"fig1: cum_mb not "
+              f"growing: {r}")
+        last[tuple(r[:2])] = cum
+    # masked leaves a client packs and a round unpacks: the empty ones
+    # launch nothing (cifar100-like's Conv10 pools its 16 x 16 images to
+    # 0 x 0, as the reference's does, so its first dense is (0, 64))
+    from repro_torch.core import masking, tree
+    spec = masking.MaskSpec()
+    leaves = {ds: sum(1 for p, a in tree.flatten_with_paths(
+        common.make_setup(ds, 1, None, n=16, device=dev)["params"])
+        if spec.is_masked(p, a) and a.numel())
+        for ds in fig1_iid.DATASETS}
+    per = len(variants) * FIG1_ROUNDS
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(
+        pack_bits=sum(HOSTSIM["k"] * n * per for n in leaves.values()),
+        unpack_bits=sum(n * per for n in leaves.values()))
+    check(got == expect, f"fig1 launch counts {got}, expected {expect}")
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1722,6 +2164,9 @@ def main():
     err.update(bitpack_kernel_phase(torch, bp, dev))
     err["masked_matmul_fwd"] = max(err["masked_matmul_fwd"],
                                    small_m_kernel_phase(torch, mm, ref, dev))
+    cnn_err, _ = cnn_kernel_phase(torch, mm, ref, bp, dev)
+    for k, v in cnn_err.items():
+        err[k] = max(err[k], v)
     print(f"kernel phase: all kernels agree with their plain versions "
           f"({time.time() - t0:.1f}s); max abs err {json.dumps(err)}")
     t0 = time.time()
@@ -1858,6 +2303,15 @@ def main():
               f"expected {expect}")
         launches = {k: launches[k] + got[k] for k in launches}
     print(f"serve and artifact paths: {time.time() - t0:.1f}s")
+
+    # the paper's CNNs: the fused step (kernels 1-3), the host-sim API at
+    # the published widths and the Fig. 1 benchmark (kernels 10-11)
+    for phase in (fused_cnn_phase, hostsim_phase, fig1_phase):
+        t0 = time.time()
+        got = (phase(torch, dispatch, mm, dev) if phase is fused_cnn_phase
+               else phase(torch, dispatch, dev))
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"{phase.__name__}: {time.time() - t0:.1f}s")
 
     for cfg, _ in paths:
         t0 = time.time()

@@ -1,10 +1,19 @@
-"""Binary uplink payloads and their transport helpers (part of
-`repro.api.payloads`).
+"""Typed payloads in both directions and their transport helpers (the
+binary-mask and broadcast parts of `repro.api.payloads`).
 
-`BitpackedMasks` is the deployable mask artifact's layout: one word
-vector per masked leaf, 32 bits to an int32-stored uint32 word, packed
-by the bit-packing kernel on the card.  It is a plain dataclass (the
-reference registers it as a pytree for `jit`; nothing here traces)."""
+`BitpackedMasks` is a client's uplink and the deployable mask
+artifact's layout: one word vector per masked leaf, 32 bits to an
+int32-stored uint32 word, packed by the bit-packing kernel on the card.
+Its reported bits per parameter are the empirical entropy of the
+transmitted bits (eq. 13).  The server's broadcast is a
+`DownlinkPayload`: `ProbBroadcast` puts the stochastic k-bit theta
+quantization on the wire, `FloatBroadcast` the raw floats.
+
+Payloads are plain dataclasses (the reference registers them as pytrees
+for `jit` and `vmap`; nothing here traces).  The round engine collects
+one payload per client and stacks them (`stack_payloads`): every tensor
+leaf then carries a leading client axis, and `batched_packed_mean`
+reduces the K clients' words in one launch of the unpack kernel."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,10 +22,10 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.api import codecs as codecs_lib
 from repro_torch.core import aggregation, masking, regularizer
 from repro_torch.core import tree as tu
 from repro_torch.kernels import ops
-from repro_torch.kernels import ref as kref
 
 Pytree = Any
 
@@ -90,8 +99,7 @@ class BitpackedMasks:
     def bpp(self) -> torch.Tensor:
         """Empirical entropy of the transmitted bits (eq. 13), float32;
         padding bits are zero and n counts real parameters only."""
-        ones = sum(int(kref.popcount32(w).sum()) for w in
-                   tu.leaves(self.words) if w is not None)
+        ones = codecs_lib.popcount_total(self)
         n = self.num_params()
         if n == 0:
             return torch.tensor(0.0)
@@ -106,3 +114,150 @@ class BitpackedMasks:
         it = iter(self.shapes)
         return {path: (w, next(it))
                 for path, w in masking.leaves_with_paths(self.words)}
+
+
+def _leaf_shapes(tree: Pytree) -> tuple:
+    return tuple(tuple(l.shape) for l in tu.leaves(tree) if l is not None)
+
+
+def _float_bits(tree: Pytree) -> tuple:
+    return tuple(l.element_size() * 8 for l in tu.leaves(tree)
+                 if l is not None)
+
+
+# ---------------------------------------------------------------------------
+# Downlink payloads: what the server broadcasts each round
+# ---------------------------------------------------------------------------
+
+
+class DownlinkPayload:
+    """One round's server broadcast."""
+
+    def num_params(self) -> int:
+        raise NotImplementedError
+
+    def wire_bits(self) -> int:
+        """Exact serialized size in bits (word-aligned where packed)."""
+        raise NotImplementedError
+
+    def sidecar_bits(self) -> int:
+        """Float side-channel bits riding along (norms, biases)."""
+        return 0
+
+    def bpp(self) -> torch.Tensor:
+        n = self.num_params()
+        if n == 0:
+            return torch.tensor(0.0)
+        return torch.tensor(self.wire_bits() / n, dtype=torch.float32)
+
+
+@dataclasses.dataclass
+class ProbBroadcast(DownlinkPayload):
+    """theta quantized stochastically to k bits on the downlink wire
+    (`aggregation.quantize_theta`).
+
+    q:      uint8 (k <= 8) or int32 levels in [0, 2^k - 1], None at float
+            leaves; an unbiased estimator of theta.
+    floats: the averaged float leaves broadcast alongside (sidecar).
+    bits:   the quantization width k."""
+    q: Pytree
+    floats: Pytree
+    bits: int
+
+    @classmethod
+    def from_theta(cls, theta: Pytree,
+                   generator: Optional[torch.Generator] = None,
+                   bits: int = 8, floats: Pytree = None,
+                   u: Optional[list] = None) -> "ProbBroadcast":
+        """Uniforms from `generator`, one draw per leaf in flatten order,
+        or injected as `u`."""
+        return cls(aggregation.quantize_theta(theta, generator, bits=bits,
+                                              u=u), floats, bits)
+
+    def to_theta(self) -> Pytree:
+        """What the clients receive: the dequantized theta."""
+        return aggregation.dequantize_theta(self.q, bits=self.bits)
+
+    def num_params(self) -> int:
+        return sum(l.numel() for l in tu.leaves(self.q) if l is not None)
+
+    def wire_bits(self) -> int:
+        return sum(codecs_lib.word_align(l.numel() * self.bits)
+                   for l in tu.leaves(self.q) if l is not None)
+
+    def sidecar_bits(self) -> int:
+        return codecs_lib.float_tree_bits(self.floats)
+
+
+@dataclasses.dataclass
+class FloatBroadcast(DownlinkPayload):
+    """Raw float broadcast (server params or scores): the dtype width on
+    the wire, the 32-Bpp downlink reference."""
+    values: Pytree
+    shapes: tuple
+    bits: tuple
+
+    @classmethod
+    def from_tree(cls, values: Pytree) -> "FloatBroadcast":
+        return cls(values, _leaf_shapes(values), _float_bits(values))
+
+    def num_params(self) -> int:
+        return sum(math.prod(sh) for sh in self.shapes)
+
+    def wire_bits(self) -> int:
+        return sum(math.prod(sh) * b for sh, b in zip(self.shapes, self.bits))
+
+
+# ---------------------------------------------------------------------------
+# Engine-batched payloads: a leading client axis on every tensor leaf
+# ---------------------------------------------------------------------------
+
+_STATIC = ("shapes", "bits")   # dataclass fields that carry no tensors
+
+
+def _map_payloads(fn, payloads):
+    first = payloads[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(p, f.name) for p in payloads]
+        kw[f.name] = vals[0] if f.name in _STATIC or vals[0] is None \
+            else tu.tree_map(lambda *ls: None if ls[0] is None else fn(ls),
+                             *vals)
+    return type(first)(**kw)
+
+
+def stack_payloads(payloads) -> Any:
+    """Stack same-structure payloads into one engine-batched payload (every
+    tensor leaf gains a leading axis): the round engine's form of a
+    cohort's uplinks, which `aggregate` reduces."""
+    if not payloads:
+        raise ValueError("stack_payloads needs at least one payload")
+    return _map_payloads(torch.stack, list(payloads))
+
+
+def slice_payload(payload, i: int):
+    """Client i's payload out of an engine-batched one."""
+    return _map_payloads(lambda ls: ls[0][i], [payload])
+
+
+def batched_packed_mean(payload, weights: torch.Tensor) -> Pytree:
+    """Weighted mean of K clients' bits straight from the packed words
+    (eq. 8): every words leaf is (K, W); theta comes back in the leaves'
+    shapes, one unpack launch a leaf."""
+    it = iter(payload.shapes)
+
+    def one(w):
+        if w is None:
+            return None
+        sh = next(it)
+        return mean_from_words(w, math.prod(sh), weights).reshape(sh)
+
+    return tu.tree_map(one, payload.words)
+
+
+def batched_float_mean(tree: Pytree, weights: torch.Tensor) -> Pytree:
+    """Weighted mean over the leading K axis, in f32, cast back to each
+    leaf's dtype."""
+    return tu.tree_map(
+        lambda f: None if f is None else torch.tensordot(
+            weights.float(), f.float(), dims=([0], [0])).to(f.dtype), tree)

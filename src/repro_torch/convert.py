@@ -46,3 +46,23 @@ def server_from_jax(np_server, device):
                        weights=tree_to_torch(np_server.weights, device),
                        seed=int(np.asarray(np_server.seed)) & 0xFFFFFFFF,
                        round=int(np.asarray(np_server.round)))
+
+
+def masked_params_from_jax(np_mp, device):
+    """A JAX `MaskedParams` (weights / scores / floats trees with numpy
+    leaves, the CNNs' nested "convs"/"denses" lists included) -> the
+    port's `masking.MaskedParams`."""
+    from repro_torch.core.masking import MaskedParams
+    return MaskedParams(tree_to_torch(np_mp.weights, device),
+                        tree_to_torch(np_mp.scores, device),
+                        tree_to_torch(np_mp.floats, device))
+
+
+def mask_state_from_jax(np_state, device):
+    """A JAX fedmask `MaskState` (scores / floats / weights, round) -> the
+    port's `api.algorithms.MaskState`."""
+    from repro_torch.api.algorithms import MaskState
+    return MaskState(tree_to_torch(np_state.scores, device),
+                     tree_to_torch(np_state.floats, device),
+                     tree_to_torch(np_state.weights, device),
+                     int(np.asarray(np_state.round)))

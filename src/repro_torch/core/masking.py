@@ -84,6 +84,17 @@ class _STE(torch.autograd.Function):
         return g, None
 
 
+def ste_bernoulli(theta: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """m = 1[u < theta] in theta's dtype, straight-through: dm/dtheta := 1
+    (u is the caller's uniform noise and gets no gradient)."""
+    return _STE.apply(theta, u < theta)
+
+
+def ste_threshold(theta: torch.Tensor, tau: float) -> torch.Tensor:
+    """The deterministic mask m = 1[theta > tau] (FedMask), with the STE."""
+    return _STE.apply(theta, theta > tau)
+
+
 # ---------------------------------------------------------------------------
 # MaskSpec: which leaves are masked
 # ---------------------------------------------------------------------------
@@ -111,6 +122,13 @@ class MaskSpec:
                                          or "lm_head" in lp):
             return False
         return getattr(leaf, "ndim", 0) >= self.min_ndim
+
+
+def split_params(params: Pytree, spec: MaskSpec) -> Pytree:
+    """A tree of bools mirroring `params`: which leaves `spec` masks."""
+    paths = tu.flatten_with_paths(params)
+    return tu.unflatten(tu.flatten(params)[1],
+                        [spec.is_masked(p, l) for p, l in paths])
 
 
 @dataclasses.dataclass
@@ -149,6 +167,43 @@ def init_masked(gen: torch.Generator, params_like: Pytree, spec: MaskSpec,
     tdef = tu.flatten(params_like)[1]
     mk = lambda lst: tu.unflatten(tdef, lst)
     return MaskedParams(mk(weights), mk(scores), mk(floats))
+
+
+def sample_effective(mp: MaskedParams,
+                     generator: Optional[torch.Generator] = None,
+                     mode: str = "sample", tau: float = 0.5,
+                     u: Optional[list] = None) -> Pytree:
+    """Effective params: m * w at masked leaves (in w's dtype), the float
+    leaves as they are.
+
+    mode: "sample"    -> m ~ Bern(sigmoid(s)) with the STE (training)
+          "threshold" -> m = 1[sigmoid(s) > tau]      (eval, FedMask)
+          "expected"  -> m = sigmoid(s)               (the mean network)
+
+    The uniforms of mode "sample" come from `generator`, one draw of the
+    leaf's shape per masked leaf in flatten order, or are injected as
+    `u` (a list over the masked leaves), as `final_mask` takes them.
+    This is the host-simulation path: the masks are drawn here, not from
+    the fused kernels' hash stream."""
+    it = iter(u) if u is not None else None
+
+    def one(w, s, f):
+        if w is None:
+            return f
+        theta = torch.sigmoid(s.float())
+        if mode == "sample":
+            uu = next(it).to(s.device) if it is not None else torch.rand(
+                s.shape, generator=generator, device=s.device)
+            m = ste_bernoulli(theta, uu)
+        elif mode == "threshold":
+            m = ste_threshold(theta, tau)
+        elif mode == "expected":
+            m = theta
+        else:
+            raise ValueError(mode)
+        return m.to(w.dtype) * w
+
+    return tu.tree_map(one, mp.weights, mp.scores, mp.floats)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Nested-dict parameter trees, flattened in `jax.tree_util` order.
 
-A tree is nested dicts, lists and tuples; anything else (a tensor, None,
-a `MaskedLeaf`) is a leaf.  Dicts flatten in sorted key order and None
-leaves are counted, exactly as `jax.tree_util.tree_flatten(tree,
-is_leaf=lambda x: x is None)` does — the mask stream seeds are derived
-from these leaf indices, so the port's order must equal the
-reference's.
+A tree is nested dicts, lists and tuples (named tuples included, in
+field order); anything else (a tensor, None, a `MaskedLeaf`) is a leaf.
+Dicts flatten in sorted key order and None leaves are counted, exactly
+as `jax.tree_util.tree_flatten(tree, is_leaf=lambda x: x is None)` does
+— the mask stream seeds are derived from these leaf indices, so the
+port's order must equal the reference's.
 """
 from __future__ import annotations
 
@@ -18,11 +18,18 @@ def _is_node(t) -> bool:
     return isinstance(t, (dict, list, tuple))
 
 
+def _rebuild(t, values):
+    """A list or tuple of `t`'s type holding `values`."""
+    if hasattr(type(t), "_fields"):   # a named tuple
+        return type(t)(*values)
+    return type(t)(values)
+
+
 def _flatten_into(t, leaves: list):
     if isinstance(t, dict):
         return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
     if isinstance(t, (list, tuple)):
-        return type(t)(_flatten_into(v, leaves) for v in t)
+        return _rebuild(t, [_flatten_into(v, leaves) for v in t])
     leaves.append(t)
     return _LEAF
 
@@ -40,7 +47,7 @@ def _unflatten_from(t, it):
     if isinstance(t, dict):
         return {k: _unflatten_from(v, it) for k, v in t.items()}
     if isinstance(t, (list, tuple)):
-        return type(t)(_unflatten_from(v, it) for v in t)
+        return _rebuild(t, [_unflatten_from(v, it) for v in t])
     return next(it)
 
 

@@ -34,6 +34,15 @@
 // kernel 7 at the MoE capacity) the stage has one buffer and the plan
 // runs two blocks of width 64 an SM, each in half the shared memory and
 // at most 96 registers a thread, so that 16 consumer warps hide it.
+// Past LONG_ROWS rows of M (the LONG build: width 64, one block an SM,
+// as `ds_plan` plans it), the tensor cores' partial sum is folded into a
+// second set of f32 registers by IEEE adds every PROMOTE stages and
+// restarted from zero: the tensor cores' f32 accumulation loses
+// precision in one direction, so its error grows with the rows it sums
+// (on an H100, 1.6e-4 of the scale at M = 32768 and 1.5e-6 at M = 256,
+// against 3e-7 for an f32 matmul), and each partial of PROMOTE * BMF
+// rows keeps it at the short sum's.  (At width 128 the second set of
+// registers spills.)
 //
 // The epilogue streams: a second load warp keeps a ring of (w, s) chunks
 // in flight by TMA, running up to two tiles ahead of the products.  A
@@ -76,6 +85,9 @@ constexpr int WR = 16;           // rows of a (w, s) chunk: one warp's
 constexpr int CONSUMERS = 256;   // the product + epilogue warps
 constexpr int THREADS = CONSUMERS + 64;   // + the two load warps
 constexpr int BAR_CONSUMERS = 1;
+constexpr int PROMOTE = 4;       // f32 stages summed on the tensor cores
+                                 // before an IEEE add folds them (LONG)
+constexpr int LONG_ROWS = 512;   // f32 rows of M past which LONG runs
 // the widths BN a tile may take (wgmma's N; the plan picks one per shape)
 #define REPRO_DS_WIDTHS(X) X(64) X(128)
 
@@ -353,8 +365,11 @@ __device__ __forceinline__ void store_stage(const F32Stage<BN>& f,
 
 // Width 64 at f32 runs two blocks an SM (the plan of M <= BMF), so that
 // 16 consumer warps hide the epilogue's latency: at most 96 registers.
-template <int BN, bool F32>
-__global__ void __launch_bounds__(THREADS, (F32 && BN == 64) ? 2 : 1)
+// LONG (f32, M > LONG_ROWS, width 64: one block an SM) folds the
+// partial sums.
+template <int BN, bool F32, bool LONG>
+__global__ void __launch_bounds__(THREADS,
+                                  (F32 && BN == 64 && !LONG) ? 2 : 1)
     ds_gemm(const __grid_constant__ CUtensorMap map_x,
             const __grid_constant__ CUtensorMap map_g,
             const __grid_constant__ CUtensorMap map_w,
@@ -514,9 +529,15 @@ __global__ void __launch_bounds__(THREADS, (F32 && BN == 64) ? 2 : 1)
       __syncwarp();
       if (p.M > 0 && lane == 0) mbar_arrive(lay.empty_xg((it - 1) % p.stages));
     } else {
+      // LONG: the folded partial sums (unused otherwise)
+      float tot[LONG ? BN / 2 : 1];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-      for (int m0 = 0; m0 < p.M; m0 += BMF, ++it) {
+      if (LONG) {
+#pragma unroll
+        for (int i = 0; i < (LONG ? BN / 2 : 1); ++i) tot[i] = 0.0f;
+      }
+      for (int m0 = 0, n_st = 1; m0 < p.M; m0 += BMF, ++it, ++n_st) {
         const int st = it % p.stages;
         wgmma_wait<1>();     // this warpgroup's products of stage it - 2
                              // (with one buffer, M <= BMF: of the tile
@@ -548,9 +569,23 @@ __global__ void __launch_bounds__(THREADS, (F32 && BN == 64) ? 2 : 1)
         };
         mma(2, 0); mma(1, 1); mma(0, 2); mma(1, 0); mma(0, 1); mma(0, 0);
         wg::wgmma_commit();
+        if (LONG && n_st % PROMOTE == 0 && m0 + BMF < p.M) {
+          // fold this partial into tot and restart the tensor cores' sum
+          wgmma_wait<0>();
+          wg::fence_regs<BN / 2>(acc);
+#pragma unroll
+          for (int i = 0; i < (LONG ? BN / 2 : 1); ++i) {
+            tot[i] += acc[i];
+            acc[i] = 0.0f;
+          }
+        }
       }
       wgmma_wait<0>();
       wg::fence_regs<BN / 2>(acc);
+      if (LONG) {
+#pragma unroll
+        for (int i = 0; i < (LONG ? BN / 2 : 1); ++i) acc[i] += tot[i];
+      }
     }
 
     // ---- the epilogue: this warp's chunk of WR rows, handed back once
@@ -648,7 +683,7 @@ inline bool make_map3(CUtensorMap* map, CUtensorMapDataType type, int esize,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool F32>
+template <int BN, bool F32, bool LONG>
 int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
   using L = Layout<BN, F32>;
   constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -663,7 +698,7 @@ int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
       ((p.tma & 8) &&
        !make_map3(&maps[3], FP32, 4, p.s, p.E, p.K, p.N, WR, 32)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = ds_gemm<BN, F32>;
+  const auto kernel = ds_gemm<BN, F32, LONG>;
   static int smem_set[64] = {};   // largest size allowed, per device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -697,11 +732,14 @@ inline int launch(const void* x, const void* g, const void* w, const void* s,
   const Params p{x, g, static_cast<const uint16_t*>(w),
                  static_cast<const float*>(s), static_cast<float*>(ds),
                  E, M, K, N, stages, chunks, tma};
+  if (x_f32 && M > LONG_ROWS)
+    return bn == 64 ? launch_bn<64, true, true>(p, smem, grid, stream)
+                    : static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
 #define REPRO_DS_CASE(W)                                        \
   case W:                                                       \
-    return x_f32 ? launch_bn<W, true>(p, smem, grid, stream)    \
-                 : launch_bn<W, false>(p, smem, grid, stream);
+    return x_f32 ? launch_bn<W, true, false>(p, smem, grid, stream) \
+                 : launch_bn<W, false, false>(p, smem, grid, stream);
     REPRO_DS_WIDTHS(REPRO_DS_CASE)
 #undef REPRO_DS_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

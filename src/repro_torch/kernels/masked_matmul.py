@@ -251,6 +251,7 @@ def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
 # for each of the DS_BK / DS_WR consumer warps a tile; 16 bytes of
 # mbarriers a stage and a chunk, and 1024 bytes of alignment.
 DS_BK, DS_BMS, DS_BMF, DS_WR = 128, 64, 32, 16
+DS_LONG_ROWS = 512            # f32 rows of M past which the LONG build runs
 DS_WIDTHS = (64, 128)                         # as REPRO_DS_WIDTHS
 DS_MAX_STAGES = 4
 DS_RING_BYTES = 96 * 1024     # of (w, s) chunks: a tile at bn = 128
@@ -285,12 +286,16 @@ def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
     a tile's only stage in one buffer, and two blocks an SM at bn = 64
     (the kernel's 96-register build), so that 16 consumer warps hide the
     latency of the sigmoid epilogue, each block in half the SM's shared
-    memory."""
+    memory.  f32 at M > DS_LONG_ROWS runs the body's LONG build at width
+    64, one block an SM, which folds the tensor cores' partial sum into
+    f32 registers every 128 rows."""
     f32 = act == torch.float32
     tiles = {bn: E * _cdiv(K, DS_BK) * _cdiv(N, bn) for bn in DS_WIDTHS}
     bn, per_sm, budget = (128 if tiles[128] >= sms else 64), 1, SMEM_LIMIT
     if f32 and M <= DS_BMF:
         bn, per_sm, budget = 64, 2, SM_SMEM // 2 - BLOCK_RESERVED
+    if f32 and M > DS_LONG_ROWS:
+        bn = 64
     if f32:
         stages, chunks = (1 if M <= DS_BMF else 2), 2 * DS_BK // DS_WR
         while ds_smem(bn, stages, chunks, f32) > budget:

@@ -1,12 +1,13 @@
-"""Model layers (the dense, MLA, MoE and causal-conv parts of
+"""Model layers (the dense, MLA, MoE, causal-conv and 2-D conv parts of
 `repro.models.layers`).
 
 Conventions follow the reference: activations x are (B, S, D), params
 are nested dicts of tensors, maskable tensors are named "w_*" and norms
 and the router carry "scale" / "router".  Every maskable projection goes
 through `masked_dense_apply` (2-D weights), `masked_grouped_apply`
-(stacked (E, K, N) expert weights) or `masked_conv1d_apply` (depthwise
-(W, C) conv kernels), which run the fused kernels for a `MaskedLeaf` and
+(stacked (E, K, N) expert weights), `masked_conv1d_apply` (depthwise
+(W, C) conv kernels) or `masked_conv2d_apply` (the CNNs' (kh, kw, ci, co)
+kernels), which run the fused kernels for a `MaskedLeaf` and
 a plain product or conv for a plain tensor (float baselines,
 materialized effective params).
 """
@@ -59,6 +60,37 @@ def masked_conv1d_apply(x: torch.Tensor, p) -> torch.Tensor:
             return ops.masked_conv1d_threshold(x, p.w, p.s, p.tau)
         return ops.masked_conv1d(x, p.w, p.s, int(p.seed), int(p.off))
     return ops.conv1d_plain(x, p)
+
+
+def masked_conv2d_apply(x: torch.Tensor, p) -> torch.Tensor:
+    """2-D SAME conv, stride 1, of x: (B, H, W, ci) with a (kh, kw, ci, co)
+    kernel leaf -> (B, H, W, co), in the reference's NHWC/HWIO layout.
+
+    A plain tensor runs one `F.conv2d` (cast to x's dtype) on NCHW views
+    of the NHWC tensors, padded as XLA pads SAME (an even kernel one more
+    at the end).  A `MaskedLeaf` is im2col'd once to (B*H*W, kh*kw*ci) and
+    runs one fused
+    `masked_dense` over the leaf's (kh*kw*ci, co) reshape: that reshape
+    is row-major in the leaf's flat order, so at the leaf's base offset
+    the launch samples the mask of the leaf's flat uplink stream, and
+    m * w never exists in device memory."""
+    if not isinstance(p, MaskedLeaf):
+        kh, kw = p.shape[:2]
+        ph, pw = (kh - 1) // 2, (kw - 1) // 2
+        xn = F.pad(x.permute(0, 3, 1, 2), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+        return F.conv2d(xn, p.to(x.dtype).permute(3, 2, 0, 1)).permute(
+            0, 2, 3, 1)
+    kh, kw, ci, co = p.w.shape
+    B, H, Wd, _ = x.shape
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(x, (0, 0, pw, kw - 1 - pw, ph, kh - 1 - ph))
+    cols = torch.cat([xp[:, dy:dy + H, dx:dx + Wd, :]
+                      for dy in range(kh) for dx in range(kw)],
+                     dim=-1).reshape(-1, kh * kw * ci)
+    blk = MaskedLeaf(p.w.reshape(kh * kw * ci, co),
+                     p.s.reshape(kh * kw * ci, co), p.seed[0, 0],
+                     p.off[0, 0], p.mode, p.tau)
+    return masked_dense_apply(cols, blk).reshape(B, H, Wd, co)
 
 
 def effective_weight(p) -> torch.Tensor:

@@ -122,7 +122,7 @@ def test_plan_constants_are_the_kernels():
     """DS_BK, DS_BMS, DS_BMF, DS_WR and the widths are the kernel's
     constants (csrc/masked_matmul_ds_wgmma.cuh)."""
     for py, c in (("DS_BK", "BK"), ("DS_BMS", "BMS"), ("DS_BMF", "BMF"),
-                  ("DS_WR", "WR")):
+                  ("DS_WR", "WR"), ("DS_LONG_ROWS", "LONG_ROWS")):
         got = re.search(rf"constexpr int {c} = (\d+);", HEADER)
         assert int(got.group(1)) == getattr(mm, py), py
     macro = re.search(r"#define REPRO_DS_WIDTHS\(X\)(.*)", HEADER).group(1)
@@ -295,3 +295,28 @@ def test_grouped_flags_follow_the_row_pitch(monkeypatch):
     x_odd = torch.zeros(E, M, 1001)
     assert mm._ds_args(x_odd, g8, w8, s8, ds8, E, M, 1001,
                        1408)[-1] == 0b11110
+
+
+# The paper's CNNs: Conv6 at img 32, batch 32, each conv's im2col (M, K,
+# N) and the denses, f32 activations (models/cnn.py); past DS_LONG_ROWS
+# rows the body folds its partial sums (the LONG build, width 64 only).
+CNN_SHAPES = [(32768, 27, 64), (32768, 576, 64), (8192, 576, 128),
+              (8192, 1152, 128), (2048, 1152, 256), (2048, 2304, 256),
+              (32, 4096, 256), (32, 256, 256), (32, 256, 10)]
+
+
+@pytest.mark.parametrize("shape", CNN_SHAPES)
+def test_cnn_shapes_plan(shape):
+    """Tiles cover ds once, a block fits, and an f32 launch past
+    DS_LONG_ROWS rows takes width 64, the only LONG build."""
+    Mx, K, N = shape
+    plan = mm.ds_plan(Mx, K, N, torch.float32)
+    corners = [c for b in _tile_walk(plan, K, N) for c in b]
+    assert len(corners) == len(set(corners))
+    assert _covered_once({k for k, _ in corners}, plan["bk"], K)
+    assert _covered_once({n for _, n in corners}, plan["bn"], N)
+    _holds_per_sm(plan)
+    if Mx > mm.DS_LONG_ROWS:
+        assert plan["bn"] == 64 and plan["per_sm"] == 1
+    assert "launch_bn<64, true, true>" in HEADER
+    assert "launch_bn<W, true, true>" not in HEADER

@@ -28,3 +28,37 @@ def test_no_jax_or_repro_import(path):
 
 def test_package_is_nonempty():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+
+
+# the paper-CNN slice: its fourteen modules (optim, partition, synthetic,
+# regularizer, masking, layers, cnn, convert, federated, payloads, codecs,
+# protocol, algorithms with the registry, the Fig. 1 benchmark)
+SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
+         "repro_torch.data.synthetic", "repro_torch.core.regularizer",
+         "repro_torch.core.masking", "repro_torch.models.layers",
+         "repro_torch.models.cnn", "repro_torch.convert",
+         "repro_torch.core.federated", "repro_torch.api.payloads",
+         "repro_torch.api.codecs", "repro_torch.api.protocol",
+         "repro_torch.api.algorithms", "repro_torch.api.registry",
+         "repro_torch.benchmarks.common", "repro_torch.benchmarks.fig1_iid")
+
+
+def test_slice_modules_import_with_jax_and_repro_blocked():
+    """Each module of the slice exists and imports in a fresh interpreter
+    in which importing jax or repro raises."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {SLICE!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+            "               for k in sys.modules if sys.modules[k])\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for m in SLICE:
+        assert (ROOT / "src" / (m.replace(".", "/") + ".py")).exists(), m
