@@ -91,7 +91,20 @@ Phases (any failure exits non-zero and prints no result line):
    launches of kernels 10 and 11 a round, and one CONV6 round profiled;
    (d) the torch Fig. 1 benchmark (`python -m
    repro_torch.benchmarks.fig1_iid`) at its defaults for 12 rounds,
-   gated on invariants and launch counts;
+   gated on invariants and launch counts; then the rest of the host-sim
+   API: (e) topk (k_frac 0.3), mv_signsgd and fedavg through `run_round`
+   at CONV6's published width, non-IID (2 classes a client), 2 rounds
+   each, launches exact (kernel 10 packs each client's mask or sign
+   leaves, 11 unpacks each leaf once a round; fedavg none), topk's share
+   of ones 0.3, mv_signsgd at 1 Bpp, fedavg at 32; (f) every codec that
+   accepts it on one client's payload of each kind, from the card:
+   lossless round trips, the meter on the card equal to the encoder's
+   wire size, a flipped bit raising `ChecksumError`; (g) one round of
+   full-size internlm2-1.8b with `--codec golomb`: the card's
+   packed-words meter per cohort against the CPU's and the host
+   encoder's, its seconds and the memory it adds; (h) the torch Fig. 2
+   benchmark (`python -m repro_torch.benchmarks.fig2_noniid`) for 6
+   rounds, gated on invariants and launch counts;
 8. profile one more step and round of each training path, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
    on 2 slots, exact and lockstep (torch.profiler): device time by
@@ -2130,6 +2143,358 @@ def fig1_phase(torch, dispatch, dev):
     return got
 
 
+# ---------------------------------------------------------------------------
+# The rest of the host-sim API: the baselines at Conv6's published width,
+# every wire codec on their payloads, the golomb meter at internlm2's full
+# width and the Fig. 2 benchmark
+# ---------------------------------------------------------------------------
+
+BASELINES = (("topk", dict(k_frac=0.3, lr=0.1)), ("mv_signsgd", {}),
+             ("fedavg", {}))
+NONIID_C = 2                  # classes a client (the paper's non-IID split)
+FIG2_ROUNDS = 6
+
+
+def baselines_phase(torch, dispatch, dev):
+    """topk (k_frac 0.3), mv_signsgd and fedavg through `run_round` at
+    CONV6's published width (2.26 M masked weights) on a cifar10-like
+    task of 1024 images split non-IID (2 classes a client), HOSTSIM's
+    settings (10 clients, 3 local steps of batch 32), 2 rounds each.  Per
+    round: its seconds, the client updates' seconds, the peak memory and
+    the launches, exactly: topk packs each masked leaf a client (kernel
+    10) and unpacks each leaf once (11), mv_signsgd the same over every
+    float leaf (its sign votes), fedavg launches none.  Gates: topk's
+    share of ones is 0.3 up to ties, mv_signsgd's uplink is exactly 1 Bpp
+    and its measured rate the word-aligned bits over n, fedavg's both 32;
+    a finite loss and an accuracy in [0, 1].  Returns (the launches, one
+    client's payload of each kind, on the card)."""
+    from repro_torch import api
+    from repro_torch.benchmarks import common
+    from repro_torch.core import tree
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    k, H, R = HOSTSIM["k"], HOSTSIM["local_steps"], HOSTSIM["rounds"]
+    cfg = cnn.CONV6
+    total = {kk: 0 for kk in dispatch.KERNELS}
+    sent = {}
+    for name, kw in BASELINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(dev).manual_seed(HOSTSIM["seed"])
+        task = synthetic.make_image_task(gen, n=HOSTSIM["n"],
+                                         img=cfg.img_size,
+                                         channels=cfg.in_channels,
+                                         n_classes=cfg.n_classes,
+                                         proto_scale=1.0, noise=0.7)
+        setup = common.setup_from(cfg, task, k, NONIID_C, HOSTSIM["seed"],
+                                  gen)
+        algo = api.get_algorithm(name, setup["apply_fn"], setup["loss_fn"],
+                                 spec=common.SPEC, local_steps=H, **kw)
+        client = algo.client_update
+        t_client = [0.0]
+
+        def timed(*a, _client=client, _t=t_client, _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _client(*a)
+            torch.cuda.synchronize()
+            _t[0] += time.perf_counter() - t
+            sent.setdefault(_name, out[0])   # the first client's uplink
+            return out
+
+        algo.client_update = timed
+        st = algo.init(gen, setup["params"])
+        leaves = [a for a in tree.leaves(
+            st.scores if name == "topk" else st.params) if a is not None]
+        n = sum(a.numel() for a in leaves)
+        sizes = torch.tensor([len(c) for c in setup["cidx"]],
+                             dtype=torch.float32, device=dev)
+        part = torch.ones(k, dtype=torch.bool, device=dev)
+        expect = {kk: 0 for kk in dispatch.KERNELS}
+        if name != "fedavg":
+            expect.update(pack_bits=k * len(leaves),
+                          unpack_bits=len(leaves))
+        dispatch.reset_launch_counts()
+        for r in range(R):
+            data = synthetic.federated_batches(gen, task, setup["cidx"], k,
+                                               H, CNN_BATCH)
+            before = dict(dispatch.LAUNCHES)
+            t_client[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = algo.round(st, data, part, sizes, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {kk: dispatch.LAUNCHES[kk] - before[kk] for kk in before}
+            check(got == expect, f"baselines {name} round {r} launch counts "
+                  f"{got}, expected {expect}")
+            bpp = float(m["uplink_bpp"])
+            bpp_m = float(m["uplink_bpp_measured"])
+            if name == "topk":
+                ones = 1.0 - float(m["sparsity"])
+                check(abs(ones - 0.3) <= 1e-3, f"topk: share of ones {ones}")
+                check(0.0 < bpp <= 1.0 and bpp <= bpp_m + 1e-6 <= 1.1,
+                      f"topk: Bpp {bpp}, measured {bpp_m}")
+            else:
+                # a client's payload reports its rate exactly; the round's
+                # is the f32 weighted mean over the clients (weights that
+                # sum to 1 within an ulp)
+                rate, want_m = (1.0, 32 * ((n + 31) // 32) / n) \
+                    if name == "mv_signsgd" else (32.0, 32.0)
+                check(float(sent[name].bpp()) == rate and abs(bpp - rate)
+                      <= rate * 2 ** -22 and abs(bpp_m - want_m) <= want_m
+                      * 2 ** -22, f"{name}: Bpp {bpp} (a client's "
+                      f"{float(sent[name].bpp())}), measured {bpp_m} (want "
+                      f"{rate}, {want_m})")
+            check(math.isfinite(float(m["loss"])), f"baselines {name}: "
+                  f"non-finite loss")
+            print(f"baselines {name} conv6 ({n} weights in {len(leaves)} "
+                  f"uplink leaves, non-IID c={NONIID_C}) round {r}: "
+                  f"{wall:.3f} s, client updates {t_client[0]:.3f} s, "
+                  f"launches pack_bits {got['pack_bits']} unpack_bits "
+                  f"{got['unpack_bits']}; loss {float(m['loss']):.4f} bpp "
+                  f"{bpp:.6f} measured {bpp_m:.6f} sparsity "
+                  f"{float(m['sparsity']):.4f} uplink "
+                  f"{float(m['uplink_bits_measured']) / 8e6:.3f} MB "
+                  f"downlink {float(m['downlink_bits']) / 8e6:.3f} MB")
+        acc = float(api.evaluate(algo, st, setup["test"], setup["apply_fn"],
+                                 setup["metric_fn"], gen, n_samples=1))
+        check(0.0 <= acc <= 1.0, f"baselines {name}: accuracy {acc}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"baselines {name}: accuracy after {R} rounds {acc:.4f}; max "
+              f"memory allocated {peak:.3f} GiB")
+        total = {kk: total[kk] + v for kk, v in dispatch.LAUNCHES.items()}
+        dispatch.reset_launch_counts()
+    return total, sent
+
+
+def _same_payload(torch, a, b):
+    """Every tensor field of two payloads equal bit for bit (on the CPU),
+    the static fields equal."""
+    from repro_torch.core import tree
+    import dataclasses as dc
+    for f in dc.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("shapes", "bits"):
+            if x != y:
+                return False
+            continue
+        lx, ly = tree.leaves(x), tree.leaves(y)
+        if len(lx) != len(ly):
+            return False
+        for p, q in zip(lx, ly):
+            if (p is None) != (q is None):
+                return False
+            if p is not None and not (p.dtype == q.dtype and torch.equal(
+                    p.detach().cpu(), q.detach().cpu())):
+                return False
+    return True
+
+
+def codec_phase(torch, dispatch, sent):
+    """Each codec that accepts it on one client's payload of each kind
+    from the baselines phase, read from the card: decode(encode(p)) is p
+    bit for bit; `measure_bits` on the card equals the encoder's
+    `wire_bits` (exactly, the arithmetic coder within one word); one
+    flipped bit raises `ChecksumError`.  Prints the encode and decode
+    seconds.  Launches nothing (the meters are popcounts and shifts)."""
+    from repro_torch.api import codecs
+    dispatch.reset_launch_counts()
+    for kind, pay in sent.items():
+        for name in codecs.available():
+            codec = codecs.get_codec(name)
+            if not codec.accepts(type(pay)):
+                continue
+            t0 = time.perf_counter()
+            msg = codec.encode(pay)
+            t1 = time.perf_counter()
+            back = codec.decode(msg)
+            t2 = time.perf_counter()
+            check(_same_payload(torch, back, pay), f"codec {name} on "
+                  f"{kind}: decode(encode(p)) != p")
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            meas = float(codec.measure_bits(pay))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            tol = 32 if name == "arithmetic" else 0
+            check(abs(meas - msg.wire_bits) <= tol, f"codec {name} on "
+                  f"{kind}: measured {meas} bits, wire {msg.wire_bits}")
+            stream = msg.words[0]
+            stream[stream.size // 2] ^= 1 << 9
+            try:
+                codec.decode(msg)
+            except codecs.ChecksumError:
+                pass
+            else:
+                check(False, f"codec {name} on {kind}: a flipped bit "
+                      f"decoded")
+            n = pay.num_params()
+            print(f"codec {name:10s} on {kind:10s} ({n} parameters): wire "
+                  f"{msg.wire_bits} bits ({msg.wire_bits / n:.6f} Bpp), "
+                  f"sidecar {msg.sidecar_bits}, header {msg.header_bits}; "
+                  f"encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s, meter "
+                  f"on the card {(t4 - t3) * 1e3:.2f} ms")
+    check(not any(dispatch.LAUNCHES.values()), f"codec phase launched "
+          f"{dispatch.LAUNCHES}")
+
+
+def golomb_meter_phase(torch, dispatch, dev):
+    """One round of the internlm2-1.8b training path (the launcher's
+    default model, nothing cut) with `--codec golomb`: the round step
+    meters each cohort's pooled words (~47 M words, 1.5 G bits) through
+    `GolombRice.measure_pooled_words` on the card.  Each call's seconds
+    and the peak memory it adds above what was allocated before it;
+    cohort 0's count against the same function over the same words on
+    the CPU, and against the host encoder's `wire_bits` for the first
+    masked leaf's words.  Returns the path's launches."""
+    from repro_torch.api import codecs, payloads
+    from repro_torch.configs import get_config
+    from repro_torch.core import aggregation
+    from repro_torch.launch import train
+    golomb = codecs.CODECS["golomb"]
+    calls, first_leaf = [], {}
+    meter, sap = golomb.measure_pooled_words, aggregation.sample_and_pack_rows
+
+    def spy_meter(words, n):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bits = meter(words, n)
+        torch.cuda.synchronize()
+        calls.append(dict(bits=bits, n=n, s=time.perf_counter() - t0,
+                          added=torch.cuda.max_memory_allocated() - base,
+                          words=None if calls else words.clone()))
+        return bits
+
+    def spy_sap(flat, seeds, **kw):
+        words = sap(flat, seeds, **kw)
+        first_leaf.setdefault("words", words[0].clone())
+        first_leaf.setdefault("n", flat.shape[1])
+        return words
+
+    argv = ["--algo", "fedpm_reg", "--codec", "golomb", "--cohorts",
+            str(COHORTS), "--batch", "2", "--seq", "128", "--steps", "2",
+            "--round-every", "2", "--downlink-bits", "8", "--device", "cuda"]
+    cfg = get_config("internlm2-1.8b")
+    golomb.measure_pooled_words = spy_meter
+    aggregation.sample_and_pack_rows = spy_sap
+    torch.cuda.empty_cache()
+    dispatch.reset_launch_counts()
+    try:
+        t0 = time.time()
+        out = train.run(cfg, train.parse_args(["--arch", cfg.name] + argv))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        del golomb.measure_pooled_words
+        aggregation.sample_and_pack_rows = sap
+    got = dict(dispatch.LAUNCHES)
+    expect = {k: 0 for k in dispatch.KERNELS}
+    dense = N_LAYERS * len(LAYER_SHAPES) * COHORTS * 2
+    expect.update(masked_matmul_fwd=dense, masked_matmul_dx=dense,
+                  masked_matmul_ds=dense, sample_and_pack=len(LAYER_SHAPES),
+                  unpack_bits=len(LAYER_SHAPES))
+    check(got == expect, f"golomb path launch counts {got}, expected "
+          f"{expect}")
+    check(len(calls) == COHORTS and len(out["rounds"]) == 1,
+          f"golomb path: {len(calls)} meter calls, {len(out['rounds'])} "
+          f"rounds")
+    r = out["rounds"][0]
+    check(0.0 < r["bpp"] <= 1.0 and r["bpp"] <= r["bpp_measured"] <= 1.1,
+          f"golomb path: Bpp {r['bpp']}, measured {r['bpp_measured']}")
+    c0 = calls[0]
+    t0 = time.perf_counter()
+    on_cpu = golomb.measure_pooled_words(c0["words"].cpu(), c0["n"])
+    cpu_s = time.perf_counter() - t0
+    check(on_cpu == c0["bits"], f"golomb meter: card {c0['bits']} bits, "
+          f"cpu {on_cpu}")
+    n0, w0 = first_leaf["n"], first_leaf["words"]
+    leaf = payloads.BitpackedMasks({"w": w0}, None, ((n0,),))
+    t0 = time.perf_counter()
+    wire = golomb.encode(leaf).wire_bits
+    enc_s = time.perf_counter() - t0
+    leaf_bits = golomb.measure_pooled_words(w0, n0)
+    check(leaf_bits == wire == golomb.measure_bits(leaf), f"golomb meter "
+          f"on the first masked leaf: {leaf_bits} bits, encoder {wire}")
+    print(f"golomb meter (python -m repro_torch.launch.train --arch "
+          f"internlm2-1.8b {' '.join(argv)}): {wall:.1f}s; per cohort "
+          + ", ".join(f"{c['n']} bits -> {c['bits']} ({c['bits'] / c['n']:.6f}"
+                      f" Bpp) in {c['s']:.3f} s, +{c['added'] / 2**20:.1f} MiB"
+                      for c in calls)
+          + f"; cohort 0 on the cpu {cpu_s:.1f} s, equal; first masked leaf "
+          f"({n0} bits) {leaf_bits} bits, host encoder {wire} in {enc_s:.1f} "
+          f"s; round Bpp {r['bpp']:.6f} measured {r['bpp_measured']:.6f}; "
+          f"round seconds {out['round_seconds']}")
+    del out, calls, first_leaf
+    torch.cuda.empty_cache()
+    return got
+
+
+def fig2_phase(torch, dispatch, dev):
+    """The torch Fig. 2 benchmark (`repro_torch.benchmarks.fig2_noniid`)
+    at its defaults but FIG2_ROUNDS rounds: the header exact, one row per
+    dataset, algorithm and round in the reference benchmark's order,
+    accuracy in [0, 1], the lambda variants' and topk's measured Bpp in
+    (0, 1.1] and at least the entropy bound, mv_signsgd's bound exactly
+    1, the cumulative MB growing both ways, and the launches of kernels
+    10 and 11 exact.  Returns the launch counts."""
+    import io
+    from repro_torch.benchmarks import common, fig2_noniid
+    from repro_torch.core import masking, tree
+    out, err = io.StringIO(), io.StringIO()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    fig2_noniid.main(rounds=FIG2_ROUNDS, k=HOSTSIM["k"], c=NONIID_C,
+                     device=str(dev), out=out, err=err)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(dispatch.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    print(f"fig2 (python -m repro_torch.benchmarks.fig2_noniid --rounds "
+          f"{FIG2_ROUNDS}): {wall:.1f}s")
+    print("\n".join(lines))
+    print(err.getvalue().rstrip())
+    check(lines[0] == "dataset,algo,round,acc,bpp,bpp_measured,cum_up_mb,"
+          "cum_down_mb", f"fig2 header {lines[0]!r}")
+    algos = [f"lam={lam}" for lam in fig2_noniid.LAMS] + [
+        n for n, _ in fig2_noniid.BASELINES]
+    rows = [l.split(",") for l in lines[1:]]
+    check([tuple(r[:3]) for r in rows] == [
+        (ds, a, str(r)) for ds in fig2_noniid.DATASETS for a in algos
+        for r in range(FIG2_ROUNDS)], "fig2: rows missing or out of order")
+    last = {}
+    for r in rows:
+        acc, bpp, bpp_m, up, down = map(float, r[3:])
+        check(0.0 <= acc <= 1.0, f"fig2 accuracy out of range: {r}")
+        if r[1] == "mv_signsgd":
+            check(r[4] == "1.0000", f"fig2 mv_signsgd Bpp: {r}")
+        else:
+            check(0.0 < bpp_m <= 1.1 and bpp_m >= bpp - 1e-4,
+                  f"fig2 measured Bpp out of range: {r}")
+        prev = last.get(tuple(r[:2]), (0.0, 0.0))
+        check(up > prev[0] and down > prev[1], f"fig2: cumulative MB not "
+              f"growing: {r}")
+        last[tuple(r[:2])] = (up, down)
+    spec = masking.MaskSpec()
+    per = {}
+    for ds in fig2_noniid.DATASETS:
+        params = common.make_setup(ds, 1, None, n=16, device=dev)["params"]
+        masked = sum(1 for p, a in tree.flatten_with_paths(params)
+                     if spec.is_masked(p, a) and a.numel())
+        floats = sum(1 for a in tree.leaves(params) if a.numel())
+        # 4 lambda variants and topk on the masked leaves, mv_signsgd on
+        # every float leaf
+        per[ds] = (len(fig2_noniid.LAMS) + 1) * masked + floats
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(
+        pack_bits=sum(HOSTSIM["k"] * v * FIG2_ROUNDS for v in per.values()),
+        unpack_bits=sum(v * FIG2_ROUNDS for v in per.values()))
+    check(got == expect, f"fig2 launch counts {got}, expected {expect}")
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2310,6 +2675,21 @@ def main():
         t0 = time.time()
         got = (phase(torch, dispatch, mm, dev) if phase is fused_cnn_phase
                else phase(torch, dispatch, dev))
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"{phase.__name__}: {time.time() - t0:.1f}s")
+    # the rest of the host-sim API: the baselines, the codecs on their
+    # payloads, the golomb meter at full width and the Fig. 2 benchmark
+    t0 = time.time()
+    got, sent = baselines_phase(torch, dispatch, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"baselines_phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    codec_phase(torch, dispatch, sent)
+    del sent
+    print(f"codec_phase: {time.time() - t0:.1f}s")
+    for phase in (golomb_meter_phase, fig2_phase):
+        t0 = time.time()
+        got = phase(torch, dispatch, dev)
         launches = {k: launches[k] + got[k] for k in launches}
         print(f"{phase.__name__}: {time.time() - t0:.1f}s")
 

@@ -1,11 +1,17 @@
-"""Typed payloads in both directions and their transport helpers (the
-binary-mask and broadcast parts of `repro.api.payloads`).
+"""Typed payloads in both directions and their transport helpers
+(`repro.api.payloads`).
 
-`BitpackedMasks` is a client's uplink and the deployable mask
-artifact's layout: one word vector per masked leaf, 32 bits to an
-int32-stored uint32 word, packed by the bit-packing kernel on the card.
-Its reported bits per parameter are the empirical entropy of the
-transmitted bits (eq. 13).  The server's broadcast is a
+Every client sends one `UplinkPayload` a round, and its type fixes the
+reported bits per parameter:
+
+  * `BitpackedMasks`: binary masks, one word vector per masked leaf, 32
+    bits to an int32-stored uint32 word, packed by the bit-packing
+    kernel on the card (also the deployable mask artifact's layout); the
+    empirical entropy of the transmitted bits (eq. 13), at most 1;
+  * `SignVotes`: bitpacked gradient signs (MV-SignSGD), exactly 1;
+  * `FloatDeltas`: raw float tensors (FedAvg), the dtype width.
+
+The server's broadcast is a
 `DownlinkPayload`: `ProbBroadcast` puts the stochastic k-bit theta
 quantization on the wire, `FloatBroadcast` the raw floats.
 
@@ -47,8 +53,39 @@ def mean_from_words(words: torch.Tensor, n: int,
     return torch.tensordot(weights.float(), bits, dims=([0], [0]))
 
 
+def mean_from_counts(counts: torch.Tensor, n: int,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Weighted mean from pooled per-bit counts: (C, P) integer counts of
+    C weight classes (P over the padded word domain) and (C,) per-client
+    class weights -> (n,) f32, sum_c weights[c] * counts[c] -- the
+    per-class twin of `mean_from_words` an aggregator tree's root reduces
+    through."""
+    c = torch.as_tensor(counts).float()
+    w = torch.as_tensor(weights, dtype=torch.float32, device=c.device)
+    return torch.tensordot(w, c, dims=([0], [0]))[:n]
+
+
+class UplinkPayload:
+    """One client's uplink: `num_params` and `wire_bits` are ints, `bpp`
+    the reported bits per parameter (a 0-d f32 tensor)."""
+
+    def num_params(self) -> int:
+        return sum(math.prod(sh) for sh in self.shapes)
+
+    def wire_bits(self) -> int:
+        """Exact serialized size in bits (word-aligned where packed)."""
+        raise NotImplementedError
+
+    def bpp(self) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def _packed_wire_bits(shapes) -> int:
+    return sum(32 * ((math.prod(sh) + 31) // 32) for sh in shapes)
+
+
 @dataclasses.dataclass
-class BitpackedMasks:
+class BitpackedMasks(UplinkPayload):
     """Binary masks, 32 bits to a word, per leaf.
 
     words:  tree mirroring the mask tree; (W,) int32 word vectors at
@@ -90,11 +127,8 @@ class BitpackedMasks:
 
         return tu.tree_map(one, self.words)
 
-    def num_params(self) -> int:
-        return sum(math.prod(sh) for sh in self.shapes)
-
     def wire_bits(self) -> int:
-        return sum(32 * ((math.prod(sh) + 31) // 32) for sh in self.shapes)
+        return _packed_wire_bits(self.shapes)
 
     def bpp(self) -> torch.Tensor:
         """Empirical entropy of the transmitted bits (eq. 13), float32;
@@ -114,6 +148,63 @@ class BitpackedMasks:
         it = iter(self.shapes)
         return {path: (w, next(it))
                 for path, w in masking.leaves_with_paths(self.words)}
+
+
+@dataclasses.dataclass
+class SignVotes(UplinkPayload):
+    """Bitpacked gradient signs (MV-SignSGD), exactly 1 bit a parameter:
+    bit 1 is +1, bit 0 is -1.  The wire has no zero: a sign of exactly 0
+    goes out as -1, so a sender with exact-zero gradients breaks the tie
+    first (the registered `mv_signsgd` flips a fair coin)."""
+    words: Pytree
+    shapes: tuple
+
+    @classmethod
+    def from_signs(cls, signs: Pytree) -> "SignVotes":
+        """One pack launch a leaf on the card."""
+        words = tu.tree_map(lambda s: None if s is None else pack_leaf(
+            (s > 0).to(torch.uint8)), signs)
+        return cls(words, _leaf_shapes(signs))
+
+    def to_signs(self) -> Pytree:
+        """The f32 +-1 signs, one unpack launch a leaf on the card."""
+        it = iter(self.shapes)
+
+        def one(w):
+            if w is None:
+                return None
+            sh = next(it)
+            return (2.0 * aggregation.unpack_bits(
+                w, math.prod(sh)).float() - 1.0).reshape(sh)
+
+        return tu.tree_map(one, self.words)
+
+    def wire_bits(self) -> int:
+        return _packed_wire_bits(self.shapes)
+
+    def bpp(self) -> torch.Tensor:
+        return torch.tensor(0.0 if self.num_params() == 0 else 1.0)
+
+
+@dataclasses.dataclass
+class FloatDeltas(UplinkPayload):
+    """Raw float tensors (deltas or full params): the dtype width on the
+    wire, 32 Bpp for f32, the reference the paper compresses."""
+    values: Pytree
+    shapes: tuple
+    bits: tuple   # each leaf's dtype width, flatten order
+
+    @classmethod
+    def from_tree(cls, values: Pytree) -> "FloatDeltas":
+        return cls(values, _leaf_shapes(values), _float_bits(values))
+
+    def wire_bits(self) -> int:
+        return sum(math.prod(sh) * b for sh, b in zip(self.shapes, self.bits))
+
+    def bpp(self) -> torch.Tensor:
+        n = self.num_params()
+        return torch.tensor(0.0 if n == 0 else self.wire_bits() / n,
+                            dtype=torch.float32)
 
 
 def _leaf_shapes(tree: Pytree) -> tuple:
@@ -242,8 +333,10 @@ def slice_payload(payload, i: int):
 
 def batched_packed_mean(payload, weights: torch.Tensor) -> Pytree:
     """Weighted mean of K clients' bits straight from the packed words
-    (eq. 8): every words leaf is (K, W); theta comes back in the leaves'
-    shapes, one unpack launch a leaf."""
+    (eq. 8), for any packed payload with `words` and `shapes`
+    (`BitpackedMasks` -> theta, `SignVotes` -> the vote fraction): every
+    words leaf is (K, W); the mean comes back in the leaves' shapes, one
+    unpack launch a leaf."""
     it = iter(payload.shapes)
 
     def one(w):

@@ -119,3 +119,29 @@ def run_fedpm_variant(setup: dict, lam: float, rounds: int, local_steps=3,
                          local_steps=local_steps, batch=batch, seed=seed,
                          participation=participation, lam=lam, lr=lr,
                          optimizer="adam", float_lr=1e-3)
+
+
+def run_baseline(setup: dict, algo, rounds: int, local_steps=3, batch=32,
+                 seed=0):
+    """The legacy entry: sweep an already-built `FedAlgorithm` with every
+    client in every round; per-round `acc` (of `eval_params` once),
+    `bpp` and `loss`, and the final state.  The draws come from one
+    generator seeded with `seed` on the setup's device."""
+    dev = setup["device"]
+    gen = torch.Generator(dev).manual_seed(seed)
+    st = algo.init(gen, setup["params"])
+    sizes = torch.tensor([len(ci) for ci in setup["cidx"]],
+                         dtype=torch.float32, device=dev)
+    part = torch.ones(setup["k"], dtype=torch.bool, device=dev)
+    hist = {"acc": [], "bpp": [], "loss": []}
+    for _ in range(rounds):
+        data = synthetic.federated_batches(
+            gen, setup["task"], setup["cidx"], setup["k"], local_steps,
+            batch)
+        st, m = algo.round(st, data, part, sizes, gen)
+        hist["bpp"].append(float(m["uplink_bpp"]))
+        hist["loss"].append(float(m["loss"]))
+        with torch.no_grad():
+            out = setup["apply_fn"](algo.eval_params(st, gen), setup["test"])
+            hist["acc"].append(float(setup["metric_fn"](out, setup["test"])))
+    return hist, st

@@ -66,3 +66,11 @@ def mask_state_from_jax(np_state, device):
                      tree_to_torch(np_state.floats, device),
                      tree_to_torch(np_state.weights, device),
                      int(np.asarray(np_state.round)))
+
+
+def float_state_from_jax(np_state, device):
+    """A JAX mv_signsgd / fedavg `FloatState` (params, round) -> the
+    port's `api.algorithms.FloatState`."""
+    from repro_torch.api.algorithms import FloatState
+    return FloatState(tree_to_torch(np_state.params, device),
+                      int(np.asarray(np_state.round)))

@@ -55,7 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--algo", default="fedpm_reg",
                     choices=list(registry.launchable()))
     ap.add_argument("--codec", default="arithmetic",
-                    choices=list(codecs_lib.available()),
+                    choices=[c for c in codecs_lib.available()
+                             if c != "float32"],
                     help="wire codec metering the mask uplink")
     ap.add_argument("--downlink-bits", type=int, default=8,
                     help="k-bit stochastic theta broadcast "

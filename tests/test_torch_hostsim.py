@@ -316,11 +316,13 @@ def test_fedmask_round_matches_jax(setup):
 
 
 def test_registry_and_fedpm_is_fedpm_reg_at_lam_zero(setup):
-    """The registry names the three ported algorithms as the reference
-    does; "fedpm" is "fedpm_reg" at lam 0 (a lam it is given is dropped);
-    an unknown name or codec raises."""
-    assert set(api.available()) <= set(japi.available())
-    assert set(api.available()) == {"fedpm", "fedpm_reg", "fedmask"}
+    """The registry names the six algorithms as the reference does;
+    "fedpm" is "fedpm_reg" at lam 0 (a lam it is given is dropped); an
+    unknown name or codec raises, and so does a codec that cannot
+    serialize masks."""
+    assert api.available() == japi.available()
+    assert set(api.available()) == {"fedpm", "fedpm_reg", "fedmask", "topk",
+                                    "mv_signsgd", "fedavg"}
     kw = dict(local_steps=H, lr=0.1, optimizer="adam", float_lr=1e-3)
     a = api.get_algorithm("fedpm", setup["tapply"], setup["tloss"],
                           lam=5.0, **kw)
@@ -339,10 +341,15 @@ def test_registry_and_fedpm_is_fedpm_reg_at_lam_zero(setup):
     assert float(ra[1]["reg"]) == float(rb[1]["reg"])
     assert 0.0 < float(ra[1]["uplink_bpp"]) <= 1.0
     with pytest.raises(KeyError):
-        api.get_algorithm("topk", setup["tapply"], setup["tloss"])
+        api.get_algorithm("top_k", setup["tapply"], setup["tloss"])
     with pytest.raises(KeyError):
         api.get_algorithm("fedpm", setup["tapply"], setup["tloss"],
-                          codec="golomb")
+                          codec="rice")
+    with pytest.raises(ValueError):
+        api.get_algorithm("fedpm", setup["tapply"], setup["tloss"],
+                          codec="float32")
+    assert api.get_algorithm("fedpm", setup["tapply"], setup["tloss"],
+                             codec="golomb").codec.name == "golomb"
     assert api.get_algorithm("fedpm", setup["tapply"], setup["tloss"],
                              codec="bitpack").codec.name == "bitpack"
 

@@ -40,7 +40,12 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          "repro_torch.core.federated", "repro_torch.api.payloads",
          "repro_torch.api.codecs", "repro_torch.api.protocol",
          "repro_torch.api.algorithms", "repro_torch.api.registry",
-         "repro_torch.benchmarks.common", "repro_torch.benchmarks.fig1_iid")
+         "repro_torch.benchmarks.common", "repro_torch.benchmarks.fig1_iid",
+         # the rest of the host-sim API: the baselines shim and the Fig. 2
+         # benchmark (codecs, payloads, algorithms and aggregation above
+         # now hold all of their reference modules)
+         "repro_torch.core.aggregation", "repro_torch.core.baselines",
+         "repro_torch.launch.train", "repro_torch.benchmarks.fig2_noniid")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():

@@ -175,6 +175,8 @@ def _words_match(jstate, cfg_kw):
 
 @pytest.mark.parametrize("algo,codec", [("fedpm_reg", "arithmetic"),
                                         ("fedpm_reg", "bitpack"),
+                                        ("fedpm_reg", "golomb"),
+                                        ("fedpm_reg", "signpack"),
                                         ("fedmask", "arithmetic")])
 def test_round_exact(apis, algo, codec):
     japi, tapi = apis

@@ -13,7 +13,8 @@ ROUND = re.compile(r"step (\d+): loss=([\d.]+) uplink=([\d.]+)Bpp "
 
 
 @pytest.mark.parametrize("algo,codec", [("fedpm_reg", "arithmetic"),
-                                        ("fedmask", "bitpack")])
+                                        ("fedmask", "bitpack"),
+                                        ("fedpm_reg", "golomb")])
 def test_cli_prints_round_lines_on_cpu(capsys, algo, codec):
     dispatch.reset_launch_counts()
     out = train.main(["--smoke", "--device", "cpu", "--algo", algo,
