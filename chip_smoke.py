@@ -105,7 +105,32 @@ Phases (any failure exits non-zero and prints no result line):
    encoder's, its seconds and the memory it adds; (h) the torch Fig. 2
    benchmark (`python -m repro_torch.benchmarks.fig2_noniid`) for 6
    rounds, gated on invariants and launch counts;
-8. profile one more step and round of each training path, eight decode
+8. the runtime (checkpoint and restart, the federated engines): (a)
+   internlm2-1.8b's full fed state (24 layers, 2 cohorts, ~28 GB)
+   through `AsyncCheckpointer.save` and `restore_checkpoint` onto the
+   card, every leaf torch.equal, with its bytes reckoned from the shapes
+   against the free space under build/ first (too little fails the
+   run), the bytes on disk, the save's blocking and write seconds and
+   the restore's; (b) `python -m repro_torch.tools.chaos_smoke` on the
+   card: internlm2-1.8b at full width cut to 4 layers, 6 steps, a round
+   every 2, --fail-prob 0.3 --tree-fanout 1 --agg-fault-prob 0.3
+   --ckpt-dir, SIGKILLed after its first durable round and resumed (its
+   later losses, round metrics and final checkpoint equal to an
+   uninterrupted run's bit for bit), then relaunched with 3 cohorts (the
+   theta-only restore), each launcher process's kernel launches as its
+   steps and rounds reckon; (c) the buffered-async engine at CONV6's
+   published width (fedpm_reg, 10 clients, 3 local steps of batch 32,
+   the bitpack codec): at zero faults and quorum 1 bit-identical to
+   `run_round`, then 8 ticks under crashes, partitions, stragglers and
+   corrupt uplinks, saved at tick 4 and restored into a fresh engine
+   that continues to the same theta, events and seq, kernels 10-11
+   exactly as reckoned, the ticks' seconds and the host's share of them;
+   (d) the aggregator tree on 8 equal clients at fanout 2: bit-identical
+   to the flat engine at zero faults, the measured root bits equal to
+   `tree_root_round_bits`, a run under edge crashes and partitions, and
+   `chaos_smoke --tree` on the card (exactly-once commits, the same
+   theta digest); (e) one faulted engine tick and one commit profiled;
+9. profile one more step and round of each training path, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
    on 2 slots, exact and lockstep (torch.profiler): device time by
    kernel, the device's busy share and operations a step or tick.
@@ -2495,6 +2520,476 @@ def fig2_phase(torch, dispatch, dev):
     return got
 
 
+
+# ---------------------------------------------------------------------------
+# The runtime: checkpoint and restart, the buffered-async engine and the
+# aggregator tree
+# ---------------------------------------------------------------------------
+
+RUNTIME = dict(k=10, local_steps=3, n=1024, seed=31, ticks=8, save_at=4)
+RUNTIME_FAULTS = dict(crash_prob=0.2, pod_size=5, partition_prob=0.15,
+                      straggler_prob=0.3, straggler_rounds_max=2,
+                      corrupt_prob=0.2, max_retries=2)
+RUNTIME_CFG = dict(quorum_frac=0.8, deadline_rounds=2, max_staleness=3)
+TREE_K, TREE_FANOUT = 8, 2
+TREE_FAULTS = dict(crash_prob=0.1, corrupt_prob=0.1, agg_crash_prob=0.3,
+                   agg_partition_prob=0.15)
+# the kill-and-resume cell: internlm2-1.8b at full width cut to 4 layers
+CHAOS_LAYERS, CHAOS_STEPS, CHAOS_EVERY = 4, 6, 2
+CHAOS_ARGV = ["--device", "cuda", "--arch", "internlm2-1.8b", "--full-size",
+              "--layers", str(CHAOS_LAYERS), "--steps", str(CHAOS_STEPS),
+              "--round-every", str(CHAOS_EVERY), "--cohorts", str(COHORTS),
+              "--batch", "2", "--seq", "128", "--fail-prob", "0.3",
+              "--quorum-frac", "1.0", "--tree-fanout", "1",
+              "--agg-fault-prob", "0.3", "--relaunch-cohorts", "3",
+              "--timeout", "400"]
+
+
+def _scratch(name):
+    import shutil
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def checkpoint_phase(torch, dev):
+    """(a) internlm2-1.8b's full fed state (24 layers, 2 cohorts, from the
+    launch plan) through `AsyncCheckpointer.save` (its blocking seconds:
+    the device -> host copy; then the write, `save_checkpoint` on its
+    thread) and `restore_checkpoint` onto the card: every leaf
+    torch.equal, the int step an int.  The bytes are reckoned from the
+    shapes and held against the free space under build/ first: too little
+    fails the run."""
+    import shutil
+    from repro_torch.api import registry
+    from repro_torch.ckpt import checkpoint as ckptlib
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import plans  # noqa: F401  (the launch plans)
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import build_model
+    cfg = get_config("internlm2-1.8b")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    state = registry.get_launch_plan("fedpm_reg")(
+        build_model(cfg), steplib.StepConfig(seed=17), gen=gen,
+        cohorts=COHORTS).state
+    state["step"] = 7
+    tensors = [l for l in tree.leaves(state) if isinstance(l, torch.Tensor)]
+    nbytes = sum(l.numel() * l.element_size() for l in tensors)
+    masked = sum(l[0].numel() for l in tree.leaves(state["scores"])
+                 if l is not None)
+    d = _scratch("chip_smoke_ckpt")
+    free = shutil.disk_usage(d).free
+    print(f"checkpoint: internlm2-1.8b fed state, {COHORTS} cohorts, "
+          f"{masked} masked parameters a cohort, {len(tensors)} tensors, "
+          f"{nbytes} bytes reckoned from the shapes; {free} bytes free "
+          f"under build/")
+    check(free > 1.05 * nbytes, f"checkpoint phase refuses: the state needs "
+          f"{nbytes} bytes, build/ has {free} free")
+    torch.cuda.synchronize()
+    ac = ckptlib.AsyncCheckpointer(str(d), keep=1)
+    t0 = time.perf_counter()
+    ac.save(1, state)
+    t_block = time.perf_counter() - t0
+    ac.close()
+    t_save = time.perf_counter() - t0 - t_block
+    on_disk = (d / "step_1.npz").stat().st_size
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored, step = ckptlib.restore_checkpoint(str(d), state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(step == 1 and restored["step"] == 7,
+          f"checkpoint: step {step}, state step {restored['step']}")
+    n = 0
+    for a, b in zip(tree.leaves(restored), tree.leaves(state)):
+        if isinstance(b, torch.Tensor):
+            check(a.device == b.device and a.dtype == b.dtype
+                  and torch.equal(a, b), "checkpoint: a leaf differs")
+            n += 1
+    print(f"checkpoint: {on_disk} bytes on disk ({on_disk / nbytes:.6f} of "
+          f"the reckoning); AsyncCheckpointer.save blocked "
+          f"{t_block:.3f} s (device -> host), its write {t_save:.3f} s "
+          f"({nbytes / t_save / 1e9:.2f} GB/s); restore_checkpoint "
+          f"{t_restore:.3f} s ({nbytes / t_restore / 1e9:.2f} GB/s); "
+          f"{n} leaves torch.equal")
+    del restored, state, tensors
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+
+def kill_resume_phase(torch, dispatch):
+    """(b) `python -m repro_torch.tools.chaos_smoke` on the card:
+    internlm2-1.8b at full width cut to 4 layers, fedpm_reg, 6 steps, a
+    round every 2, --fail-prob 0.3 --tree-fanout 1 --agg-fault-prob 0.3,
+    --ckpt-dir: an uninterrupted run, one SIGKILLed after its first
+    durable round, its resumption (every later loss, round metric and
+    final checkpoint leaf equal to the uninterrupted run's), and a
+    relaunch with 3 cohorts (the theta-only restore).  Each launcher
+    process writes its launch counts; they must be what its steps and
+    rounds reckon.  Returns the uninterrupted run's counts."""
+    import shutil
+    from repro_torch.tools import chaos_smoke
+    torch.cuda.empty_cache()
+    work = _scratch("chip_smoke_chaos")
+    t0 = time.time()
+    out = chaos_smoke.main(CHAOS_ARGV + ["--work-dir", str(work), "--keep"])
+    wall = time.time() - t0
+    leaves, L = len(LAYER_SHAPES), CHAOS_LAYERS
+
+    def expect(cohorts, start, steps):
+        n, rounds = steps - start, steps // CHAOS_EVERY - start // CHAOS_EVERY
+        e = {k: 0 for k in dispatch.KERNELS}
+        for k in ("masked_matmul_fwd", "masked_matmul_dx",
+                  "masked_matmul_ds"):
+            e[k] = L * leaves * cohorts * n
+        e.update(sample_and_pack=leaves * rounds, unpack_bits=leaves * rounds)
+        return e
+
+    ref = None
+    for sub in ("ref", "run"):
+        with open(Path(out["root"]) / sub / "launches.jsonl") as f:
+            for line in f:
+                r = json.loads(line)
+                want = expect(r["cohorts"], r["start"], r["steps"])
+                got = {k: r["launches"].get(k, 0) for k in dispatch.KERNELS}
+                check(got == want, f"kill-and-resume {sub} from step "
+                      f"{r['start']}: launches {got}, expected {want}")
+                if sub == "ref":
+                    ref = got
+    secs = {k: round(v, 1) for k, v in out["seconds"].items()}
+    print(f"kill-and-resume: {wall:.1f}s ({json.dumps(secs)}); "
+          f"killed at step {out['killed_at']}, resumed at {out['resumed']}, "
+          f"steps {out['compared_steps']} and {out['leaves']} checkpoint "
+          f"leaves equal the uninterrupted run's; ledger {out['ledger']}; "
+          f"--cohorts 3 ran steps {out['relaunch_steps']} after the "
+          f"theta-only restore; launches of the uninterrupted run "
+          f"{json.dumps(ref)}")
+    shutil.rmtree(work)
+    return ref
+
+
+def _conv6_setup(torch, dev, k):
+    """CONV6 at its published width on HOSTSIM's cifar10-like task, split
+    IID over k clients: (setup, fedpm_reg with the bitpack codec, one
+    tick's data, the sizes)."""
+    from repro_torch import api
+    from repro_torch.benchmarks import common
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    cfg = cnn.CONV6
+    gen = torch.Generator(dev).manual_seed(RUNTIME["seed"])
+    task = synthetic.make_image_task(gen, n=RUNTIME["n"], img=cfg.img_size,
+                                     channels=cfg.in_channels,
+                                     n_classes=cfg.n_classes,
+                                     proto_scale=1.0, noise=0.7)
+    setup = common.setup_from(cfg, task, k, None, RUNTIME["seed"], gen)
+    algo = api.get_algorithm(
+        "fedpm_reg", setup["apply_fn"], setup["loss_fn"], spec=common.SPEC,
+        local_steps=RUNTIME["local_steps"], lam=1.0, lr=0.1,
+        optimizer="adam", float_lr=1e-3, codec="bitpack")
+    data = synthetic.federated_batches(gen, task, setup["cidx"], k,
+                                       RUNTIME["local_steps"], CNN_BATCH)
+    sizes = torch.tensor([len(c) for c in setup["cidx"]],
+                         dtype=torch.float32, device=dev)
+    return setup, algo, data, sizes
+
+
+def _init_state(torch, dev, algo, setup):
+    return algo.init(torch.Generator(dev).manual_seed(RUNTIME["seed"] + 1),
+                     setup["params"])
+
+
+def _same_state(torch, a, b, what):
+    from repro_torch.core import tree
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        check(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y,
+              f"{what}: the states differ")
+
+
+def _kinds(events):
+    out = {}
+    for e in events:
+        out[e["kind"]] = out.get(e["kind"], 0) + 1
+    return out
+
+
+def _launched(dispatch, before):
+    return {k: dispatch.LAUNCHES[k] - before[k] for k in before}
+
+
+def async_phase(torch, dispatch, dev):
+    """(c) The buffered-async engine at CONV6's published width (2.26 M
+    masked weights in 9 leaves): fedpm_reg, 10 clients, 3 local steps of
+    batch 32, adam, the bitpack codec (the host arithmetic coder takes ~2
+    s a payload each way).  At zero faults and quorum 1, two commits
+    bit-identical to `run_round` on the tick's generator (theta, metrics,
+    wire bits), with cuDNN's deterministic algorithms (its default conv
+    backward sums in a nondeterministic order).  Then 8 ticks with
+    crashes, pod partitions, stragglers and corrupt uplinks (quorum 0.8,
+    deadline 2), saved at tick 4; a
+    fresh engine restored from that save continues to the same theta,
+    events and seq.  Kernels 10 and 11 exactly: each client packs each
+    leaf a tick (and an engine's template once), each commit unpacks each
+    leaf once.  Prints the ticks' seconds and the host's share (read
+    back, encode, decode, fold).  Returns (launches, the faulted engine
+    and its data, for the profile)."""
+    from repro_torch.core import tree
+    from repro_torch.runtime import async_engine, fault
+    k = RUNTIME["k"]
+    # equal draws must give equal client updates: cuDNN's default conv
+    # backward sums in a nondeterministic order
+    torch.backends.cudnn.deterministic = True
+    setup, algo, data, sizes = _conv6_setup(torch, dev, k)
+    st = _init_state(torch, dev, algo, setup)
+    leaves = sum(1 for t in tree.leaves(st.theta) if t is not None)
+    print(f"async engine: CONV6, {k} clients, codec {algo.codec.name} "
+          f"(the arithmetic coder runs ~2 s a payload on the host)")
+    dispatch.reset_launch_counts()
+    total = {kk: 0 for kk in dispatch.KERNELS}
+    eng = async_engine.AsyncRoundEngine(algo, _init_state(torch, dev, algo,
+                                                          setup),
+                                        data, sizes, RUNTIME["seed"])
+    part = torch.ones(k, dtype=torch.bool, device=dev)
+    for t in range(2):
+        st, m = algo.round(st, data, part, sizes, eng.tick_generator(t))
+        (c,) = eng.tick(data)
+        for key in ("loss", "uplink_bpp", "uplink_bits_measured",
+                    "downlink_bits"):
+            check(c[key] == float(m[key]), f"async zero faults tick {t}: "
+                  f"{key} {c[key]} vs run_round {float(m[key])}")
+        _same_state(torch, eng.state, st, f"async zero faults tick {t}")
+    got = dict(dispatch.LAUNCHES)
+    want = {kk: 0 for kk in dispatch.KERNELS}
+    # run_round and the engine each pack k x leaves a round, unpack leaves
+    # a commit; the engine's template packs leaves once
+    want.update(pack_bits=(4 * k + 1) * leaves, unpack_bits=4 * leaves)
+    check(got == want, f"async zero faults: launches {got}, expected {want}")
+    print(f"async engine zero faults, quorum 1: 2 commits bit-identical to "
+          f"run_round (theta, loss, Bpp, {c['uplink_bits_measured']:.0f} "
+          f"wire bits a commit); launches {json.dumps(got)}")
+    total = {kk: total[kk] + got[kk] for kk in total}
+    del eng, st
+
+    def faulted():
+        return async_engine.AsyncRoundEngine(
+            algo, _init_state(torch, dev, algo, setup), data, sizes,
+            RUNTIME["seed"], config=async_engine.AsyncConfig(**RUNTIME_CFG),
+            injector=fault.FaultInjector(k, seed=RUNTIME["seed"],
+                                         **RUNTIME_FAULTS))
+
+    d = _scratch("chip_smoke_engine")
+    dispatch.reset_launch_counts()
+    eng = faulted()
+    walls, host0 = [], dict(eng.host_seconds)
+    commits = []
+    for t in range(RUNTIME["ticks"]):
+        if t == RUNTIME["save_at"]:
+            eng.save(str(d / "engine"))
+            commits_at_save = len(commits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        commits += eng.tick(data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    host = {kk: eng.host_seconds[kk] - host0[kk] for kk in host0}
+    commits += eng.flush()
+    got = dict(dispatch.LAUNCHES)
+    want = {kk: 0 for kk in dispatch.KERNELS}
+    want.update(pack_bits=(1 + RUNTIME["ticks"] * k) * leaves,
+                unpack_bits=len(commits) * leaves)
+    check(got == want, f"async faulted: launches {got}, expected {want}")
+    total = {kk: total[kk] + got[kk] for kk in total}
+    check(len(commits) >= 2, f"async faulted: {len(commits)} commits")
+    print(f"async engine faulted ({RUNTIME['ticks']} ticks + flush): events "
+          f"{json.dumps(_kinds(eng.events))}; {len(commits)} commits "
+          f"folding {[c['n_folded'] for c in commits]}; uplink "
+          f"{eng.totals['uplink_bits_measured']:.0f} bits, headers "
+          f"{eng.totals['uplink_header_bits']:.0f}, downlink "
+          f"{eng.totals['downlink_bits']:.0f}; launches {json.dumps(got)}")
+    tick_s = sum(walls)
+    print(f"async engine ticks: {[round(w, 4) for w in walls]} s (mean "
+          f"{tick_s / len(walls):.4f}); host share of the ticks: "
+          + ", ".join(f"{kk} {v:.4f} s ({100 * v / tick_s:.1f}%)"
+                      for kk, v in host.items()))
+    dispatch.reset_launch_counts()
+    eng2 = faulted()
+    eng2.restore(str(d / "engine"))
+    check(not eng2._degraded_restore and eng2.tick_idx == RUNTIME["save_at"],
+          "async restore: degraded or at the wrong tick")
+    commits2 = []
+    for t in range(RUNTIME["save_at"], RUNTIME["ticks"]):
+        commits2 += eng2.tick(data)
+    commits2 += eng2.flush()
+    check(eng2.events == eng.events and eng2._event_seq == eng._event_seq,
+          "async restore: the events differ")
+    check(commits2 == commits[commits_at_save:],
+          "async restore: the commits differ")
+    _same_state(torch, eng2.state, eng.state, "async restore")
+    check(eng2.totals == eng.totals, "async restore: the totals differ")
+    got = dict(dispatch.LAUNCHES)
+    want = {kk: 0 for kk in dispatch.KERNELS}
+    want.update(pack_bits=(1 + (RUNTIME["ticks"] - RUNTIME["save_at"]) * k)
+                * leaves, unpack_bits=len(commits2) * leaves)
+    check(got == want, f"async restored: launches {got}, expected {want}")
+    total = {kk: total[kk] + got[kk] for kk in total}
+    print(f"async engine restored at tick {RUNTIME['save_at']}: "
+          f"{len(commits2)} commits, {len(eng2.events)} events and seq "
+          f"{eng2._event_seq} equal the uninterrupted engine's, theta "
+          f"torch.equal; launches {json.dumps(got)}")
+    import shutil
+    shutil.rmtree(d)
+    del eng2
+    return total, (eng, data)
+
+
+def tree_phase(torch, dispatch, dev):
+    """(d) The aggregator tree at CONV6's width: 8 clients of 128 images
+    (dyadic weights) at fanout 2.  At zero faults two commits, each from
+    the same state, bit-identical to the flat engine's (theta, wire bits;
+    the float leaves, pooled in another order, within roundings), with the
+    measured root bits equal to `analysis.comm_model.tree_root_round_bits`
+    exactly; then 6 ticks with edge crashes and partitions, client
+    crashes and corrupt uplinks; then `repro_torch.tools.chaos_smoke
+    --tree` on the card (the agg_tree CLI SIGKILLed after its first
+    durable commit: exactly-once commits, the same theta digest).
+    Returns the launches (kernel 10 only: the root reduces pooled counts
+    through `mean_from_counts`, no unpack)."""
+    from repro_torch.analysis import comm_model
+    from repro_torch.core import tree
+    from repro_torch.runtime import agg_tree, async_engine, fault
+    from repro_torch.tools import chaos_smoke
+    k = TREE_K
+    torch.backends.cudnn.deterministic = True
+    setup, algo, data, sizes = _conv6_setup(torch, dev, k)
+    check(len(set(sizes.tolist())) == 1, f"tree: unequal sizes {sizes}")
+    st0 = _init_state(torch, dev, algo, setup)
+    leaves = sum(1 for t in tree.leaves(st0.theta) if t is not None)
+    leaf_params = [t.numel() for t in tree.leaves(st0.theta)
+                   if t is not None]
+    float_elems = sum(f.numel() for f in tree.leaves(st0.floats)
+                      if f is not None)
+    del st0
+    dispatch.reset_launch_counts()
+    flat = async_engine.AsyncRoundEngine(
+        algo, _init_state(torch, dev, algo, setup), data, sizes,
+        RUNTIME["seed"])
+    eng = agg_tree.TreeRoundEngine(
+        algo, _init_state(torch, dev, algo, setup), data, sizes,
+        RUNTIME["seed"], tree=agg_tree.TreeConfig(fanout=TREE_FANOUT))
+    flat_unpack = 0
+    for t in range(2):
+        (cf,) = flat.tick(data)
+        flat_unpack = dispatch.LAUNCHES["unpack_bits"]
+        (ct,) = eng.tick(data)
+        check(dispatch.LAUNCHES["unpack_bits"] == flat_unpack,
+              "tree: the root unpacked words")
+        for key in ("uplink_bits_measured", "n_folded", "clients"):
+            check(cf[key] == ct[key], f"tree tick {t}: {key} {ct[key]} vs "
+                  f"flat {cf[key]}")
+        for a, b in zip(tree.leaves(flat.state.theta),
+                        tree.leaves(eng.state.theta)):
+            check(a is None or torch.equal(a, b),
+                  f"tree tick {t}: theta differs from the flat engine's")
+        fdiff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(tree.leaves(flat.state.floats),
+                                    tree.leaves(eng.state.floats))
+                    if a is not None)
+        # the float leaves pool in another order (edge sums, then the
+        # root's), so they may differ by roundings; the next tick starts
+        # both engines from the flat engine's state
+        eng.state = flat.state
+        st = comm_model.tree_root_round_bits(
+            leaf_params, eng.n_edges, acc_bits=eng.tree.acc_bits,
+            float_elems=float_elems, n_metrics=len(eng.metric_names))
+        check(ct["root_bits_measured"] == st["root_bits"],
+              f"tree: root bits {ct['root_bits_measured']} vs the static "
+              f"model's {st['root_bits']}")
+    got = dict(dispatch.LAUNCHES)
+    want = {kk: 0 for kk in dispatch.KERNELS}
+    want.update(pack_bits=2 * (1 + 2 * k) * leaves, unpack_bits=2 * leaves)
+    check(got == want, f"tree zero faults: launches {got}, expected {want}")
+    print(f"tree zero faults ({k} clients, fanout {TREE_FANOUT}, "
+          f"{eng.n_edges} edges): 2 commits with theta torch.equal to the "
+          f"flat engine's from the same state (float leaves within "
+          f"{fdiff:.3g}), {ct['uplink_bits_measured']:.0f} uplink bits "
+          f"each; root {ct['root_bits_measured']:.0f} bits a commit = "
+          f"tree_root_round_bits (flat root traffic "
+          f"{cf['uplink_bits_measured']:.0f}); launches {json.dumps(got)}")
+    total = dict(got)
+    del flat, eng
+    dispatch.reset_launch_counts()
+    eng = agg_tree.TreeRoundEngine(
+        algo, _init_state(torch, dev, algo, setup), data, sizes,
+        RUNTIME["seed"], config=async_engine.AsyncConfig(
+            quorum_frac=0.75, deadline_rounds=2),
+        injector=fault.FaultInjector(k, seed=RUNTIME["seed"], **TREE_FAULTS),
+        tree=agg_tree.TreeConfig(fanout=TREE_FANOUT))
+    commits = []
+    t0 = time.perf_counter()
+    for _ in range(6):
+        commits += eng.tick(data)
+    commits += eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(dispatch.LAUNCHES)
+    want = {kk: 0 for kk in dispatch.KERNELS}
+    want.update(pack_bits=(1 + 6 * k) * leaves)
+    check(got == want, f"tree faulted: launches {got}, expected {want}")
+    check(commits and eng.totals["root_bits_measured"] > 0,
+          "tree faulted: no commit")
+    total = {kk: total[kk] + got[kk] for kk in total}
+    print(f"tree faulted (6 ticks + flush, {wall:.2f} s): events "
+          f"{json.dumps(_kinds(eng.events))}; {len(commits)} commits "
+          f"folding {[c['n_folded'] for c in commits]} over edges "
+          f"{[c['edges'] for c in commits]}; root "
+          f"{eng.totals['root_bits_measured']:.0f} bits, uplink "
+          f"{eng.totals['uplink_bits_measured']:.0f}; host "
+          + ", ".join(f"{kk} {v:.3f} s" for kk, v in eng.host_seconds.items()))
+    del eng
+    work = _scratch("chip_smoke_tree")
+    t0 = time.time()
+    out = chaos_smoke.main(["--tree", "--device", "cuda", "--timeout", "300",
+                            "--work-dir", str(work)])
+    print(f"tree kill-and-resume on the card ({time.time() - t0:.1f}s): "
+          f"killed at v{out['killed_at']}, resumed at v{out['resumed']}, "
+          f"versions {out['versions']}, digest {out['digest']}")
+    return total
+
+
+def runtime_profile(torch, eng, data):
+    """(e) One faulted engine tick and one commit (the flush) of the CONV6
+    engine under torch.profiler: device time by kernel, the device's busy
+    share and operations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in (("tick", lambda: eng.tick(data)),
+                         ("commit", eng.flush)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    wall = sum(walls.values()) * 1e3
+    print(f"profile async engine CONV6: 1 faulted tick + 1 commit, wall "
+          f"{wall:.1f} ms (tick {walls['tick'] * 1e3:.1f}, commit "
+          f"{walls['commit'] * 1e3:.1f}), device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device "
+          f"operations; device ms by kernel:")
+    for key, count, ms in rows[:12]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    check(busy > 0, "the profiler saw no device time")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2692,6 +3187,27 @@ def main():
         got = phase(torch, dispatch, dev)
         launches = {k: launches[k] + got[k] for k in launches}
         print(f"{phase.__name__}: {time.time() - t0:.1f}s")
+
+    # the runtime: checkpoint and restart, the async engine and the tree
+    t0 = time.time()
+    checkpoint_phase(torch, dev)
+    print(f"checkpoint_phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    got = kill_resume_phase(torch, dispatch)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"kill_resume_phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    got, profiled = async_phase(torch, dispatch, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"async_phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    got = tree_phase(torch, dispatch, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"tree_phase: {time.time() - t0:.1f}s")
+    runtime_profile(torch, *profiled)
+    del profiled
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
 
     for cfg, _ in paths:
         t0 = time.time()

@@ -94,18 +94,25 @@ def _fedpm_family(name, apply_fn, loss_fn, *, spec=None, cfg=None,
         metrics.pop("uplink_bpp", None)   # the transport layer owns it
         return plds.BitpackedMasks.from_masks(mask, floats), metrics
 
-    def aggregate(state, payloads, wn, participation):
-        q = plds.batched_packed_mean(payloads, wn)
+    def pooled_aggregate(state, q, floats, k):
+        # the server's transition given q = the weighted mask mean, the
+        # pooled floats and the folded count k (an aggregator tree
+        # reduces them from pooled counts)
         if cfg.bayesian:
-            k = participation.float().sum()
+            k = torch.as_tensor(k, dtype=torch.float32)
             theta = tu.tree_map(lambda t: None if t is None else
                                 (1.0 + t * k) / (2.0 + k), q)
         else:
             theta = q
-        floats = plds.batched_float_mean(payloads.floats, wn)
         return federated.ServerState(
             theta=theta, floats=floats, weights=state.weights,
             seed=state.seed, round=state.round + 1)
+
+    def aggregate(state, payloads, wn, participation):
+        return pooled_aggregate(
+            state, plds.batched_packed_mean(payloads, wn),
+            plds.batched_float_mean(payloads.floats, wn),
+            participation.float().sum())
 
     def eval_params(state, generator, u=None):
         scores = masking.scores_from_theta(state.theta)
@@ -115,7 +122,8 @@ def _fedpm_family(name, apply_fn, loss_fn, *, spec=None, cfg=None,
     return FedAlgorithm(name, init=init, client_update=client_update,
                         aggregate=aggregate, eval_params=eval_params,
                         payload_spec=MASK_SPEC, codec=codec,
-                        downlink=_prob_downlink(downlink_bits))
+                        downlink=_prob_downlink(downlink_bits),
+                        pooled_aggregate=pooled_aggregate)
 
 
 @register("fedpm_reg", payload_spec=MASK_SPEC,
@@ -152,10 +160,16 @@ def _mask_init(spec):
     return init
 
 
-def _mask_aggregate(state, payloads, wn, participation):
-    theta = plds.batched_packed_mean(payloads, wn)
-    return MaskState(masking.scores_from_theta(theta), state.floats,
+def _mask_pooled_aggregate(state, q, floats, k):
+    # the scores from the reduced mask mean; payload floats are ignored
+    # on this family
+    return MaskState(masking.scores_from_theta(q), state.floats,
                      state.weights, state.round + 1)
+
+
+def _mask_aggregate(state, payloads, wn, participation):
+    return _mask_pooled_aggregate(
+        state, plds.batched_packed_mean(payloads, wn), None, None)
 
 
 def _train_scores(apply_fn, loss_fn, opt, state, data, generator=None,
@@ -212,7 +226,8 @@ def fedmask(apply_fn, loss_fn, *, spec=None, tau=0.5, lr=0.1,
                         client_update=client_update,
                         aggregate=_mask_aggregate, eval_params=eval_params,
                         payload_spec=MASK_SPEC, codec=codec,
-                        downlink=_SCORE_DOWNLINK)
+                        downlink=_SCORE_DOWNLINK,
+                        pooled_aggregate=_mask_pooled_aggregate)
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +287,8 @@ def topk(apply_fn, loss_fn, *, spec=None, k_frac=0.3, lr=0.1,
                         client_update=client_update,
                         aggregate=_mask_aggregate, eval_params=eval_params,
                         payload_spec=MASK_SPEC, codec=codec,
-                        downlink=_SCORE_DOWNLINK)
+                        downlink=_SCORE_DOWNLINK,
+                        pooled_aggregate=_mask_pooled_aggregate)
 
 
 # ---------------------------------------------------------------------------
@@ -337,19 +353,23 @@ def mv_signsgd(apply_fn, loss_fn, *, spec=None, lr=1e-3, local_steps=3,
         metrics = {"loss": loss, "sparsity": torch.tensor(0.0)}
         return plds.SignVotes.from_signs(signs), metrics
 
-    def aggregate(state, payloads, wn, participation):
+    def pooled_aggregate(state, q, floats, k):
         # majority vote: more than half the weighted sign bits +1 -> +1
-        q = plds.batched_packed_mean(payloads, wn)
         params = tu.tree_map(lambda p, qi: None if p is None else (
             p.float() - lr * torch.sign(2.0 * qi - 1.0)).to(p.dtype),
             state.params, q)
         return FloatState(params, state.round + 1)
 
+    def aggregate(state, payloads, wn, participation):
+        return pooled_aggregate(
+            state, plds.batched_packed_mean(payloads, wn), None, None)
+
     return FedAlgorithm("mv_signsgd", init=_float_init,
                         client_update=client_update, aggregate=aggregate,
                         eval_params=lambda s, g=None, u=None: s.params,
                         payload_spec=SIGN_SPEC, codec=codec,
-                        downlink=_float_downlink(lambda s: s.params))
+                        downlink=_float_downlink(lambda s: s.params),
+                        pooled_aggregate=pooled_aggregate)
 
 
 # ---------------------------------------------------------------------------

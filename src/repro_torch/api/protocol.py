@@ -71,6 +71,27 @@ def client_view(algo, state, generator=None, u=None):
     return downlink(state, generator, u)
 
 
+def client_phase(algo, state, data, n_clients: int, generator=None,
+                 uniforms: Optional[dict] = None):
+    """The round's client side: the downlink first, then each of the
+    `n_clients` clients' `client_update` in turn, all drawing from
+    `generator` (or the injected `uniforms`).  Returns (downlink payload
+    or None, [payload], [metrics])."""
+    uniforms = uniforms or {}
+    # downlink: server -> clients over the broadcast wire
+    dl_payload, client_state = client_view(algo, state, generator,
+                                           uniforms.get("downlink"))
+    client_u = uniforms.get("clients")
+    payloads, metrics = [], []
+    for k in range(n_clients):
+        p, m = algo.client_update(
+            client_state, tu.tree_map(lambda v: v[k], data), generator,
+            None if client_u is None else client_u[k])
+        payloads.append(p)
+        metrics.append(m)
+    return dl_payload, payloads, metrics
+
+
 def run_round(algo, state, data, participation, sizes, generator=None,
               codec=None, uniforms: Optional[dict] = None):
     """One federated round, algorithm-agnostic.
@@ -80,23 +101,11 @@ def run_round(algo, state, data, participation, sizes, generator=None,
     (new state, metrics of 0-d f32 tensors)."""
     if codec is None:
         codec = getattr(algo, "codec", None)
-    uniforms = uniforms or {}
     n_clients = participation.shape[0]
     pf = participation.float()
     n_part = pf.sum()
-
-    # downlink: server -> clients over the broadcast wire
-    dl_payload, client_state = client_view(algo, state, generator,
-                                           uniforms.get("downlink"))
-
-    client_u = uniforms.get("clients")
-    payloads, metrics = [], []
-    for k in range(n_clients):
-        p, m = algo.client_update(
-            client_state, tu.tree_map(lambda v: v[k], data), generator,
-            None if client_u is None else client_u[k])
-        payloads.append(p)
-        metrics.append(m)
+    dl_payload, payloads, metrics = client_phase(
+        algo, state, data, n_clients, generator, uniforms)
 
     w = sizes.float() * pf
     wn = w / torch.clamp(w.sum(), min=1e-9)
@@ -133,13 +142,18 @@ class FedAlgorithm:
     (a name or an `api.codecs.Codec`) picks the codec the round meters
     uplinks with, by default the payload spec's.  `downlink(state,
     generator, u)` -> (DownlinkPayload, client state) is the per-round
-    broadcast.  The state `init` returns owns its tensors (the float
-    leaves are copied out of the caller's template)."""
+    broadcast.  `pooled_aggregate(state, q, floats, k)` (optional) is the
+    aggregator tree's seam: the transition of `aggregate` given the
+    already-reduced weighted mask mean `q`, the pooled float leaves and
+    the folded client count `k` (`runtime.agg_tree`).  The state `init`
+    returns owns its tensors (the float leaves are copied out of the
+    caller's template)."""
 
     def __init__(self, name: str, *, init: Callable,
                  client_update: Callable, aggregate: Callable,
                  eval_params: Callable, payload_spec: PayloadSpec,
-                 codec=None, downlink: Optional[Callable] = None):
+                 codec=None, downlink: Optional[Callable] = None,
+                 pooled_aggregate: Optional[Callable] = None):
         self.name = name
         self.init = lambda gen, params_like: tu.tree_map(
             lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
@@ -150,6 +164,7 @@ class FedAlgorithm:
         self.payload_spec = payload_spec
         self.codec = codecs_lib.resolve(codec, payload_spec)
         self.downlink = downlink
+        self.pooled_aggregate = pooled_aggregate
 
     def round(self, state, data, participation, sizes, generator=None,
               uniforms=None):

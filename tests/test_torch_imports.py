@@ -45,7 +45,12 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          # benchmark (codecs, payloads, algorithms and aggregation above
          # now hold all of their reference modules)
          "repro_torch.core.aggregation", "repro_torch.core.baselines",
-         "repro_torch.launch.train", "repro_torch.benchmarks.fig2_noniid")
+         "repro_torch.launch.train", "repro_torch.benchmarks.fig2_noniid",
+         # checkpoint and restart, the runtime and the chaos tool
+         "repro_torch.ckpt.checkpoint", "repro_torch.runtime.fault",
+         "repro_torch.runtime.elastic", "repro_torch.runtime.async_engine",
+         "repro_torch.runtime.agg_tree", "repro_torch.analysis.comm_model",
+         "repro_torch.tools.chaos_smoke")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():
