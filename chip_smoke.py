@@ -40,15 +40,22 @@ Phases (any failure exits non-zero and prints no result line):
    its bound and launch plan for kernels 1-3 and each deepseek-v2-lite
    shape's for kernels 5-7 (also at M = 240, a 2048-token cohort's
    capacity), and kernels 1-3 on f32 activations at recurrentgemma's gate
-   shape (M 256, K = N = 4096);
+   shape (M 256, K = N = 4096); then kernels 1-3 and 5-7 at the shapes
+   the zoo's new paths give them (ZOO_DENSE, ZOO_GROUPED: whisper's
+   encoder and cross projections at 2 x 1500 rows, qwen2-7b's widest
+   projection, deepseek-v2-236b's q up-projection and its 160 experts
+   at 12 rows each) against their plain versions, and timed;
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
-   mamba2 and recurrentgemma SMOKE configs: the round exactly, the train
-   step's loss, and its backward leaf by leaf (each score leaf's update
-   and first moment, each float leaf's update), on the configs' bf16
-   activations and, but for the hybrid, on f32 ones; and the decode of
-   every family's SMOKE config likewise (internlm2, deepseek-v2-lite,
-   mamba2, recurrentgemma, gemma3), gemma3's ring caches against its
+   mamba2, recurrentgemma, qwen2-7b, qwen2-vl (4 patch embeddings a
+   sequence) and whisper (stub frames) SMOKE configs: the round exactly,
+   the train step's loss, and its backward leaf by leaf (each score
+   leaf's update and first moment, each float leaf's update), on the
+   configs' bf16 activations (whisper's read, not gated) and, but for
+   the hybrid, on f32 ones; and the decode of every family's SMOKE
+   config likewise (internlm2, deepseek-v2-lite, mamba2, recurrentgemma,
+   gemma3, qwen2-7b, qwen2-vl, whisper with its cross K/V from
+   `encode`), gemma3's ring caches against its
    full cache, the serving engine's tenant isolation on the card
    (bit-identical to a solo run), and the lockstep engine against the
    exact one (tokens equal, logits within atol = rtol = 1e-5);
@@ -59,17 +66,26 @@ Phases (any failure exits non-zero and prints no result line):
    (the dense layer and 3 MoE layers; 27 do not fit one card's memory),
    full-size mamba2-370m (all 48 layers), and recurrentgemma-9b at full
    width with its depth cut to 5 layers (one rec, rec, attn group and
-   the 2-layer rec tail; 38 do not fit).  Every round unpacks each
-   masked leaf's cohort words once (the unpack kernel).  Then decoding
+   the 2-layer rec tail; 38 do not fit); then the rest of the zoo:
+   full-size whisper-medium (24 + 24 layers, zero frames of 1500 rows),
+   full-size qwen2-vl-2b (28 layers; then one train step through
+   `make_train_step` with 64 patch embeddings a sequence, M-RoPE at the
+   published sections), qwen2-7b and deepseek-7b at full width cut to 4
+   layers, deepseek-v2-236b at full width cut to 2 layers (the dense
+   layer and one MoE layer of 160 experts) with 1 cohort, and
+   internlm2-1.8b with `--algo fedavg` (no kernel, no round).  Every
+   round unpacks each masked leaf's cohort words once (the unpack
+   kernel).  Then decoding
    through masked trees at the mamba2, recurrentgemma and gemma3 SMOKE
    configs: frozen decode against the fused training forward (kernels 1
    and 8), and the unfrozen `MaskedLeaf` tree against the frozen one
    (kernel 1 at M = 1).  Then serving with `repro_torch.launch.serve`
    (batch 4, 16-token prompts, 16 tokens; multi-tenant: 4 tenants on 2
    slots, freeze-cache capacity 2) at the published widths: internlm2-1.8b
-   and mamba2-370m single and multi, gemma3-4b single, multi and
-   lockstep, recurrentgemma-9b single at full depth and multi cut to 5
-   layers; and the artifact path of examples/serve_masked.py for
+   and mamba2-370m single and multi, whisper-medium (decoding against
+   the zero cross K/V of `init_cache`) and qwen2-vl-2b (text) single,
+   gemma3-4b single, multi and lockstep, recurrentgemma-9b single at
+   full depth and multi cut to 5 layers; and the artifact path of examples/serve_masked.py for
    internlm2-1.8b and mamba2-370m (`init_server` -> `final_artifact`,
    one pack per masked leaf -> `save_artifact` -> `load_artifact` ->
    unpack, one per leaf -> m * w over weights regenerated from the seed
@@ -130,7 +146,8 @@ Phases (any failure exits non-zero and prints no result line):
    `tree_root_round_bits`, a run under edge crashes and partitions, and
    `chaos_smoke --tree` on the card (exactly-once commits, the same
    theta digest); (e) one faulted engine tick and one commit profiled;
-9. profile one more step and round of each training path, eight decode
+9. profile one more step and round of the first four training paths
+   and of whisper-medium, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
    on 2 slots, exact and lockstep (torch.profiler): device time by
    kernel, the device's busy share and operations a step or tick.
@@ -180,6 +197,34 @@ BITPACK_RAGGED = (3, 37_005)  # (R, n): row starts off the 16-byte grid
 # layers 19, mamba2 3, recurrentgemma at 5 layers 34
 ROUND_LEAVES = {"internlm2-1.8b": 7, "deepseek-v2-lite-16b": 19,
                 "mamba2-370m": 3, "recurrentgemma-9b": 34}
+# the rest of the zoo's training paths (fedpm_reg through the launcher):
+# whisper-medium and qwen2-vl-2b at full size, qwen2-7b and deepseek-7b
+# at full width cut to 4 layers (full depth needs ~117 and ~109 GB of
+# mask state with 2 cohorts), deepseek-v2-236b at full width cut to its
+# dense layer and one MoE layer with 1 cohort (~43 GB of state, ~16 GB
+# of expert score gradients).  Masked leaves a round: whisper 16 (the
+# encoder stack's 6: w_q, w_k, w_v, w_o, w_up, w_down; the decoder's
+# 10: self 4, cross 4, w_up, w_down), the GQA models 7, deepseek-v2-236b
+# 21 (the dense layer's MLA 6 and MLP 3; the MoE layer's MLA 6, its 3
+# stacked expert leaves and the shared MLP's 3)
+ROUND_LEAVES.update({"whisper-medium": 16, "qwen2-vl-2b": 7, "qwen2-7b": 7,
+                     "deepseek-7b": 7, "deepseek-v2-236b": 21})
+ZOO_LAYERS = 4                # qwen2-7b and deepseek-7b: 4 of 28 and 30
+DSV2_BIG_LAYERS, DSV2_BIG_COHORTS = 2, 1
+VLM_PATCHES = 64              # patch embeddings a sequence, a grid of 8
+# the new paths' shapes the kernels meet, held against their plain
+# versions and timed: (label, M, K, N) of kernels 1-3 (whisper's encoder
+# at 2 x 1500 frame rows, its cross K/V projections likewise; qwen2-7b's
+# widest MLP leaf; deepseek-v2-236b's q up-projection) and (label, E, M,
+# K, N) of kernels 5-7 (deepseek-v2-236b's 160 experts at the capacity
+# int(256 tokens * top-6 * 1.25 / 160) = 12 rows)
+ZOO_DENSE = (("whisper enc w_up", 3000, 1024, 4096),
+             ("whisper enc w_down", 3000, 4096, 1024),
+             ("whisper cross w_k", 3000, 1024, 1024),
+             ("qwen2-7b w_up", M, 3584, 18944),
+             ("dsv2-236b w_uq", M, 1536, 24576))
+ZOO_GROUPED = (("dsv2-236b w_up", 160, 12, 5120, 1536),
+               ("dsv2-236b w_down", 160, 12, 1536, 5120))
 # gemma3-4b masked leaves, (K, N), and the decode's row counts (batch 1-8)
 GEMMA3_SHAPES = {
     "w_q": (2560, 2048), "w_k": (2560, 1024), "w_v": (2560, 1024),
@@ -197,6 +242,8 @@ SMALL_M = (1, 2, 4, 8)
 # cell's 5-layer cut (two resident trees do not fit beside w and scores)
 SERVE_RUNS = (("internlm2-1.8b", None, "single"),
               ("internlm2-1.8b", None, "multi"),
+              ("whisper-medium", None, "single"),
+              ("qwen2-vl-2b", None, "single"),
               ("gemma3-4b", None, "single"), ("gemma3-4b", None, "multi"),
               ("gemma3-4b", None, "lockstep"),
               ("mamba2-370m", None, "single"), ("mamba2-370m", None, "multi"),
@@ -795,6 +842,122 @@ def grouped_timing_phase(torch, mm, ref, dev):
     return res, per_shape
 
 
+def zoo_kernel_phase(torch, mm, ref, dev):
+    """Kernels 1-3 and 5-7 at the shapes the zoo's new paths give them
+    (ZOO_DENSE, ZOO_GROUPED) against their plain versions, sample mode at
+    a non-zero stream offset: kernels 1-3 within the bounds of
+    `kernel_phase`, kernels 5-7 per element within 1e-5 of the sum of
+    the terms' magnitudes (the bound `grouped_kernel_phase` holds kernel
+    7's wide-range rows to; here the sums run over up to 5120 terms);
+    each timed with CUDA events (10 calls) beside
+    its plain version (1 call), the library call on the pre-masked
+    weight (`torch.matmul` / `torch.bmm`, for ds the x^T g product) and
+    its bound.  Returns ({kernel: max abs err}, {kernel: {label: (ms,
+    plain ms, library ms, bound ms)}})."""
+    err, rows = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def keep(kname, label, d, kern, plain, lib, cost):
+        err[kname] = max(err.get(kname, 0.0), d)
+        tk, tl = time_ms(torch, [kern, lib], 10)
+        tp = time_ms(torch, [plain], 1)[0]
+        rows.setdefault(kname, {})[label] = (tk, tp, tl, bound(*cost)[0])
+
+    for label, m, K, N in ZOO_DENSE:
+        x = torch.randn(m, K, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(K, N, generator=gen, device=dev)
+        g = torch.randn(m, N, generator=gen, device=dev).to(torch.bfloat16)
+        off = (3 * K * N) & M32
+        wm = ref.sample_mask(s, 99, off).to(torch.bfloat16) * w
+        for kname, kern, plain, lib, nb in (
+                ("masked_matmul_fwd",
+                 lambda: mm.masked_matmul(x, w, s, 99, off),
+                 lambda: ref.masked_matmul(x, w, s, 99, off),
+                 lambda: x @ wm, 2 * m * K + 6 * K * N + 2 * m * N),
+                ("masked_matmul_dx",
+                 lambda: mm.masked_matmul_dx(g, w, s, 99, off),
+                 lambda: ref.masked_matmul_dx(g, w, s, 99, off),
+                 lambda: g @ wm.T, 2 * m * N + 6 * K * N + 2 * m * K)):
+            got, want = kern().float(), plain().float()
+            d = (got - want).abs()
+            # f32 sums in another order, then a bf16 cast: one bf16 ulp
+            check(bool((d <= BF16_RTOL * want.abs()
+                        + 1e-4 * want.abs().max()).all()),
+                  f"{kname} {label} M={m}: max |diff| {float(d.max())}")
+            keep(kname, label, float(d.max()), kern, plain, lib,
+                 (nb, 2 * m * K * N))
+            del got, want, d
+        got, want = mm.masked_matmul_ds(x, g, w, s), \
+            ref.masked_matmul_ds(x, g, w, s)
+        check(bool(torch.allclose(got, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max()))),
+              f"masked_matmul_ds {label} M={m}: max |diff| "
+              f"{float((got - want).abs().max())}")
+        keep("masked_matmul_ds", label, float((got - want).abs().max()),
+             lambda: mm.masked_matmul_ds(x, g, w, s),
+             lambda: ref.masked_matmul_ds(x, g, w, s), lambda: x.T @ g,
+             (2 * m * K + 2 * m * N + 10 * K * N, 2 * m * K * N))
+        del x, w, s, g, wm, got, want
+        torch.cuda.empty_cache()
+
+    for label, E, m, K, N in ZOO_GROUPED:
+        x = torch.randn(E, m, K, generator=gen, device=dev)
+        w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(E, K, N, generator=gen, device=dev)
+        g = torch.randn(E, m, N, generator=gen, device=dev)
+        seeds = [0x5EED0000 + e for e in range(E)]
+        offs = [((E + e) * K * N) & M32 for e in range(E)]
+        wm = ref.grouped_mask(s, seeds, offs).to(torch.bfloat16) * w
+        for kname, kern, plain, lib, terms, nb, parts in (
+                ("masked_matmul_grouped",
+                 lambda: mm.masked_matmul_grouped(x, w, s, seeds, offs),
+                 lambda: ref.masked_matmul_grouped(x, w, s, seeds, offs),
+                 lambda: torch.bmm(x, wm.float()),
+                 lambda: ref.masked_matmul_grouped(x.abs(), w.abs(), s,
+                                                   seeds, offs),
+                 4 * E * m * K + 6 * E * K * N + 4 * E * m * N, 3),
+                ("masked_matmul_grouped_dx",
+                 lambda: mm.masked_matmul_grouped_dx(g, w, s, seeds, offs),
+                 lambda: ref.masked_matmul_grouped_dx(g, w, s, seeds, offs),
+                 lambda: torch.bmm(g, wm.float().transpose(1, 2)),
+                 lambda: ref.masked_matmul_grouped_dx(g.abs(), w.abs(), s,
+                                                      seeds, offs),
+                 4 * E * m * N + 6 * E * K * N + 4 * E * m * K, 3),
+                ("masked_matmul_grouped_ds",
+                 lambda: mm.masked_matmul_grouped_ds(x, g, w, s),
+                 lambda: ref.masked_matmul_grouped_ds(x, g, w, s),
+                 lambda: torch.bmm(x.transpose(1, 2), g),
+                 lambda: ref.masked_matmul_grouped_ds(x.abs(), g.abs(),
+                                                      w.abs(), s),
+                 4 * E * m * K + 4 * E * m * N + 10 * E * K * N, 6)):
+            got, want, bnd = kern(), plain(), terms()
+            d = (got - want).abs()
+            rel = float((d / bnd.clamp_min(1e-30)).max())
+            # f32 sums of up to 5120 terms in another order, held per
+            # element to 1e-5 of the sum of the terms' magnitudes (an f32
+            # sum of n terms in any order is within n * 2**-24 of it)
+            check(bool((d <= 1e-5 * bnd).all()),
+                  f"{kname} {label} E={E} M={m}: max |diff| "
+                  f"{float(d.max())}, {rel:.3g} of the terms' magnitude")
+            print(f"  {kname} {label}: max |diff| {float(d.max()):.4g} at "
+                  f"scale {float(want.abs().max()):.4g}, {rel:.3g} of the "
+                  f"terms' magnitude")
+            keep(kname, label, float(d.max()), kern, plain, lib,
+                 (nb, parts * 2 * E * m * K * N))
+            del got, want, bnd, d
+        del x, w, s, g, wm
+        torch.cuda.empty_cache()
+    print("zoo kernel shapes: kernels 1-3 and 5-7 agree with their plain "
+          "versions at " + "; ".join(
+              f"{l} M={m} K={K} N={N}" for l, m, K, N in ZOO_DENSE) + "; "
+          + "; ".join(f"{l} E={E} M={m} K={K} N={N}"
+                      for l, E, m, K, N in ZOO_GROUPED)
+          + f"; max abs err {json.dumps(err)}")
+    torch.cuda.synchronize()
+    return err, rows
+
+
 def conv_kernel_phase(torch, mm, ref, dev):
     """Conv kernels vs plain versions at the mamba2 and recurrentgemma
     conv shapes with the last layer's stream offset, at a ragged shape
@@ -1061,6 +1224,21 @@ def smoke_states(torch, arch, devices, f32=False):
     return api, cfg, states, toks
 
 
+def smoke_extra(torch, api, f32=False):
+    """The non-token inputs of a SMOKE train step, (C, 2, ...) on the
+    CPU: 4 stub patch embeddings a sequence for the VLM, stub frames for
+    the encoder-decoder (0.1 * normal, bf16, or f32 with `f32`), nothing
+    for the other families."""
+    gen = torch.Generator().manual_seed(6)
+    shape = {"vlm": ("vis_embeds", 4),
+             "encdec": ("frames", api.cfg.enc_seq)}.get(api.cfg.family)
+    if shape is None:
+        return {}
+    key, n = shape
+    x = 0.1 * torch.randn(COHORTS, 2, n, api.cfg.d_model, generator=gen)
+    return {key: x if f32 else x.to(torch.bfloat16)}
+
+
 # Bounds of the backward check below, (largest relative norm of the
 # difference, smallest cosine) per leaf, for one train step under
 # momentum on the card against the same step on the CPU.  They are the
@@ -1080,23 +1258,38 @@ def smoke_states(torch, arch, devices, f32=False):
 # CPU's (cosine 0.9994) with or without the kernels (every kernel
 # replaced by its plain version reads the same), and its bf16 step
 # already runs kernels 1-3 on f32 activations (the RG-LRU gates).
+# qwen2-7b (qkv bias): the reference's jit and eager bf16 steps differ
+# per leaf by up to 0.187 (cosine down to 0.982), held to twice that;
+# qwen2-vl's 0.118 (0.993) lies inside the default.  whisper's bf16 step
+# is not held leaf by leaf: the reference's own jit and eager steps
+# differ per leaf by a relative norm of up to 3.0 (cosines -0.07 to
+# 0.05), so its backward is held on f32 activations only.  (Measured on the
+# CPU at the SMOKE configs, the batch of `smoke_states` and
+# `smoke_extra`.)
 BACKWARD_BOUNDS = {"bf16": (0.3, 0.97), "bf16 hybrid": (0.57, 0.85),
-                   "f32": (1e-2, 0.9999)}
-F32_BACKWARD = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m")
+                   "bf16 qwen2": (0.375, 0.964), "f32": (1e-2, 0.9999)}
+F32_BACKWARD = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
+                "qwen2-7b", "qwen2-vl-2b", "whisper-medium")
 
 
 def backward_bounds(arch, f32):
+    """(largest relative norm, smallest cosine) of `arch`'s backward check,
+    None where it is not held (whisper at bf16)."""
     if f32:
         return BACKWARD_BOUNDS["f32"]
-    return BACKWARD_BOUNDS["bf16 hybrid" if arch == "recurrentgemma-9b"
-                           else "bf16"]
+    if arch == "whisper-medium":
+        return None
+    key = {"recurrentgemma-9b": "bf16 hybrid", "qwen2-7b": "bf16 qwen2"}
+    return BACKWARD_BOUNDS[key.get(arch, "bf16")]
 
 
-def first_step_updates(api, cfg, state, tokens):
-    """One train step of `state` (updated in place); returns its loss and
-    {kind: [(path, tensor)]} on the CPU in f32: each score leaf's update
-    s1 - s0, its first moment opt_m (under momentum from zero: the step's
-    gradient, regularizer included) and each float leaf's update."""
+def first_step_updates(api, cfg, state, tokens, extra=None):
+    """One train step of `state` (updated in place) on `tokens` and the
+    batch's other inputs `extra` ({key: (C, B, ...)}); returns its loss
+    and {kind: [(path, tensor)]} on the CPU in f32: each score leaf's
+    update s1 - s0, its first moment opt_m (under momentum from zero: the
+    step's gradient, regularizer included) and each float leaf's
+    update."""
     from repro_torch.core import tree
     from repro_torch.launch import steps
 
@@ -1107,9 +1300,11 @@ def first_step_updates(api, cfg, state, tokens):
                 if t is not None]
 
     s0, f0 = flat("scores"), flat("floats")
-    _, metrics = steps.make_train_step(api, cfg)(
-        state, {"tokens": tokens.to(next(
-            t for t in tree.leaves(state["scores"]) if t is not None).device)})
+    dev = next(t for t in tree.leaves(state["scores"]) if t is not None
+               ).device
+    batch = dict(extra or {}, tokens=tokens)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    _, metrics = steps.make_train_step(api, cfg)(state, batch)
     return float(metrics["loss"]), {
         "score update": [(p, t - a) for (p, t), (_, a)
                          in zip(flat("scores"), s0)],
@@ -1154,10 +1349,12 @@ def smoke_reference_phase(torch, dev, arch):
     the round exactly, the train step's loss, and the train step's
     backward leaf by leaf (`backward_check`, within `backward_bounds`),
     on the config's bf16 activations and, for F32_BACKWARD, again on f32
-    ones."""
+    ones.  The VLM's step carries 4 patch embeddings a sequence, the
+    encoder-decoder's stub frames (`smoke_extra`)."""
     from repro_torch.core import tree
     from repro_torch.launch import steps
     api, cfg, states, toks = smoke_states(torch, arch, ("cpu", dev))
+    extra = smoke_extra(torch, api)
     metrics = [steps.make_round_step(api, cfg)(st)[1] for st in states]
     for key in ("bpp", "bits_measured"):
         check(float(metrics[0][key]) == float(metrics[1][key]),
@@ -1168,7 +1365,7 @@ def smoke_reference_phase(torch, dev, arch):
         if a is not None:
             check(torch.equal(torch.sign(a), torch.sign(b.cpu())),
                   "smoke round theta differs between cpu and card")
-    losses, updates = zip(*(first_step_updates(api, cfg, st, toks)
+    losses, updates = zip(*(first_step_updates(api, cfg, st, toks, extra)
                             for st in states))
     # bf16 activations, f32 sums in another order: 0.5% of the loss
     check(abs(losses[0] - losses[1]) <= 5e-3 * abs(losses[0]),
@@ -1183,15 +1380,21 @@ def smoke_reference_phase(torch, dev, arch):
                                                   f32=True)
             for st in states:
                 steps.make_round_step(api, cfg)(st)
-            updates = [first_step_updates(api, cfg, st, toks)[1]
+            extra = smoke_extra(torch, api, f32=True)
+            updates = [first_step_updates(api, cfg, st, toks, extra)[1]
                        for st in states]
         tag = "f32" if f32 else "bf16"
         bounds = backward_bounds(arch, f32)
+        held = bounds is not None
+        if not held:   # read, not gated (BACKWARD_BOUNDS)
+            bounds = (math.inf, -1.0)
         agree = backward_check(updates[0], updates[1],
                                f"smoke backward {arch} {tag}", bounds)
         print(f"smoke backward {arch} {tag} activations: card vs cpu after "
-              f"one train step, worst leaf (relative norm, cosine; bounds "
-              f"{bounds[0]}, {bounds[1]}): " + "; ".join(
+              f"one train step, worst leaf (relative norm, cosine; "
+              + (f"bounds {bounds[0]}, {bounds[1]}" if held else
+                 "not gated: the reference's own spread") + "): "
+              + "; ".join(
                   f"{kind} ({n} leaves) {rel:.4g}, {cos:.6f}"
                   for kind, (rel, cos, n) in agree.items()))
 
@@ -1213,14 +1416,29 @@ def _smoke_serving(torch, arch, gen_seed, windowed=False):
 
 # the families whose decode the smoke reference phase checks
 DECODE_ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
-                "recurrentgemma-9b", "gemma3-4b")
+                "recurrentgemma-9b", "gemma3-4b", "qwen2-7b", "qwen2-vl-2b",
+                "whisper-medium")
+
+
+def fill_cross(torch, api, params, cache, frames):
+    """Write the cross K/V of an encoder-decoder's decode cache from
+    `encode(frames)` (each decoder layer's masked w_k / w_v), in place."""
+    from repro_torch.models import encdec
+    with torch.no_grad():
+        enc = encdec.encode(params, api.cfg, frames)
+        for l in range(api.cfg.n_layers):
+            k, v = encdec.cross_kv(
+                api.cfg, encdec.layer_slice(params["dec_layers"], l), enc)
+            cache["ck"][l].copy_(k)
+            cache["cv"][l].copy_(v)
 
 
 def decode_reference_phase(torch, dev):
     """KV-cache and recurrent decode on the card against the CPU at every
-    ported family's SMOKE config (one frozen tree, 8 tokens): bf16
-    products in another order, within 3% of the logit scale, the bound
-    the CPU tests hold the port to against the JAX package.  gemma3's
+    ported family's SMOKE config (one frozen tree, 8 tokens; whisper's
+    cross K/V filled from `encode` of stub frames): bf16 products in
+    another order, within 3% of the logit scale, the bound the CPU tests
+    hold the port to against the JAX package.  gemma3's
     ring caches (`window_kv_cache`) over 24 tokens, a window of 8,
     against its full-cache decode on the card (the reference's 0.05).
     The serving engine's tenant isolation on the card: 3 tenants
@@ -1240,6 +1458,12 @@ def decode_reference_phase(torch, dev):
         trees = {d: tree.tree_map(lambda t: None if t is None else t.to(d),
                                   frozen) for d in ("cpu", dev)}
         caches = {d: api.init_cache(2, 8, d) for d in ("cpu", dev)}
+        if api.cfg.family == "encdec":
+            frames = (0.1 * torch.randn(
+                2, api.cfg.enc_seq, api.cfg.d_model,
+                generator=torch.Generator().manual_seed(7))).bfloat16()
+            for d in ("cpu", dev):
+                fill_cross(torch, api, trees[d], caches[d], frames.to(d))
         for t in range(8):
             out = {}
             for d in ("cpu", dev):
@@ -1374,6 +1598,138 @@ def small_m_kernel_phase(torch, mm, ref, dev):
           f"internlm2 and gemma3 widths, f32 x at 4096 x 4096), both modes, "
           f"agree with the plain version; max |diff| {err:.3g}")
     return err
+
+
+def zoo_paths(steps_, every):
+    """The zoo's training paths after the first four: [(cfg, {kernel:
+    launches}, extra argv)] for 2 cohorts (deepseek-v2-236b 1) x `steps_`
+    steps and a round every `every`.  Dense projections a train pass:
+    whisper 24 encoder layers of 6 (w_q, w_k, w_v, w_o, w_up, w_down) and
+    24 decoder layers of 10 (self 4, cross 4, w_up, w_down), 384;
+    qwen2-vl 28 layers of 7; qwen2-7b and deepseek-7b 4 of 7;
+    deepseek-v2-236b at 2 layers 18 (MLA with q-lora 6 and an MLP 3 in
+    each: the dense layer's own, the MoE layer's shared experts) and 3
+    expert projections in its MoE layer.  Each round packs and unpacks
+    every masked leaf once (ROUND_LEAVES).  Then fedavg on
+    internlm2-1.8b: plain float weights, no round, no kernel."""
+    from repro_torch.configs import get_config
+    rounds, per_pass = steps_ // every, COHORTS * steps_
+    big = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DSV2_BIG_LAYERS)
+    big_pass = DSV2_BIG_COHORTS * steps_
+    out = []
+    for cfg, n_proj in (
+            (get_config("whisper-medium"), 24 * 6 + 24 * 10),
+            (get_config("qwen2-vl-2b"), 28 * 7),
+            (dataclasses.replace(get_config("qwen2-7b"),
+                                 n_layers=ZOO_LAYERS), ZOO_LAYERS * 7),
+            (dataclasses.replace(get_config("deepseek-7b"),
+                                 n_layers=ZOO_LAYERS), ZOO_LAYERS * 7)):
+        out.append((cfg, {k: n_proj * per_pass for k in (
+            "masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds")},
+            []))
+    expect = {k: 18 * big_pass for k in (
+        "masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds")}
+    expect.update({k: 3 * big_pass for k in (
+        "masked_matmul_grouped", "masked_matmul_grouped_dx",
+        "masked_matmul_grouped_ds")})
+    out.append((big, expect, ["--cohorts", str(DSV2_BIG_COHORTS)]))
+    for cfg, expect, _ in out:
+        n = ROUND_LEAVES[cfg.name] * rounds
+        expect.update(sample_and_pack=n, unpack_bits=n)
+    return out + [(get_config("internlm2-1.8b"), {}, ["--algo", "fedavg"])]
+
+
+def train_path(torch, dispatch, cfg, expect, argv, steps_, every):
+    """`repro_torch.launch.train.run(cfg, argv)` on the card: its step and
+    round seconds, losses and peak memory printed; every kernel launched
+    exactly `expect` times, `steps_` finite losses, a round every `every`
+    steps (none for fedavg) with uplink Bpp in (0, 1].  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    args = train.parse_args(["--arch", cfg.name] + argv)
+    print(f"main path: python -m repro_torch.launch.train --arch "
+          f"{cfg.name} {' '.join(argv)} at {cfg.n_layers} layers of "
+          f"{get_config(cfg.name).n_layers}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.time()
+    out = train.run(cfg, args)
+    torch.cuda.synchronize()
+    got = dict(dispatch.LAUNCHES)
+    wall = time.time() - t0
+    print(f"main path {cfg.name} {args.algo}: {wall:.1f}s; launches "
+          f"{json.dumps(got)}; step seconds "
+          f"{[round(t, 4) for t in out['step_seconds']]}; round "
+          f"seconds {[round(t, 4) for t in out['round_seconds']]}; "
+          f"losses {[round(v, 4) for v in out['losses']]}; max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(got == expect, f"{cfg.name} launch counts {got}, expected "
+          f"{expect}")
+    check(len(out["losses"]) == steps_ and all(
+        math.isfinite(v) for v in out["losses"]),
+          f"{cfg.name}: non-finite loss")
+    check(len(out["rounds"]) == (0 if args.algo == "fedavg"
+                                 else steps_ // every),
+          f"{cfg.name}: missing round")
+    for r in out["rounds"]:
+        check(0.0 < r["bpp"] <= 1.0 and 0.0 < r["bpp_measured"] <= 1.1,
+              f"{cfg.name}: uplink Bpp out of range: {r}")
+    del out
+    torch.cuda.empty_cache()
+    return got
+
+
+def vlm_patch_step(torch, dispatch, dev):
+    """One fedpm_reg train step of full-size qwen2-vl-2b through
+    `make_train_step` with VLM_PATCHES stub patch embeddings a sequence
+    prepended (the M-RoPE branch on a grid of side 8 at the published
+    sections (16, 24, 24)), 2 cohorts x batch 2 x 128 tokens: 28 layers
+    x 7 projections x 2 cohorts launches of each of kernels 1-3 at M =
+    2 x (64 + 128) rows and a finite loss.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_config("qwen2-vl-2b")
+    api = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    state = steps.init_fed_state(gen, api, masking.MaskSpec(), C=COHORTS)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (COHORTS, 2, 128),
+                                     generator=gen, device=dev),
+             "vis_embeds": (0.1 * torch.randn(
+                 COHORTS, 2, VLM_PATCHES, cfg.d_model, generator=gen,
+                 device=dev)).to(torch.bfloat16)}
+    step = steps.make_train_step(api, steps.StepConfig(lam=1.0, lr=0.3,
+                                                       seed=17))
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(dispatch.LAUNCHES)
+    loss = float(metrics["loss"])
+    n = cfg.n_layers * 7 * COHORTS
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                  masked_matmul_ds=n)
+    check(got == expect, f"qwen2-vl patch step launches {got}, expected "
+          f"{expect}")
+    check(math.isfinite(loss), f"qwen2-vl patch step: loss {loss}")
+    print(f"qwen2-vl-2b train step with {VLM_PATCHES} patch embeddings a "
+          f"sequence (M-RoPE sections {cfg.mrope_sections}, M = "
+          f"{2 * (VLM_PATCHES + 128)} rows a cohort): loss {loss:.4f}, "
+          f"{dt:.3f}s (first step, warm kernels), launches {n} of each of "
+          f"kernels 1-3; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return got
 
 
 def masked_decode_phase(torch, dispatch, dev):
@@ -3000,7 +3356,6 @@ def main():
     from repro_torch.kernels import build, dispatch
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import ref
-    from repro_torch.launch import train
 
     t0 = time.time()
     for name, log in build.build().items():
@@ -3038,6 +3393,11 @@ def main():
     p_timing, p_per_shape = bitpack_timing_phase(torch, bp, dev)
     timing.update(p_timing)
     per_shape.update(p_per_shape)
+    zoo_err, zoo_rows = zoo_kernel_phase(torch, mm, ref, dev)
+    for k, v in zoo_err.items():
+        err[k] = max(err[k], v)
+    for k, rows in zoo_rows.items():
+        per_shape[k].update(rows)
     print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
           f"at M={M}, grouped at E={N_EXPERTS} M={CAP}; conv per layer at "
           f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds; pack per leaf, "
@@ -3050,7 +3410,8 @@ def main():
                   f"{tb:9.4f}")
     t0 = time.time()
     for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "qwen2-7b", "qwen2-vl-2b",
+                 "whisper-medium"):
         smoke_reference_phase(torch, dev, arch)
     decode_reference_phase(torch, dev)
     print(f"smoke reference phase: {time.time() - t0:.1f}s")
@@ -3108,43 +3469,18 @@ def main():
             "masked_conv1d_ds": 4 * per_pass}),
     ]
     # each round unpacks every masked leaf's cohort rows once (the mean)
-    paths = [(cfg, dict(expect, unpack_bits=ROUND_LEAVES[cfg.name] * rounds))
-             for cfg, expect in paths]
-    paths = [(cfg, {k: expect.get(k, 0) for k in dispatch.KERNELS})
-             for cfg, expect in paths]
+    paths = [(cfg, dict(expect, unpack_bits=ROUND_LEAVES[cfg.name] * rounds),
+              []) for cfg, expect in paths] + zoo_paths(steps_, every)
+    paths = [(cfg, {k: expect.get(k, 0) for k in dispatch.KERNELS}, more)
+             for cfg, expect, more in paths]
     launches = {k: 0 for k in dispatch.KERNELS}
-    for cfg, expect in paths:
-        args = train.parse_args(["--arch", cfg.name] + argv)
-        print(f"main path: python -m repro_torch.launch.train --arch "
-              f"{cfg.name} {' '.join(argv)} at {cfg.n_layers} layers of "
-              f"{get_config(cfg.name).n_layers}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        dispatch.reset_launch_counts()
-        t0 = time.time()
-        out = train.run(cfg, args)
-        torch.cuda.synchronize()
-        got = dict(dispatch.LAUNCHES)
-        wall = time.time() - t0
-        print(f"main path {cfg.name}: {wall:.1f}s; launches "
-              f"{json.dumps(got)}; step seconds "
-              f"{[round(t, 4) for t in out['step_seconds']]}; round "
-              f"seconds {[round(t, 4) for t in out['round_seconds']]}; "
-              f"losses {[round(v, 4) for v in out['losses']]}; max memory "
-              f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              f"GiB")
-        check(got == expect, f"{cfg.name} launch counts {got}, expected "
-              f"{expect}")
-        check(all(math.isfinite(v) for v in out["losses"]),
-              f"{cfg.name}: non-finite loss")
-        check(len(out["rounds"]) == steps_ // every,
-              f"{cfg.name}: missing round")
-        for r in out["rounds"]:
-            check(0.0 < r["bpp"] <= 1.0 and 0.0 < r["bpp_measured"] <= 1.1,
-                  f"{cfg.name}: uplink Bpp out of range: {r}")
+    for cfg, expect, more in paths:
+        got = train_path(torch, dispatch, cfg, expect, argv + more,
+                         steps_, every)
         launches = {k: launches[k] + got[k] for k in launches}
-        del out
-        torch.cuda.empty_cache()
+        if cfg.name == "qwen2-vl-2b":
+            got = vlm_patch_step(torch, dispatch, dev)
+            launches = {k: launches[k] + got[k] for k in launches}
 
     t0 = time.time()
     got = masked_decode_phase(torch, dispatch, dev)
@@ -3209,7 +3545,8 @@ def main():
     torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
-    for cfg, _ in paths:
+    # the first four training paths and, of the zoo's, whisper-medium
+    for cfg, _, _ in paths[:5]:
         t0 = time.time()
         profile_phase(torch, dev, cfg)
         print(f"profile phase {cfg.name}: {time.time() - t0:.1f}s")

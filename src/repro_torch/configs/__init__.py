@@ -1,12 +1,17 @@
-"""Config registry: --arch <id> resolution (the port's configs so far)."""
+"""Config registry: --arch <id> resolution."""
 from repro_torch.configs.base import ArchConfig  # noqa: F401
-from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b,
-                                 internlm2_1_8b, mamba2_370m,
-                                 recurrentgemma_9b)
+from repro_torch.configs import (
+    gemma3_4b, internlm2_1_8b, deepseek_7b, qwen2_7b,
+    deepseek_v2_lite_16b, deepseek_v2_236b, whisper_medium, mamba2_370m,
+    qwen2_vl_2b, recurrentgemma_9b,
+)
 
-_REGISTRY = {m.CONFIG.name: m for m in (gemma3_4b, internlm2_1_8b,
-                                        deepseek_v2_lite_16b, mamba2_370m,
-                                        recurrentgemma_9b)}
+_REGISTRY = {
+    m.CONFIG.name: m for m in (
+        gemma3_4b, internlm2_1_8b, deepseek_7b, qwen2_7b,
+        deepseek_v2_lite_16b, deepseek_v2_236b, whisper_medium,
+        mamba2_370m, qwen2_vl_2b, recurrentgemma_9b)
+}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

@@ -37,6 +37,14 @@ def state_from_jax(np_state: dict, device) -> dict:
     return state
 
 
+def fedavg_state_from_jax(np_state: dict, device) -> dict:
+    """The JAX `init_fedavg_state` dict (params / opt_m / step, leaves as
+    numpy arrays) -> the port's fedavg state."""
+    return {"params": tree_to_torch(np_state["params"], device),
+            "opt_m": tree_to_torch(np_state["opt_m"], device),
+            "step": int(np.asarray(np_state["step"]))}
+
+
 def server_from_jax(np_server, device):
     """A JAX `ServerState` (theta / floats / weights trees with numpy
     leaves, seed, round) -> the port's `federated.ServerState`."""

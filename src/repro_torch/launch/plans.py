@@ -1,6 +1,7 @@
 """Launch plans: registry names -> fed state, train step, round step and
 batch layout for `repro_torch.launch.train`.  Importing this module
-registers the mask-training plans (fedpm_reg, fedpm, fedmask)."""
+registers the mask-training plans (fedpm_reg, fedpm, fedmask) and the
+float reference (fedavg: one float state, flat batches, no round)."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +34,15 @@ def _cohort_batch(cohorts: int):
     return make_batch
 
 
+def _flat_batch(gen, toks, batch, seq):
+    """(batch, seq) windows of the token stream at random starts drawn
+    from `gen`."""
+    idx = torch.randint(0, toks.shape[0] - seq - 1, (batch,), generator=gen,
+                        device=toks.device)
+    return {"tokens": toks[idx[:, None] + torch.arange(seq,
+                                                        device=toks.device)]}
+
+
 def _mask_plan(name, *, force_lam=None, mask_mode=None):
     """Mask-training plan: cohort-axis state, fused train step, bitpacked
     round; `mask_mode="threshold"` is the FedMask variant."""
@@ -60,6 +70,15 @@ MASK_ALGOS = {
     "fedmask": {"lam": 0.0, "mask_mode": "threshold"},
 }
 
+def _fedavg_plan(model_api, scfg: steplib.StepConfig, *, gen, cohorts,
+                 spec=None, optimizer="momentum", codec=None) -> LaunchPlan:
+    return LaunchPlan(
+        name="fedavg", state=steplib.init_fedavg_state(gen, model_api),
+        step_fn=steplib.make_fedavg_step(model_api, scfg), round_fn=None,
+        make_batch=_flat_batch)
+
+
 for _name, _kw in MASK_ALGOS.items():
     registry.register_launch(_name, _mask_plan(
         _name, force_lam=_kw.get("lam"), mask_mode=_kw.get("mask_mode")))
+registry.register_launch("fedavg", _fedavg_plan)

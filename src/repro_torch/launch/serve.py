@@ -14,7 +14,10 @@ and every decode step reuses plain m * w products: no mask is resampled
 while serving.
 
 `--arch` defaults to gemma3-4b, as the reference launcher does, and takes
-every arch the port has (dense, MoE, ssm and hybrid).
+every arch of the zoo (`configs.ARCH_NAMES`: dense, MoE, VLM, encdec, ssm
+and hybrid).  qwen2-vl decodes text only, with 1-D rope; whisper decodes
+against the zero cross K/V that `init_cache` makes, as the reference
+launcher does.
 
 Single tenant: one warm-up step off the clock, then `time.perf_counter`
 after a device synchronize around each step, prefill and decode tok/s

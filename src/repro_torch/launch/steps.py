@@ -15,6 +15,9 @@ mask stream is keyed by.
   kernel, theta is the (survivor-weighted) mean of the words, crosses
   the optional k-bit downlink, and resets every cohort's scores; the
   codec meters each cohort's pooled words.
+* `make_fedavg_step` — the float reference (`--algo fedavg`): one plain
+  autograd step of the float params with f32 momentum, no masks and no
+  kernel of the port.
 * `make_multi_serve_step` — the lockstep serving step: one vmapped
   decode over B slots, each with its own frozen tree, cache, token and
   position.
@@ -101,6 +104,25 @@ def _score_blocks(leaf: MaskedLeaf) -> list:
     return [leaf.s] if isinstance(leaf.s, torch.Tensor) else list(leaf.s)
 
 
+# elements a piece of the in-place score update (and of the round's
+# downlink and score reset) works on: their f32 temporaries (the
+# sigmoid, the regularizer's and the optimizer's products, the
+# quantizer's) stay a piece's size, 256 MiB each, however large the
+# block (a deepseek-v2-236b expert leaf holds 1.26 G scores)
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(g, s, m, v):
+    """Matching flat pieces of UPDATE_PIECE elements of a score block,
+    its gradient and its moments (v None under momentum), views of their
+    storage.  Every op of the update is elementwise and a piece starts on
+    a multiple of 2**26 elements (the vector loops' lanes line up), so
+    updating piece by piece gives the same bits as the whole block."""
+    flat = [None if t is None else t.detach().view(-1) for t in (g, s, m, v)]
+    for i in range(0, flat[0].numel(), UPDATE_PIECE):
+        yield [None if t is None else t[i:i + UPDATE_PIECE] for t in flat]
+
+
 def make_train_step(api, cfg: StepConfig):
     """(state, batch) -> (state, {"loss"}); batch["tokens"]: (C, B, S)."""
     b1, b2 = 0.9, 0.999
@@ -145,17 +167,18 @@ def make_train_step(api, cfg: StepConfig):
                     g = s.grad
                     if g is None:
                         g = torch.zeros_like(s)
-                    if cfg.lam:
-                        regularizer.entropy_proxy_grad_(g, s, coef)
-                    if v is None:
-                        m.mul_(cfg.momentum).add_(g)
-                        s.sub_(cfg.lr * m)
-                    else:
-                        m.mul_(b1).add_((1 - b1) * g)
-                        v.mul_(b2).add_((1 - b2) * (g * g))
-                        s.sub_(cfg.lr * (m / bc1)
-                               / (torch.sqrt(v / bc2)
-                                  + cfg.adam_eps))
+                    for gp, sp, mp_, vp in _pieces(g, s, m, v):
+                        if cfg.lam:
+                            regularizer.entropy_proxy_grad_(gp, sp, coef)
+                        if vp is None:
+                            mp_.mul_(cfg.momentum).add_(gp)
+                            sp.sub_(cfg.lr * mp_)
+                        else:
+                            mp_.mul_(b1).add_((1 - b1) * gp)
+                            vp.mul_(b2).add_((1 - b2) * (gp * gp))
+                            sp.sub_(cfg.lr * (mp_ / bc1)
+                                    / (torch.sqrt(vp / bc2)
+                                       + cfg.adam_eps))
                     s.grad = None
             for f in tu.leaves(floats_c):
                 if f is not None and f.grad is not None:
@@ -218,15 +241,24 @@ def make_round_step(api, cfg: StepConfig, codec=None):
             ones_c = ones if ones_c is None else ones_c + ones
             word_parts.append(words)
             theta = plds.mean_from_words(words, n, weights=wn)
+            u = None
             if cfg.downlink_bits:
-                q = aggregation.quantize_theta(
-                    [theta], gen, bits=cfg.downlink_bits,
-                    u=None if u_it is None else [next(u_it).reshape(-1)])
-                theta = aggregation.dequantize_theta(
-                    q, bits=cfg.downlink_bits)[0]
-            # every cohort restarts from logit(theta)
-            flat.copy_(masking.logit(theta)[None])
-            del theta
+                # the leaf's uniforms in one draw (quantize_theta's own)
+                u = (next(u_it).reshape(-1) if u_it is not None else
+                     torch.rand(theta.shape, generator=gen, device=dev))
+            # theta crosses the downlink and every cohort restarts from
+            # logit(theta), piece by piece (elementwise: the same bits,
+            # with temporaries of a piece's size)
+            for i in range(0, n, UPDATE_PIECE):
+                t = theta[i:i + UPDATE_PIECE]
+                if u is not None:
+                    q = aggregation.quantize_theta(
+                        [t], bits=cfg.downlink_bits,
+                        u=[u[i:i + UPDATE_PIECE]])
+                    t = aggregation.dequantize_theta(
+                        q, bits=cfg.downlink_bits)[0]
+                flat[:, i:i + UPDATE_PIECE].copy_(masking.logit(t)[None])
+            del theta, u
             n_pool += n
 
         for f in tu.leaves(state["floats"]):
@@ -277,6 +309,49 @@ def make_round_step(api, cfg: StepConfig, codec=None):
         return state, metrics
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# fedavg: the float reference
+# ---------------------------------------------------------------------------
+
+
+def init_fedavg_state(gen: torch.Generator, api):
+    """{"params": random float params on `gen`'s device, "opt_m": f32
+    zeros of their shapes, "step": 0}."""
+    params = api.init_params(gen)
+    return {"params": params,
+            "opt_m": tu.tree_map(
+                lambda x: None if x is None else torch.zeros_like(
+                    x, dtype=torch.float32), params),
+            "step": 0}
+
+
+def make_fedavg_step(api, cfg: StepConfig):
+    """(state, batch) -> (state, {"loss"}); batch["tokens"]: (B, S).  One
+    autograd step on the float params: m = momentum * m + g in f32, then
+    p = p - lr * m in p's dtype, both in place."""
+
+    def fedavg_step(state, batch):
+        params = tu.tree_map(
+            lambda p: None if p is None else p.detach().requires_grad_(),
+            state["params"])
+        loss = api.loss(api.forward(params, batch), batch)
+        loss.backward()
+        with torch.no_grad():
+            for p, m, dst in zip(tu.leaves(params),
+                                 tu.leaves(state["opt_m"]),
+                                 tu.leaves(state["params"])):
+                if p is None:
+                    continue
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                m.mul_(cfg.momentum).add_(g)
+                dst.copy_((dst.float() - cfg.lr * m).to(dst.dtype))
+                p.grad = None
+        state["step"] += 1
+        return state, {"loss": loss.detach().float()}
+
+    return fedavg_step
 
 
 # ---------------------------------------------------------------------------

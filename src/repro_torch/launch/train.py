@@ -2,8 +2,13 @@
 
     python -m repro_torch.launch.train --arch internlm2-1.8b \
         --steps 4 --round-every 2 --cohorts 2 --batch 2 --seq 128 \
-        [--ckpt-dir DIR] [--fail-prob P --pod-size N --pod-outage-prob P
-        --quorum-frac F] [--tree-fanout N --agg-fault-prob P]
+        [--algo fedpm_reg|fedpm|fedmask|fedavg] [--ckpt-dir DIR]
+        [--fail-prob P --pod-size N --pod-outage-prob P --quorum-frac F]
+        [--tree-fanout N --agg-fault-prob P]
+
+`--arch` takes every config of the zoo (`configs.ARCH_NAMES`): the dense
+transformers, the MoE ones, qwen2-vl (text batches, as the reference's
+plans make them), whisper (zero frames), mamba2 and recurrentgemma.
 
 Runs on the CUDA card by default and raises if there is none; the CPU is
 used only when asked for (`--device cpu`, with `--smoke` for the reduced
@@ -12,6 +17,9 @@ config), where the kernels' plain versions run.  Every
 
     step N: loss=… uplink=…Bpp (wire …Bpp <codec>) cum=…MB
         [alive=a/C] [edges=e/E root=…MB] (…s)
+
+`--algo fedavg` trains the float params with no round and prints
+`step N: loss=…` every 10 steps.
 
 Checkpoint and restart (`--ckpt-dir`): after each round the state goes
 to an `AsyncCheckpointer(keep=2)` and the CommLedger to a
@@ -193,6 +201,9 @@ def run(cfg: ArchConfig, args: argparse.Namespace) -> dict:
     # edge -> root hop is metered from the static cost model
     topo, tree_edge_bits = None, 0
     if args.tree_fanout > 0:
+        if "scores" not in state:
+            raise ValueError(f"--tree-fanout: algo '{args.algo}' carries no "
+                             f"mask scores to pool at an edge")
         topo, tree_edge_bits = _tree_topology(args, state)
         print(f"tree: {topo.n_edges} edge(s) at fanout {args.tree_fanout}, "
               f"root record {tree_edge_bits}b/edge (static)")

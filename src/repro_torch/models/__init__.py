@@ -3,10 +3,13 @@
 `forward(params, batch)` takes a params tree whose maskable leaves are
 plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
 `layers.masked_dense_apply` / `masked_grouped_apply` /
-`masked_conv1d_apply` dispatch decides per leaf.  Ported: the dense and
-MoE transformers (gemma3's sliding windows included), the ssm family
-(mamba2) and the hybrid family (recurrentgemma), their training forwards
-and their decode steps; every family's loss is `transformer.lm_loss`.
+`masked_conv1d_apply` dispatch decides per leaf.  Every family of the
+reference's LM zoo is ported, with its training forward and its decode
+step: the dense and MoE transformers (gemma3's sliding windows, qwen2's
+qkv bias), the VLM (qwen2-vl: a batch's "vis_embeds" prepended, M-RoPE),
+the encoder-decoder (whisper: a batch's "frames", zeros when absent), the
+ssm family (mamba2) and the hybrid family (recurrentgemma).  Every
+family's loss is `transformer.lm_loss`, which scores the text tail.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,20 +41,22 @@ class ModelApi:
     #                              cache
 
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
-             "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": ssm, "hybrid": hybrid, "encdec": encdec}
 
 
 def build_model(cfg: ArchConfig) -> ModelApi:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense, moe, "
-            f"ssm and hybrid only)")
+        raise ValueError(f"unknown family {cfg.family}")
     mod = _FAMILIES[cfg.family]
 
     def fwd(params, batch):
-        if "vis_embeds" in batch:
-            raise NotImplementedError("VLM inputs are not ported yet")
+        if mod is transformer:
+            return mod.forward(params, cfg, batch["tokens"],
+                               vis_embeds=batch.get("vis_embeds"))
+        if mod is encdec:
+            return mod.forward(params, cfg, batch["tokens"],
+                               frames=batch.get("frames"))
         return mod.forward(params, cfg, batch["tokens"])
 
     init_cache, decode = mod.init_cache, mod.decode_step

@@ -1,9 +1,11 @@
-"""Model layers (the dense, MLA, MoE, causal-conv and 2-D conv parts of
-`repro.models.layers`).
+"""Model layers (`repro.models.layers`): norms, RoPE and M-RoPE, GQA
+attention with optional qkv bias, MLA, MLPs, MoE, the causal and 2-D
+convs.
 
 Conventions follow the reference: activations x are (B, S, D), params
-are nested dicts of tensors, maskable tensors are named "w_*" and norms
-and the router carry "scale" / "router".  Every maskable projection goes
+are nested dicts of tensors, maskable tensors are named "w_*" and norms,
+biases and the router carry "scale" / "bias" / "router" (float leaves
+under `MaskSpec`).  Every maskable projection goes
 through `masked_dense_apply` (2-D weights), `masked_grouped_apply`
 (stacked (E, K, N) expert weights), `masked_conv1d_apply` (depthwise
 (W, C) conv kernels) or `masked_conv2d_apply` (the CNNs' (kh, kw, ci, co)
@@ -144,6 +146,22 @@ def rms_norm(params, x, eps=1e-6):
     return out.to(x.dtype)
 
 
+def layer_norm_init(d, device, lead=()):
+    shape = tuple(lead) + (d,)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def layer_norm(params, x, eps=1e-5):
+    """LayerNorm with f32 statistics (the population variance), f32
+    scale and bias, output in x.dtype."""
+    xc = x.float()
+    xc = xc - torch.mean(xc, dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE and attention
 # ---------------------------------------------------------------------------
@@ -165,35 +183,63 @@ def apply_rope(x, positions, theta=10000.0):
     return out.to(x.dtype)
 
 
-def gqa_init(gen, d_model, n_heads, n_kv, head_dim, dtype=DEFAULT_DTYPE,
-             lead=()):
+def apply_mrope(x, positions3, sections=(16, 24, 24), theta=10000.0):
+    """Qwen2-VL's M-RoPE: positions3 (3, B, S) holds the (t, h, w)
+    position streams; the Hd/2 rotary frequencies are split into
+    `sections` (t first), each section rotated by its own stream."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, x.shape[-1])
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))               # (half,)
+    pos = positions3.index_select(0, sec_id)                   # (half, B, S)
+    ang = pos.movedim(0, -1).float() * freqs                   # (B, S, half)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gqa_init(gen, d_model, n_heads, n_kv, head_dim, qkv_bias=False,
+             dtype=DEFAULT_DTYPE, lead=()):
+    """GQA projections; with `qkv_bias`, f32 zero biases "bias_q",
+    "bias_k", "bias_v" (float leaves)."""
     lead = tuple(lead)
-    return {
+    p = {
         "w_q": dense_init(gen, lead + (d_model, n_heads * head_dim), dtype),
         "w_k": dense_init(gen, lead + (d_model, n_kv * head_dim), dtype),
         "w_v": dense_init(gen, lead + (d_model, n_kv * head_dim), dtype),
         "w_o": dense_init(gen, lead + (n_heads * head_dim, d_model), dtype),
     }
+    if qkv_bias:
+        z = lambda n: torch.zeros(lead + (n,), dtype=torch.float32,
+                                  device=gen.device)
+        p["bias_q"] = z(n_heads * head_dim)
+        p["bias_k"] = z(n_kv * head_dim)
+        p["bias_v"] = z(n_kv * head_dim)
+    return p
 
 
-def _causal_mask(q_pos, k_pos, window=None):
-    """(Sq, Sk) additive mask: 0 where attended (0 <= q - k, and
-    q - k < window for a sliding window), -1e30 elsewhere.  A ring
+def _causal_mask(q_pos, k_pos, window=None, causal=True):
+    """(Sq, Sk) additive mask: 0 where attended (0 <= q - k when causal,
+    and q - k < window for a sliding window), -1e30 elsewhere.  A ring
     cache's unwritten slot sits at k = -2**30, out of every window."""
     diff = q_pos[:, None] - k_pos[None, :]
-    ok = diff >= 0
+    ok = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window is not None:
         ok = ok & (diff < window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def attention_core(q, k, v, q_pos, k_pos, window=None):
-    """Causal attention, optionally within a sliding window.
+def attention_core(q, k, v, q_pos, k_pos, window=None, causal=True):
+    """Attention, causal unless `causal=False` (an encoder, cross
+    attention), optionally within a sliding window.
     q: (B, Sq, H, Hd); k: (B, Sk, Kv, Hd); v: (B, Sk, Kv, Dv).  GQA (and
     MQA) by head repetition, f32 scores and softmax, output in q.dtype:
     the reference's unchunked branch (its soft cap and chunked online
-    softmax are not ported yet)."""
+    softmax are ROADMAP Queue 1 item 5, part 2)."""
     B, Sq, H, Hd = q.shape
     Kv = k.shape[2]
     Dv = v.shape[-1]
@@ -201,21 +247,40 @@ def attention_core(q, k, v, q_pos, k_pos, window=None):
     scale = 1.0 / math.sqrt(Hd)
     qf = (q.float() * scale).reshape(B, Sq, Kv, rep, Hd)
     s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
-    s = s + _causal_mask(q_pos, k_pos, window)
+    s = s + _causal_mask(q_pos, k_pos, window, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgh->bqgrh", p, v.float())
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+def add_bias(t, p, name):
+    """t + p[name] (an f32 bias over the flattened heads), in t.dtype."""
+    if name not in p:
+        return t
+    return t + p[name].reshape(t.shape[-2:]).to(t.dtype)
+
+
 def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
-              window=None, kv_override=None, k_positions=None):
-    """Causal self-attention block (no norm), attending to the last
-    `window` positions if set; returns (out, (k, v)).  `kv_override`
-    = (k, v) attends over given keys and values instead (cached decode:
-    the keys are already roped) at `k_positions` (default arange)."""
+              window=None, kv_override=None, k_positions=None, causal=True,
+              use_rope=True, mrope_positions=None, mrope_sections=None):
+    """Self-attention block (no norm), causal unless `causal=False`,
+    attending to the last `window` positions if set; returns (out, (k,
+    v)).  The qkv biases, when the params carry them, are added after
+    the masked projections.  `mrope_positions` (3, B, S) rotates q and k
+    by M-RoPE over `mrope_sections` instead of RoPE; `use_rope=False`
+    rotates nothing.  `kv_override` = (k, v) attends over given keys and
+    values instead (cached decode: the keys are already roped; cross
+    attention) at `k_positions` (default arange)."""
     B, S, _ = x.shape
+
+    def rotate(t):
+        if mrope_positions is not None:
+            return apply_mrope(t, mrope_positions, mrope_sections,
+                               rope_theta)
+        return apply_rope(t, positions, rope_theta) if use_rope else t
+
     q = masked_dense_apply(x, p["w_q"]).reshape(B, S, n_heads, head_dim)
-    q = apply_rope(q, positions, rope_theta)
+    q = rotate(add_bias(q, p, "bias_q"))
     if kv_override is not None:
         k, v = kv_override
         k_pos = (k_positions if k_positions is not None
@@ -223,9 +288,10 @@ def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
     else:
         k = masked_dense_apply(x, p["w_k"]).reshape(B, S, n_kv, head_dim)
         v = masked_dense_apply(x, p["w_v"]).reshape(B, S, n_kv, head_dim)
-        k = apply_rope(k, positions, rope_theta)
+        k = rotate(add_bias(k, p, "bias_k"))
+        v = add_bias(v, p, "bias_v")
         k_pos = positions
-    o = attention_core(q, k, v, positions, k_pos, window)
+    o = attention_core(q, k, v, positions, k_pos, window, causal)
     return masked_dense_apply(o.reshape(B, S, n_heads * head_dim),
                               p["w_o"]), (k, v)
 
@@ -302,11 +368,13 @@ def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
 # MLP, embedding, head
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, d_model, d_ff, dtype=DEFAULT_DTYPE, lead=()):
+def mlp_init(gen, d_model, d_ff, dtype=DEFAULT_DTYPE, lead=(), gated=True):
     lead = tuple(lead)
-    return {"w_up": dense_init(gen, lead + (d_model, d_ff), dtype),
-            "w_gate": dense_init(gen, lead + (d_model, d_ff), dtype),
-            "w_down": dense_init(gen, lead + (d_ff, d_model), dtype)}
+    p = {"w_up": dense_init(gen, lead + (d_model, d_ff), dtype)}
+    if gated:
+        p["w_gate"] = dense_init(gen, lead + (d_model, d_ff), dtype)
+    p["w_down"] = dense_init(gen, lead + (d_ff, d_model), dtype)
+    return p
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

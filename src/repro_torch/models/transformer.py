@@ -1,5 +1,6 @@
-"""Decoder-only transformer, dense and MoE families (the dense and
-MLA/MoE parts of `repro.models.transformer`).
+"""Decoder-only transformer: the dense (internlm2, gemma3, deepseek-7b,
+qwen2 with qkv bias), MoE with MLA (deepseek-v2-*) and VLM (qwen2-vl)
+families of `repro.models.transformer`.
 
 Layers are stacked along a leading L axis, as in the reference: the
 first `first_dense_layers` layers (all of them without experts) under
@@ -8,16 +9,21 @@ reference's `lax.scan` over each stack is a Python loop here, and layer
 l runs on block l of every leaf (a `MaskedLeaf` block carries that
 layer's seeds and flat-stream offsets).  Per-layer attention patterns
 (gemma3's 5 local : 1 global layers, each kind with its own rope theta)
-come from `layer_windows`.  The VLM branch, soft caps, qkv bias, layer
-norm and block-local MoE dispatch are not ported yet and raise.
+come from `layer_windows`.  qkv biases are f32 float leaves added after
+the masked projections.  The VLM forward prepends stub patch embeddings
+`vis_embeds` to the scaled token embeddings and rotates q and k by
+M-RoPE over (t, h, w) position streams; its masking stays causal over
+the linear positions.  Attention soft caps and block-local MoE dispatch
+are not ported yet and raise (ROADMAP Queue 1 item 5, part 2).
 
 `decode_step` is one token of KV-cache decoding over a frozen (plain)
-or masked params tree; `init_cache` makes the bf16 cache, (L, B, S, ...)
-per stack as in the reference, and `decode_step` writes each layer's new
-keys and values into it in place.  With `cfg.window_kv_cache`, a
-windowed config decodes through `decode_step_windowed` over
-`init_cache_windowed`'s ring caches (sliding-window layers keep only
-their last `sliding_window` keys).
+or masked params tree, with 1-D rope for every family (the VLM's decode
+is text-only, as in the reference); `init_cache` makes the bf16 cache,
+(L, B, S, ...) per stack as in the reference, and `decode_step` writes
+each layer's new keys and values into it in place.  With
+`cfg.window_kv_cache`, a windowed config decodes through
+`decode_step_windowed` over `init_cache_windowed`'s ring caches
+(sliding-window layers keep only their last `sliding_window` keys).
 """
 from __future__ import annotations
 
@@ -35,13 +41,11 @@ NEG_BIG = 1 << 30   # a ring cache's unwritten key sits at position -NEG_BIG
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attn_soft_cap \
-            or cfg.norm != "rms" or cfg.qkv_bias or cfg.moe_block_dispatch:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.attn_soft_cap \
+            or cfg.moe_block_dispatch:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE transformers with GQA or "
-            f"MLA attention, RMS norms and gated MLPs are ported (no VLM, "
-            f"soft cap, layer norm, qkv bias or block dispatch yet; ROADMAP "
-            f"Queue 1 item 5)")
+            f"{cfg.name}: attention soft caps and block-local MoE dispatch "
+            f"are not ported yet (ROADMAP Queue 1 item 5, part 2)")
 
 
 def layer_windows(cfg: ArchConfig, n: int):
@@ -73,7 +77,7 @@ def _stack_init(gen: torch.Generator, cfg: ArchConfig, n: int, moe: bool):
                                cfg.qk_rope_dim, cfg.v_head_dim, lead=lead)
     else:
         p["attn"] = L.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                               lead=lead)
+                               cfg.qkv_bias, lead=lead)
     if moe:
         p["moe"] = L.moe_init(gen, d, cfg.moe_d_ff, cfg.n_experts,
                               cfg.n_shared_experts, lead=lead)
@@ -129,7 +133,8 @@ def _ffn(cfg, lp, x):
     return x + L.mlp_apply(lp["mlp"], h, cfg.act)
 
 
-def _block(cfg: ArchConfig, moe: bool, x, lp, positions, window, theta):
+def _block(cfg: ArchConfig, moe: bool, x, lp, positions, window, theta,
+           mrope_positions=None):
     """One layer; returns (x, aux)."""
     h = L.rms_norm(lp["attn_norm"], x)
     if cfg.kv_lora_rank:
@@ -138,9 +143,10 @@ def _block(cfg: ArchConfig, moe: bool, x, lp, positions, window, theta):
                                   cfg.qk_rope_dim, cfg.v_head_dim,
                                   rope_theta=cfg.rope_theta)
     else:
-        attn_out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
-                                  cfg.n_kv_heads, cfg.hd, rope_theta=theta,
-                                  window=window)
+        attn_out, _ = L.gqa_apply(
+            lp["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            rope_theta=theta, window=window, mrope_positions=mrope_positions,
+            mrope_sections=cfg.mrope_sections)
     x = x + attn_out
     if moe:
         h = L.rms_norm(lp["ffn_norm"], x)
@@ -150,18 +156,42 @@ def _block(cfg: ArchConfig, moe: bool, x, lp, positions, window, theta):
     return _ffn(cfg, lp, x), 0.0
 
 
-def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits f32 (B, S, V), summed MoE aux loss)."""
+def mrope_positions(S_vis: int, S: int, B: int, device) -> torch.Tensor:
+    """(3, B, S) int64 (t, h, w) positions of S_vis patches on a grid of
+    side max(int(S_vis ** 0.5), 1), then S - S_vis text tokens: a patch
+    has t 0, h its row, w its column; text advances all three from
+    `side`, as the reference's forward lays them out."""
+    side = max(int(S_vis ** 0.5), 1)
+    vis = torch.arange(S_vis, device=device)
+    txt = side + torch.arange(S - S_vis, device=device)
+    t = torch.cat([torch.zeros_like(vis), txt])
+    h = torch.cat([vis // side, txt])
+    w = torch.cat([vis % side, txt])
+    return torch.stack([t, h, w])[:, None, :].expand(3, B, S)
+
+
+def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
+            vis_embeds: torch.Tensor = None):
+    """tokens: (B, S_text) -> (logits f32 (B, S, V), summed MoE aux loss).
+    vis_embeds: (B, S_vis, D) stub patch embeddings (the VLM), prepended
+    to the scaled token embeddings, so S = S_vis + S_text; q and k then
+    rotate by M-RoPE (`mrope_positions`) while the causal mask stays on
+    the linear positions."""
     _check_ported(cfg)
     x = L.embed_lookup(params["embed"]["table"], tokens)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    mrope = None
+    if vis_embeds is not None:
+        x = torch.cat([vis_embeds.to(x.dtype), x], dim=1)
+        mrope = mrope_positions(vis_embeds.shape[1], x.shape[1], x.shape[0],
+                                x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     wins, thetas = layer_windows(cfg, cfg.n_layers)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for key, _, moe, off in _stacks(params):
         for l in range(depth(params[key])):
             x, aux = _block(cfg, moe, x, layer_slice(params[key], l),
-                            positions, wins[off + l], thetas[off + l])
+                            positions, wins[off + l], thetas[off + l], mrope)
             aux_total = aux_total + aux
     x = L.rms_norm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])["table"]
@@ -225,12 +255,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
 
 
 def _new_kv(cfg, lp, h, positions, theta):
-    """This token's roped keys and its values, (B, 1, n_kv, hd) each."""
+    """This token's roped keys and its values, (B, 1, n_kv, hd) each (the
+    qkv biases, if any, added before the rope)."""
     B = h.shape[0]
     k = L.masked_dense_apply(h, lp["w_k"]).reshape(
         B, 1, cfg.n_kv_heads, cfg.hd)
     v = L.masked_dense_apply(h, lp["w_v"]).reshape(
         B, 1, cfg.n_kv_heads, cfg.hd)
+    k, v = L.add_bias(k, lp, "bias_k"), L.add_bias(v, lp, "bias_v")
     return L.apply_rope(k, positions, theta), v
 
 

@@ -87,7 +87,22 @@ def test_quickstart_statistics_match_jax():
     assert abs(stats["port"][1] - stats["jax"][1]) <= 0.003, stats
 
 
-def test_fig1_benchmark_prints_the_grid_on_cpu():
+def _small_setup(dataset, k, c, seed=0, n=1024, device="cuda"):
+    """`common.make_setup` on 256 images of the quickstart's task (4
+    classes of 8x8) and a Conv 16-32 / dense 64 CNN (~40k masked weights,
+    so that the arithmetic coder's few bits a leaf stay under the 0.01
+    Bpp the grid allows above eq. 13): the grid's rows and fields do not
+    depend on the widths."""
+    assert dataset in fig1_iid.DATASETS
+    gen = torch.Generator(device).manual_seed(seed)
+    task = synthetic.make_image_task(gen, n=256, img=8, n_classes=4,
+                                     noise=0.35)
+    cfg = cnn.ConvConfig("small", (16, 32), (64,), n_classes=4, img_size=8)
+    return common.setup_from(cfg, task, k, c, seed, gen)
+
+
+def test_fig1_benchmark_prints_the_grid_on_cpu(monkeypatch):
+    monkeypatch.setattr(common, "make_setup", _small_setup)
     out, err = io.StringIO(), io.StringIO()
     gains = fig1_iid.main(rounds=1, k=3, device="cpu", out=out, err=err)
     lines = out.getvalue().splitlines()

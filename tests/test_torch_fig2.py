@@ -135,8 +135,21 @@ def _reference_rows(monkeypatch, rounds):
     return lines[0], [tuple(l.split(",")[:3]) for l in lines[1:]]
 
 
+def _small_setup(dataset, k, c, seed=0, n=1024, device="cuda"):
+    """`common.make_setup` on 256 images of the quickstart's task (4
+    classes of 8x8) and a Conv 16-32 / dense 64 CNN: the grid's rows and
+    fields do not depend on the widths."""
+    assert dataset in fig2_noniid.DATASETS
+    gen = torch.Generator(device).manual_seed(seed)
+    task = synthetic.make_image_task(gen, n=256, img=8, n_classes=4,
+                                     noise=0.35)
+    cfg = cnn.ConvConfig("small", (16, 32), (64,), n_classes=4, img_size=8)
+    return common.setup_from(cfg, task, k, c, seed, gen)
+
+
 def test_fig2_benchmark_prints_the_reference_grid_on_cpu(monkeypatch):
     header, order = _reference_rows(monkeypatch, 1)
+    monkeypatch.setattr(common, "make_setup", _small_setup)
     out, err = io.StringIO(), io.StringIO()
     res = fig2_noniid.main(rounds=1, k=3, c=2, device="cpu", out=out,
                            err=err)

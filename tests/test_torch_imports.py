@@ -50,7 +50,16 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          "repro_torch.ckpt.checkpoint", "repro_torch.runtime.fault",
          "repro_torch.runtime.elastic", "repro_torch.runtime.async_engine",
          "repro_torch.runtime.agg_tree", "repro_torch.analysis.comm_model",
-         "repro_torch.tools.chaos_smoke")
+         "repro_torch.tools.chaos_smoke",
+         # the rest of the LM zoo: the new configs, the encoder-decoder,
+         # the VLM branch and the fedavg plan
+         "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen2_7b",
+         "repro_torch.configs.qwen2_vl_2b",
+         "repro_torch.configs.whisper_medium",
+         "repro_torch.configs.deepseek_v2_236b",
+         "repro_torch.models.encdec", "repro_torch.models.transformer",
+         "repro_torch.launch.plans", "repro_torch.launch.steps",
+         "repro_torch.launch.serve")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():

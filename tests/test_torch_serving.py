@@ -257,26 +257,31 @@ def test_unfrozen_masked_decode_matches_frozen(arch, tol):
 
 
 def test_decode_not_ported_families_raise():
-    """The refusals that remain (ROADMAP Queue 1 item 5): attention soft
-    caps, qkv bias, layer norm and block MoE dispatch raise at init,
-    cache and decode; the encdec and VLM families at `build_model`."""
+    """The refusals that remain (ROADMAP Queue 1 item 5, part 2):
+    attention soft caps raise at init, cache and decode, and block MoE
+    dispatch at the cache.  qkv bias and the encdec and VLM families are
+    ported: they build, and the layer-norm config decodes."""
     base = get_config("gemma3-4b", smoke=True)
-    for change in (dict(attn_soft_cap=50.0), dict(qkv_bias=True),
-                   dict(norm="layer")):
-        api = build_model(dataclasses.replace(base, **change))
-        with pytest.raises(NotImplementedError):
-            api.init_params(torch.Generator())
-        with pytest.raises(NotImplementedError):
-            api.init_cache(1, 4, "cpu")
-        with pytest.raises(NotImplementedError):
-            api.decode_step(None, None, None, 0)
+    api = build_model(dataclasses.replace(base, attn_soft_cap=50.0))
+    with pytest.raises(NotImplementedError):
+        api.init_params(torch.Generator())
+    with pytest.raises(NotImplementedError):
+        api.init_cache(1, 4, "cpu")
+    with pytest.raises(NotImplementedError):
+        api.decode_step(None, None, None, 0)
     moe = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
                               moe_block_dispatch=64)
     with pytest.raises(NotImplementedError):
         build_model(moe).init_cache(1, 4, "cpu")
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(base, family=family))
+    build_model(dataclasses.replace(base, qkv_bias=True)).init_cache(
+        1, 4, "cpu")
+    for arch in ("whisper-medium", "qwen2-vl-2b"):
+        api = build_model(get_config(arch, smoke=True))
+        params = api.init_params(torch.Generator().manual_seed(0))
+        logits, _ = api.decode_step(params, api.init_cache(1, 4, "cpu"),
+                                    torch.zeros(1, dtype=torch.int64), 0)
+        assert logits.shape == (1, 256) and bool(
+            torch.isfinite(logits).all())
 
 
 def _solo(api, mp, seed, prompt, gen, max_seq, mode):

@@ -69,6 +69,25 @@ def test_cli_trains_the_recurrent_families_on_cpu(capsys, arch, extra):
     assert not any(dispatch.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+def test_cli_trains_the_encdec_and_vlm_families_on_cpu(capsys, arch):
+    """whisper SMOKE (encoder-decoder, layer norms, zero frames) and
+    qwen2-vl SMOKE (qkv bias; the launcher's batches carry tokens only)
+    through the launcher: round lines with uplink Bpp in (0, 1], finite
+    losses, no kernel launches on the CPU."""
+    dispatch.reset_launch_counts()
+    out = train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--steps", "4", "--round-every", "2", "--cohorts",
+                      "2", "--batch", "2", "--seq", "16"])
+    rounds = [m for m in map(ROUND.match, capsys.readouterr().out
+                             .splitlines()) if m]
+    assert [int(m.group(1)) for m in rounds] == [2, 4]
+    assert all(0.0 < float(m.group(3)) <= 1.0 for m in rounds)
+    assert len(out["losses"]) == 4 and all(
+        0.0 < v < 20.0 for v in out["losses"])
+    assert not any(dispatch.LAUNCHES.values())
+
+
 def test_cli_raises_on_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
