@@ -44,7 +44,13 @@ Phases (any failure exits non-zero and prints no result line):
    the zoo's new paths give them (ZOO_DENSE, ZOO_GROUPED: whisper's
    encoder and cross projections at 2 x 1500 rows, qwen2-7b's widest
    projection, deepseek-v2-236b's q up-projection and its 160 experts
-   at 12 rows each) against their plain versions, and timed;
+   at 12 rows each) against their plain versions, and timed; then
+   kernels 1-4 on bf16 score blocks (`bf16_score_kernel_phase`): at
+   internlm2's shapes, qwen2-7b's 3584 x 18944, a ragged shape and (1-3)
+   on f32 activations, against their plain versions (masks and words
+   exactly, ds in bf16 within one ulp), no launch allocating an f32 copy
+   of its scores, timed per internlm2 layer and round beside the f32
+   scores' times and their bounds at 2 bytes a score;
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
    mamba2, recurrentgemma, qwen2-7b, qwen2-vl (4 patch embeddings a
@@ -58,7 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    `encode`), gemma3's ring caches against its
    full cache, the serving engine's tenant isolation on the card
    (bit-identical to a solo run), and the lockstep engine against the
-   exact one (tokens equal, logits within atol = rtol = 1e-5);
+   exact one (tokens equal, logits within atol = rtol = 1e-5); and
+   (`feature_backward_phase`) one SMOKE train step card against CPU of
+   internlm2 in 2 microbatches with remat, internlm2 on bf16 scores and
+   deepseek-v2-lite with block-local MoE dispatch;
 6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
    with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
    downlink: full-size internlm2-1.8b (all 24 layers), then
@@ -75,7 +84,17 @@ Phases (any failure exits non-zero and prints no result line):
    layer and one MoE layer of 160 experts) with 1 cohort, and
    internlm2-1.8b with `--algo fedavg` (no kernel, no round).  Every
    round unpacks each masked leaf's cohort words once (the unpack
-   kernel).  Then decoding
+   kernel).  Then the performance features (PR 25), through
+   `make_train_step` / `make_round_step`: qwen2-7b at all 28 layers on
+   bf16 scores with 1 cohort (4 steps, 2 rounds); internlm2-1.8b at
+   batch 4 in one batch and in 2 microbatches with remat (kernel 1
+   twice per projection and microbatch); deepseek-v2-lite at 4 layers
+   with block dispatch through the launcher (kernels 5-7 once per
+   projection, as without it) and one MoE layer's block dispatch
+   against the global one on the card; gemma3-4b's masked forward with
+   attention in chunks of 512 keys against the unchunked one at 4096
+   tokens, then alone at 32768 (its first 4096 rows against the chunked
+   forward over those tokens).  Then decoding
    through masked trees at the mamba2, recurrentgemma and gemma3 SMOKE
    configs: frozen decode against the fused training forward (kernels 1
    and 8), and the unfrozen `MaskedLeaf` tree against the frozen one
@@ -958,6 +977,231 @@ def zoo_kernel_phase(torch, mm, ref, dev):
     return err, rows
 
 
+# bf16 scores through kernels 1-4 (`score_dtype=torch.bfloat16`): the
+# shapes they are held and timed at, (label, M, K, N), and f32
+# activations at recurrentgemma's gate shape (the SIMT bodies of kernels
+# 1-2 and kernel 3's f32 body on bf16 scores)
+BF16_DENSE = (("qwen2-7b w_up", M, 3584, 18944),
+              ("ragged", RAGGED[0], RAGGED[1], RAGGED[2]))
+BF16_F32X = ("rg gate f32 x", M, 4096, 4096)
+# kernel 4 on bf16 rows: n % 8 == 0 (the vector path), n % 8 == 4 and a
+# ragged n (the scalar path), and qwen2-7b's widest layer block
+BF16_SAP_LENS = (100_008, 100_004, 100_003, 3584 * 18944)
+
+
+def bf16_score_kernel_phase(torch, mm, ref, dev):
+    """Kernels 1-4 on bf16 score blocks (no f32 copy of them is made)
+    against their plain versions, which widen each score to f32 exactly:
+    at internlm2's leaf shapes (M = 256), at qwen2-7b's 3584 x 18944 and
+    a ragged shape, both mask modes at a non-zero stream offset, and
+    kernels 1-3 on f32 activations at recurrentgemma's 4096 x 4096.
+    Masks (identity probes) and packed words exactly; kernels 1-2 within
+    the bf16 bound of `kernel_phase`; kernel 3's bf16 ds within one bf16
+    ulp of the plain version's (both round an f32 value once, and the f32
+    values differ by the sums' order).  Each launch at qwen2-7b's shape
+    (and kernel 4 on a round's rows of its block) must raise the peak of
+    allocated memory by less than the block's f32 size.  Then the times:
+    kernels 1-3 per internlm2 layer by graph replay, kernel 4 per
+    internlm2 round (7 leaves, C = 2) by events, each beside its bound
+    with 2 bytes a score and its f32-score time.  Returns ({kernel: max
+    abs err}, {kernel: {label: (ms, plain ms, library ms, bound ms)}},
+    {kernel: bf16-score layer or round ms})."""
+    bf = torch.bfloat16
+    err, rows, layer = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def close_bf16(a, b, what):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
+              f"{what}: max |diff| {float(d.max())}")
+        return float(d.max())
+
+    def ds_close(got, want, what):
+        # one bf16 ulp of the plain version's value (2**-7 of it bounds
+        # the ulp of any bf16 value; near zero, 1e-5 of the largest)
+        check(got.dtype == bf, f"{what}: ds in {got.dtype}, not bf16")
+        a, b = got.float(), want.float()
+        d = (a - b).abs()
+        check(bool((d <= BF16_RTOL * b.abs() + 1e-5 * b.abs().max()).all()),
+              f"{what}: max |diff| {float(d.max())}")
+        return float(d.max())
+
+    def no_copy(fn, s, what):
+        # a launch may allocate its output, never an f32 copy of s
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        check(grew < 4 * s.numel(), f"{what}: the launch allocated {grew} "
+              f"bytes, an f32 copy of the scores is {4 * s.numel()}")
+        return out, grew
+
+    def dense(label, m, K, N, act):
+        x = torch.randn(m, K, generator=gen, device=dev).to(act)
+        w = torch.randn(K, N, generator=gen, device=dev).to(bf)
+        s = (2 * torch.randn(K, N, generator=gen, device=dev)).to(bf)
+        g = torch.randn(m, N, generator=gen, device=dev).to(act)
+        off = (5 * K * N) & M32
+        for mode in ("sample", "threshold"):
+            kw = dict(mode=mode, tau=0.45)
+            tag = f"bf16 s {label} M={m} {act} {mode}"
+            y, grew = no_copy(lambda: mm.masked_matmul(x, w, s, 4321, off,
+                                                       **kw), s, "fwd " + tag)
+            err["masked_matmul_fwd"] = max(
+                err.get("masked_matmul_fwd", 0.0),
+                close_bf16(y, ref.masked_matmul(x, w, s, 4321, off, **kw),
+                           "fwd " + tag))
+            dx, _ = no_copy(lambda: mm.masked_matmul_dx(g, w, s, 4321, off,
+                                                        **kw), s, "dx " + tag)
+            err["masked_matmul_dx"] = max(
+                err.get("masked_matmul_dx", 0.0),
+                close_bf16(dx, ref.masked_matmul_dx(g, w, s, 4321, off, **kw),
+                           "dx " + tag))
+            del y, dx
+            # the masks by identity probes, against the upcast's sigmoid
+            r = min(m, K, N)
+            mask = (ref.threshold_mask(s, 0.45) if mode == "threshold"
+                    else ref.sample_mask(s, 4321, off))
+            wm = (mask.float() * w.float()).to(act)
+            u = (ref.hash_uniform(ref.flat_index(K, N, off, N, dev), 4321)
+                 if mode == "sample" else torch.full((K, N), 0.45,
+                                                     device=dev))
+            theta = torch.sigmoid(s.float())
+            px = torch.zeros(r, K, device=dev, dtype=act)
+            px[:, :r] = torch.eye(r, device=dev, dtype=act)
+            yp = mm.masked_matmul(px, w, s, 4321, off, **kw)
+            n_f = mask_exact(torch, yp != 0, wm[:r] != 0, u[:r], theta[:r],
+                             "fwd probe " + tag)
+            check(n_f or torch.equal(yp, wm[:r]), "fwd probe values " + tag)
+            pg = torch.zeros(r, N, device=dev, dtype=act)
+            pg[:, :r] = torch.eye(r, device=dev, dtype=act)
+            dp = mm.masked_matmul_dx(pg, w, s, 4321, off, **kw)
+            n_d = mask_exact(torch, dp.T != 0, wm[:, :r] != 0, u[:, :r],
+                             theta[:, :r], "dx probe " + tag)
+            check(n_d or torch.equal(dp.T, wm[:, :r]),
+                  "dx probe values " + tag)
+            del mask, wm, u, theta, px, yp, pg, dp
+        ds, grew = no_copy(lambda: mm.masked_matmul_ds(x, g, w, s), s,
+                           f"ds bf16 s {label}")
+        err["masked_matmul_ds"] = max(
+            err.get("masked_matmul_ds", 0.0),
+            ds_close(ds, ref.masked_matmul_ds(x, g, w, s),
+                     f"ds bf16 s {label} {act}"))
+        print(f"  bf16 scores {label} M={m} {str(act)[6:]} x: kernels 1-3 "
+              f"agree; ds's launch added {grew / 2**20:.1f} MiB (an f32 copy "
+              f"of s: {4 * K * N / 2**20:.1f})")
+        del x, w, s, g, ds
+        torch.cuda.empty_cache()
+
+    for (K, N) in sorted(set(LAYER_SHAPES.values())):
+        dense(f"{K}x{N}", M, K, N, bf)
+    for label, m, K, N in BF16_DENSE:
+        dense(label, m, K, N, bf)
+    dense(BF16_F32X[0], *BF16_F32X[1:], torch.float32)
+
+    seeds = [0x9E3779B9 * (c + 3) & M32 for c in range(COHORTS)]
+    for n in BF16_SAP_LENS + ("misaligned",):
+        if n == "misaligned":
+            n = 100_008
+            s = torch.empty(COHORTS * n + 1, device=dev, dtype=bf)[1:]
+            s = s.view(COHORTS, n)
+            s.copy_(2 * torch.randn(COHORTS, n, generator=gen, device=dev))
+            tag = f"n={n} misaligned"
+        else:
+            s = (2 * torch.randn(COHORTS, n, generator=gen,
+                                 device=dev)).to(bf)
+            tag = f"n={n}"
+        plan = mm.sap_plan(COHORTS, n, mm.card_sms(dev.index or 0),
+                           aligned=s.data_ptr() % 16 == 0, s_bytes=2)
+        check(plan["vec"] == (n % 8 == 0 and s.data_ptr() % 16 == 0),
+              f"sample_and_pack bf16 {tag}: plan {plan}")
+        for mode in ("sample", "threshold"):
+            words, grew = no_copy(
+                lambda: mm.sample_and_pack(s, seeds, mode=mode, tau=0.45), s,
+                f"sample_and_pack bf16 {tag}")
+            want = ref.sample_and_pack(s, torch.tensor(seeds, device=dev),
+                                       mode, 0.45)
+            diff = int(ref.popcount32(words ^ want).sum())
+            check(diff == 0, f"sample_and_pack bf16 {tag} {mode}: {diff} "
+                  f"bits (vector path {plan['vec']})")
+            check(torch.equal(words, mm.sample_and_pack(s, seeds, mode=mode,
+                                                        tau=0.45)),
+                  f"sample_and_pack bf16 {tag} {mode}: a repeated launch "
+                  f"gives other words")
+            del words, want
+        err["sample_and_pack"] = 0.0
+        del s
+        torch.cuda.empty_cache()
+    print("bf16 scores: kernels 1-4 agree with their plain versions "
+          f"(internlm2's shapes, {', '.join(l for l, *_ in BF16_DENSE)}, "
+          f"{BF16_F32X[0]}; sample_and_pack at n = {BF16_SAP_LENS} and a "
+          f"misaligned base), no launch allocated an f32 copy of its "
+          f"scores; max abs err {json.dumps(err)}")
+
+    # times per internlm2 layer (graph replay) beside the f32-score ones
+    # of the same call's timing phase, and their bounds at 2 bytes a score
+    ops = []
+    for name, (K, N) in LAYER_SHAPES.items():
+        x = torch.randn(M, K, generator=gen, device=dev).to(bf)
+        w = torch.randn(K, N, generator=gen, device=dev).to(bf)
+        s = torch.randn(K, N, generator=gen, device=dev).to(bf)
+        g = torch.randn(M, N, generator=gen, device=dev).to(bf)
+        wm = ref.sample_mask(s, 7, 0).to(bf) * w
+        ops.append((name, K, N, x, w, s, g, wm))
+    specs = {
+        "masked_matmul_fwd": (
+            lambda o: (lambda: mm.masked_matmul(o[3], o[4], o[5], 7, 0)),
+            lambda o: (lambda: ref.masked_matmul(o[3], o[4], o[5], 7, 0)),
+            lambda o: (lambda: o[3] @ o[7]),
+            lambda K, N: (2 * M * K + 4 * K * N + 2 * M * N, 2 * M * K * N)),
+        "masked_matmul_dx": (
+            lambda o: (lambda: mm.masked_matmul_dx(o[6], o[4], o[5], 7, 0)),
+            lambda o: (lambda: ref.masked_matmul_dx(o[6], o[4], o[5], 7, 0)),
+            lambda o: (lambda: o[6] @ o[7].T),
+            lambda K, N: (2 * M * N + 4 * K * N + 2 * M * K, 2 * M * K * N)),
+        "masked_matmul_ds": (
+            lambda o: (lambda: mm.masked_matmul_ds(o[3], o[6], o[4], o[5])),
+            lambda o: (lambda: ref.masked_matmul_ds(o[3], o[6], o[4], o[5])),
+            lambda o: (lambda: o[3].T @ o[6]),
+            lambda K, N: (2 * M * K + 2 * M * N + 6 * K * N, 2 * M * K * N)),
+    }
+    for kname, (kern, plain, lib, cost) in specs.items():
+        t_k = graph_ms(torch, [kern(o) for o in ops], 20)
+        t_l = graph_ms(torch, [lib(o) for o in ops], 20)
+        t_p = time_ms(torch, [plain(o) for o in ops], 2)
+        b_ms = bound(sum(cost(o[1], o[2])[0] for o in ops),
+                     sum(cost(o[1], o[2])[1] for o in ops))[0]
+        layer[kname] = sum(t_k)
+        rows.setdefault(kname, {})["bf16 s layer"] = (
+            sum(t_k), sum(t_p), sum(t_l), b_ms)
+        print(f"  {kname} bf16 scores per internlm2 layer: {sum(t_k):.4f} "
+              f"ms (graph replay), library {sum(t_l):.4f}, bound "
+              f"{b_ms:.4f}: {100 * b_ms / sum(t_k):.1f}% of the bound")
+    del ops
+    torch.cuda.empty_cache()
+    t_k, t_p, nbytes = 0.0, 0.0, 0
+    for name, (K, N) in LAYER_SHAPES.items():
+        n = N_LAYERS * K * N
+        s = torch.randn(COHORTS, n, generator=gen, device=dev).to(bf)
+        t_k += time_ms(torch, [lambda: mm.sample_and_pack(s, [11, 12])], 5)[0]
+        sd = torch.tensor([11, 12], device=dev)
+        t_p += time_ms(torch, [lambda: ref.sample_and_pack(s, sd)], 1)[0]
+        nbytes += COHORTS * n * 2 + COHORTS * ((n + 31) // 32) * 4
+        del s
+        torch.cuda.empty_cache()
+    b_ms = bound(nbytes, 0)[0]
+    layer["sample_and_pack"] = t_k
+    rows["sample_and_pack"] = {"bf16 s round": (t_k, t_p, None, b_ms)}
+    print(f"  sample_and_pack bf16 scores per internlm2 round (C = "
+          f"{COHORTS}): {t_k:.4f} ms, bound {b_ms:.4f}: "
+          f"{100 * b_ms / t_k:.1f}% of the bound")
+    torch.cuda.synchronize()
+    return err, rows, layer
+
+
 def conv_kernel_phase(torch, mm, ref, dev):
     """Conv kernels vs plain versions at the mamba2 and recurrentgemma
     conv shapes with the last layer's stream offset, at a ragged shape
@@ -1197,22 +1441,28 @@ def bitpack_timing_phase(torch, bp, dev):
     return res, per_shape
 
 
-def smoke_states(torch, arch, devices, f32=False):
-    """The SMOKE model of `arch`, the step config of the smoke reference,
-    one fed state per device (all from one CPU init), and the tokens of
-    its train step.  `f32`: the float leaves (embedding, norm scales,
-    biases) cast to f32, so that every activation is f32 (the masked
-    weights stay bf16, as the kernels take them)."""
+def smoke_states(torch, arch, devices, f32=False, over=None,
+                 score_dtype=None, microbatch=1):
+    """The SMOKE model of `arch` (its config fields replaced by `over`),
+    the step config of the smoke reference (`microbatch` chunks), one
+    fed state per device (all from one CPU init, scores and moments of
+    `score_dtype`, f32 by default), and the tokens of its train step.
+    `f32`: the float leaves (embedding, norm scales, biases) cast to f32,
+    so that every activation is f32 (the masked weights stay bf16, as
+    the kernels take them)."""
     from repro_torch.configs import get_config
     from repro_torch.core import masking, tree
     from repro_torch.launch import steps
     from repro_torch.models import build_model
-    api = build_model(get_config(arch, smoke=True))
-    cfg = steps.StepConfig(lam=1.0, lr=0.3, seed=17)
+    api = build_model(dataclasses.replace(get_config(arch, smoke=True),
+                                          **(over or {})))
+    cfg = steps.StepConfig(lam=1.0, lr=0.3, seed=17, microbatch=microbatch,
+                           score_dtype=score_dtype or torch.float32)
     states = []
     for d in devices:
         st = steps.init_fed_state(torch.Generator().manual_seed(3), api,
-                                  masking.MaskSpec(), C=COHORTS)
+                                  masking.MaskSpec(), C=COHORTS,
+                                  score_dtype=cfg.score_dtype)
         if f32:
             st["floats"] = tree.tree_map(
                 lambda t: None if t is None else t.float(), st["floats"])
@@ -1266,8 +1516,19 @@ def smoke_extra(torch, api, f32=False):
 # 0.05), so its backward is held on f32 activations only.  (Measured on the
 # CPU at the SMOKE configs, the batch of `smoke_states` and
 # `smoke_extra`.)
+# bf16 scores (internlm2 SMOKE, bf16 activations): the port stores each
+# score where the reference's jitted step rounds it (the step's
+# `_update_low`), on the card as on the CPU, so the reference's jit and
+# eager spread does not bound the score updates; they are held instead
+# to about five times the card's own reading against the CPU (relative
+# norm 0.001833, cosine 0.999998 on an H100 80GB HBM3 at 700 W), and the
+# first moments and float updates, on bf16 activations, to the bf16
+# default (read 0.004554 and 0.008449).
 BACKWARD_BOUNDS = {"bf16": (0.3, 0.97), "bf16 hybrid": (0.57, 0.85),
-                   "bf16 qwen2": (0.375, 0.964), "f32": (1e-2, 0.9999)}
+                   "bf16 qwen2": (0.375, 0.964), "f32": (1e-2, 0.9999),
+                   "bf16 scores": {"score update": (1e-2, 0.999),
+                                   "first moment": (0.3, 0.97),
+                                   "float update": (0.3, 0.97)}}
 F32_BACKWARD = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
                 "qwen2-7b", "qwen2-vl-2b", "whisper-medium")
 
@@ -1317,11 +1578,13 @@ def backward_check(want, got, what, bounds=BACKWARD_BOUNDS["bf16"]):
     """Per leaf of each kind of `first_step_updates`: the relative norm of
     the difference got - want and the cosine between them, held to
     `bounds` (largest relative norm, smallest cosine; a leaf that neither
-    run moved agrees).  Raises Failed on a miss; returns {kind: (max rel,
-    min cos, leaves compared)}."""
-    max_rel, min_cos = bounds
+    run moved agrees; a dict of bounds gives each kind its own).  Raises
+    Failed on a miss; returns {kind: (max rel, min cos, leaves
+    compared)}."""
     out = {}
     for kind, pairs in want.items():
+        max_rel, min_cos = (bounds[kind] if isinstance(bounds, dict)
+                            else bounds)
         worst_rel, worst_cos, n = 0.0, 1.0, 0
         for (path, a), (path_b, b) in zip(pairs, got[kind]):
             check(path == path_b and a.shape == b.shape,
@@ -1395,6 +1658,38 @@ def smoke_reference_phase(torch, dev, arch):
               + (f"bounds {bounds[0]}, {bounds[1]}" if held else
                  "not gated: the reference's own spread") + "): "
               + "; ".join(
+                  f"{kind} ({n} leaves) {rel:.4g}, {cos:.6f}"
+                  for kind, (rel, cos, n) in agree.items()))
+
+
+def feature_backward_phase(torch, dev):
+    """`backward_check` of the slice's new step features, one SMOKE train
+    step each on the card against the same step on the CPU (bf16
+    activations): internlm2 in 2 microbatches with each layer recomputed
+    (`remat`), internlm2 on bf16 scores and moments, and deepseek-v2-lite
+    with block-local MoE dispatch (4 blocks of 16 tokens); the loss
+    within 0.5% and each leaf within its bounds (BACKWARD_BOUNDS)."""
+    for arch, kw, key in (
+            ("internlm2-1.8b", dict(over={"remat": True}, microbatch=2),
+             "bf16"),
+            ("internlm2-1.8b", dict(score_dtype=torch.bfloat16),
+             "bf16 scores"),
+            ("deepseek-v2-lite-16b",
+             dict(over={"moe_block_dispatch": BLOCK_DISPATCH}), "bf16")):
+        api, cfg, states, toks = smoke_states(torch, arch, ("cpu", dev),
+                                              **kw)
+        losses, updates = zip(*(first_step_updates(api, cfg, st, toks)
+                                for st in states))
+        check(abs(losses[0] - losses[1]) <= 5e-3 * abs(losses[0]),
+              f"feature step {arch} {kw}: loss cpu {losses[0]} card "
+              f"{losses[1]}")
+        agree = backward_check(updates[0], updates[1],
+                               f"feature backward {arch} {kw}",
+                               BACKWARD_BOUNDS[key])
+        what = ", ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"feature backward {arch} ({what}): loss cpu {losses[0]:.6f} "
+              f"card {losses[1]:.6f}; worst leaf (relative norm, cosine; "
+              f"bounds {BACKWARD_BOUNDS[key]}): " + "; ".join(
                   f"{kind} ({n} leaves) {rel:.4g}, {cos:.6f}"
                   for kind, (rel, cos, n) in agree.items()))
 
@@ -1730,6 +2025,328 @@ def vlm_patch_step(torch, dispatch, dev):
     del state, batch, metrics
     torch.cuda.empty_cache()
     return got
+
+
+# The slice's new paths (PR 25): qwen2-7b at all 28 layers on bf16
+# scores with one cohort; internlm2-1.8b at batch 4 in 2 microbatches
+# with each layer recomputed; deepseek-v2-lite at 4 layers with
+# block-local MoE dispatch; gemma3-4b's chunked prefill forward
+FULL_DEPTH_ARCH, FULL_DEPTH_COHORTS = "qwen2-7b", 1
+MICRO_BATCH, MICRO = 4, 2
+BLOCK_DISPATCH = 4
+CHUNK_KV, CHUNK_CHECK_LEN, CHUNK_LONG_LEN = 512, 4096, 32768
+# On bf16 activations the chunked forward rounds the attention output's
+# f32 sums at other points than the unchunked one, and 34 layers carry
+# that apart.  It is gated at this share of the bf16 rounding spread
+# itself, the unchunked forward on bf16 against f32 activations, both
+# read in the same call: on gemma3 SMOKE cut to 12 layers (a 64-token
+# window, 256 tokens in chunks of 32) the reference's own chunked spread
+# is 0.101 of its rounding spread and the port's 0.089, on the CPU
+# (tests/test_torch_perf_features.py,
+# `test_bf16_chunked_spread_within_rounding_spread`, which holds both to
+# this share).  The chunked forward at CHUNK_LONG_LEN tokens is held to
+# the same bound against the chunked one at CHUNK_CHECK_LEN on their
+# common rows: causal attention reads no later key, so they differ only
+# where a product over more rows sums in another order.
+CHUNK_BF16_SPREAD = 0.5
+
+
+def steps_path(torch, dispatch, dev, cfg, scfg, cohorts, batch, seq,
+               steps_, every, codec="arithmetic"):
+    """`steps.make_train_step` / `make_round_step` on the card, batches
+    drawn from the launcher's token stream as `launch.train` draws them
+    (the launcher has no score-type, microbatch or remat flag, as the
+    reference's has none), on a fed state of `scfg.score_dtype`:
+    `steps_` steps, a round every `every`.  Returns ({kernel: launches},
+    step seconds, round seconds, round metrics, losses, peak GiB)."""
+    from repro_torch.core import masking
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.runtime import fault
+    api = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+    state = steps.init_fed_state(gen, api, masking.MaskSpec(), C=cohorts,
+                                 score_dtype=scfg.score_dtype)
+    step_fn = steps.make_train_step(api, scfg)
+    round_fn = steps.make_round_step(api, scfg, codec=codec)
+    toks = synthetic.make_lm_stream(scfg.seed, 500_000, cfg.vocab, dev)
+    dispatch.reset_launch_counts()
+    t_step, t_round, rounds, losses = [], [], [], []
+    for step in range(steps_):
+        bgen = torch.Generator(device=dev)
+        bgen.manual_seed(fault.counter_seed(scfg.seed, step, fault.S_BATCH))
+        idx = torch.randint(0, toks.shape[0] - seq - 1, (cohorts, batch),
+                            generator=bgen, device=dev)
+        tokens = toks[idx[..., None] + torch.arange(seq, device=dev)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_step.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if (step + 1) % every == 0:
+            t0 = time.perf_counter()
+            state, rm = round_fn(state)
+            torch.cuda.synchronize()
+            t_round.append(time.perf_counter() - t0)
+            rounds.append({k: float(v) for k, v in rm.items()})
+    got = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses), f"{cfg.name}: losses "
+          f"{losses}")
+    check(len(rounds) == steps_ // every and all(
+        0.0 < r["bpp"] <= 1.0 for r in rounds),
+          f"{cfg.name}: rounds {rounds}")
+    del state, step_fn, round_fn, toks
+    torch.cuda.empty_cache()
+    return got, t_step, t_round, rounds, losses, peak
+
+
+def _fmt(ts):
+    return [round(t, 4) for t in ts]
+
+
+def full_depth_phase(torch, dispatch, dev):
+    """qwen2-7b at all 28 layers on one card: bf16 scores and moments
+    (`init_fed_state(score_dtype=torch.bfloat16)`, 2 bytes a weight each
+    beside the bf16 w and the bf16 score gradients), 1 cohort, fedpm_reg,
+    batch 2 x seq 128, 4 steps, a round every 2, 8-bit downlink,
+    arithmetic codec, seed 17.  Kernels 1-3 launch once per projection
+    (28 x 7) and step, kernel 4 and 11 once per masked leaf (7) and
+    round; the step and round seconds, the peak and the rounds' Bpp are
+    printed.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    cfg = get_config(FULL_DEPTH_ARCH)
+    steps_, every = 4, 2
+    scfg = steps.StepConfig(lam=1.0, lr=0.3, downlink_bits=8, seed=17,
+                            score_dtype=torch.bfloat16)
+    t0 = time.time()
+    got, ts, tr, rounds, losses, peak = steps_path(
+        torch, dispatch, dev, cfg, scfg, FULL_DEPTH_COHORTS, 2, 128, steps_,
+        every)
+    n = cfg.n_layers * 7 * FULL_DEPTH_COHORTS * steps_
+    leaves = ROUND_LEAVES[cfg.name] * (steps_ // every)
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                  masked_matmul_ds=n, sample_and_pack=leaves,
+                  unpack_bits=leaves)
+    check(got == expect, f"{cfg.name} full depth launches {got}, expected "
+          f"{expect}")
+    print(f"full depth: {cfg.name} at all {cfg.n_layers} layers, bf16 "
+          f"scores, {FULL_DEPTH_COHORTS} cohort, batch 2 x seq 128, "
+          f"{steps_} steps, a round every {every} ({time.time() - t0:.1f}s):"
+          f" step seconds {_fmt(ts)}; round seconds {_fmt(tr)}; losses "
+          f"{_fmt(losses)}; bpp {[round(r['bpp'], 6) for r in rounds]}, "
+          f"measured {[round(r['bpp_measured'], 6) for r in rounds]}; max "
+          f"memory allocated {peak:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in got.items() if v})}")
+    return got
+
+
+def microbatch_remat_phase(torch, dispatch, dev):
+    """internlm2-1.8b (nothing cut) at batch MICRO_BATCH, 2 cohorts, 4
+    steps and a round every 2: first in one batch, then in MICRO
+    microbatches with `cfg.remat` (each layer recomputed in the
+    backward), in the same call.  Microbatched with remat, kernel 1
+    launches twice per projection, microbatch, cohort and step (the
+    forward and its recompute) and kernels 2-3 once; kernel 4 and 11 once
+    per leaf and round.  Each run's step and round seconds and peak are
+    printed.  Returns the launch counts of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    steps_, every = 4, 2
+    total = {k: 0 for k in dispatch.KERNELS}
+    base = get_config("internlm2-1.8b")
+    leaves = ROUND_LEAVES[base.name] * (steps_ // every)
+    for micro, remat in ((1, False), (MICRO, True)):
+        cfg = dataclasses.replace(base, remat=remat)
+        scfg = steps.StepConfig(lam=1.0, lr=0.3, downlink_bits=8, seed=17,
+                                microbatch=micro)
+        got, ts, tr, rounds, losses, peak = steps_path(
+            torch, dispatch, dev, cfg, scfg, COHORTS, MICRO_BATCH, 128,
+            steps_, every)
+        n = cfg.n_layers * len(LAYER_SHAPES) * COHORTS * steps_ * micro
+        expect = {k: 0 for k in dispatch.KERNELS}
+        expect.update(masked_matmul_fwd=n * (2 if remat else 1),
+                      masked_matmul_dx=n, masked_matmul_ds=n,
+                      sample_and_pack=leaves, unpack_bits=leaves)
+        check(got == expect, f"internlm2 microbatch {micro} remat {remat} "
+              f"launches {got}, expected {expect}")
+        print(f"internlm2-1.8b batch {MICRO_BATCH} in {micro} "
+              f"microbatch(es), remat {remat}: step seconds {_fmt(ts)}; "
+              f"round seconds {_fmt(tr)}; losses {_fmt(losses)}; bpp "
+              f"{[round(r['bpp'], 6) for r in rounds]}; max memory "
+              f"allocated {peak:.2f} GiB; kernel 1-3 launches "
+              f"{got['masked_matmul_fwd']}, {got['masked_matmul_dx']}, "
+              f"{got['masked_matmul_ds']}")
+        total = {k: total[k] + got[k] for k in total}
+    return total
+
+
+def block_dispatch_phase(torch, dispatch, dev, argv, steps_, every):
+    """deepseek-v2-lite-16b at full width cut to MOE_LAYERS layers with
+    `moe_block_dispatch` = BLOCK_DISPATCH through the launcher: kernels
+    5-7 launch exactly once per projection, MoE layer, cohort and step,
+    as without block dispatch (the blocks fold into one (E, G*C) launch).
+    Then one MoE layer of its published width on the card, with ample
+    capacity (capacity factor E / k: no block drops a token), block
+    dispatch against the global dispatch within the reference test's
+    1e-4.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=MOE_LAYERS,
+                              moe_block_dispatch=BLOCK_DISPATCH)
+    n_moe = MOE_LAYERS - cfg.first_dense_layers
+    per_pass = COHORTS * steps_
+    expect = {k: 0 for k in dispatch.KERNELS}
+    expect.update({k: 8 * MOE_LAYERS * per_pass for k in (
+        "masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds")})
+    expect.update({k: 3 * n_moe * per_pass for k in (
+        "masked_matmul_grouped", "masked_matmul_grouped_dx",
+        "masked_matmul_grouped_ds")})
+    n = ROUND_LEAVES[cfg.name] * (steps_ // every)
+    expect.update(sample_and_pack=n, unpack_bits=n)
+    got = train_path(torch, dispatch, cfg, expect, argv, steps_, every)
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    p = L.moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.n_experts, 0)
+    p = {k: (v.float() if k == "router_w" else masking.MaskedLeaf.build(
+        v, torch.randn(v.shape, generator=gen, device=dev), 77))
+        for k, v in p.items()}
+    x = torch.randn(2, 128, cfg.d_model, generator=gen, device=dev)
+    cf = cfg.n_experts / cfg.top_k
+    dispatch.reset_launch_counts()
+    with torch.no_grad():
+        y0, _ = L.moe_apply(p, x, cfg.n_experts, cfg.top_k, cf)
+        yb, _ = L.moe_apply(p, x, cfg.n_experts, cfg.top_k, cf,
+                            block_dispatch=BLOCK_DISPATCH)
+    torch.cuda.synchronize()
+    layer = dict(dispatch.LAUNCHES)
+    d = float((y0.float() - yb.float()).abs().max())
+    scale = float(y0.float().abs().max())
+    check(bool(torch.allclose(y0.float(), yb.float(), rtol=1e-4,
+                              atol=1e-4)),
+          f"block dispatch vs global at capacity factor {cf}: max |diff| "
+          f"{d} at scale {scale}")
+    check(layer["masked_matmul_grouped"] == 2 * 3,
+          f"block dispatch layer launches {layer}")
+    print(f"block dispatch: one deepseek-v2-lite MoE layer (E = "
+          f"{cfg.n_experts}, k = {cfg.top_k}, 256 tokens) at capacity "
+          f"factor {cf}, {BLOCK_DISPATCH} blocks against the global "
+          f"dispatch on the card: max |diff| {d:.3g} at scale {scale:.3g} "
+          f"(bound 1e-4); 3 grouped launches each")
+    del p, x, y0, yb
+    torch.cuda.empty_cache()
+    return {k: got[k] + layer[k] for k in got}
+
+
+def chunked_attention_phase(torch, dispatch, dev):
+    """gemma3-4b (in the reference's long-context set) at its published
+    width, batch 1, bf16 scores: a masked forward without grad over its
+    unfrozen scores, attention in chunks of CHUNK_KV keys, against the
+    unchunked forward at CHUNK_CHECK_LEN tokens.  With the float leaves
+    cast to f32, every activation is f32 and only the order of the f32
+    sums differs: logits within 1e-3 of their scale.  On the config's
+    bf16 activations the two round at other points through 34 layers:
+    held to CHUNK_BF16_SPREAD of the bf16 rounding spread read in the
+    same call (the unchunked forward on bf16 against f32 activations).
+    Then the chunked forward alone at CHUNK_LONG_LEN tokens (the
+    reference's prefill_32k) on the bf16 activations, whose f32 logits
+    alone are 34.4 GB: its seconds and peak, kernel 1 at M = 32768 rows,
+    and its first CHUNK_CHECK_LEN rows against the chunked forward over
+    those tokens alone, at the same bound.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masking, tree
+    from repro_torch.models import build_model
+    cfg = get_config("gemma3-4b")
+    api = build_model(cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(43)
+    mp = masking.init_masked(gen, api.init_params(gen), masking.MaskSpec(),
+                             score_dtype=torch.bfloat16)
+    fused = masking.masked_forward_tree(
+        mp, lambda i: masking.mask_stream_seed(0, 0, i, 0, run_seed=17))
+    toks = torch.randint(0, cfg.vocab, (1, CHUNK_LONG_LEN), generator=gen,
+                         device=dev)
+    f32 = tree.tree_map(
+        lambda p: p if isinstance(p, masking.MaskedLeaf) or p is None
+        else p.float(), fused)
+    amax = lambda a, b: float((a - b).abs().max())
+    dispatch.reset_launch_counts()
+    with torch.no_grad():
+        short = {"tokens": toks[:, :CHUNK_CHECK_LEN]}
+        f32_u = api.forward(f32, short)[0]
+        got = api.forward(f32, short, chunk_kv=CHUNK_KV)[0]
+        d, scale = amax(got, f32_u), float(f32_u.abs().max())
+        mean = float((got - f32_u).abs().mean())
+        del got
+        bf_u = api.forward(fused, short)[0]
+        bf_c = api.forward(fused, short, chunk_kv=CHUNK_KV)[0]
+        rounding, bd = amax(bf_u, f32_u), amax(bf_c, bf_u)
+        bmean = float((bf_c - bf_u).abs().mean())
+        del f32_u, bf_u
+    torch.cuda.synchronize()
+    total = dict(dispatch.LAUNCHES)
+    check(d <= 1e-3 * scale, f"gemma3-4b chunked vs unchunked at "
+          f"{CHUNK_CHECK_LEN} tokens, f32 activations: max |diff| {d} at "
+          f"scale {scale}")
+    bound = CHUNK_BF16_SPREAD * rounding
+    check(bd <= bound, f"gemma3-4b chunked vs unchunked at "
+          f"{CHUNK_CHECK_LEN} tokens, bf16 activations: max |diff| {bd}, "
+          f"bound {bound} ({CHUNK_BF16_SPREAD} of the bf16 rounding spread "
+          f"{rounding})")
+    # the short chunked logits wait on the host, out of the long
+    # forward's peak
+    bf_c = bf_c.cpu()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = api.forward(fused, {"tokens": toks}, chunk_kv=CHUNK_KV)[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    long_launches = dict(dispatch.LAUNCHES)
+    # in slices of rows: a test of the whole 34.4 GB at once would
+    # allocate as much again
+    rows = range(0, logits.shape[1], 1024)
+    finite = all(bool(torch.isfinite(logits[:, i:i + 1024]).all())
+                 for i in rows)
+    ld = max(amax(logits[:, i:i + 1024], bf_c[:, i:i + 1024].to(dev))
+             for i in range(0, CHUNK_CHECK_LEN, 1024))
+    shape = tuple(logits.shape)
+    del logits, bf_c
+    check(finite and shape == (1, CHUNK_LONG_LEN, cfg.vocab),
+          f"gemma3-4b chunked forward at {CHUNK_LONG_LEN}: shape {shape}, "
+          f"finite {finite}")
+    check(ld <= bound, f"gemma3-4b chunked forward at {CHUNK_LONG_LEN}: its "
+          f"first {CHUNK_CHECK_LEN} rows against the chunked forward over "
+          f"those tokens: max |diff| {ld}, bound {bound}")
+    n = cfg.n_layers * 7
+    check(long_launches["masked_matmul_fwd"] == n,
+          f"gemma3-4b chunked forward launches {long_launches}")
+    print(f"chunked attention: gemma3-4b, bf16 scores, chunks of "
+          f"{CHUNK_KV} keys: at {CHUNK_CHECK_LEN} tokens chunked vs "
+          f"unchunked logits on f32 activations max |diff| {d:.4g}, mean "
+          f"{mean:.3g}, at scale {scale:.4g} (bound 1e-3 of it); on bf16 "
+          f"activations max |diff| {bd:.4g}, mean {bmean:.3g}, bf16 "
+          f"rounding spread {rounding:.4g} (bound {CHUNK_BF16_SPREAD} of "
+          f"it, {bound:.4g}); at {CHUNK_LONG_LEN} tokens the chunked "
+          f"forward {dt:.3f}s, max memory allocated {peak:.2f} GiB, its "
+          f"first {CHUNK_CHECK_LEN} rows against the short chunked forward "
+          f"max |diff| {ld:.4g}, kernel 1 launched {n} times at M = "
+          f"{CHUNK_LONG_LEN}")
+    del mp, fused, f32, toks
+    torch.cuda.empty_cache()
+    return {k: total[k] + long_launches[k] for k in total}
 
 
 def masked_decode_phase(torch, dispatch, dev):
@@ -3398,6 +4015,15 @@ def main():
         err[k] = max(err[k], v)
     for k, rows in zoo_rows.items():
         per_shape[k].update(rows)
+    bf_err, bf_rows, bf_layer = bf16_score_kernel_phase(torch, mm, ref, dev)
+    for k, v in bf_err.items():
+        err[k] = max(err[k], v)
+    for k, rows in bf_rows.items():
+        per_shape[k].update(rows)
+    print("bf16 scores against f32 scores (same call): " + "; ".join(
+        f"{k} {bf_layer[k]:.4f} ms against {timing[k]['ms']:.4f}"
+        for k in bf_layer) + " (kernels 1-3 per internlm2 layer, 4 per "
+        "round)")
     print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
           f"at M={M}, grouped at E={N_EXPERTS} M={CAP}; conv per layer at "
           f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds; pack per leaf, "
@@ -3413,6 +4039,7 @@ def main():
                  "recurrentgemma-9b", "qwen2-7b", "qwen2-vl-2b",
                  "whisper-medium"):
         smoke_reference_phase(torch, dev, arch)
+    feature_backward_phase(torch, dev)
     decode_reference_phase(torch, dev)
     print(f"smoke reference phase: {time.time() - t0:.1f}s")
 
@@ -3481,6 +4108,17 @@ def main():
         if cfg.name == "qwen2-vl-2b":
             got = vlm_patch_step(torch, dispatch, dev)
             launches = {k: launches[k] + got[k] for k in launches}
+
+    # the slice's new paths: full depth on bf16 scores, microbatches with
+    # remat, block-local MoE dispatch, chunked attention at 32k tokens
+    for phase in (full_depth_phase, microbatch_remat_phase,
+                  block_dispatch_phase, chunked_attention_phase):
+        t0 = time.time()
+        got = (phase(torch, dispatch, dev, argv, steps_, every)
+               if phase is block_dispatch_phase
+               else phase(torch, dispatch, dev))
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"{phase.__name__}: {time.time() - t0:.1f}s")
 
     t0 = time.time()
     got = masked_decode_phase(torch, dispatch, dev)

@@ -4,12 +4,14 @@
 // Replaces the Pallas kernel `_ds_kernel` / `masked_matmul_ds` in
 // src/repro/kernels/masked_matmul.py:297.
 //
-// w: bf16, s: f32, ds: f32 (the reference casts to s.dtype); x and g:
-// both bf16, or both f32 (an f32 forward and its cotangent).
+// w: bf16, s and ds: f32, or both bf16 (ds computed in f32 and rounded
+// once at the store, as the reference casts to s.dtype); x and g: both
+// bf16, or both f32 (an f32 forward and its cotangent).
 //
 // Bound on this card: every weight costs 10 bytes of device memory (w
 // bf16 2, s f32 4, ds f32 4), plus x and g read once, against 2*M flops:
-// 0.195 ms per internlm2-1.8b layer (M = 256) at 3.35 TB/s, where its
+// 0.195 ms per internlm2-1.8b layer (M = 256) at 3.35 TB/s (6 bytes a
+// weight and 0.120 ms with bf16 s and ds), where its
 // 32 GFLOP take 0.033 ms on the bf16 tensor cores (0.48 ms on the f32
 // CUDA cores, which is why the product must leave them).  The reference
 // keeps x^T g and sigmoid(s) out of device memory; so does this kernel.
@@ -31,12 +33,19 @@
 // partial sums in device memory, the same bits on every launch.
 #include "masked_matmul_ds_wgmma.cuh"
 
-// bn, stages, chunks, smem, grid, tma: the launch plan
-// (kernels.masked_matmul.ds_plan and the wrapper's 16-byte-grid flags).
+// s_bf16: s and ds are bf16 (f32 otherwise); bn, stages, chunks, smem,
+// grid, tma: the launch plan (kernels.masked_matmul.ds_plan and the
+// wrapper's 16-byte-grid flags).
 extern "C" int masked_matmul_ds(const void* x, const void* g, const void* w,
                                 const void* s, void* ds, int M, int K, int N,
-                                int x_f32, int bn, int stages, int chunks,
-                                int smem, int grid, int tma, void* stream) {
-  return repro::dsw::launch(x, g, w, s, ds, 1, M, K, N, x_f32, bn, stages,
-                            chunks, smem, grid, tma, (cudaStream_t)stream);
+                                int x_f32, int s_bf16, int bn, int stages,
+                                int chunks, int smem, int grid, int tma,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return s_bf16 ? repro::dsw::launch<true>(x, g, w, s, ds, 1, M, K, N, x_f32,
+                                           bn, stages, chunks, smem, grid,
+                                           tma, st)
+                : repro::dsw::launch<false>(x, g, w, s, ds, 1, M, K, N, x_f32,
+                                            bn, stages, chunks, smem, grid,
+                                            tma, st);
 }

@@ -1,9 +1,12 @@
 // Tensor-core body of kernels 3 and 7 (masked_matmul_ds.cu,
 // masked_matmul_grouped_ds.cu): for E stacked problems (kernel 3: E = 1)
-//     ds[e] (K, N) f32 = (x[e]^T g[e]) * w[e] * sigmoid'(s[e]),
+//     ds[e] (K, N) = (x[e]^T g[e]) * w[e] * sigmoid'(s[e]),
 //     sigmoid'(s) = sigmoid(s) * (1 - sigmoid(s)),
 // for x (E, M, K) and g (E, M, N) both bf16 or both f32, w (E, K, N) bf16
-// and s (E, K, N) f32.
+// and s (E, K, N) f32, or bf16 (SB: kernel 3 on bf16 scores), with ds in
+// s's type: a bf16 score is widened to f32 exactly, ds is computed in f32
+// and rounded once to bf16 (to nearest even) at the store, as the
+// reference casts its f32 result to s.dtype.
 //
 // A block owns a BK x BN tile of one group's ds (BK = 128 rows of K: two
 // consumer warpgroups of 64; BN = 64 or 128 columns of N) and walks all
@@ -95,8 +98,8 @@ struct Params {
   const void* x;       // (E, M, K) bf16 or f32
   const void* g;       // (E, M, N) bf16 or f32
   const uint16_t* w;   // (E, K, N) bf16 bits
-  const float* s;      // (E, K, N)
-  float* ds;           // (E, K, N)
+  const void* s;       // (E, K, N) f32, or bf16 bits (SB)
+  void* ds;            // (E, K, N) in s's type
   int E, M, K, N;
   int stages;          // bf16: stages of BMS rows in the x/g ring; f32:
                        // split stages of BMF rows, 2 (one split while the
@@ -149,9 +152,9 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t lbo) {
 
 // Byte offset of element (row, col) of a (w, s) chunk of WR rows, each
 // held in boxes of WR rows of 128 bytes with the 128-byte swizzle (TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B on 1024-aligned boxes): w in boxes of 64
-// columns, s in boxes of 32.  A warp reading 8 rows of 16 or 32 bytes
-// finds each row in other banks.
+// CU_TENSOR_MAP_SWIZZLE_128B on 1024-aligned boxes): w (and bf16 s) in
+// boxes of 64 columns, f32 s in boxes of 32.  A warp reading 8 rows of 16
+// or 32 bytes finds each row in other banks.
 __device__ __forceinline__ uint32_t w_offset(int row, int col) {
   return static_cast<uint32_t>((col >> 6) * (WR * 128) + row * 128 +
                                ((((col >> 3) & 7) ^ (row & 7)) << 4) +
@@ -161,6 +164,16 @@ __device__ __forceinline__ uint32_t s_offset(int row, int col) {
   return static_cast<uint32_t>((col >> 5) * (WR * 128) + row * 128 +
                                ((((col >> 2) & 7) ^ (row & 7)) << 4) +
                                (col & 3) * 4);
+}
+
+// An f32 value rounded to bf16 (to nearest even), as bits; two of them
+// packed low first.
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(bf16_bits(lo)) |
+         (static_cast<uint32_t>(bf16_bits(hi)) << 16);
 }
 
 // d (64 x BN per warpgroup, f32) += A (64 x 16) @ B (16 x BN), both
@@ -231,14 +244,14 @@ __device__ __forceinline__ void wgmma_mn<128>(float* d, uint64_t da,
 //     boxes of BMF rows) |
 //   (w, s) chunks (chunks x CHUNK: WR rows of w, then of s) |
 //   mbarriers: full_xg, empty_xg (stages each), full_ws, empty_ws (chunks)
-template <int BN, bool F32>
+template <int BN, bool F32, bool SB = false>
 struct Layout {
   static constexpr int ROWS = F32 ? BMF : BMS;   // rows of a stage
   static constexpr int BOX = ROWS * 128;         // one 64-column box
   static constexpr int X_BYTES = BK / 64 * BOX;
   static constexpr int G_BYTES = BN / 64 * BOX;
   static constexpr int STAGE = (F32 ? 3 : 1) * (X_BYTES + G_BYTES);
-  static constexpr int W_CHUNK = WR * BN * 2, S_CHUNK = WR * BN * 4;
+  static constexpr int W_CHUNK = WR * BN * 2, S_CHUNK = WR * BN * (SB ? 2 : 4);
   static constexpr int CHUNK = W_CHUNK + S_CHUNK;
   uint32_t base;
   int stages, chunks;
@@ -367,14 +380,14 @@ __device__ __forceinline__ void store_stage(const F32Stage<BN>& f,
 // 16 consumer warps hide the epilogue's latency: at most 96 registers.
 // LONG (f32, M > LONG_ROWS, width 64: one block an SM) folds the
 // partial sums.
-template <int BN, bool F32, bool LONG>
+template <int BN, bool F32, bool LONG, bool SB>
 __global__ void __launch_bounds__(THREADS,
                                   (F32 && BN == 64 && !LONG) ? 2 : 1)
     ds_gemm(const __grid_constant__ CUtensorMap map_x,
             const __grid_constant__ CUtensorMap map_g,
             const __grid_constant__ CUtensorMap map_w,
             const __grid_constant__ CUtensorMap map_s, const Params p) {
-  using L = Layout<BN, F32>;
+  using L = Layout<BN, F32, SB>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -451,7 +464,8 @@ __global__ void __launch_bounds__(THREADS,
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const Tile tl = tile_at<BN>(tile, tiles_n, per_group);
       const uint16_t* we = p.w + tl.e * wsize;
-      const float* se = p.s + tl.e * wsize;
+      const float* se = static_cast<const float*>(p.s) + tl.e * wsize;
+      const uint16_t* se16 = static_cast<const uint16_t*>(p.s) + tl.e * wsize;
       for (int v = 0; v < CONSUMERS / 32; ++v, ++q) {
         const int st = q % p.chunks, r0 = tl.k0 + v * WR;
         mbar_wait(lay.empty_ws(st), ((q / p.chunks) & 1) ^ 1);
@@ -467,7 +481,10 @@ __global__ void __launch_bounds__(THREADS,
             if (!(p.tma & 4))
               *reinterpret_cast<uint16_t*>(wd + w_offset(row, col)) =
                   in ? we[o] : uint16_t(0);
-            if (!(p.tma & 8))
+            if (!(p.tma & 8) && SB)
+              *reinterpret_cast<uint16_t*>(sd + w_offset(row, col)) =
+                  in ? se16[o] : uint16_t(0);
+            else if (!(p.tma & 8))
               *reinterpret_cast<float*>(sd + s_offset(row, col)) =
                   in ? se[o] : 0.0f;
           }
@@ -480,9 +497,10 @@ __global__ void __launch_bounds__(THREADS,
               tma_load3(lay.w(st) + b * WR * 128, &map_w, tl.n0 + 64 * b, r0,
                         tl.e, lay.full_ws(st));
           if (in_k && (p.tma & 8))
-            for (int b = 0; b < BN / 32; ++b)
-              tma_load3(lay.s(st) + b * WR * 128, &map_s, tl.n0 + 32 * b, r0,
-                        tl.e, lay.full_ws(st));
+            for (int b = 0; b < BN / (SB ? 64 : 32); ++b)
+              tma_load3(lay.s(st) + b * WR * 128, &map_s,
+                        tl.n0 + (SB ? 64 : 32) * b, r0, tl.e,
+                        lay.full_ws(st));
         } else {
           mbar_arrive(lay.full_ws(st));
         }
@@ -601,8 +619,15 @@ __global__ void __launch_bounds__(THREADS,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = (lane >> 2) + 8 * h;
-          const float2 sv =
-              *reinterpret_cast<const float2*>(sb + s_offset(row, col));
+          float2 sv;
+          if (SB) {   // two bf16 scores, widened exactly
+            const uint32_t b2 =
+                *reinterpret_cast<const uint32_t*>(sb + w_offset(row, col));
+            sv = make_float2(__uint_as_float(b2 << 16),
+                             __uint_as_float(b2 & 0xFFFF0000u));
+          } else {
+            sv = *reinterpret_cast<const float2*>(sb + s_offset(row, col));
+          }
           const uint32_t wv =
               *reinterpret_cast<const uint32_t*>(wb + w_offset(row, col));
           const float sig0 = sigmoid(sv.x), sig1 = sigmoid(sv.y);
@@ -619,11 +644,13 @@ __global__ void __launch_bounds__(THREADS,
       q += CONSUMERS / 32;
     }
     const int odd = lane & 1;
-    float* const dse = p.ds + tl.e * wsize;
+    float* const dse = static_cast<float*>(p.ds) + tl.e * wsize;
+    uint16_t* const dse16 = static_cast<uint16_t*>(p.ds) + tl.e * wsize;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gk = tl.k0 + (tid >> 5) * WR + (lane >> 2) + 8 * h;
       float* o = dse + (int64_t)gk * p.N + tl.n0;
+      uint16_t* o16 = dse16 + (int64_t)gk * p.N + tl.n0;
 #pragma unroll
       for (int j = 0; j < BN / 8; j += 2) {
         const float2 dj =
@@ -639,17 +666,28 @@ __global__ void __launch_bounds__(THREADS,
               make_float2(__shfl_xor_sync(0xFFFFFFFFu, theirs.x, 1),
                           __shfl_xor_sync(0xFFFFFFFFu, theirs.y, 1));
           const int gn = 8 * (j + odd) + 4 * ((lane & 3) >> 1);
-          if (gk < p.K && tl.n0 + gn < p.N)
-            *reinterpret_cast<float4*>(o + gn) =
-                odd ? make_float4(got.x, got.y, mine.x, mine.y)
-                    : make_float4(mine.x, mine.y, got.x, got.y);
+          const float4 v = odd ? make_float4(got.x, got.y, mine.x, mine.y)
+                               : make_float4(mine.x, mine.y, got.x, got.y);
+          if (gk < p.K && tl.n0 + gn < p.N) {
+            if (SB)   // 8 bytes: 4 columns in bf16
+              *reinterpret_cast<uint2*>(o16 + gn) =
+                  make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+            else
+              *reinterpret_cast<float4*>(o + gn) = v;
+          }
         } else {
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const float2 d = u ? dk : dj;
             const int gn = 8 * (j + u) + 2 * (lane & 3);
-            if (gk < p.K && tl.n0 + gn < p.N) o[gn] = d.x;
-            if (gk < p.K && tl.n0 + gn + 1 < p.N) o[gn + 1] = d.y;
+            if (SB) {
+              if (gk < p.K && tl.n0 + gn < p.N) o16[gn] = bf16_bits(d.x);
+              if (gk < p.K && tl.n0 + gn + 1 < p.N)
+                o16[gn + 1] = bf16_bits(d.y);
+            } else {
+              if (gk < p.K && tl.n0 + gn < p.N) o[gn] = d.x;
+              if (gk < p.K && tl.n0 + gn + 1 < p.N) o[gn + 1] = d.y;
+            }
           }
         }
       }
@@ -683,9 +721,9 @@ inline bool make_map3(CUtensorMap* map, CUtensorMapDataType type, int esize,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool F32, bool LONG>
+template <int BN, bool F32, bool LONG, bool SB>
 int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
-  using L = Layout<BN, F32>;
+  using L = Layout<BN, F32, SB>;
   constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr auto FP32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap maps[4] = {};
@@ -696,9 +734,10 @@ int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
       ((p.tma & 4) &&
        !make_map3(&maps[2], BF16, 2, p.w, p.E, p.K, p.N, WR, 64)) ||
       ((p.tma & 8) &&
-       !make_map3(&maps[3], FP32, 4, p.s, p.E, p.K, p.N, WR, 32)))
+       !make_map3(&maps[3], SB ? BF16 : FP32, SB ? 2 : 4, p.s, p.E, p.K, p.N,
+                  WR, SB ? 64 : 32)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = ds_gemm<BN, F32, LONG>;
+  const auto kernel = ds_gemm<BN, F32, LONG, SB>;
   static int smem_set[64] = {};   // largest size allowed, per device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -719,7 +758,8 @@ int launch_bn(const Params& p, int smem, int grid, cudaStream_t stream) {
 }
 
 // Kernel 3 (E = 1) or 7 under the plan (bn, stages, chunks, smem, grid,
-// tma) of `kernels.masked_matmul.ds_plan`.
+// tma) of `kernels.masked_matmul.ds_plan`; SB: bf16 scores and ds.
+template <bool SB>
 inline int launch(const void* x, const void* g, const void* w, const void* s,
                   void* ds, int E, int M, int K, int N, int x_f32, int bn,
                   int stages, int chunks, int smem, int grid, int tma,
@@ -729,17 +769,16 @@ inline int launch(const void* x, const void* g, const void* w, const void* s,
   if (E < 1 || stages < (x_f32 ? 1 : 2) || chunks < CONSUMERS / 32 ||
       grid < 1 || (x_f32 && (stages > 2 || (stages == 1 && M > BMF))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{x, g, static_cast<const uint16_t*>(w),
-                 static_cast<const float*>(s), static_cast<float*>(ds),
+  const Params p{x, g, static_cast<const uint16_t*>(w), s, ds,
                  E, M, K, N, stages, chunks, tma};
   if (x_f32 && M > LONG_ROWS)
-    return bn == 64 ? launch_bn<64, true, true>(p, smem, grid, stream)
+    return bn == 64 ? launch_bn<64, true, true, SB>(p, smem, grid, stream)
                     : static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
-#define REPRO_DS_CASE(W)                                        \
-  case W:                                                       \
-    return x_f32 ? launch_bn<W, true, false>(p, smem, grid, stream) \
-                 : launch_bn<W, false, false>(p, smem, grid, stream);
+#define REPRO_DS_CASE(W)                                                \
+  case W:                                                               \
+    return x_f32 ? launch_bn<W, true, false, SB>(p, smem, grid, stream)  \
+                 : launch_bn<W, false, false, SB>(p, smem, grid, stream);
     REPRO_DS_WIDTHS(REPRO_DS_CASE)
 #undef REPRO_DS_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -29,15 +29,18 @@
 // device memory: the same bits on every launch.
 #include "masked_matmul_ds_wgmma.cuh"
 
-// bn, stages, chunks, smem, grid, tma: the launch plan
+// s_bf16: refused (f32 scores only; bf16 ones are still to port); bn,
+// stages, chunks, smem, grid, tma: the launch plan
 // (kernels.masked_matmul.ds_plan at E groups and the wrapper's
 // 16-byte-grid flags).
 extern "C" int masked_matmul_grouped_ds(const void* x, const void* g,
                                         const void* w, const void* s,
                                         void* ds, int E, int M, int K, int N,
-                                        int bn, int stages, int chunks,
-                                        int smem, int grid, int tma,
-                                        void* stream) {
-  return repro::dsw::launch(x, g, w, s, ds, E, M, K, N, 1, bn, stages, chunks,
-                            smem, grid, tma, (cudaStream_t)stream);
+                                        int s_bf16, int bn, int stages,
+                                        int chunks, int smem, int grid,
+                                        int tma, void* stream) {
+  if (s_bf16) return (int)cudaErrorInvalidValue;   // f32 scores only
+  return repro::dsw::launch<false>(x, g, w, s, ds, E, M, K, N, 1, bn, stages,
+                                   chunks, smem, grid, tma,
+                                   (cudaStream_t)stream);
 }

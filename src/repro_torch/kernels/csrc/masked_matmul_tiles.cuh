@@ -15,7 +15,9 @@
 // Ragged edges are masked in the loads and the stores: no padding copies.
 //
 // The bodies are templates over the activation type (the entry points
-// instantiate f32); values are widened to f32 on load and the result is
+// instantiate f32) and the score type (f32 or bf16, widened to f32
+// exactly before the gating); values are widened to f32 on load and the
+// result is
 // cast back to the activation type, as the reference casts its f32
 // accumulator to x.dtype / g.dtype.
 #pragma once
@@ -48,22 +50,23 @@ __device__ __forceinline__ float load_or_zero(const T* __restrict__ a, int r,
 }
 
 // (m * w)[k, n] of a (K, N) block, 0 outside it.
+template <typename S>
 __device__ __forceinline__ float gated_weight(
-    const __nv_bfloat16* __restrict__ w, const float* __restrict__ s, int k,
+    const __nv_bfloat16* __restrict__ w, const S* __restrict__ s, int k,
     int n, int K, int N, uint32_t off, uint32_t n_logical, uint32_t smix,
     int mode, float tau) {
   if (k >= K || n >= N) return 0.0f;
   const int64_t o = (int64_t)k * N + n;
   const uint32_t idx = off + (uint32_t)k * n_logical + (uint32_t)n;
-  return mask_bit(s[o], idx, smix, mode, tau) ? __bfloat162float(w[o])
+  return mask_bit(to_f32(s[o]), idx, smix, mode, tau) ? __bfloat162float(w[o])
                                               : 0.0f;
 }
 
 // y = x @ (m * w): x (M, K), y (M, N); tile (blockIdx.y, blockIdx.x) of y.
-template <typename T>
+template <typename T, typename S>
 __device__ __forceinline__ void fwd_tile(const T* __restrict__ x,
                                          const __nv_bfloat16* __restrict__ w,
-                                         const float* __restrict__ s,
+                                         const S* __restrict__ s,
                                          T* __restrict__ y, int M, int K,
                                          int N, uint32_t seed, uint32_t off,
                                          uint32_t n_logical, int mode,
@@ -116,10 +119,10 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ x,
 
 // dx = g @ (m * w)^T: g (M, N), dx (M, K); tile (blockIdx.y, blockIdx.x)
 // of dx, accumulating over N inside the block (no cross-block reduction).
-template <typename T>
+template <typename T, typename S>
 __device__ __forceinline__ void dx_tile(const T* __restrict__ g,
                                         const __nv_bfloat16* __restrict__ w,
-                                        const float* __restrict__ s,
+                                        const S* __restrict__ s,
                                         T* __restrict__ dx, int M, int K,
                                         int N, uint32_t seed, uint32_t off,
                                         uint32_t n_logical, int mode,

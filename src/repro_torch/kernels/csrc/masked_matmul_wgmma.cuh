@@ -30,6 +30,12 @@
 // stores bf16.  No float atomics and no partial sums in device memory:
 // the same inputs give the same bits on every launch.
 //
+// The scores come as f32 or bf16 (SB, the score type of the launch): a
+// raw s stage holds them as they lie in device memory, 4 or 2 bytes an
+// element, and the gating widens a bf16 score to f32 exactly (its bits
+// shifted up) before mask_bit, so the mask of a bf16 score block is the
+// mask of its f32 upcast, as the reference's kernel upcasts it.
+//
 // The mask is mask_bit() of hash.cuh on the element's own index
 // off + k*n_logical + n (uint32, wrapping), as in every kernel of the
 // port, so it does not depend on this tiling.  The launch plan (BC, the
@@ -40,6 +46,8 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "hash.cuh"
 
@@ -63,7 +71,7 @@ constexpr int BAR_CONSUMERS = 1; // named barrier of warps 0-15
 struct Params {
   const uint16_t* a;   // x (forward) or g (dx): (M, R) bf16 bits
   const uint16_t* w;   // (K, N) bf16 bits
-  const float* s;      // (K, N)
+  const void* s;       // (K, N) f32, or bf16 bits (SB)
   uint16_t* out;       // (M, C) bf16 bits
   int M, K, N;
   uint32_t seed, off, n_logical;
@@ -395,15 +403,16 @@ __device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
 
 // Shared-memory layout, in bytes from the 1024-aligned base:
 //   A stages (A_STAGES x A_BYTES) | B tiles (2 x BC*128) |
-//   raw w stages (w_stages x BR*BC*2) | raw s stages (w_stages x BR*BC*4) |
+//   raw w stages (w_stages x BR*BC*2) |
+//   raw s stages (w_stages x BR*BC*4, or *2 for bf16 scores) |
 //   mbarriers: full_a, empty_a (A_STAGES each), full_w, empty_w (w_stages)
 // The partials of the cluster reduction (ROWS x (BC + PAD) f32) are parked
 // over the start of it once the main loop is done.
-template <int BC>
+template <int BC, bool SB>
 struct Layout {
   static constexpr int B_BYTES = BC * BR * 2;
   static constexpr int W_BYTES = BR * BC * 2;
-  static constexpr int S_BYTES = BR * BC * 4;
+  static constexpr int S_BYTES = BR * BC * (SB ? 2 : 4);
   uint32_t base;
   int ws;
   __device__ uint32_t a(int i) const { return base + i * A_BYTES; }
@@ -458,15 +467,38 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
+// A score as f32: bf16 bits widened exactly, or the f32 itself.
+__device__ __forceinline__ float score_f32(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ float score_f32(float v) { return v; }
+
+// Eight consecutive scores of a raw s tile (16-byte aligned) as f32.
+__device__ __forceinline__ void load8(const float* q, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(q);
+  const float4 b = *reinterpret_cast<const float4*>(q + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const uint16_t* q, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(q);
+  const uint32_t u[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v[2 * t] = __uint_as_float(u[t] << 16);
+    v[2 * t + 1] = __uint_as_float(u[t] & 0xFFFF0000u);
+  }
+}
+
 // Gate the raw (w, s) tile of the stage starting at reduction index r0 into
 // B's (BC x BR) bf16 tile: B[c][r] = m*w of reduction element r0 + r and
 // output column c0 + c, written 16 bytes (8 consecutive r) at a time.
 // The raw tile is (BR x BC) [k][n] for the forward, (BC x BR) [k][n] for
 // dx; its zero fill past the matrix makes B zero there.  MODE is the
 // mask mode as a constant, so that mask_bit's mode test folds away.
-template <int BC, bool DX, int MODE>
+template <int BC, bool DX, int MODE, typename S>
 __device__ __forceinline__ void gate_tile(uint8_t* b, const uint16_t* wr,
-                                          const float* sr, int r0, int c0,
+                                          const S* sr, int r0, int c0,
                                           uint32_t smix, const Params& p,
                                           int tid) {
   for (int e = tid; e < BC * 8; e += CONSUMERS) {
@@ -482,16 +514,12 @@ __device__ __forceinline__ void gate_tile(uint8_t* b, const uint16_t* wr,
 #pragma unroll
       for (int t = 0; t < 8; ++t)
         wv[t] = static_cast<uint16_t>(wu[t >> 1] >> (16 * (t & 1)));
-      const float4 s0 = *reinterpret_cast<const float4*>(sr + c * BR + rg * 8);
-      const float4 s1 =
-          *reinterpret_cast<const float4*>(sr + c * BR + rg * 8 + 4);
-      sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
-      sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+      load8(sr + c * BR + rg * 8, sv);
     } else {
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         wv[t] = wr[(rg * 8 + t) * BC + c];
-        sv[t] = sr[(rg * 8 + t) * BC + c];
+        sv[t] = score_f32(sr[(rg * 8 + t) * BC + c]);
       }
     }
     // element t is (k, n) = (c0 + c, r0 + 8rg + t) for dx and
@@ -516,7 +544,7 @@ __device__ __forceinline__ void gate_tile(uint8_t* b, const uint16_t* wr,
   }
 }
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 __global__ void __launch_bounds__(THREADS, 1)
     gated_gemm(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w,
@@ -525,7 +553,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  const Layout<BC> L{base, p.w_stages};
+  using S = typename std::conditional<SB, uint16_t, float>::type;
+  const Layout<BC, SB> L{base, p.w_stages};
   auto gen = [&](uint32_t addr) { return gbase + (addr - base); };
 
   const int R = DX ? p.N : p.K, C = DX ? p.K : p.N;
@@ -557,18 +586,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (warp >= CONSUMERS / 32) {
     // ---- the load warps, one per ring, so that the raw stages run as far
     // ahead as their ring allows whatever the A ring waits for
-    const uint32_t w_tx = ((p.tma >> 1) & 1) * Layout<BC>::W_BYTES +
-                          ((p.tma >> 2) & 1) * Layout<BC>::S_BYTES;
+    const uint32_t w_tx = ((p.tma >> 1) & 1) * Layout<BC, SB>::W_BYTES +
+                          ((p.tma >> 2) & 1) * Layout<BC, SB>::S_BYTES;
     auto load_w = [&](int i) {
       const int st = i % p.w_stages, r0 = (j0 + i) * BR;
       mbar_wait(L.empty_w(st), ((i / p.w_stages) & 1) ^ 1);
       uint16_t* wd = reinterpret_cast<uint16_t*>(gen(L.w(st)));
-      float* sd = reinterpret_cast<float*>(gen(L.s(st)));
+      S* sd = reinterpret_cast<S*>(gen(L.s(st)));
       // the raw tile's rows and columns in (K, N)
       const int kr = DX ? c0 : r0, nc = DX ? r0 : c0;
       const int nkr = DX ? BC : BR, nnc = DX ? BR : BC;
       if (!(p.tma & 2)) load_tile(wd, p.w, p.K, p.N, kr, nc, nkr, nnc, lane);
-      if (!(p.tma & 4)) load_tile(sd, p.s, p.K, p.N, kr, nc, nkr, nnc, lane);
+      if (!(p.tma & 4))
+        load_tile(sd, static_cast<const S*>(p.s), p.K, p.N, kr, nc, nkr, nnc,
+                  lane);
       fence_async_smem();
       if (lane == 0) {
         mbar_arrive_tx(L.full_w(st), w_tx);
@@ -603,7 +634,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int st = i % p.w_stages;
       mbar_wait(L.full_w(st), (i / p.w_stages) & 1);
       const uint16_t* wr = reinterpret_cast<const uint16_t*>(gen(L.w(st)));
-      const float* sr = reinterpret_cast<const float*>(gen(L.s(st)));
+      const S* sr = reinterpret_cast<const S*>(gen(L.s(st)));
       if (p.mode == 1)
         gate_tile<BC, DX, 1>(gen(L.b(i & 1)), wr, sr, (j0 + i) * BR, c0, smix,
                              p, tid);
@@ -725,7 +756,7 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
   const int R = DX ? p.N : p.K, C = DX ? p.K : p.N;
   CUtensorMap maps[3] = {};
@@ -735,10 +766,13 @@ int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
                                 p.a, p.M, R, ROWS, BR, true)) ||
       ((p.tma & 2) && !make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                                 p.w, p.K, p.N, box_k, box_n, false)) ||
-      ((p.tma & 4) && !make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                                p.s, p.K, p.N, box_k, box_n, false)))
+      ((p.tma & 4) &&
+       !make_map(&maps[2],
+                 SB ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                 SB ? 2 : 4, p.s, p.K, p.N, box_k, box_n, false)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = gated_gemm<BC, DX>;
+  const auto kernel = gated_gemm<BC, DX, SB>;
   static int smem_set[64] = {};   // largest size allowed, per device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -768,9 +802,9 @@ int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 int capacity_bc(int split, int smem) {
-  const auto kernel = gated_gemm<BC, DX>;
+  const auto kernel = gated_gemm<BC, DX, SB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -794,14 +828,15 @@ int capacity_bc(int split, int smem) {
 
 // Blocks of a plan's width and cluster size that the card holds at once
 // (clusters must fit whole in a GPC, so this can be well under one block
-// per SM); a negative cudaError on failure.
+// per SM); a negative cudaError on failure.  s_bf16: the bf16-score build.
 template <bool DX>
-int capacity(int bc, int split, int smem) {
+int capacity(int bc, int split, int smem, int s_bf16) {
   if (split < 1 || split > 8) return -static_cast<int>(cudaErrorInvalidValue);
   switch (bc) {
-#define REPRO_WG_CASE(W) \
-  case W:                \
-    return capacity_bc<W, DX>(split, smem);
+#define REPRO_WG_CASE(W)                                  \
+  case W:                                                 \
+    return s_bf16 ? capacity_bc<W, DX, true>(split, smem) \
+                  : capacity_bc<W, DX, false>(split, smem);
     REPRO_WG_WIDTHS(REPRO_WG_CASE)
 #undef REPRO_WG_CASE
     default: return -static_cast<int>(cudaErrorInvalidValue);
@@ -809,24 +844,26 @@ int capacity(int bc, int split, int smem) {
 }
 
 // The bf16 body of kernel 1 (DX false) or 2 (DX true) under the plan
-// (bc, split, w_stages, smem, tma) of `kernels.masked_matmul.wgmma_plan`.
+// (bc, split, w_stages, smem, tma) of `kernels.masked_matmul.wgmma_plan`;
+// s_bf16: the scores are bf16 (f32 otherwise).
 template <bool DX>
 int launch(const void* a, const void* w, const void* s, void* out, int M,
            int K, int N, uint32_t seed, uint32_t off, uint32_t n_logical,
-           int mode, float tau, int bc, int split, int w_stages, int smem,
-           int tma, cudaStream_t stream) {
+           int mode, float tau, int s_bf16, int bc, int split, int w_stages,
+           int smem, int tma, cudaStream_t stream) {
   if (split < 1 || split > 8 || w_stages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const uint16_t*>(a),
                  static_cast<const uint16_t*>(w),
-                 static_cast<const float*>(s),
+                 s,
                  static_cast<uint16_t*>(out),
                  M, K, N, seed, off, n_logical, mode, tau,
                  w_stages, tma};
   switch (bc) {
-#define REPRO_WG_CASE(W) \
-  case W:                \
-    return launch_bc<W, DX>(p, split, smem, stream);
+#define REPRO_WG_CASE(W)                                            \
+  case W:                                                           \
+    return s_bf16 ? launch_bc<W, DX, true>(p, split, smem, stream)  \
+                  : launch_bc<W, DX, false>(p, split, smem, stream);
     REPRO_WG_WIDTHS(REPRO_WG_CASE)
 #undef REPRO_WG_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -8,8 +8,12 @@
 // 32k + j (little-endian), and bits at or past n are zero, as the
 // reference's pad-then-pack produces.
 //
-// Bound on this card: the bytes of the scores (4 per element) read once;
-// the words written are 1/32 of that.  Beside the stream, the exact
+// The scores are f32 or bf16 (`s_bf16`); a bf16 score is widened to f32
+// exactly (its bits shifted up) before the gating, so its bit is the bit
+// of its f32 upcast, as the reference's kernel upcasts it.
+//
+// Bound on this card: the bytes of the scores (4 per element, 2 in bf16)
+// read once; the words written are 1/32 (1/16) of that.  Beside the stream, the exact
 // gating (`repro::mask_bit`: the hash, the accurate expf and the IEEE
 // division, ~43 instructions an element) issues longer than the bytes
 // take: on one internlm2-1.8b round (C = 2, 3.0 G scores; bound 3.72 ms)
@@ -19,16 +23,16 @@
 //
 // Design: a persistent grid (a few blocks an SM, `grid`) whose warps
 // stride over the (row, piece) space, stepping row and piece without a
-// division; a piece is `unroll` chunks of 128 elements (vector path) or
-// `unroll` words of 32 (scalar path), and a warp issues all loads of its
-// piece before it gates any element, so that unroll x 512 (or 128)
-// bytes a warp are in flight.
-//  - vector path (`vec`: n % 4 == 0 and the base on the 16-byte grid, so
-//    that every row starts on it): lane l loads elements 4l..4l+3 of a
-//    128-element chunk as one 16-byte vector and forms their 4-bit
-//    nibble at bits 4(l % 8) of word l / 8; an OR across each group of 8
-//    lanes (three __shfl_xor_sync) gives the chunk's 4 words, which
-//    lanes 0, 8, 16 and 24 store (16 contiguous bytes).
+// division; a piece is `unroll` chunks of 32 V elements (vector path; V
+// = 4 f32 or 8 bf16 scores in 16 bytes) or `unroll` words of 32 (scalar
+// path), and a warp issues all loads of its piece before it gates any
+// element, so that unroll x 512 (or 128 / 64) bytes a warp are in flight.
+//  - vector path (`vec`: n % V == 0 and the base on the 16-byte grid, so
+//    that every row starts on it): lane l loads elements Vl..Vl+V-1 of a
+//    32 V-element chunk as one 16-byte vector and forms their V bits at
+//    bits V(l % (32/V)) of word l / (32/V); an OR across each group of
+//    32/V lanes (__shfl_xor_sync) gives the chunk's V words, which every
+//    (32/V)-th lane stores (16 or 32 contiguous bytes).
 //  - scalar path (the rest): lane l loads element 32k + l of word k, and
 //    __ballot_sync gathers the warp's bits into the word, which lane 0
 //    stores.
@@ -69,7 +73,7 @@ constexpr int PER_SM = 4;   // blocks an SM, all resident: <= 64 registers
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
-  const float* s;
+  const void* s;        // (C, n) f32, or bf16 bits
   const uint32_t* seeds;
   uint32_t* words;
   int64_t n, nw;   // elements and words of a row
@@ -104,27 +108,47 @@ struct Filter {
   __device__ bool sure() const { return least > EPS && sum == sum; }
 };
 
+// A score as f32: bf16 bits widened exactly.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
 // `bits` with bit `at` set to the bit of the score at q, element idx of
 // its row: by its margin's sign, or by the exact repro::mask_bit where
 // the margin lies within EPS (or is NaN); out of line, so that the rare
 // call keeps the gating's loop short.
-template <int MODE>
-__device__ __noinline__ uint32_t settle(const float* q, uint32_t idx,
+template <int MODE, typename T>
+__device__ __noinline__ uint32_t settle(const T* q, uint32_t idx,
                                         uint32_t smix, float tau, int at,
                                         uint32_t bits) {
-  const float s = __ldg(q);
+  const float s = widen(__ldg(q));
   const float d = margin<MODE>(s, idx, smix, tau);
   const bool m = fabsf(d) > EPS ? d < 0.0f
                                 : repro::mask_bit(s, idx, smix, MODE, tau);
   return (bits & ~(1u << at)) | (uint32_t)m << at;
 }
 
-__device__ __forceinline__ float4 load_vec(const float* q) {
-  return __ldcs(reinterpret_cast<const float4*>(q));
+// The V = 16 / sizeof(T) scores of a 16-byte vector at q, as f32.
+__device__ __forceinline__ void load_vec(const float* q, float* v) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(q));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const uint16_t* q, float* v) {
+  const uint4 a = __ldcs(reinterpret_cast<const uint4*>(q));
+  const uint32_t u[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v[2 * t] = __uint_as_float(u[t] << 16);
+    v[2 * t + 1] = __uint_as_float(u[t] & 0xFFFF0000u);
+  }
 }
 
 __device__ __forceinline__ float load_one(const float* q) {
   return __ldcs(q);
+}
+__device__ __forceinline__ float load_one(const uint16_t* q) {
+  return widen(__ldcs(reinterpret_cast<const unsigned short*>(q)));
 }
 
 // A warp's grid-stride walk over the C x per_row pieces: piece q = c *
@@ -150,56 +174,62 @@ struct Walk {
   }
 };
 
-template <int U, int MODE>
+template <int U, int MODE, typename T>
 __global__ void __launch_bounds__(THREADS, PER_SM)
 sample_and_pack_vec(const Params p) {
-  constexpr int64_t PIECE = 128 * U;
+  constexpr int V = 16 / sizeof(T);   // scores a 16-byte vector holds
+  constexpr int LANES = 32 / V;       // lanes whose bits make one word
+  constexpr int64_t CHUNK = 32 * V, PIECE = CHUNK * U;
+  static_assert(U * V <= 32, "a thread's bits fit one word");
   const int lane = threadIdx.x % 32;
   Walk w((p.n + PIECE - 1) / PIECE);
   for (; w.c < p.C; w.next()) {   // uniform across the warp
     const int64_t c = w.c;
-    const int64_t e0 = w.piece * PIECE + 4 * lane;
-    const float* row = p.s + c * p.n;
-    float4 v[U];
+    const int64_t e0 = w.piece * PIECE + V * lane;
+    const T* row = static_cast<const T*>(p.s) + c * p.n;
+    float v[U][V];
 #pragma unroll
-    for (int j = 0; j < U; ++j)
-      v[j] = e0 + 128 * j < p.n ? load_vec(row + e0 + 128 * j)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < U; ++j) {
+      if (e0 + CHUNK * j < p.n) {
+        load_vec(row + e0 + CHUNK * j, v[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[j][i] = 0.0f;
+      }
+    }
     const uint32_t smix = repro::seed_mix(p.seeds[c]);
-    // bit 4j + i: element e0 + 128 j + i (U <= 8: 32 bits); a vector at
-    // or past n is whole (n % 4 == 0), and its bits stay zero
+    // bit V j + i: element e0 + CHUNK j + i; a vector at or past n is
+    // whole (n % V == 0), and its bits stay zero
     Filter f;
     uint32_t live = 0;
 #pragma unroll
     for (int j = U - 1; j >= 0; --j) {
-      const uint32_t e = (uint32_t)(e0 + 128 * j);
-      f.add(margin<MODE>(v[j].w, e + 3u, smix, p.tau));
-      f.add(margin<MODE>(v[j].z, e + 2u, smix, p.tau));
-      f.add(margin<MODE>(v[j].y, e + 1u, smix, p.tau));
-      f.add(margin<MODE>(v[j].x, e, smix, p.tau));
-      live |= (e0 + 128 * j < p.n ? 0xFu : 0u) << 4 * j;
+      const uint32_t e = (uint32_t)(e0 + CHUNK * j);
+#pragma unroll
+      for (int i = V - 1; i >= 0; --i)
+        f.add(margin<MODE>(v[j][i], e + (uint32_t)i, smix, p.tau));
+      live |= (e0 + CHUNK * j < p.n ? (1u << V) - 1u : 0u) << V * j;
     }
     uint32_t bits = f.bits & live;
     if (!f.sure())   // rare: an element within the band
-      for (int at = 0; at < 4 * U; ++at)
+      for (int at = 0; at < V * U; ++at)
         if (live >> at & 1u) {
-          const int64_t e = e0 + 128 * (at / 4) + at % 4;
+          const int64_t e = e0 + CHUNK * (at / V) + at % V;
           bits = settle<MODE>(row + e, (uint32_t)e, smix, p.tau, at, bits);
         }
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      const int64_t e = e0 + 128 * j;
-      uint32_t word = ((bits >> 4 * j) & 0xFu) << (4 * (lane % 8));
-      word |= __shfl_xor_sync(FULL, word, 1);
-      word |= __shfl_xor_sync(FULL, word, 2);
-      word |= __shfl_xor_sync(FULL, word, 4);
-      const int64_t k = e / 32;   // lane / 8's word of chunk j
-      if (lane % 8 == 0 && k < p.nw) p.words[c * p.nw + k] = word;
+      const int64_t e = e0 + CHUNK * j;
+      uint32_t word = ((bits >> V * j) & ((1u << V) - 1u)) << (V * (lane % LANES));
+#pragma unroll
+      for (int x = 1; x < LANES; x *= 2) word |= __shfl_xor_sync(FULL, word, x);
+      const int64_t k = e / 32;   // lane / LANES's word of chunk j
+      if (lane % LANES == 0 && k < p.nw) p.words[c * p.nw + k] = word;
     }
   }
 }
 
-template <int U, int MODE>
+template <int U, int MODE, typename T>
 __global__ void __launch_bounds__(THREADS, PER_SM)
 sample_and_pack_scalar(const Params p) {
   const int lane = threadIdx.x % 32;
@@ -207,7 +237,7 @@ sample_and_pack_scalar(const Params p) {
   for (; w.c < p.C; w.next()) {   // uniform across the warp
     const int64_t c = w.c;
     const int64_t k0 = w.piece * U;
-    const float* row = p.s + c * p.n;
+    const T* row = static_cast<const T*>(p.s) + c * p.n;
     float v[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
@@ -241,30 +271,43 @@ sample_and_pack_scalar(const Params p) {
 
 }  // namespace
 
-// vec, unroll, grid: the launch plan (kernels.masked_matmul.sap_plan);
-// vec also needs the scores' base on the 16-byte grid (the wrapper's
-// flag).  unroll is 1, 2, 4 or 8.
+// s_bf16: the scores are bf16 (f32 otherwise); vec, unroll, grid: the
+// launch plan (kernels.masked_matmul.sap_plan); vec also needs the
+// scores' base on the 16-byte grid (the wrapper's flag).  unroll is 1, 2,
+// 4 or 8 (at most 4 on the vector path of bf16 scores, whose 8 bits a
+// vector fill a thread's word at 4).
 extern "C" int sample_and_pack(const void* s, const void* seeds, void* words,
                                int C, int64_t n, int mode, float tau,
-                               int vec, int unroll, int grid, void* stream) {
-  if (grid < 1 || (vec && n % 4)) return (int)cudaErrorInvalidValue;
-  const Params p{(const float*)s, (const uint32_t*)seeds, (uint32_t*)words,
+                               int s_bf16, int vec, int unroll, int grid,
+                               void* stream) {
+  if (grid < 1 || (vec && n % 4) || (vec && s_bf16 && (n % 8 || unroll > 4)))
+    return (int)cudaErrorInvalidValue;
+  const Params p{s, (const uint32_t*)seeds, (uint32_t*)words,
                  n, (n + 31) / 32, C, tau};
   const cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_SAP_LAUNCH(KIND, U, T)                                    \
+  do {                                                                  \
+    if (mode == 1)                                                      \
+      sample_and_pack_##KIND<U, 1, T><<<grid, THREADS, 0, st>>>(p);     \
+    else                                                                \
+      sample_and_pack_##KIND<U, 0, T><<<grid, THREADS, 0, st>>>(p);     \
+  } while (0)
   switch (unroll) {
-#define REPRO_SAP_U(U)                                                      \
-  case U:                                                                   \
-    if (vec && mode == 1)                                                   \
-      sample_and_pack_vec<U, 1><<<grid, THREADS, 0, st>>>(p);               \
-    else if (vec)                                                           \
-      sample_and_pack_vec<U, 0><<<grid, THREADS, 0, st>>>(p);               \
-    else if (mode == 1)                                                     \
-      sample_and_pack_scalar<U, 1><<<grid, THREADS, 0, st>>>(p);            \
-    else                                                                    \
-      sample_and_pack_scalar<U, 0><<<grid, THREADS, 0, st>>>(p);            \
+#define REPRO_SAP_U(U)                                      \
+  case U:                                                   \
+    if (vec && s_bf16)                                      \
+      REPRO_SAP_LAUNCH(vec, (U > 4 ? 4 : U), uint16_t);     \
+    else if (vec)                                           \
+      REPRO_SAP_LAUNCH(vec, U, float);                      \
+    else if (s_bf16)                                        \
+      REPRO_SAP_LAUNCH(scalar, U, uint16_t);                \
+    else                                                    \
+      REPRO_SAP_LAUNCH(scalar, U, float);                   \
     break;
+    // (the bf16 vector path's unroll 8, refused above, builds as 4)
     REPRO_SAP_U(1) REPRO_SAP_U(2) REPRO_SAP_U(4) REPRO_SAP_U(8)
 #undef REPRO_SAP_U
+#undef REPRO_SAP_LAUNCH
     default:
       return (int)cudaErrorInvalidValue;
   }

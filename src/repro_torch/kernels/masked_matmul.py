@@ -56,7 +56,11 @@ Kernel 4 runs a persistent grid whose warps issue several 16-byte score
 loads each before they gate, and decides each bit from a cheap sigmoid
 with an error band (the exact gating inside it), under the launch plan
 `sap_plan`.
-All take bf16 w, f32 scores and contiguous operands.  The wrappers raise
+All take bf16 w and contiguous operands.  Kernels 1-4 take f32 or bf16
+scores (kernel 3's ds in the scores' type): the device code reads a bf16
+score block as it lies and widens each score to f32 exactly before the
+gating, so no f32 copy of it is made.  Kernels 5-9 take f32 scores; bf16
+ones are still to port (ROADMAP Queue 2) and raise.  The wrappers raise
 on anything else rather than copy.
 """
 from __future__ import annotations
@@ -96,6 +100,7 @@ SMS = 132                       # streaming multiprocessors of an H100 SXM
 _MODES = {"sample": 0, "threshold": 1, "plain": 2}
 _EPILOGUES = {"ste": 0, "dw": 1}
 _ACTS = (torch.bfloat16, torch.float32)   # activation types built for
+_SCORES = (torch.float32, torch.bfloat16)  # score types of kernels 1-4
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -110,6 +115,19 @@ def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 def _f32(t: torch.Tensor) -> int:
     return int(t.dtype == torch.float32)
+
+
+def _sbf16(s: torch.Tensor) -> int:
+    return int(s.dtype == torch.bfloat16)
+
+
+def _f32_scores(s: torch.Tensor, name: str) -> None:
+    """Kernels 5-9 read f32 scores only: their bf16-score builds are
+    still to port (ROADMAP Queue 2)."""
+    if s.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes f32 scores; bf16 scores "
+                         f"(got {s.dtype}) are still to port to kernels 5-9 "
+                         f"(ROADMAP Queue 2)")
 
 
 def _mask_mode(mode: str) -> str:
@@ -150,10 +168,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def wgmma_smem(bc: int, w_stages: int) -> int:
-    """Dynamic shared-memory bytes of the bf16 body at width `bc`."""
+def wgmma_smem(bc: int, w_stages: int, s_bytes: int = 4) -> int:
+    """Dynamic shared-memory bytes of the bf16 body at width `bc`, for
+    scores of `s_bytes` bytes (4 f32, 2 bf16)."""
     return (1024 + WG_A_STAGES * WG_ROWS * WG_BR * 2 + 2 * bc * WG_BR * 2
-            + w_stages * WG_BR * bc * 6 + 16 * (WG_A_STAGES + w_stages))
+            + w_stages * WG_BR * bc * (2 + s_bytes)
+            + 16 * (WG_A_STAGES + w_stages))
 
 
 def ideal_capacity(bc: int, split: int, smem: int) -> int:
@@ -162,7 +182,8 @@ def ideal_capacity(bc: int, split: int, smem: int) -> int:
     return SMS // split * split
 
 
-def wgmma_plan(M: int, R: int, C: int, capacity=ideal_capacity) -> dict:
+def wgmma_plan(M: int, R: int, C: int, capacity=ideal_capacity,
+               s_bytes: int = 4) -> dict:
     """Launch plan of kernels 1-2's bf16 body for out (M, C) = A (M, R) @
     B (R, C) (forward: R = K, C = N; dx: R = N, C = K): the width `bc`,
     the cluster size `split` over the reduction axis, the raw stages
@@ -170,30 +191,31 @@ def wgmma_plan(M: int, R: int, C: int, capacity=ideal_capacity) -> dict:
     of a cluster sums the stages [steps*q // split, steps*(q+1) // split)
     of WG_BR.
 
-    Each stage moves BR x (6 bc) bytes of w and s from device memory and
-    a (256 x BR) tile of A from L2; a block's time is its stages plus one
-    for set-up and the cluster reduction, and the blocks beyond what the
-    card holds at once, `capacity(bc, split, smem)` (on the card: the
-    occupancy query of the kernel's library), run in further waves.  The
-    plan minimizes waves x that time, then the block count: one full wave
-    of short blocks beats a second, partly empty wave."""
+    Each stage moves BR x ((2 + s_bytes) bc) bytes of w and s from device
+    memory and a (256 x BR) tile of A from L2; a block's time is its
+    stages plus one for set-up and the cluster reduction, and the blocks
+    beyond what the card holds at once, `capacity(bc, split, smem)` (on
+    the card: the occupancy query of the kernel's library), run in
+    further waves.  The plan minimizes waves x that time, then the block
+    count: one full wave of short blocks beats a second, partly empty
+    wave."""
     steps, mblocks = _cdiv(R, WG_BR), _cdiv(M, WG_ROWS)
     best = None
     for bc in WG_WIDTHS:
         w_stages = WG_MAX_W_STAGES
-        while wgmma_smem(bc, w_stages) > SMEM_LIMIT:
+        while wgmma_smem(bc, w_stages, s_bytes) > SMEM_LIMIT:
             w_stages -= 1
+        smem = wgmma_smem(bc, w_stages, s_bytes)
         tiles = _cdiv(C, bc) * mblocks
         for split in range(1, min(MAX_CLUSTER, max(steps, 1)) + 1):
             blocks = tiles * split
             per_block = ((_cdiv(steps, split) + 1) * WG_BR
-                         * (6 * bc + 2 * WG_ROWS))
-            waves = _cdiv(blocks, capacity(bc, split,
-                                           wgmma_smem(bc, w_stages)))
+                         * ((2 + s_bytes) * bc + 2 * WG_ROWS))
+            waves = _cdiv(blocks, capacity(bc, split, smem))
             key = (waves * per_block, blocks, split)
             if best is None or key < best[0]:
                 best = (key, dict(bc=bc, split=split, w_stages=w_stages,
-                                  smem=wgmma_smem(bc, w_stages),
+                                  smem=smem,
                                   grid=(split, _cdiv(C, bc), mblocks)))
     return best[1]
 
@@ -209,14 +231,18 @@ def _grid_flags(*pairs) -> int:
 def _tma_flags(a, w, s, R: int, N: int) -> int:
     """Bit 0, 1, 2: A, w, s go by TMA (a row pitch and a base on the
     16-byte grid); the kernel loads the others element by element."""
-    return _grid_flags((a, 2 * R), (w, 2 * N), (s, 4 * N)) if R else 0
+    return (_grid_flags((a, 2 * R), (w, 2 * N), (s, s.element_size() * N))
+            if R else 0)
 
 
-def card_capacity(kernel: str):
+def card_capacity(kernel: str, s_bf16: int = 0):
     """`capacity` for `wgmma_plan` or `grouped_plan` from kernel
-    `kernel`'s occupancy query on the current card."""
+    `kernel`'s occupancy query on the current card (for kernels 1-2, of
+    the build for the score type: `s_bf16`)."""
     def capacity(bc: int, split: int, smem: int) -> int:
-        n = build.call(f"{kernel}_capacity", bc, split, smem)
+        args = (s_bf16,) if kernel in ("masked_matmul_fwd",
+                                       "masked_matmul_dx") else ()
+        n = build.call(f"{kernel}_capacity", bc, split, smem, *args)
         if n <= 0:
             raise RuntimeError(f"{kernel}: occupancy query for bc={bc} "
                                f"split={split} failed: {n}")
@@ -225,10 +251,13 @@ def card_capacity(kernel: str):
 
 
 @functools.lru_cache(maxsize=None)
-def card_plan(kernel: str, device: int, M: int, R: int, C: int) -> dict:
-    """`wgmma_plan` on card `device`, computed once per shape."""
+def card_plan(kernel: str, device: int, M: int, R: int, C: int,
+              s_bytes: int = 4) -> dict:
+    """`wgmma_plan` on card `device`, computed once per shape and score
+    type."""
     with torch.cuda.device(device):
-        return wgmma_plan(M, R, C, card_capacity(kernel))
+        return wgmma_plan(M, R, C, card_capacity(kernel, int(s_bytes == 2)),
+                          s_bytes)
 
 
 def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
@@ -237,7 +266,7 @@ def _plan_args(kernel: str, a, w, s, M: int, R: int, C: int,
     only steers bf16 activations (f32 ones run the SIMT body)."""
     if a.dtype != torch.bfloat16:
         return (0, 1, 1, 0, 0)
-    plan = card_plan(kernel, a.device.index, M, R, C)
+    plan = card_plan(kernel, a.device.index, M, R, C, s.element_size())
     return (plan["bc"], plan["split"], plan["w_stages"], plan["smem"],
             _tma_flags(a, w, s, R, N))
 
@@ -257,15 +286,17 @@ DS_MAX_STAGES = 4
 DS_RING_BYTES = 96 * 1024     # of (w, s) chunks: a tile at bn = 128
 
 
-def ds_smem(bn: int, stages: int, chunks: int, f32: bool) -> int:
-    """Dynamic shared-memory bytes of kernel 3's body."""
+def ds_smem(bn: int, stages: int, chunks: int, f32: bool,
+            s_bytes: int = 4) -> int:
+    """Dynamic shared-memory bytes of kernel 3's body, for scores of
+    `s_bytes` bytes (4 f32, 2 bf16)."""
     rows = stages * 3 * DS_BMF if f32 else stages * DS_BMS
-    return (1024 + rows * (DS_BK + bn) * 2 + chunks * DS_WR * bn * 6
-            + 16 * (stages + chunks))
+    return (1024 + rows * (DS_BK + bn) * 2
+            + chunks * DS_WR * bn * (2 + s_bytes) + 16 * (stages + chunks))
 
 
 def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
-            sms: int = SMS, E: int = 1) -> dict:
+            sms: int = SMS, E: int = 1, s_bytes: int = 4) -> dict:
     """Launch plan of kernel 3's body for ds (K, N) from x (M, K) and
     g (M, N) of type `act`, or of kernel 7's for E stacked such problems:
     the tile (`bk`, `bn`), the x/g `stages`, the (w, s) `chunks`, the
@@ -286,9 +317,11 @@ def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
     a tile's only stage in one buffer, and two blocks an SM at bn = 64
     (the kernel's 96-register build), so that 16 consumer warps hide the
     latency of the sigmoid epilogue, each block in half the SM's shared
-    memory.  f32 at M > DS_LONG_ROWS runs the body's LONG build at width
-    64, one block an SM, which folds the tensor cores' partial sum into
-    f32 registers every 128 rows."""
+    memory.  bf16 scores (`s_bytes` 2) make a chunk 4 bytes an element,
+    so the bf16 ring's DS_RING_BYTES hold more chunks.  f32 at M >
+    DS_LONG_ROWS runs the body's LONG build at width 64, one block an SM,
+    which folds the tensor cores' partial sum into f32 registers every
+    128 rows."""
     f32 = act == torch.float32
     tiles = {bn: E * _cdiv(K, DS_BK) * _cdiv(N, bn) for bn in DS_WIDTHS}
     bn, per_sm, budget = (128 if tiles[128] >= sms else 64), 1, SMEM_LIMIT
@@ -298,14 +331,16 @@ def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
         bn = 64
     if f32:
         stages, chunks = (1 if M <= DS_BMF else 2), 2 * DS_BK // DS_WR
-        while ds_smem(bn, stages, chunks, f32) > budget:
+        while ds_smem(bn, stages, chunks, f32, s_bytes) > budget:
             chunks -= 1
     else:
-        stages, chunks = DS_MAX_STAGES, DS_RING_BYTES // (DS_WR * bn * 6)
-        while ds_smem(bn, stages, chunks, f32) > budget:
+        stages = DS_MAX_STAGES
+        chunks = DS_RING_BYTES // (DS_WR * bn * (2 + s_bytes))
+        while ds_smem(bn, stages, chunks, f32, s_bytes) > budget:
             stages -= 1
     return dict(bk=DS_BK, bn=bn, stages=stages, chunks=chunks,
-                smem=ds_smem(bn, stages, chunks, f32), per_sm=per_sm,
+                smem=ds_smem(bn, stages, chunks, f32, s_bytes),
+                per_sm=per_sm,
                 grid=max(1, min(tiles[bn], per_sm * sms)))
 
 
@@ -405,22 +440,23 @@ def card_sms(device: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def card_ds_plan(device: int, M: int, K: int, N: int, f32: bool,
-                 E: int = 1) -> dict:
+                 E: int = 1, s_bytes: int = 4) -> dict:
     """`ds_plan` on card `device` (its SM count), computed once per
-    shape."""
+    shape and score type."""
     act = torch.float32 if f32 else torch.bfloat16
-    return ds_plan(M, K, N, act, card_sms(device), E)
+    return ds_plan(M, K, N, act, card_sms(device), E, s_bytes)
 
 
 def _ds_args(x, g, w, s, ds, E: int, M: int, K: int, N: int) -> tuple:
     """(bn, stages, chunks, smem, grid, tma) for kernel 3's or 7's C entry
-    point.  tma bit 0, 1: x, g; 2, 3: w, s; 4: ds, each on the 16-byte
-    grid (its base and its row pitch, and so every group's rows); no x,
-    g rows to map at M = 0."""
-    plan = card_ds_plan(x.device.index, M, K, N, bool(_f32(x)), E)
+    point (for the score type of s).  tma bit 0, 1: x, g; 2, 3: w, s; 4:
+    ds, each on the 16-byte grid (its base and its row pitch, and so
+    every group's rows); no x, g rows to map at M = 0."""
+    es = s.element_size()
+    plan = card_ds_plan(x.device.index, M, K, N, bool(_f32(x)), E, es)
     e = x.element_size()
-    tma = _grid_flags((x, e * K), (g, e * N), (w, 2 * N), (s, 4 * N),
-                      (ds, 4 * N)) & (31 if M else 28)
+    tma = _grid_flags((x, e * K), (g, e * N), (w, 2 * N), (s, es * N),
+                      (ds, es * N)) & (31 if M else 28)
     return (plan["bn"], plan["stages"], plan["chunks"], plan["smem"],
             plan["grid"], tma)
 
@@ -485,25 +521,29 @@ SAP_UNROLL_VEC, SAP_UNROLL_SCALAR = 4, 8
 
 
 def sap_plan(C: int, n: int, sms: int = SMS, aligned: bool = True,
-             unroll: int | None = None) -> dict:
-    """Launch plan of kernel 4 for (C, n) scores: the vector flag `vec`
-    (n % 4 == 0, so that every row starts on the 16-byte grid, and the
-    base `aligned` on it), the `unroll` (vector or word loads a warp
-    issues before it gates: 4 x 16 bytes a lane, or 8 x 4), the elements
-    a thread loads at once (`per_thread`), the `piece` of a row a warp
+             unroll: int | None = None, s_bytes: int = 4) -> dict:
+    """Launch plan of kernel 4 for (C, n) scores of `s_bytes` bytes (4
+    f32, 2 bf16): the vector flag `vec` (n a multiple of the V = 16 /
+    s_bytes scores of a 16-byte vector, so that every row starts on the
+    16-byte grid, and the base `aligned` on it), the `unroll` (vector or
+    word loads a warp issues before it gates: 4 x 16 bytes a lane, or 8
+    x one score; a bf16 vector's 8 bits allow at most 4), the elements a
+    thread loads at once (`per_thread`), the `piece` of a row a warp
     takes (elements), the pieces of a row (`per_row`) and in all
     (`items`), and the persistent `grid`: as many blocks as have pieces,
     at most SAP_PER_SM an SM, so that every block is resident at once."""
-    vec = n % 4 == 0 and aligned
+    v = 16 // s_bytes
+    vec = n % v == 0 and aligned
     if unroll is None:
         unroll = SAP_UNROLL_VEC if vec else SAP_UNROLL_SCALAR
-    if unroll not in SAP_UNROLLS:
-        raise ValueError(f"unroll {unroll}: one of {SAP_UNROLLS}")
-    piece = (128 if vec else 32) * unroll
+    if unroll not in SAP_UNROLLS or (vec and unroll * v > 32):
+        raise ValueError(f"unroll {unroll}: one of {SAP_UNROLLS}, at most "
+                         f"{32 // v} on the vector path")
+    piece = (32 * v if vec else 32) * unroll
     per_row = _cdiv(n, piece)
     items = C * per_row
     warps = SAP_THREADS // 32
-    return dict(vec=vec, unroll=unroll, per_thread=(4 if vec else 1) * unroll,
+    return dict(vec=vec, unroll=unroll, per_thread=(v if vec else 1) * unroll,
                 piece=piece, per_row=per_row, items=items,
                 threads=SAP_THREADS,
                 grid=max(1, min(_cdiv(items, warps), sms * SAP_PER_SM)))
@@ -519,13 +559,13 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
     N = w.shape[1]
     _require(x, "x", _ACTS, (M, K))
     _require(w, "w", torch.bfloat16, (K, N))
-    _require(s, "s", torch.float32, (K, N))
+    _require(s, "s", _SCORES, (K, N))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(x),
+                     _MODES[mode], float(tau), _f32(x), _sbf16(s),
                      *_plan_args("masked_matmul_fwd", x, w, s, M, K, N, N),
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_fwd"] += 1
@@ -543,13 +583,13 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
     K = w.shape[0]
     _require(g, "g", _ACTS, (M, N))
     _require(w, "w", torch.bfloat16, (K, N))
-    _require(s, "s", torch.float32, (K, N))
+    _require(s, "s", _SCORES, (K, N))
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     if M and K:
         build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau), _f32(g),
+                     _MODES[mode], float(tau), _f32(g), _sbf16(s),
                      *_plan_args("masked_matmul_dx", g, w, s, M, N, K, N),
                      dispatch.stream(g))
         dispatch.LAUNCHES["masked_matmul_dx"] += 1
@@ -565,12 +605,13 @@ def masked_matmul_ds(x, g, w, s):
     _require(x, "x", _ACTS, (M, K))
     _require(g, "g", x.dtype, (M, N))
     _require(w, "w", torch.bfloat16, (K, N))
-    _require(s, "s", torch.float32, (K, N))
+    _require(s, "s", _SCORES, (K, N))
     ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
     if K and N:
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
-                     _f32(x), *_ds_args(x, g, w, s, ds, 1, M, K, N),
+                     _f32(x), _sbf16(s),
+                     *_ds_args(x, g, w, s, ds, 1, M, K, N),
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_ds"] += 1
     return ds
@@ -586,16 +627,18 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     if dispatch.on_cpu(s):
         return sample_and_pack_plain(s, seeds, mode, tau)
     C, n = s.shape
-    _require(s, "s", torch.float32, (C, n))
+    _require(s, "s", _SCORES, (C, n))
     words = torch.empty((C, (n + 31) // 32), dtype=torch.int32,
                         device=s.device)
     if C and n:
         seeds32 = _i32_bits(seeds)
         plan = sap_plan(C, n, card_sms(s.device.index),
-                        aligned=s.data_ptr() % 16 == 0)
+                        aligned=s.data_ptr() % 16 == 0,
+                        s_bytes=s.element_size())
         build.launch("sample_and_pack", s.data_ptr(), seeds32.data_ptr(),
                      words.data_ptr(), C, n, _MODES[mode], float(tau),
-                     int(plan["vec"]), plan["unroll"], plan["grid"],
+                     _sbf16(s), int(plan["vec"]), plan["unroll"],
+                     plan["grid"],
                      dispatch.stream(s))
         dispatch.LAUNCHES["sample_and_pack"] += 1
     return words
@@ -617,6 +660,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     N = w.shape[2]
     _require(x, "x", torch.float32, (E, M, K))
     _require(w, "w", torch.bfloat16, (E, K, N))
+    _f32_scores(s, "masked_matmul_grouped")
     _require(s, "s", torch.float32, (E, K, N))
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if E and M and N:
@@ -648,6 +692,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     K = w.shape[1]
     _require(g, "g", torch.float32, (E, M, N))
     _require(w, "w", torch.bfloat16, (E, K, N))
+    _f32_scores(s, "masked_matmul_grouped_dx")
     _require(s, "s", torch.float32, (E, K, N))
     dx = torch.empty((E, M, K), dtype=g.dtype, device=g.device)
     if E and M and K:
@@ -674,12 +719,13 @@ def masked_matmul_grouped_ds(x, g, w, s):
     _require(x, "x", torch.float32, (E, M, K))
     _require(g, "g", torch.float32, (E, M, N))
     _require(w, "w", torch.bfloat16, (E, K, N))
+    _f32_scores(s, "masked_matmul_grouped_ds")
     _require(s, "s", torch.float32, (E, K, N))
     ds = torch.empty((E, K, N), dtype=s.dtype, device=s.device)
     if E and K and N:
         build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
-                     *_ds_args(x, g, w, s, ds, E, M, K, N),
+                     0, *_ds_args(x, g, w, s, ds, E, M, K, N),
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_grouped_ds"] += 1
     return ds
@@ -703,6 +749,7 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     _require(x, "x", _ACTS, (B, S, C))
     _require(w, "w", torch.bfloat16, (W, C))
     if not plain:
+        _f32_scores(s, "masked_conv1d")
         _require(s, "s", torch.float32, (W, C))
     y = torch.empty((B, S, C), dtype=torch.float32, device=x.device)
     if B and S and C:
@@ -733,6 +780,7 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     _require(g, "g", torch.float32, (B, S, C))
     _require(w, "w", torch.bfloat16, (W, C))
     if not dw:
+        _f32_scores(s, "masked_conv1d_ds")
         _require(s, "s", torch.float32, (W, C))
     ds = torch.empty((W, C), dtype=torch.float32, device=x.device)
     if C:

@@ -108,8 +108,9 @@ def time_variant(name: str, plan: str | None) -> list:
                      smem=mm.ds_smem(bn, stages, chunks, True))
         tma = mm._grid_flags((x, 4 * K), (g, 4 * N), (w, 2 * N), (s, 4 * N),
                              (ds, 4 * N))
-        ops.append((x, g, w, s, ds, K, N, (p["bn"], p["stages"], p["chunks"],
-                                           p["smem"], p["grid"], tma)))
+        ops.append((x, g, w, s, ds, K, N, (0, p["bn"], p["stages"],
+                                           p["chunks"], p["smem"], p["grid"],
+                                           tma)))
     stream = torch.cuda.current_stream().cuda_stream
 
     def layer():

@@ -115,7 +115,7 @@ def time_variant(name: str) -> list:
     def launch(s, words, plan, mode=0):
         C, n = s.shape
         err = fn(s.data_ptr(), seeds.data_ptr(), words.data_ptr(), C, n,
-                 mode, TAU, int(plan["vec"]), plan["unroll"], plan["grid"],
+                 mode, TAU, 0, int(plan["vec"]), plan["unroll"], plan["grid"],
                  stream)
         if err:
             raise RuntimeError(f"{name}: launch failed, cudaError {err}")

@@ -10,6 +10,12 @@ mask stream is keyed by.
   the fused path: the forward consumes a `masked_forward_tree`, every
   masked projection runs the masked-matmul kernels, and scores get the
   straight-through gradient plus lam times the eq. 12 entropy proxy's.
+  `StepConfig.microbatch` = M splits each cohort's batch into M
+  contiguous chunks, one mask-stream tick each (step * M + j), and
+  averages their gradients in f32; `chunk_kv` chunks attention over its
+  keys; `score_dtype` (that of `init_fed_state`: a state of another
+  score type raises) keeps scores and moments in bf16, updated in f32 a
+  piece at a time and stored once in their type.
 * `make_round_step` — the paper's communication event: each cohort's
   scores become packed mask words through the fused `sample_and_pack`
   kernel, theta is the (survivor-weighted) mean of the words, crosses
@@ -30,7 +36,7 @@ score state.  `step` is a Python int.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -50,6 +56,9 @@ class StepConfig:
     lr: float = 0.1
     float_lr: float = 0.01
     momentum: float = 0.9
+    chunk_kv: Optional[int] = None   # attention over KV chunks (long seq)
+    score_dtype: Any = torch.float32  # the state's (`init_fed_state`)
+    microbatch: int = 1              # gradient-accumulation chunks
     optimizer: str = "momentum"      # "momentum" | "adam" (scores)
     adam_eps: float = 1e-8
     downlink_bits: int = 0           # k-bit theta broadcast (0 = f32)
@@ -64,14 +73,17 @@ DOWNLINK_STREAM_LEAF = 1 << 20
 
 
 def init_fed_state(gen: torch.Generator, api, spec: masking.MaskSpec, C: int,
-                   optimizer: str = "momentum"):
+                   score_dtype=torch.float32, optimizer: str = "momentum"):
     """Fed state on `gen`'s device; every cohort starts from the same
-    scores and floats."""
-    mp = masking.init_masked(gen, api.init_params(gen), spec)
+    scores and floats.  Scores and their moments (`opt_m`, adam's
+    `opt_v`) are of `score_dtype` (f32, or bf16: half the mask state)."""
+    mp = masking.init_masked(gen, api.init_params(gen), spec,
+                             score_dtype=score_dtype)
 
-    def rep(t):
-        return None if t is None else t[None].repeat(
-            (C,) + (1,) * t.ndim)
+    def rep(t):   # one cohort holds the init's tensors themselves
+        if t is None:
+            return None
+        return t[None] if C == 1 else t[None].repeat((C,) + (1,) * t.ndim)
 
     scores = tu.tree_map(rep, mp.scores)
     zeros = lambda tree: tu.tree_map(
@@ -83,6 +95,18 @@ def init_fed_state(gen: torch.Generator, api, spec: masking.MaskSpec, C: int,
     return state
 
 
+def _check_score_dtype(state, cfg: StepConfig):
+    """The steps update the state's scores in place, in their own type,
+    where the reference's round returns them cast to `cfg.score_dtype`:
+    so a state whose scores are of another type than `cfg.score_dtype`
+    raises rather than keep a type the config does not name."""
+    got = {s.dtype for s in tu.leaves(state["scores"]) if s is not None}
+    if got - {cfg.score_dtype}:
+        raise ValueError(f"the state's scores are {sorted(map(str, got))} "
+                         f"but StepConfig.score_dtype is "
+                         f"{cfg.score_dtype}: give both the same type")
+
+
 def _blocks(t: torch.Tensor) -> list:
     """The per-layer blocks of a leaf: views along its leading (layer)
     axis, or the leaf itself when it is one (K, N) matrix.  A layer's
@@ -91,17 +115,13 @@ def _blocks(t: torch.Tensor) -> list:
     return [t] if t.ndim == 2 else list(t.unbind(0))
 
 
-def _as_grad_leaves(leaf: MaskedLeaf) -> MaskedLeaf:
-    """The leaf with each per-layer score block an autograd leaf of its
-    own (views of the state's storage), so each block's gradient lands
-    in its own `.grad` and no stacked gradient buffer is built."""
-    blocks = [b.detach().requires_grad_() for b in _blocks(leaf.s)]
-    return dataclasses.replace(
-        leaf, s=blocks[0] if leaf.s.ndim == 2 else blocks)
-
-
-def _score_blocks(leaf: MaskedLeaf) -> list:
-    return [leaf.s] if isinstance(leaf.s, torch.Tensor) else list(leaf.s)
+def _grad_blocks(s: torch.Tensor):
+    """The per-layer blocks of a cohort's score leaf, each an autograd
+    leaf of its own (views of the state's storage), so each block's
+    gradient lands in its own `.grad` and no stacked gradient buffer is
+    built; a (K, N) leaf is one block."""
+    blocks = [b.detach().requires_grad_() for b in _blocks(s)]
+    return blocks[0] if s.ndim == 2 else blocks
 
 
 # elements a piece of the in-place score update (and of the round's
@@ -123,9 +143,76 @@ def _pieces(g, s, m, v):
         yield [None if t is None else t[i:i + UPDATE_PIECE] for t in flat]
 
 
+ADAM_BETAS = (0.9, 0.999)
+
+
+def _update_f32(cfg, g, s, m, v, coef, bc):
+    """One piece of the f32 score update, in place: g += the proxy's
+    gradient, then momentum (m = momentum m + g; s -= lr m) or adam."""
+    b1, b2 = ADAM_BETAS
+    if cfg.lam:
+        regularizer.entropy_proxy_grad_(g, s, coef)
+    if v is None:
+        m.mul_(cfg.momentum).add_(g)
+        s.sub_(cfg.lr * m)
+    else:
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * (g * g))
+        s.sub_(cfg.lr * (m / bc[0]) / (torch.sqrt(v / bc[1]) + cfg.adam_eps))
+
+
+def _low_grad(g, s, coef) -> torch.Tensor:
+    """A piece of the gradient of loss + lam * proxy w.r.t. bf16 scores,
+    as the reference's autodiff forms it: the proxy's f32 gradient
+    rounded to bf16, plus the bf16 straight-through gradient g, in f32
+    (the sum's own rounding to bf16 is left to the consumer)."""
+    sig = torch.sigmoid(s.float())
+    return g.float() + (coef * sig * (1.0 - sig)).to(s.dtype).float()
+
+
+def _update_low(cfg, g, s, m, v, bc, g_low: bool):
+    """One piece of the update of bf16 scores and moments, in the
+    rounding of the reference's jitted step on the CPU (its optimized
+    HLO): a Python constant times a bf16 tensor is a product with the
+    constant rounded to bf16, and a bf16 result is rounded where a bf16
+    op consumes it or it is stored, but kept in f32 where an f32 op
+    consumes it.  g: where `g_low` (one batch) the `_low_grad` sum, which
+    momentum and adam's m take rounded and adam's v unrounded; else the
+    f32 microbatch mean.  m, v and s are each stored once in their type
+    (round to nearest even)."""
+    lo = s.dtype
+    r = lambda x: x.to(lo).float()
+    k = lambda c: float(torch.tensor(c, dtype=lo))   # the constant in bf16
+    b1, b2 = ADAM_BETAS
+    gr = r(g) if g_low else g
+    if v is None:
+        pm = k(cfg.momentum) * m.float()
+        m.copy_((r(pm) if g_low else pm) + gr)
+        s.copy_(s.float() - r(k(cfg.lr) * m.float()))
+    else:
+        pm = k(b1) * m.float()
+        # one batch: a bf16 sum, which the score step reads unrounded;
+        # microbatches: an f32 sum cast to bf16, which it reads rounded
+        mf = (r(pm) + r(k(1 - b1) * gr) if g_low else pm + (1 - b1) * g)
+        m.copy_(mf)
+        if not g_low:
+            mf = m.float()
+        v.copy_(r(k(b2) * v.float()) + (1 - b2) * (g * g))
+        s.copy_(s.float() - cfg.lr * (mf / bc[0])
+                / (torch.sqrt(v.float() / bc[1]) + cfg.adam_eps))
+
+
 def make_train_step(api, cfg: StepConfig):
-    """(state, batch) -> (state, {"loss"}); batch["tokens"]: (C, B, S)."""
-    b1, b2 = 0.9, 0.999
+    """(state, batch) -> (state, {"loss"}); batch["tokens"]: (C, B, S)
+    (and any other (C, B, ...) entries the family reads).  With
+    `cfg.microbatch` = M > 1 each cohort's batch runs as M contiguous
+    chunks of B / M, chunk j's masks drawn at stream tick step * M + j;
+    the score and float gradients are summed over the chunks in f32 and
+    divided by M (f32 scores sum in their `.grad`, bf16 ones in an f32
+    buffer a block), the loss is the chunks' mean, and the entropy
+    proxy's gradient is added once to the mean."""
+    b1, b2 = ADAM_BETAS
+    M = cfg.microbatch
 
     def cohort_update(state, c, batch_c):
         step = state["step"]
@@ -135,58 +222,109 @@ def make_train_step(api, cfg: StepConfig):
             lambda f: None if f is None else
             f[c].detach().requires_grad_(), state["floats"])
         mp = MaskedParams(state["weights"], scores_c, floats_c)
-        params = masking.masked_forward_tree(
-            mp, lambda i: masking.mask_stream_seed(step, 0, i, c,
-                                                   run_seed=cfg.seed),
-            mode=cfg.mask_mode, tau=cfg.tau)
-        params = tu.tree_map(
-            lambda p: _as_grad_leaves(p) if isinstance(p, MaskedLeaf)
-            else p, params)
-        loss = api.loss(api.forward(params, batch_c), batch_c)
-        loss.backward()
+        grad_s = [None if s is None else _grad_blocks(s)
+                  for s in tu.leaves(scores_c)]
+        blocks = [b for g in grad_s if g is not None
+                  for b in ([g] if isinstance(g, torch.Tensor) else g)]
+        dev = blocks[0].device
+        # d(lam * (1/n) sum sigmoid(s)) / ds = (lam / n) sigmoid'(s)
+        n = sum(b.numel() for b in blocks)
+        coef = (torch.tensor(cfg.lam, dtype=torch.float32) /
+                torch.tensor(float(n), dtype=torch.float32)).to(dev)
+        B = next(iter(batch_c.values())).shape[0]
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} "
+                             f"microbatches")
+        # over the chunks: bf16 score blocks sum their gradients (each
+        # with the proxy's, as the reference differentiates each chunk's
+        # total) in an f32 buffer; f32 ones in .grad, the floats in f32
+        acc, f_acc, loss_sum = {}, {}, None
+        for j in range(M):
+            tick = step * M + j
+            params = masking.masked_forward_tree(
+                mp, lambda i: masking.mask_stream_seed(tick, 0, i, c,
+                                                       run_seed=cfg.seed),
+                mode=cfg.mask_mode, tau=cfg.tau)
+            flat, tdef = tu.flatten(params)
+            params = tu.unflatten(tdef, [
+                dataclasses.replace(p, s=grad_s[i])
+                if isinstance(p, MaskedLeaf) else p
+                for i, p in enumerate(flat)])
+            chunk = batch_c if M == 1 else {
+                k: v[j * (B // M):(j + 1) * (B // M)]
+                for k, v in batch_c.items()}
+            loss = api.loss(api.forward(params, chunk,
+                                        chunk_kv=cfg.chunk_kv), chunk)
+            loss.backward()
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if M == 1:
+                continue
+            with torch.no_grad():
+                for s in blocks:
+                    if s.dtype == torch.float32:
+                        continue
+                    a = acc.setdefault(id(s), torch.zeros(
+                        s.shape, dtype=torch.float32, device=dev))
+                    g = (s.grad if s.grad is not None
+                         else torch.zeros_like(s))
+                    for ap, gp, sp, _ in _pieces(a, g, s, None):
+                        ap.add_(_low_grad(gp, sp, coef))
+                    s.grad = None
+                for i, f in enumerate(tu.leaves(floats_c)):
+                    if f is not None and f.grad is not None:
+                        a = f_acc.get(i)
+                        f_acc[i] = (f.grad.float() if a is None
+                                    else a.add_(f.grad))
+                        f.grad = None
 
         with torch.no_grad():
-            leaves = [p for p in tu.leaves(params) if isinstance(p, MaskedLeaf)]
-            n = sum(p.w.numel() for p in leaves)
-            # d(lam * (1/n) sum sigmoid(s)) / ds = (lam / n) sigmoid'(s)
-            dev = leaves[0].w.device
-            coef = (torch.tensor(cfg.lam, dtype=torch.float32) /
-                    torch.tensor(float(n), dtype=torch.float32)).to(dev)
             moms = [m[c] for m in tu.leaves(state["opt_m"]) if m is not None]
             vels = ([v[c] for v in tu.leaves(state["opt_v"]) if v is not None]
                     if "opt_v" in state else [None] * len(moms))
+            bc = None
             if "opt_v" in state:
                 t = torch.tensor(float(step + 1), dtype=torch.float32)
-                bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).to(dev)
-                bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).to(dev)
-            for leaf, m_leaf, v_leaf in zip(leaves, moms, vels):
+                bc = ((1 - torch.tensor(b1, dtype=torch.float32) ** t).to(dev),
+                      (1 - torch.tensor(b2, dtype=torch.float32) ** t).to(dev))
+            score_leaves = [g for g in grad_s if g is not None]
+            for s_leaf, m_leaf, v_leaf in zip(score_leaves, moms, vels):
+                s_blocks = ([s_leaf] if isinstance(s_leaf, torch.Tensor)
+                            else s_leaf)
                 m_blocks = _blocks(m_leaf)
                 v_blocks = ([None] * len(m_blocks) if v_leaf is None
                             else _blocks(v_leaf))
-                for s, m, v in zip(_score_blocks(leaf), m_blocks, v_blocks):
-                    g = s.grad
+                for s, m, v in zip(s_blocks, m_blocks, v_blocks):
+                    g = acc.pop(id(s), None)
                     if g is None:
-                        g = torch.zeros_like(s)
+                        g = (s.grad if s.grad is not None
+                             else torch.zeros_like(s))
+                    if M > 1:
+                        g.div_(M)
                     for gp, sp, mp_, vp in _pieces(g, s, m, v):
-                        if cfg.lam:
-                            regularizer.entropy_proxy_grad_(gp, sp, coef)
-                        if vp is None:
-                            mp_.mul_(cfg.momentum).add_(gp)
-                            sp.sub_(cfg.lr * mp_)
+                        if s.dtype == torch.float32:
+                            _update_f32(cfg, gp, sp, mp_, vp, coef, bc)
+                        elif M == 1:
+                            _update_low(cfg, _low_grad(gp, sp, coef),
+                                        sp, mp_, vp, bc, g_low=True)
                         else:
-                            mp_.mul_(b1).add_((1 - b1) * gp)
-                            vp.mul_(b2).add_((1 - b2) * (gp * gp))
-                            sp.sub_(cfg.lr * (mp_ / bc1)
-                                    / (torch.sqrt(vp / bc2)
-                                       + cfg.adam_eps))
+                            _update_low(cfg, gp, sp, mp_, vp, bc,
+                                        g_low=False)
                     s.grad = None
-            for f in tu.leaves(floats_c):
-                if f is not None and f.grad is not None:
+                    del g
+            for i, f in enumerate(tu.leaves(floats_c)):
+                if f is None:
+                    continue
+                if i in f_acc:
+                    f.copy_((f.float() - cfg.float_lr * (f_acc.pop(i) / M))
+                            .to(f.dtype))
+                elif f.grad is not None:
                     f.sub_(cfg.float_lr * f.grad)
-                    f.grad = None
-        return loss.detach().float()
+                f.grad = None
+        return loss_sum / M if M > 1 else loss_sum
 
     def train_step(state, batch):
+        _check_score_dtype(state, cfg)
         C = next(s for s in tu.leaves(state["scores"]) if s is not None
                  ).shape[0]
         losses = [cohort_update(state, c, {k: v[c] for k, v in batch.items()})
@@ -212,6 +350,7 @@ def make_round_step(api, cfg: StepConfig, codec=None):
     f32 = torch.float32
 
     def round_step(state, participation=None, downlink_u=None):
+        _check_score_dtype(state, cfg)
         step = state["step"]
         flat_s = tu.leaves(state["scores"])
         C = next(s for s in flat_s if s is not None).shape[0]
@@ -329,14 +468,16 @@ def init_fedavg_state(gen: torch.Generator, api):
 
 def make_fedavg_step(api, cfg: StepConfig):
     """(state, batch) -> (state, {"loss"}); batch["tokens"]: (B, S).  One
-    autograd step on the float params: m = momentum * m + g in f32, then
+    autograd step on the float params (attention over KV chunks of
+    `cfg.chunk_kv` keys if set): m = momentum * m + g in f32, then
     p = p - lr * m in p's dtype, both in place."""
 
     def fedavg_step(state, batch):
         params = tu.tree_map(
             lambda p: None if p is None else p.detach().requires_grad_(),
             state["params"])
-        loss = api.loss(api.forward(params, batch), batch)
+        loss = api.loss(api.forward(params, batch, chunk_kv=cfg.chunk_kv),
+                        batch)
         loss.backward()
         with torch.no_grad():
             for p, m, dst in zip(tu.leaves(params),

@@ -1,7 +1,9 @@
 """Model dispatcher: family -> (init, forward, loss, cache, decode).
 
-`forward(params, batch)` takes a params tree whose maskable leaves are
-plain tensors or `masking.MaskedLeaf` bundles (the fused path); the
+`forward(params, batch, chunk_kv=None)` takes a params tree whose
+maskable leaves are plain tensors or `masking.MaskedLeaf` bundles (the
+fused path), and runs attention over KV chunks of `chunk_kv` keys when
+set (the ssm family has none and ignores it); the
 `layers.masked_dense_apply` / `masked_grouped_apply` /
 `masked_conv1d_apply` dispatch decides per leaf.  Every family of the
 reference's LM zoo is ported, with its training forward and its decode
@@ -34,7 +36,8 @@ class ModelApi:
     lockstep serve step runs it), never read back to the host."""
     cfg: ArchConfig
     init_params: Callable        # (generator) -> params on its device
-    forward: Callable            # (params, batch) -> (logits, aux)
+    forward: Callable            # (params, batch, chunk_kv=None) ->
+    #                              (logits, aux)
     loss: Callable               # (outputs, batch) -> scalar
     init_cache: Callable         # (batch, max_seq, device) -> cache
     decode_step: Callable        # (params, cache, token, pos) -> logits,
@@ -50,14 +53,15 @@ def build_model(cfg: ArchConfig) -> ModelApi:
         raise ValueError(f"unknown family {cfg.family}")
     mod = _FAMILIES[cfg.family]
 
-    def fwd(params, batch):
+    def fwd(params, batch, chunk_kv=None):
         if mod is transformer:
             return mod.forward(params, cfg, batch["tokens"],
-                               vis_embeds=batch.get("vis_embeds"))
+                               vis_embeds=batch.get("vis_embeds"),
+                               chunk_kv=chunk_kv)
         if mod is encdec:
             return mod.forward(params, cfg, batch["tokens"],
-                               frames=batch.get("frames"))
-        return mod.forward(params, cfg, batch["tokens"])
+                               frames=batch.get("frames"), chunk_kv=chunk_kv)
+        return mod.forward(params, cfg, batch["tokens"], chunk_kv=chunk_kv)
 
     init_cache, decode = mod.init_cache, mod.decode_step
     if mod is transformer and transformer.windowed(cfg):

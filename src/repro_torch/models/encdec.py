@@ -15,7 +15,10 @@ the decoder's self-attention cache "k"/"v" (L, B, S, n_kv, hd) and the
 cross K/V "ck"/"cv" (L, B, enc_seq, n_kv, hd), all zeros: a caller
 fills ck/cv from `encode` (`cross_kv`) or decodes against the zeros, as
 the reference launcher does; `decode_step` writes this token's keys and
-values in place and reads the cross K/V from the cache.
+values in place and reads the cross K/V from the cache.  `chunk_kv`
+chunks the encoder's and the decoder's self-attention over its keys
+(cross attention stays whole, as in the reference); the reference has
+no `remat` for this family.
 """
 from __future__ import annotations
 
@@ -70,10 +73,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Pytree:
     }
 
 
-def encode(params: Pytree, cfg: ArchConfig, frames: torch.Tensor):
+def encode(params: Pytree, cfg: ArchConfig, frames: torch.Tensor,
+           chunk_kv: int = None):
     """frames: (B, S, D) stub frontend embeddings -> (B, S, D) in their
     dtype: learned positions, then non-causal self-attention without
-    rope and a GELU MLP per layer, then the final layer norm."""
+    rope (over KV chunks of `chunk_kv` keys if set) and a GELU MLP per
+    layer, then the final layer norm."""
     S = frames.shape[1]
     x = frames + params["enc_pos_embed_float"][:S].to(frames.dtype)
     positions = torch.arange(S, device=frames.device)
@@ -83,7 +88,7 @@ def encode(params: Pytree, cfg: ArchConfig, frames: torch.Tensor):
         h = L.layer_norm(lp["attn_norm"], x)
         out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, causal=False,
-                             use_rope=False)
+                             use_rope=False, chunk_kv=chunk_kv)
         x = x + out
         h = L.layer_norm(lp["ffn_norm"], x)
         x = x + L.mlp_apply(lp["mlp"], h, "gelu")
@@ -113,13 +118,13 @@ def _cross_ffn(cfg: ArchConfig, lp, x, positions, ck, cv):
 
 
 def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
-            frames: torch.Tensor = None):
+            frames: torch.Tensor = None, chunk_kv: int = None):
     """tokens: (B, S_dec); frames: (B, enc_seq, D), bf16 zeros when None.
     Returns (logits f32 (B, S_dec, V), aux 0)."""
     if frames is None:
         frames = torch.zeros((tokens.shape[0], cfg.enc_seq, cfg.d_model),
                              dtype=torch.bfloat16, device=tokens.device)
-    enc_out = encode(params, cfg, frames)
+    enc_out = encode(params, cfg, frames, chunk_kv)
     S = tokens.shape[1]
     x = L.embed_lookup(params["embed"]["table"], tokens)
     x = x + params["pos_embed_float"][:S].to(x.dtype)
@@ -129,7 +134,8 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
         lp = layer_slice(stack, l)
         h = L.layer_norm(lp["attn_norm"], x)
         out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
-                             cfg.n_kv_heads, cfg.hd, use_rope=False)
+                             cfg.n_kv_heads, cfg.hd, use_rope=False,
+                             chunk_kv=chunk_kv)
         x = _cross_ffn(cfg, lp, x + out, positions, *cross_kv(cfg, lp,
                                                               enc_out))
     x = L.layer_norm(params["final_norm"], x)

@@ -9,11 +9,15 @@ remaining n_layers mod 3 layers (the leading kinds of the pattern, all
 "rec" for every config in the repo) stacked under params["tail"].  The
 reference's scans over groups and tail are Python loops here.  The RG-LRU
 recurrence is a log-depth (Hillis-Steele) scan over time in plain torch,
-as the reference's `lax.associative_scan` is plain XLA.
+as the reference's `lax.associative_scan` is plain XLA.  `chunk_kv`
+chunks the local attention over its keys; with `cfg.remat` each group
+of blocks is recomputed in the backward (`transformer.remat`).
 
 Float (non-masked) params: the recurrence decay `a_param`, the conv and
-gate biases and the norms.  A tail of mixed block kinds, which the
-reference keeps as a list, raises.
+gate biases and the norms.  A tail of mixed block kinds is built as the
+reference builds it, a list of one block each; the reference's forward
+scans the tail as one stack and cannot run such a list, so the port's
+forward and `decode_step` raise on it.
 
 Decode is O(1) in the sequence length: each rec block keeps its RG-LRU
 state and conv buffer, each attention block a ring KV cache of
@@ -31,7 +35,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (NEG_BIG, attn_ring,
-                                            decode_pos, depth, layer_slice)
+                                            decode_pos, depth, layer_slice,
+                                            remat)
 
 Pytree = Any
 
@@ -93,7 +98,8 @@ def _block_init(gen, cfg, kind, lead):
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Pytree:
     """Random params on `gen`'s device: group leaves (n_groups, ...),
-    tail leaves (n_tail, ...)."""
+    tail leaves (n_tail, ...), or a tail of mixed kinds as a list of
+    unstacked blocks (the reference's layout)."""
     n_groups, n_tail = _group_counts(cfg)
     params = {
         "embed": {"table": L.embed_init(gen, (cfg.vocab, cfg.d_model))},
@@ -102,13 +108,25 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Pytree:
         "final_norm": L.rms_norm_init(cfg.d_model, gen.device),
     }
     if n_tail:
-        kinds = set(cfg.block_pattern[:n_tail])
-        if len(kinds) != 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a tail of mixed block kinds {kinds} (a list "
-                f"in the reference) is not ported")
-        params["tail"] = _block_init(gen, cfg, kinds.pop(), (n_tail,))
+        kinds = cfg.block_pattern[:n_tail]
+        if len(set(kinds)) == 1:
+            params["tail"] = _block_init(gen, cfg, kinds[0], (n_tail,))
+        else:
+            params["tail"] = [_block_init(gen, cfg, kind, ())
+                              for kind in kinds]
     return params
+
+
+def _stacked_tail(params: Pytree, cfg: ArchConfig):
+    """The tail stack, or None; a tail of mixed kinds (a list) raises, as
+    the reference's scan over it fails."""
+    tail = params.get("tail")
+    if isinstance(tail, list):
+        raise NotImplementedError(
+            f"{cfg.name}: a tail of mixed block kinds "
+            f"{cfg.block_pattern[:len(tail)]}: the reference builds it as a "
+            f"list, which its forward and decode cannot scan")
+    return tail
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +170,7 @@ def _rec_mix(cfg, lp, x):
     return L.masked_dense_apply((h * gate).to(x.dtype), lp["w_out"])
 
 
-def _block_fwd(cfg, kind, lp, x, positions):
+def _block_fwd(cfg, kind, lp, x, positions, chunk_kv=None):
     h = L.rms_norm(lp["norm"], x)
     if kind == "rec":
         x = x + _rec_mix(cfg, lp, h)
@@ -160,27 +178,37 @@ def _block_fwd(cfg, kind, lp, x, positions):
         out, _ = L.gqa_apply(lp["attn"], h, positions, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd,
                              rope_theta=cfg.rope_theta,
-                             window=cfg.sliding_window)
+                             window=cfg.sliding_window, chunk_kv=chunk_kv)
         x = x + out
     h = L.rms_norm(lp["mlp_norm"], x)
     return x + L.mlp_apply(lp["mlp"], h, cfg.act)
 
 
-def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits f32 (B, S, V), aux 0)."""
+def _group_fwd(cfg, gp, x, positions, chunk_kv):
+    for i, kind in enumerate(cfg.block_pattern):
+        x = _block_fwd(cfg, kind, gp[f"b{i}_{kind}"], x, positions, chunk_kv)
+    return x
+
+
+def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
+            chunk_kv: int = None):
+    """tokens: (B, S) -> (logits f32 (B, S, V), aux 0).  chunk_kv: the
+    local attention over KV chunks of that many keys.  With `cfg.remat`
+    each group is recomputed in the backward (the tail is not, as in the
+    reference)."""
+    tail = _stacked_tail(params, cfg)
     x = L.embed_lookup(params["embed"]["table"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                          device=x.device)
     positions = torch.arange(tokens.shape[1], device=x.device)
     groups = params["groups"]
     for g in range(depth(groups)):
-        gp = layer_slice(groups, g)
-        for i, kind in enumerate(cfg.block_pattern):
-            x = _block_fwd(cfg, kind, gp[f"b{i}_{kind}"], x, positions)
-    if "tail" in params:
-        for l in range(depth(params["tail"])):
-            x = _block_fwd(cfg, cfg.block_pattern[0],
-                           layer_slice(params["tail"], l), x, positions)
+        args = (cfg, layer_slice(groups, g), x, positions, chunk_kv)
+        x = remat(_group_fwd, *args) if cfg.remat else _group_fwd(*args)
+    if tail is not None:
+        for l in range(depth(tail)):
+            x = _block_fwd(cfg, cfg.block_pattern[0], layer_slice(tail, l),
+                           x, positions, chunk_kv)
     x = L.rms_norm(params["final_norm"], x)
     logits = L.unembed(params["embed"]["table"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -279,9 +307,10 @@ def decode_step(params: Pytree, cfg: ArchConfig, cache: Pytree,
                          cache["k_pos"][g, ai])
                 ai += 1
             x = _block_step(cfg, kind, gp[f"b{i}_{kind}"], x, pos, state)
-    if "tail" in params:
-        for l in range(depth(params["tail"])):
-            x = _block_step(cfg, "rec", layer_slice(params["tail"], l), x,
+    tail = _stacked_tail(params, cfg)
+    if tail is not None:
+        for l in range(depth(tail)):
+            x = _block_step(cfg, "rec", layer_slice(tail, l), x,
                             pos, (cache["tail_h"][l], cache["tail_conv"][l]))
     x = L.rms_norm(params["final_norm"], x)
     return L.unembed(params["embed"]["table"], x), cache

@@ -233,24 +233,61 @@ def _causal_mask(q_pos, k_pos, window=None, causal=True):
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def attention_core(q, k, v, q_pos, k_pos, window=None, causal=True):
+def attention_core(q, k, v, q_pos, k_pos, window=None, causal=True,
+                   chunk_kv=None, soft_cap=None):
     """Attention, causal unless `causal=False` (an encoder, cross
     attention), optionally within a sliding window.
     q: (B, Sq, H, Hd); k: (B, Sk, Kv, Hd); v: (B, Sk, Kv, Dv).  GQA (and
-    MQA) by head repetition, f32 scores and softmax, output in q.dtype:
-    the reference's unchunked branch (its soft cap and chunked online
-    softmax are ROADMAP Queue 1 item 5, part 2)."""
+    MQA) by head repetition, f32 scores and softmax, output in q.dtype.
+    `soft_cap` bounds the scores by tanh(s / cap) * cap before the mask.
+
+    `chunk_kv` runs the reference's online softmax over KV chunks of that
+    many keys, so no (Sq, Sk) score matrix exists at once (the memory
+    path of long prefills): keys are zero-padded to whole chunks at
+    position -10**9, and each chunk rescales the running max, sum and
+    output, as the reference's scan does.  (A padded key lies inside a
+    causal mask without a window, as in the reference.)"""
     B, Sq, H, Hd = q.shape
     Kv = k.shape[2]
     Dv = v.shape[-1]
     rep = H // Kv
     scale = 1.0 / math.sqrt(Hd)
     qf = (q.float() * scale).reshape(B, Sq, Kv, rep, Hd)
-    s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
-    s = s + _causal_mask(q_pos, k_pos, window, causal)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrqk,bkgh->bqgrh", p, v.float())
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+    def scores(kc):
+        s = torch.einsum("bqgrh,bkgh->bgrqk", qf, kc.float())
+        return s if soft_cap is None else torch.tanh(s / soft_cap) * soft_cap
+
+    if chunk_kv is None:
+        s = scores(k) + _causal_mask(q_pos, k_pos, window, causal)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrqk,bkgh->bqgrh", p, v.float())
+        return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+    Sk = k.shape[1]
+    n_chunks = -(-Sk // chunk_kv)
+    pad = n_chunks * chunk_kv - Sk
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kpos = F.pad(k_pos, (0, pad), value=-(10 ** 9))
+    m = torch.full((B, Kv, rep, Sq), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Kv, rep, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Kv, rep, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    for c in range(n_chunks):
+        keys = slice(c * chunk_kv, (c + 1) * chunk_kv)
+        s = scores(kp[:, keys]) + _causal_mask(q_pos, kpos[keys], window,
+                                               causal)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqk,bkgh->bgrqh", p, vp[:, keys].float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.movedim(-2, 1).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
 def add_bias(t, p, name):
@@ -262,11 +299,13 @@ def add_bias(t, p, name):
 
 def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
               window=None, kv_override=None, k_positions=None, causal=True,
-              use_rope=True, mrope_positions=None, mrope_sections=None):
+              use_rope=True, mrope_positions=None, mrope_sections=None,
+              chunk_kv=None):
     """Self-attention block (no norm), causal unless `causal=False`,
-    attending to the last `window` positions if set; returns (out, (k,
-    v)).  The qkv biases, when the params carry them, are added after
-    the masked projections.  `mrope_positions` (3, B, S) rotates q and k
+    attending to the last `window` positions if set, over KV chunks of
+    `chunk_kv` keys if set (`attention_core`); returns (out, (k, v)).
+    The qkv biases, when the params carry them, are added after the
+    masked projections.  `mrope_positions` (3, B, S) rotates q and k
     by M-RoPE over `mrope_sections` instead of RoPE; `use_rope=False`
     rotates nothing.  `kv_override` = (k, v) attends over given keys and
     values instead (cached decode: the keys are already roped; cross
@@ -291,7 +330,7 @@ def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
         k = rotate(add_bias(k, p, "bias_k"))
         v = add_bias(v, p, "bias_v")
         k_pos = positions
-    o = attention_core(q, k, v, positions, k_pos, window, causal)
+    o = attention_core(q, k, v, positions, k_pos, window, causal, chunk_kv)
     return masked_dense_apply(o.reshape(B, S, n_heads * head_dim),
                               p["w_o"]), (k, v)
 
@@ -326,13 +365,14 @@ def mla_init(gen, d_model, n_heads, kv_lora, q_lora, qk_nope, qk_rope,
 
 
 def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
-              rope_theta=10000.0, cache_kv=None):
+              rope_theta=10000.0, chunk_kv=None, cache_kv=None):
     """MLA forward (training / prefill); returns (out, (c_kv, k_rope)).
     q and k carry nope + rope dims, so the softmax scale is
     1/sqrt(qk_nope + qk_rope); the decoupled rope key is shared by all
     heads and the compressed c_kv is RMS-normed with `kv_norm_scale`.
     `cache_kv` = (c_kv, k_rope) attends over a decode cache (already
-    holding this step's entries) at key positions arange."""
+    holding this step's entries) at key positions arange; `chunk_kv`
+    chunks the keys as `attention_core` does."""
     B, S, _ = x.shape
     if "w_dq" in p:
         cq = rms_norm({"scale": p["q_norm_scale"]},
@@ -360,7 +400,7 @@ def mla_apply(p, x, positions, n_heads, kv_lora, qk_nope, qk_rope, v_head,
     k = torch.cat([k_nope, k_rope_all.expand(B, Sk, n_heads, qk_rope)],
                   dim=-1)
     q = torch.cat([q[..., :qk_nope], q_rope], dim=-1)
-    o = attention_core(q, k, v, positions, k_pos)
+    o = attention_core(q, k, v, positions, k_pos, chunk_kv=chunk_kv)
     return masked_dense_apply(o.reshape(B, S, -1), p["w_o"]), (c_kv, k_rope)
 
 
@@ -404,7 +444,7 @@ def mlp_apply(p, x, act="silu"):
 
 
 # ---------------------------------------------------------------------------
-# MoE (capacity dispatch; the reference's block_dispatch = 0 path)
+# MoE (capacity dispatch, global or block-local)
 # ---------------------------------------------------------------------------
 
 
@@ -434,52 +474,68 @@ def top_k(probs: torch.Tensor, k: int):
 
 def moe_route(logits: torch.Tensor, n_experts: int, k: int,
               capacity_factor: float):
-    """Top-k routing with capacity, as the reference's `moe_apply`:
-    returns (probs (T, E), renormalised gates with dropped slots zeroed
-    (T, k), expert ids gidx (T, k), their one-hot (T, k, E), queue
-    positions pos (T, k) f32, keep = pos < cap (T, k), cap).  A queue
-    position counts the earlier (token, slot) pairs sent to the same
-    expert, token-major."""
-    T = logits.shape[0]
+    """Top-k routing with capacity, as the reference's `moe_apply`, of
+    (..., T, E) router logits (a leading axis: independent blocks of T
+    tokens each): returns (probs (..., T, E), renormalised gates with
+    dropped slots zeroed (..., T, k), expert ids gidx (..., T, k), their
+    one-hot (..., T, k, E), queue positions pos (..., T, k) f32, keep =
+    pos < cap (..., T, k), cap).  A queue position counts the earlier
+    (token, slot) pairs of the block sent to the same expert,
+    token-major."""
+    T = logits.shape[-2]
     probs = torch.softmax(logits, dim=-1)
     gval, gidx = top_k(probs, k)
     gval = gval / torch.clamp(gval.sum(-1, keepdim=True), min=1e-9)
     cap = max(int(T * k * capacity_factor / n_experts), 4)
-    onehot = F.one_hot(gidx, n_experts).float()               # (T, k, E)
-    flat = onehot.reshape(T * k, n_experts)
-    pos_in_e = (torch.cumsum(flat, dim=0) - flat).reshape(T, k, n_experts)
-    pos = (pos_in_e * onehot).sum(-1)                          # (T, k)
+    onehot = F.one_hot(gidx, n_experts).float()         # (..., T, k, E)
+    flat = onehot.reshape(*onehot.shape[:-3], T * k, n_experts)
+    pos_in_e = (torch.cumsum(flat, dim=-2) - flat).reshape(onehot.shape)
+    pos = (pos_in_e * onehot).sum(-1)                    # (..., T, k)
     keep = pos < cap
     return probs, gval * keep, gidx, onehot, pos, keep, cap
 
 
-def moe_apply(p, x, n_experts, k, capacity_factor=1.25):
+def moe_apply(p, x, n_experts, k, capacity_factor=1.25, block_dispatch=0):
     """Capacity-dispatch MoE. x: (B, S, D) -> ((B, S, D), aux).  Tokens
     over an expert's capacity fall through on the residual path (plus
     the shared experts); dispatch and combine are the reference's
-    one-hot (T, E, C) einsums, and the expert chain stays in f32."""
+    one-hot (T, E, C) einsums, and the expert chain stays in f32.
+
+    `block_dispatch` = G > 0, where B*S splits into G blocks of at least
+    8 tokens: each block of B*S / G consecutive tokens is routed on its
+    own, with its own capacity max(int((B*S / G) * k * cf / E), 4), and
+    the aux loss is the mean of the blocks' (the reference vmaps
+    `moe_apply` over the blocks).  Every block sends its tokens through
+    the same expert weights, so the blocks' expert rows are folded into
+    one (E, G*C, D) operand: one grouped launch per projection whatever
+    G, and kernel 7's score gradient sums over every block."""
     B, S, D = x.shape
     T = B * S
-    xt = x.reshape(T, D)
+    G = block_dispatch
+    if not (G and T % G == 0 and T // G >= 8):
+        G = 1
+    xt = x.reshape(G, T // G, D)
     logits = xt.float() @ p["router_w"]
     probs, gval, _, onehot, pos, keep, cap = moe_route(
         logits, n_experts, k, capacity_factor)
     pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).float() \
-        * keep[..., None]                                     # (T, k, C)
-    disp = torch.einsum("tke,tkc->tec", onehot, pos_oh)        # (T, E, C)
-    xe = torch.einsum("tec,td->ecd", disp, xt.float())         # (E, C, D)
+        * keep[..., None]                                   # (G, t, k, C)
+    disp = torch.einsum("gtke,gtkc->gtec", onehot, pos_oh)   # (G, t, E, C)
+    xe = torch.einsum("gtec,gtd->egcd", disp, xt.float())    # (E, G, C, D)
+    xe = xe.reshape(n_experts, G * cap, D)
     h = F.silu(masked_grouped_apply(xe, p["w_gate"])) \
         * masked_grouped_apply(xe, p["w_up"])
-    ye = masked_grouped_apply(h, p["w_down"])                  # (E, C, D)
-    comb = torch.einsum("tke,tkc,tk->tec", onehot, pos_oh, gval.float())
-    y = torch.einsum("tec,ecd->td", comb, ye.float())
+    ye = masked_grouped_apply(h, p["w_down"]).reshape(
+        n_experts, G, cap, D)                                # (E, G, C, D)
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gval.float())
+    y = torch.einsum("gtec,egcd->gtd", comb, ye.float())
     y = y.to(x.dtype).reshape(B, S, D)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x)
-    # Switch-style load-balancing loss
-    me = probs.mean(dim=0)
-    ce = onehot.sum(1).mean(dim=0)
-    return y, n_experts * (me * ce).sum()
+    # Switch-style load-balancing loss, a block's each, their mean
+    me = probs.mean(dim=-2)
+    ce = onehot.sum(-2).mean(dim=-2)
+    return y, (n_experts * (me * ce).sum(-1)).mean()
 
 
 # ---------------------------------------------------------------------------

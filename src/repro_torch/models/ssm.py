@@ -8,6 +8,10 @@ every leaf.  The maskable tensors are `w_in`, the depthwise conv kernel
 `conv/w_conv` (through the masked conv kernels) and `w_out`; the
 dynamical-system params (A_log, dt_bias, D) and the norms stay float.
 
+`forward` takes and ignores `chunk_kv` (no attention), as the
+reference's does; with `cfg.remat` each layer is recomputed in the
+backward (`transformer.remat`).
+
 Decode is the recurrent form: `init_cache` holds each layer's SSM state
 (f32) and the conv's last W-1 inputs, and `decode_step` advances both
 in place by one token, constant memory in the sequence length.
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import depth, layer_slice
+from repro_torch.models.transformer import depth, layer_slice, remat
 
 Pytree = Any
 
@@ -148,12 +152,18 @@ def _mix(cfg: ArchConfig, lp, x, chunk=256):
     return L.masked_dense_apply(y, lp["w_out"])
 
 
-def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits f32 (B, S, V), aux 0)."""
+def _layer(cfg: ArchConfig, lp, x):
+    return x + _mix(cfg, lp, L.rms_norm(lp["norm"], x))
+
+
+def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
+            chunk_kv: int = None):
+    """tokens: (B, S) -> (logits f32 (B, S, V), aux 0); chunk_kv is
+    unused (no attention)."""
     x = L.embed_lookup(params["embed"]["table"], tokens)
     for l in range(depth(params["layers"])):
         lp = layer_slice(params["layers"], l)
-        x = x + _mix(cfg, lp, L.rms_norm(lp["norm"], x))
+        x = remat(_layer, cfg, lp, x) if cfg.remat else _layer(cfg, lp, x)
     x = L.rms_norm(params["final_norm"], x)
     logits = L.unembed(params["embed"]["table"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -13,8 +13,13 @@ come from `layer_windows`.  qkv biases are f32 float leaves added after
 the masked projections.  The VLM forward prepends stub patch embeddings
 `vis_embeds` to the scaled token embeddings and rotates q and k by
 M-RoPE over (t, h, w) position streams; its masking stays causal over
-the linear positions.  Attention soft caps and block-local MoE dispatch
-are not ported yet and raise (ROADMAP Queue 1 item 5, part 2).
+the linear positions.  `forward(..., chunk_kv=n)` runs attention over KV
+chunks of n keys (`layers.attention_core`); `cfg.moe_block_dispatch`
+routes the MoE layers' tokens in blocks (`layers.moe_apply`); `cfg.remat`
+recomputes each layer in the backward (`torch.utils.checkpoint`: the
+recompute draws the same masks, which come from the counter hash).  As
+in the reference, no model reads `cfg.attn_soft_cap`: attention is
+uncapped whatever it holds.
 
 `decode_step` is one token of KV-cache decoding over a frozen (plain)
 or masked params tree, with 1-D rope for every family (the VLM's decode
@@ -27,9 +32,11 @@ each layer's new keys and values into it in place.  With
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as tu
@@ -38,14 +45,6 @@ from repro_torch.models import layers as L
 
 Pytree = Any
 NEG_BIG = 1 << 30   # a ring cache's unwritten key sits at position -NEG_BIG
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.attn_soft_cap \
-            or cfg.moe_block_dispatch:
-        raise NotImplementedError(
-            f"{cfg.name}: attention soft caps and block-local MoE dispatch "
-            f"are not ported yet (ROADMAP Queue 1 item 5, part 2)")
 
 
 def layer_windows(cfg: ArchConfig, n: int):
@@ -88,7 +87,6 @@ def _stack_init(gen: torch.Generator, cfg: ArchConfig, n: int, moe: bool):
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Pytree:
     """Random params on `gen`'s device; layer leaves are (L, ...)."""
-    _check_ported(cfg)
     n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
     params = {
@@ -134,26 +132,39 @@ def _ffn(cfg, lp, x):
 
 
 def _block(cfg: ArchConfig, moe: bool, x, lp, positions, window, theta,
-           mrope_positions=None):
+           mrope_positions=None, chunk_kv=None):
     """One layer; returns (x, aux)."""
     h = L.rms_norm(lp["attn_norm"], x)
     if cfg.kv_lora_rank:
         attn_out, _ = L.mla_apply(lp["attn"], h, positions, cfg.n_heads,
                                   cfg.kv_lora_rank, cfg.qk_nope_dim,
                                   cfg.qk_rope_dim, cfg.v_head_dim,
-                                  rope_theta=cfg.rope_theta)
+                                  rope_theta=cfg.rope_theta,
+                                  chunk_kv=chunk_kv)
     else:
         attn_out, _ = L.gqa_apply(
             lp["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             rope_theta=theta, window=window, mrope_positions=mrope_positions,
-            mrope_sections=cfg.mrope_sections)
+            mrope_sections=cfg.mrope_sections, chunk_kv=chunk_kv)
     x = x + attn_out
     if moe:
         h = L.rms_norm(lp["ffn_norm"], x)
         ffn_out, aux = L.moe_apply(lp["moe"], h, cfg.n_experts, cfg.top_k,
-                                   cfg.capacity_factor)
+                                   cfg.capacity_factor,
+                                   block_dispatch=cfg.moe_block_dispatch)
         return x + ffn_out, aux
     return _ffn(cfg, lp, x), 0.0
+
+
+def remat(fn, *args):
+    """fn(*args), recomputed in the backward (`cfg.remat`): nothing of it
+    is kept for the backward but its inputs, as the reference's
+    `jax.checkpoint(..., policy=nothing_saveable)`; off autograd a plain
+    call.  The recompute launches the same kernels on the same stream
+    coordinates, so it draws the same masks."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def mrope_positions(S_vis: int, S: int, B: int, device) -> torch.Tensor:
@@ -171,13 +182,14 @@ def mrope_positions(S_vis: int, S: int, B: int, device) -> torch.Tensor:
 
 
 def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
-            vis_embeds: torch.Tensor = None):
+            vis_embeds: torch.Tensor = None, chunk_kv: int = None):
     """tokens: (B, S_text) -> (logits f32 (B, S, V), summed MoE aux loss).
     vis_embeds: (B, S_vis, D) stub patch embeddings (the VLM), prepended
     to the scaled token embeddings, so S = S_vis + S_text; q and k then
     rotate by M-RoPE (`mrope_positions`) while the causal mask stays on
-    the linear positions."""
-    _check_ported(cfg)
+    the linear positions.  chunk_kv: attention over KV chunks of that
+    many keys.  With `cfg.remat` each layer is recomputed in the
+    backward."""
     x = L.embed_lookup(params["embed"]["table"], tokens)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     mrope = None
@@ -190,8 +202,11 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for key, _, moe, off in _stacks(params):
         for l in range(depth(params[key])):
-            x, aux = _block(cfg, moe, x, layer_slice(params[key], l),
-                            positions, wins[off + l], thetas[off + l], mrope)
+            blk = functools.partial(_block, cfg, moe, lp=layer_slice(
+                params[key], l), positions=positions, window=wins[off + l],
+                theta=thetas[off + l], mrope_positions=mrope,
+                chunk_kv=chunk_kv)
+            x, aux = remat(blk, x) if cfg.remat else blk(x)
             aux_total = aux_total + aux
     x = L.rms_norm(params["final_norm"], x)
     head = params.get("lm_head", params["embed"])["table"]
@@ -234,7 +249,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
     """Zeroed KV cache: per stack ("dense", "moe") GQA "k"/"v" of shape
     (L, B, S, n_kv, hd), or MLA's compressed "c_kv" (L, B, S, kv_lora)
     and "k_rope" (L, B, S, 1, qk_rope)."""
-    _check_ported(cfg)
     n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
@@ -333,7 +347,6 @@ def decode_step(params: Pytree, cfg: ArchConfig, cache: Pytree,
     int or a 0-d tensor).  Writes the new keys and values into `cache` at
     `pos` in place and returns (logits f32 (B, V), cache).  Each layer
     attends with its own window and rope theta (`layer_windows`)."""
-    _check_ported(cfg)
     x = _embed_token(params, cfg, token)
     pos = decode_pos(pos, x.device)
     wins, thetas = layer_windows(cfg, cfg.n_layers)
@@ -377,7 +390,6 @@ def init_cache_windowed(cfg: ArchConfig, batch: int, max_seq: int, device,
     "glob_k"/"glob_v" (n_groups, B, max_seq, n_kv, hd), and for a tail
     "tail_k"/"tail_v" (n_tail, B, W, n_kv, hd), "tail_pos" (n_tail, W).
     Unwritten slots sit at position -NEG_BIG."""
-    _check_ported(cfg)
     W = min(cfg.sliding_window, max_seq)
     plen, n_groups, n_tail = _local_global_split(cfg)
     n_loc = plen - 1
@@ -408,7 +420,6 @@ def decode_step_windowed(params: Pytree, cfg: ArchConfig, cache: Pytree,
     `rope_theta` over their ring, global ones over the full cache at
     `rope_theta_global`.  Writes `cache` in place; returns (logits f32
     (B, V), cache)."""
-    _check_ported(cfg)
     x = _embed_token(params, cfg, token)
     pos = decode_pos(pos, x.device)
     plen, n_groups, _ = _local_global_split(cfg)

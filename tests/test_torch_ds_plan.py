@@ -276,8 +276,9 @@ def test_grouped_flags_follow_the_row_pitch(monkeypatch):
     rows to map."""
     monkeypatch.setattr(
         mm, "card_ds_plan",
-        lambda device, M, K, N, f32, E=1: mm.ds_plan(
-            M, K, N, torch.float32 if f32 else torch.bfloat16, mm.SMS, E))
+        lambda device, M, K, N, f32, E=1, s_bytes=4: mm.ds_plan(
+            M, K, N, torch.float32 if f32 else torch.bfloat16, mm.SMS, E,
+            s_bytes))
     E, M, K, N = 5, 29, 1000, 1500
     x, g = torch.zeros(E, M, K), torch.zeros(E, M, N)
     w = torch.zeros(E, K, N, dtype=torch.bfloat16)
@@ -318,5 +319,5 @@ def test_cnn_shapes_plan(shape):
     _holds_per_sm(plan)
     if Mx > mm.DS_LONG_ROWS:
         assert plan["bn"] == 64 and plan["per_sm"] == 1
-    assert "launch_bn<64, true, true>" in HEADER
+    assert "launch_bn<64, true, true, SB>" in HEADER
     assert "launch_bn<W, true, true>" not in HEADER

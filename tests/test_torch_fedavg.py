@@ -1,12 +1,13 @@
 """The float reference (`--algo fedavg`) against the JAX package: two
 `make_fedavg_step`s on internlm2 SMOKE from one state carried across by
-`convert.fedavg_state_from_jax`, the launch registry's names, and the
-launcher's fedavg run on the CPU.
+`convert.fedavg_state_from_jax` (attention whole or in KV chunks), the
+launch registry's names, and the launcher's fedavg run on the CPU.
 
 Tolerance: the params are cast to f32, so every activation and update
 is f32 and only the order of the sums differs: the losses to 1e-5 and
 each leaf of the params and of the f32 momentum within a relative norm
 of 1e-4 of its update (measured up to 7.1e-6)."""
+import inspect
 import re
 
 import jax
@@ -27,7 +28,7 @@ from repro_torch.core import tree
 from repro_torch.kernels import dispatch
 from repro_torch.launch import plans  # noqa: F401  (registers plans)
 from repro_torch.launch import steps, train
-from repro_torch.models import build_model
+from repro_torch.models import build_model, layers
 
 ARCH = "internlm2-1.8b"
 _NONE = lambda x: x is None
@@ -44,6 +45,27 @@ def test_launchable_equals_the_reference():
 
 
 def test_two_fedavg_steps_match_jax():
+    _two_steps_match(None)
+
+
+def test_fedavg_steps_with_chunk_kv_match_jax(monkeypatch):
+    """`StepConfig.chunk_kv` reaches the fedavg step's forward: every
+    attention runs over chunks of 8 of the 16 keys, as the reference's
+    step runs it."""
+    chunks = []
+    real = layers.attention_core
+
+    def recorded(*a, **k):
+        chunks.append(inspect.signature(real).bind(*a, **k).arguments.get(
+            "chunk_kv"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(layers, "attention_core", recorded)
+    _two_steps_match(8)
+    assert chunks and set(chunks) == {8}
+
+
+def _two_steps_match(chunk_kv):
     japi = jbuild_model(jget_config(ARCH, smoke=True))
     tapi = build_model(get_config(ARCH, smoke=True))
     jstate = jax.jit(lambda k: jsteps.init_fedavg_state(k, japi))(
@@ -53,7 +75,7 @@ def test_two_fedavg_steps_match_jax():
     tstate = convert.fedavg_state_from_jax(_np(jstate), "cpu")
     assert tstate["step"] == 0
     p0 = [np.asarray(p) for p in jax.tree_util.tree_leaves(jstate["params"])]
-    cfg = dict(lr=0.3, momentum=0.9)
+    cfg = dict(lr=0.3, momentum=0.9, chunk_kv=chunk_kv)
     jstep = jax.jit(jsteps.make_fedavg_step(japi, jsteps.StepConfig(**cfg)))
     tstep = steps.make_fedavg_step(tapi, steps.StepConfig(**cfg))
     rng = np.random.default_rng(0)

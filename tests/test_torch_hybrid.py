@@ -131,11 +131,17 @@ def test_masked_leaves_and_flatten_order_match(apis):
 
 
 def test_mixed_kind_tail_is_not_ported():
+    """A tail of mixed kinds is built as the reference builds it (a list
+    of one block each); its forward, which the reference's scan cannot
+    run, raises (tests/test_torch_perf_features.py shows the
+    reference's failing too)."""
     cfg = dataclasses.replace(get_config(ARCH, smoke=True),
                               block_pattern=("rec", "attn", "rec"),
                               n_layers=5)
+    params = hybrid.init_params(torch.Generator().manual_seed(0), cfg)
+    assert isinstance(params["tail"], list) and len(params["tail"]) == 2
     with pytest.raises(NotImplementedError, match="mixed"):
-        hybrid.init_params(torch.Generator().manual_seed(0), cfg)
+        hybrid.forward(params, cfg, torch.zeros((1, 4), dtype=torch.long))
 
 
 def _f32(tree_):

@@ -257,22 +257,27 @@ def test_unfrozen_masked_decode_matches_frozen(arch, tol):
 
 
 def test_decode_not_ported_families_raise():
-    """The refusals that remain (ROADMAP Queue 1 item 5, part 2):
-    attention soft caps raise at init, cache and decode, and block MoE
-    dispatch at the cache.  qkv bias and the encdec and VLM families are
-    ported: they build, and the layer-norm config decodes."""
+    """The configs the port once refused decode now: a soft cap (which no
+    model of the reference reads) decodes as the uncapped config does,
+    and block MoE dispatch builds its cache and decodes (a decode step
+    routes its batch globally, as the reference's).  qkv bias and the
+    encdec and VLM families are ported: they build, and the layer-norm
+    config decodes."""
     base = get_config("gemma3-4b", smoke=True)
-    api = build_model(dataclasses.replace(base, attn_soft_cap=50.0))
-    with pytest.raises(NotImplementedError):
-        api.init_params(torch.Generator())
-    with pytest.raises(NotImplementedError):
-        api.init_cache(1, 4, "cpu")
-    with pytest.raises(NotImplementedError):
-        api.decode_step(None, None, None, 0)
+    params = build_model(base).init_params(torch.Generator().manual_seed(0))
+    tok = torch.zeros(1, dtype=torch.int64)
+    logits = []
+    for cfg in (base, dataclasses.replace(base, attn_soft_cap=50.0)):
+        api = build_model(cfg)
+        logits.append(api.decode_step(params, api.init_cache(1, 4, "cpu"),
+                                      tok, 0)[0])
+    assert torch.equal(logits[0], logits[1])
     moe = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
                               moe_block_dispatch=64)
-    with pytest.raises(NotImplementedError):
-        build_model(moe).init_cache(1, 4, "cpu")
+    api = build_model(moe)
+    out, _ = api.decode_step(api.init_params(torch.Generator().manual_seed(0)),
+                             api.init_cache(1, 4, "cpu"), tok, 0)
+    assert bool(torch.isfinite(out).all())
     build_model(dataclasses.replace(base, qkv_bias=True)).init_cache(
         1, 4, "cpu")
     for arch in ("whisper-medium", "qwen2-vl-2b"):
