@@ -45,11 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
    encoder and cross projections at 2 x 1500 rows, qwen2-7b's widest
    projection, deepseek-v2-236b's q up-projection and its 160 experts
    at 12 rows each) against their plain versions, and timed; then
-   kernels 1-4 on bf16 score blocks (`bf16_score_kernel_phase`): at
-   internlm2's shapes, qwen2-7b's 3584 x 18944, a ragged shape and (1-3)
-   on f32 activations, against their plain versions (masks and words
-   exactly, ds in bf16 within one ulp), no launch allocating an f32 copy
-   of its scores, timed per internlm2 layer and round beside the f32
+   kernels 1-9 on bf16 score blocks (`bf16_score_kernel_phase`): 1-4
+   at internlm2's shapes, qwen2-7b's 3584 x 18944, a ragged shape and
+   (1-3) on f32 activations; 5-7 at the deepseek-v2-lite expert shapes,
+   deepseek-v2-236b's 160 experts of 12 rows and a ragged cell; 8-9 at
+   mamba2's and recurrentgemma's conv widths, a ragged shape and C % 4
+   != 0; against their plain versions (masks and words exactly, ds in
+   bf16 within one ulp), no launch allocating an f32 copy of its scores,
+   timed (1-3 per internlm2 layer, 4 per round, 5-7 per
+   deepseek-v2-lite MoE layer, 8-9 per mamba2 layer) beside the f32
    scores' times and their bounds at 2 bytes a score;
 5. check the port's train and round steps on the card against the same
    steps on the CPU (plain versions) at the internlm2, deepseek-v2-lite,
@@ -66,7 +70,8 @@ Phases (any failure exits non-zero and prints no result line):
    (bit-identical to a solo run), and the lockstep engine against the
    exact one (tokens equal, logits within atol = rtol = 1e-5); and
    (`feature_backward_phase`) one SMOKE train step card against CPU of
-   internlm2 in 2 microbatches with remat, internlm2 on bf16 scores and
+   internlm2 in 2 microbatches with remat, of internlm2,
+   deepseek-v2-lite, mamba2 and recurrentgemma on bf16 scores, and of
    deepseek-v2-lite with block-local MoE dispatch;
 6. drive the main paths, fedpm_reg through `repro_torch.launch.train`
    with 2 cohorts x batch 2 x seq 128, 4 steps, a round every 2, 8-bit
@@ -85,8 +90,11 @@ Phases (any failure exits non-zero and prints no result line):
    internlm2-1.8b with `--algo fedavg` (no kernel, no round).  Every
    round unpacks each masked leaf's cohort words once (the unpack
    kernel).  Then the performance features (PR 25), through
-   `make_train_step` / `make_round_step`: qwen2-7b at all 28 layers on
-   bf16 scores with 1 cohort (4 steps, 2 rounds); internlm2-1.8b at
+   `make_train_step` / `make_round_step`: the depth paths on bf16
+   scores and moments with 1 cohort (4 steps, 2 rounds): qwen2-7b at all
+   28 layers, deepseek-v2-lite-16b at 16 of 27 (kernels 5-7 on bf16
+   scores), recurrentgemma-9b at all 38 and mamba2-370m at all 48
+   (kernels 8-9 on bf16 scores); internlm2-1.8b at
    batch 4 in one batch and in 2 microbatches with remat (kernel 1
    twice per projection and microbatch); deepseek-v2-lite at 4 layers
    with block dispatch through the launcher (kernels 5-7 once per
@@ -755,28 +763,32 @@ def timing_phase(torch, mm, ref, dev):
     return res, per_shape
 
 
-def grouped_timing_phase(torch, mm, ref, dev):
+def grouped_timing_phase(torch, mm, ref, dev, score_dtype=None):
     """Per-MoE-layer (3 expert projections, one cohort) times of the
     grouped kernels at E = 64, M = 30: kernel, plain version and the
     library yardstick (torch.bmm on the pre-masked f32 weights, TF32
     off; for ds the x^T g product only), in ms, with their bounds and
-    each shape's plan and share of its bound; then the same at M = 240
-    (a 2048-token cohort's capacity, where all four warpgroups of
-    kernels 5-6 multiply and kernel 7 sums 8 stages a tile), a row of
-    their own.  The bound counts the split products at the bf16
-    tensor-core rate: three of kernels 5-6, six of kernel 7."""
+    each shape's plan and share of its bound; then, on f32 scores, the
+    same at M = 240 (a 2048-token cohort's capacity, where all four
+    warpgroups of kernels 5-6 multiply and kernel 7 sums 8 stages a
+    tile), a row of their own.  The bound counts the split products at
+    the bf16 tensor-core rate: three of kernels 5-6, six of kernel 7;
+    and the scores (and kernel 7's ds) at their bytes: `score_dtype`
+    (f32 by default, or bf16)."""
+    sd = score_dtype or torch.float32
+    sb = torch.empty((), dtype=sd).element_size()
     gen = torch.Generator(device=dev).manual_seed(3)
     E = N_EXPERTS
     seeds = [7] * E
     res, per_shape = {}, {}
-    for M_ in (CAP, CAP_2048):
+    for M_ in (CAP, CAP_2048) if sb == 4 else (CAP,):
         ops = []
         for name, (K, N) in EXPERT_SHAPES.items():
             offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
             x = torch.randn(E, M_, K, generator=gen, device=dev)
             w = torch.randn(E, K, N, generator=gen,
                             device=dev).to(torch.bfloat16)
-            s = torch.randn(E, K, N, generator=gen, device=dev)
+            s = torch.randn(E, K, N, generator=gen, device=dev).to(sd)
             g = torch.randn(E, M_, N, generator=gen, device=dev)
             wm = ref.grouped_mask(s, seeds, offs).float() * w.float()
             ops.append((name, K, N, x, w, s, g, wm, offs))
@@ -787,7 +799,7 @@ def grouped_timing_phase(torch, mm, ref, dev):
                 lambda o: (lambda: ref.masked_matmul_grouped(
                     o[3], o[4], o[5], seeds, o[8])),
                 lambda o: (lambda: torch.bmm(o[3], o[7])),
-                lambda K, N: (4 * E * M_ * K + 6 * E * K * N
+                lambda K, N: (4 * E * M_ * K + (2 + sb) * E * K * N
                               + 4 * E * M_ * N, 3 * 2 * E * M_ * K * N,
                               BF16_FLOPS_PER_S)),
             "masked_matmul_grouped_dx": (
@@ -796,7 +808,7 @@ def grouped_timing_phase(torch, mm, ref, dev):
                 lambda o: (lambda: ref.masked_matmul_grouped_dx(
                     o[6], o[4], o[5], seeds, o[8])),
                 lambda o: (lambda: torch.bmm(o[6], o[7].transpose(1, 2))),
-                lambda K, N: (4 * E * M_ * N + 6 * E * K * N
+                lambda K, N: (4 * E * M_ * N + (2 + sb) * E * K * N
                               + 4 * E * M_ * K, 3 * 2 * E * M_ * K * N,
                               BF16_FLOPS_PER_S)),
             "masked_matmul_grouped_ds": (
@@ -806,8 +818,8 @@ def grouped_timing_phase(torch, mm, ref, dev):
                     o[3], o[6], o[4], o[5])),
                 lambda o: (lambda: torch.bmm(o[3].transpose(1, 2), o[6])),
                 lambda K, N: (4 * E * M_ * K + 4 * E * M_ * N
-                              + 10 * E * K * N, 6 * 2 * E * M_ * K * N,
-                              BF16_FLOPS_PER_S)),
+                              + (2 + 2 * sb) * E * K * N,
+                              6 * 2 * E * M_ * K * N, BF16_FLOPS_PER_S)),
         }
         for kname, (kern, plain, lib, cost) in specs.items():
             t_k = time_ms(torch, [kern(o) for o in ops], 10)
@@ -827,12 +839,13 @@ def grouped_timing_phase(torch, mm, ref, dev):
                 per_shape[kname][f"layer M={M_}"] = (sum(t_k), sum(t_p),
                                                      sum(t_l), b_ms)
             dx = kname == "masked_matmul_grouped_dx"
-            print(f"  {kname} per shape at E={E} M={M_} (events per call), "
-                  f"share of the bound, plan:")
+            print(f"  {kname} per shape at E={E} M={M_} ({str(sd)[6:]} "
+                  f"scores, events per call), share of the bound, plan:")
             for o, tk, tl, c in zip(ops, t_k, t_l, costs):
                 R, C = (o[2], o[1]) if dx else (o[1], o[2])
                 if kname == "masked_matmul_grouped_ds":
-                    plan = mm.card_ds_plan(dev.index or 0, M_, R, C, True, E)
+                    plan = mm.card_ds_plan(dev.index or 0, M_, R, C, True, E,
+                                           sb)
                     tiles = E * -(-R // plan["bk"]) * -(-C // plan["bn"])
                     desc = (f"tile {plan['bk']}x{plan['bn']}, {tiles} tiles "
                             f"on {plan['grid']} persistent blocks "
@@ -840,7 +853,7 @@ def grouped_timing_phase(torch, mm, ref, dev):
                             f"stages, {plan['chunks']} (w, s) chunks")
                 else:
                     plan = mm.card_grouped_plan(kname, dev.index or 0, E, M_,
-                                                R, C)
+                                                R, C, sb)
                     blocks = plan["split"] * plan["grid"][1] * plan["grid"][2]
                     desc = (f"width {plan['bc']}, cluster {plan['split']}, "
                             f"{blocks} blocks, {plan['w_stages']} raw stages, "
@@ -853,11 +866,11 @@ def grouped_timing_phase(torch, mm, ref, dev):
                   f"{100 * b_ms / sum(t_k):.1f}% of the bound")
         del ops
         torch.cuda.empty_cache()
-    cap = mm.card_capacity("masked_matmul_grouped")
-    smem = mm.grouped_smem(128, 64, 2, 3)
+    cap = mm.card_capacity("masked_matmul_grouped", int(sb == 2))
+    smem = mm.grouped_smem(128, 64, 2, 3, sb)
     print(f"  grouped blocks the card holds at once in clusters of 1.."
-          f"{mm.MAX_CLUSTER} (occupancy query, width 128, 64 rows): "
-          f"{[cap(128, k, smem) for k in range(1, 9)]}")
+          f"{mm.MAX_CLUSTER} (occupancy query, width 128, 64 rows, "
+          f"{str(sd)[6:]} scores): {[cap(128, k, smem) for k in range(1, 9)]}")
     return res, per_shape
 
 
@@ -977,6 +990,49 @@ def zoo_kernel_phase(torch, mm, ref, dev):
     return err, rows
 
 
+def close_within(a, b, rtol, share, what):
+    """|a - b| within `rtol` of the plain version's value b plus `share`
+    of its largest magnitude, elementwise; returns the max |diff|."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    check(bool((d <= rtol * b.abs() + share * b.abs().max()).all()),
+          f"{what}: max |diff| {float(d.max())}")
+    return float(d.max())
+
+
+def bf16_ds_close(torch, got, want, what, share=1e-5):
+    """A bf16 ds within one bf16 ulp of the plain version's value (2**-7
+    of it bounds the ulp of any bf16 value; near zero, `share` of the
+    largest: the f32 phases' share of the scale)."""
+    check(got.dtype == torch.bfloat16, f"{what}: ds in {got.dtype}, not "
+          f"bf16")
+    return close_within(got, want, BF16_RTOL, share, what)
+
+
+def no_f32_copy(torch, fn, s, what, allocs=None):
+    """fn() under a watch of the allocator: a launch may allocate its
+    output, never an f32 copy of the scores s.  The peak of allocated
+    bytes must grow by less than that copy's size; or, where `allocs` is
+    given (the conv kernels, whose (W, C) scores are far smaller than
+    their output and than the caching allocator's slack on a block),
+    the launch must make exactly `allocs` allocations (its outputs).
+    Returns (fn(), bytes the peak grew by)."""
+    count = lambda: torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.synchronize()
+    base, made = torch.cuda.memory_allocated(), count()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    grew, made = torch.cuda.max_memory_allocated() - base, count() - made
+    if allocs is None:
+        check(grew < 4 * s.numel(), f"{what}: the launch allocated {grew} "
+              f"bytes, an f32 copy of the scores is {4 * s.numel()}")
+    else:
+        check(made == allocs, f"{what}: the launch made {made} allocations "
+              f"({grew} bytes), its outputs are {allocs}")
+    return out, grew
+
+
 # bf16 scores through kernels 1-4 (`score_dtype=torch.bfloat16`): the
 # shapes they are held and timed at, (label, M, K, N), and f32
 # activations at recurrentgemma's gate shape (the SIMT bodies of kernels
@@ -989,55 +1045,200 @@ BF16_F32X = ("rg gate f32 x", M, 4096, 4096)
 BF16_SAP_LENS = (100_008, 100_004, 100_003, 3584 * 18944)
 
 
+# bf16 scores through kernels 5-9: the grouped kernels at deepseek-v2-lite's
+# expert shapes (E = 64 experts at the capacity M = 30), at
+# deepseek-v2-236b's w_up (160 experts at M = 12) and the ragged cell
+# (w's and s's rows off the 16-byte grid: the element loads); the conv
+# kernels at mamba2's and recurrentgemma's widths (B 2, S 128), a ragged
+# shape and one of C % 4 != 0 (the element path)
+BF16_GROUPED = ([(N_EXPERTS, CAP, K, N)
+                 for K, N in sorted(set(EXPERT_SHAPES.values()))]
+                + [ZOO_GROUPED[0][1:], GROUPED_RAGGED])
+# kernels 5-6 held there as `zoo_kernel_phase` holds them
+WIDE = {ZOO_GROUPED[0][1:]}
+BF16_CONV = ([(CONV_B, CONV_S, C) for C in CONV_SHAPES.values()]
+             + [CONV_RAGGED, CONV_ODD])
+
+
+def bf16_grouped_conv_checks(torch, mm, ref, dev, gen, err):
+    """Kernels 5-9 on bf16 score blocks against their plain versions
+    (which widen each score to f32 exactly), both mask modes at a
+    non-zero stream offset (layer 2's for the experts, mamba2's last
+    layer's for the convs): the masks by identity probes (exactly, up to
+    flips on the sigmoid's boundary as `mask_exact` allows; the conv's
+    exactly); kernels 5-6 within their f32 phases' bounds (1e-5 of each
+    value and of the scale; at deepseek-v2-236b's 5120-term sums 1e-5 of
+    the terms' magnitude); kernel 8 forward and flipped bit for bit;
+    kernels 7 and 9's bf16 ds within one bf16 ulp of the plain
+    version's plus 1e-5 of the scale, the same bits on a repeated launch;
+    kernel 9's "dw" correlation in f32 within 1e-5; no launch raises the
+    allocated peak by an f32 copy of its scores.  Updates `err`."""
+    bf = torch.bfloat16
+    for E, m, K, N in BF16_GROUPED:
+        x = torch.randn(E, m, K, generator=gen, device=dev)
+        g = torch.randn(E, m, N, generator=gen, device=dev)
+        w = torch.randn(E, K, N, generator=gen, device=dev).to(bf)
+        s = (2 * torch.randn(E, K, N, generator=gen, device=dev)).to(bf)
+        seeds = [0x5EED0000 + e for e in range(E)]
+        offs = [((2 * E + e) * K * N) & M32 for e in range(E)]
+        tag = f"bf16 s E={E} M={m} K={K} N={N}"
+        for mode in ("sample", "threshold"):
+            kw = dict(mode=mode, tau=0.45)
+            for name, kern, plain, a in (
+                    ("masked_matmul_grouped", mm.masked_matmul_grouped,
+                     ref.masked_matmul_grouped, x),
+                    ("masked_matmul_grouped_dx", mm.masked_matmul_grouped_dx,
+                     ref.masked_matmul_grouped_dx, g)):
+                what = f"{name} {tag} {mode}"
+                got, _ = no_f32_copy(
+                    torch, lambda: kern(a, w, s, seeds, offs, **kw), s, what)
+                want = plain(a, w, s, seeds, offs, **kw)
+                if (E, m, K, N) in WIDE:
+                    # the bound of their f32 phase at this shape
+                    # (`zoo_kernel_phase`): 1e-5 of the sum of the terms'
+                    # magnitudes, for sums over up to 5120 terms
+                    d = (got - want).abs()
+                    terms = plain(a.abs(), w.abs(), s, seeds, offs, **kw)
+                    check(bool((d <= 1e-5 * terms).all()), f"{what}: max "
+                          f"|diff| {float(d.max())}, "
+                          f"{float((d / terms.clamp_min(1e-30)).max()):.3g} "
+                          f"of the terms' magnitude")
+                    err[name] = max(err.get(name, 0.0), float(d.max()))
+                    del d, terms
+                else:
+                    err[name] = max(err.get(name, 0.0), close_within(
+                        got, want, 1e-5, 1e-5, what))
+                del got, want
+            # identity probes read every group's mask back exactly in f32
+            r = min(m, K, N)
+            mask = ref.grouped_mask(s, seeds, offs, mode=mode, tau=0.45)
+            wm = mask.float() * w.float()
+            del mask
+            theta = torch.sigmoid(s.float())
+            u = (torch.stack([ref.hash_uniform(ref.flat_index(
+                K, N, offs[e], N, dev), seeds[e]) for e in range(E)])
+                 if mode == "sample" else torch.full(s.shape, 0.45,
+                                                     device=dev))
+            px = torch.zeros(E, r, K, device=dev)
+            px[:, :, :r] = torch.eye(r, device=dev)
+            y = mm.masked_matmul_grouped(px, w, s, seeds, offs, **kw)
+            n_f = mask_exact(torch, y != 0, wm[:, :r] != 0, u[:, :r],
+                             theta[:, :r], f"grouped fwd probe {tag} {mode}")
+            check(n_f or torch.equal(y, wm[:, :r]),
+                  f"grouped fwd probe values {tag} {mode}")
+            pg = torch.zeros(E, r, N, device=dev)
+            pg[:, :, :r] = torch.eye(r, device=dev)
+            dx = mm.masked_matmul_grouped_dx(pg, w, s, seeds, offs, **kw)
+            wt = wm[:, :, :r].transpose(1, 2)
+            n_d = mask_exact(torch, dx != 0, wt != 0,
+                             u[:, :, :r].transpose(1, 2),
+                             theta[:, :, :r].transpose(1, 2),
+                             f"grouped dx probe {tag} {mode}")
+            check(n_d or torch.equal(dx, wt),
+                  f"grouped dx probe values {tag} {mode}")
+            del wm, theta, u, px, y, pg, dx, wt
+            torch.cuda.empty_cache()
+        ds, grew = no_f32_copy(
+            torch, lambda: mm.masked_matmul_grouped_ds(x, g, w, s), s,
+            f"grouped ds {tag}")
+        err["masked_matmul_grouped_ds"] = max(
+            err.get("masked_matmul_grouped_ds", 0.0),
+            bf16_ds_close(torch, ds, ref.masked_matmul_grouped_ds(x, g, w, s),
+                          f"grouped ds {tag}"))
+        check(torch.equal(ds, mm.masked_matmul_grouped_ds(x, g, w, s)),
+              f"grouped ds {tag}: a repeated launch gives other bits")
+        print(f"  {tag}: kernels 5-7 agree; ds's launch added "
+              f"{grew / 2**20:.1f} MiB (an f32 copy of s: "
+              f"{4 * s.numel() / 2**20:.1f})")
+        del x, g, w, s, ds
+        torch.cuda.empty_cache()
+
+    W = CONV_W
+    for B, S, C in BF16_CONV:
+        x = torch.randn(B, S, C, generator=gen, device=dev).to(bf)
+        g = torch.randn(B, S, C, generator=gen, device=dev)
+        w = torch.randn(W, C, generator=gen, device=dev).to(bf)
+        s = (2 * torch.randn(W, C, generator=gen, device=dev)).to(bf)
+        off = ((MAMBA_LAYERS - 1) * W * C) & M32
+        tag = f"bf16 s conv B={B} S={S} C={C}"
+        for mode in ("sample", "threshold"):
+            for flip, inp in ((False, x), (True, g)):
+                what = f"{tag} {mode} flip={flip}"
+                got, _ = no_f32_copy(torch, lambda: mm.masked_conv1d(
+                    inp, w, s, 1234, off, mode=mode, tau=0.45, flip=flip), s,
+                    what, allocs=1)
+                want = ref.masked_conv1d(inp, w, s, 1234, off, mode, 0.45,
+                                         flip=flip)
+                check(torch.equal(got, want), f"{what}: max |diff| "
+                      f"{float((got - want).abs().max())}")
+            ones = torch.ones(W, C, dtype=bf, device=dev)
+            probe = torch.zeros(1, 2 * W, C, dtype=bf, device=dev)
+            probe[0, W - 1] = 1
+            y = mm.masked_conv1d(probe, ones, s, 1234, off, mode=mode,
+                                 tau=0.45)
+            read = torch.stack([y[0, 2 * (W - 1) - t] for t in range(W)])
+            mask = ref.conv_weight(ones, s, 1234, off, None, mode, 0.45)
+            check(torch.equal(read, mask), f"{tag} probe {mode}: "
+                  f"{int((read != mask).sum())} mask bits differ")
+        err.setdefault("masked_conv1d", 0.0)   # bit for bit above
+        for xin in (x, x.float()):
+            what = f"{tag} ds {xin.dtype}"
+            ds, _ = no_f32_copy(torch, lambda: mm.masked_conv1d_ds(
+                xin, g, w, s), s, what, allocs=1)
+            err["masked_conv1d_ds"] = max(
+                err.get("masked_conv1d_ds", 0.0),
+                bf16_ds_close(torch, ds, ref.masked_conv1d_ds(xin, g, w, s),
+                              what))
+            check(torch.equal(ds, mm.masked_conv1d_ds(xin, g, w, s)),
+                  f"{what}: a repeated launch gives other bits")
+            dw = mm.masked_conv1d_ds(xin, g, w, s, epilogue="dw")
+            check(dw.dtype == torch.float32, f"{what}: dw in {dw.dtype}")
+            close_within(dw, ref.masked_conv1d_ds(xin, g, w, s, "dw"), 1e-5,
+                         1e-5, f"{what} dw")
+        del x, g, w, s
+    torch.cuda.synchronize()
+    print(f"bf16 scores: kernels 5-9 agree with their plain versions "
+          f"(grouped at {BF16_GROUPED}, conv at {BF16_CONV}), no launch "
+          f"allocated an f32 copy of its scores")
+
+
+def bf16_grouped_conv_timing(torch, mm, ref, dev, rows, layer):
+    """Kernels 5-7 per deepseek-v2-lite MoE layer (E = 64, M = 30) and
+    kernels 8-9 per mamba2 layer on bf16 scores, timed as
+    `grouped_timing_phase` and `conv_timing_phase` time them on f32
+    scores, beside the same yardsticks and their bounds at 2 bytes a
+    score (and ds).  Fills rows[kernel]["bf16 s layer"] = (ms, plain ms,
+    library ms, bound ms) and layer[kernel] = ms."""
+    for phase in (grouped_timing_phase, conv_timing_phase):
+        res, _ = phase(torch, mm, ref, dev, torch.bfloat16)
+        for k, r in res.items():
+            layer[k] = r["ms"]
+            rows.setdefault(k, {})["bf16 s layer"] = (
+                r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"])
+
+
 def bf16_score_kernel_phase(torch, mm, ref, dev):
-    """Kernels 1-4 on bf16 score blocks (no f32 copy of them is made)
+    """Kernels 1-9 on bf16 score blocks (no f32 copy of them is made)
     against their plain versions, which widen each score to f32 exactly:
-    at internlm2's leaf shapes (M = 256), at qwen2-7b's 3584 x 18944 and
-    a ragged shape, both mask modes at a non-zero stream offset, and
-    kernels 1-3 on f32 activations at recurrentgemma's 4096 x 4096.
-    Masks (identity probes) and packed words exactly; kernels 1-2 within
-    the bf16 bound of `kernel_phase`; kernel 3's bf16 ds within one bf16
-    ulp of the plain version's (both round an f32 value once, and the f32
-    values differ by the sums' order).  Each launch at qwen2-7b's shape
-    (and kernel 4 on a round's rows of its block) must raise the peak of
-    allocated memory by less than the block's f32 size.  Then the times:
-    kernels 1-3 per internlm2 layer by graph replay, kernel 4 per
-    internlm2 round (7 leaves, C = 2) by events, each beside its bound
-    with 2 bytes a score and its f32-score time.  Returns ({kernel: max
-    abs err}, {kernel: {label: (ms, plain ms, library ms, bound ms)}},
-    {kernel: bf16-score layer or round ms})."""
+    kernels 1-4 at internlm2's leaf shapes (M = 256), at qwen2-7b's
+    3584 x 18944 and a ragged shape, both mask modes at a non-zero stream
+    offset, and kernels 1-3 on f32 activations at recurrentgemma's
+    4096 x 4096; kernels 5-9 at the MoE and conv shapes of
+    `bf16_grouped_conv_checks`.  Masks (identity probes) and packed words
+    exactly; kernels 1-2 within the bf16 bound of `kernel_phase`; kernel
+    3's bf16 ds within one bf16 ulp of the plain version's (both round an
+    f32 value once, and the f32 values differ by the sums' order).  Each
+    launch at qwen2-7b's shape (and kernel 4 on a round's rows of its
+    block) must raise the peak of allocated memory by less than the
+    block's f32 size.  Then the times: kernels 1-3 per internlm2 layer by
+    graph replay, kernel 4 per internlm2 round (7 leaves, C = 2) by
+    events, kernels 5-9 as `bf16_grouped_conv_timing` times them, each
+    beside its bound with 2 bytes a score and its f32-score time.
+    Returns ({kernel: max abs err}, {kernel: {label: (ms, plain ms,
+    library ms, bound ms)}}, {kernel: bf16-score layer or round ms})."""
     bf = torch.bfloat16
     err, rows, layer = {}, {}, {}
     gen = torch.Generator(device=dev).manual_seed(25)
-
-    def close_bf16(a, b, what):
-        a, b = a.float(), b.float()
-        d = (a - b).abs()
-        check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
-              f"{what}: max |diff| {float(d.max())}")
-        return float(d.max())
-
-    def ds_close(got, want, what):
-        # one bf16 ulp of the plain version's value (2**-7 of it bounds
-        # the ulp of any bf16 value; near zero, 1e-5 of the largest)
-        check(got.dtype == bf, f"{what}: ds in {got.dtype}, not bf16")
-        a, b = got.float(), want.float()
-        d = (a - b).abs()
-        check(bool((d <= BF16_RTOL * b.abs() + 1e-5 * b.abs().max()).all()),
-              f"{what}: max |diff| {float(d.max())}")
-        return float(d.max())
-
-    def no_copy(fn, s, what):
-        # a launch may allocate its output, never an f32 copy of s
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        grew = torch.cuda.max_memory_allocated() - base
-        check(grew < 4 * s.numel(), f"{what}: the launch allocated {grew} "
-              f"bytes, an f32 copy of the scores is {4 * s.numel()}")
-        return out, grew
 
     def dense(label, m, K, N, act):
         x = torch.randn(m, K, generator=gen, device=dev).to(act)
@@ -1048,18 +1249,19 @@ def bf16_score_kernel_phase(torch, mm, ref, dev):
         for mode in ("sample", "threshold"):
             kw = dict(mode=mode, tau=0.45)
             tag = f"bf16 s {label} M={m} {act} {mode}"
-            y, grew = no_copy(lambda: mm.masked_matmul(x, w, s, 4321, off,
-                                                       **kw), s, "fwd " + tag)
+            y, grew = no_f32_copy(torch, lambda: mm.masked_matmul(
+                x, w, s, 4321, off, **kw), s, "fwd " + tag)
             err["masked_matmul_fwd"] = max(
                 err.get("masked_matmul_fwd", 0.0),
-                close_bf16(y, ref.masked_matmul(x, w, s, 4321, off, **kw),
-                           "fwd " + tag))
-            dx, _ = no_copy(lambda: mm.masked_matmul_dx(g, w, s, 4321, off,
-                                                        **kw), s, "dx " + tag)
+                close_within(y, ref.masked_matmul(x, w, s, 4321, off, **kw),
+                             BF16_RTOL, 1e-4, "fwd " + tag))
+            dx, _ = no_f32_copy(torch, lambda: mm.masked_matmul_dx(
+                g, w, s, 4321, off, **kw), s, "dx " + tag)
             err["masked_matmul_dx"] = max(
                 err.get("masked_matmul_dx", 0.0),
-                close_bf16(dx, ref.masked_matmul_dx(g, w, s, 4321, off, **kw),
-                           "dx " + tag))
+                close_within(dx, ref.masked_matmul_dx(g, w, s, 4321, off,
+                                                      **kw),
+                             BF16_RTOL, 1e-4, "dx " + tag))
             del y, dx
             # the masks by identity probes, against the upcast's sigmoid
             r = min(m, K, N)
@@ -1084,12 +1286,12 @@ def bf16_score_kernel_phase(torch, mm, ref, dev):
             check(n_d or torch.equal(dp.T, wm[:, :r]),
                   "dx probe values " + tag)
             del mask, wm, u, theta, px, yp, pg, dp
-        ds, grew = no_copy(lambda: mm.masked_matmul_ds(x, g, w, s), s,
-                           f"ds bf16 s {label}")
+        ds, grew = no_f32_copy(torch, lambda: mm.masked_matmul_ds(
+            x, g, w, s), s, f"ds bf16 s {label}")
         err["masked_matmul_ds"] = max(
             err.get("masked_matmul_ds", 0.0),
-            ds_close(ds, ref.masked_matmul_ds(x, g, w, s),
-                     f"ds bf16 s {label} {act}"))
+            bf16_ds_close(torch, ds, ref.masked_matmul_ds(x, g, w, s),
+                          f"ds bf16 s {label} {act}"))
         print(f"  bf16 scores {label} M={m} {str(act)[6:]} x: kernels 1-3 "
               f"agree; ds's launch added {grew / 2**20:.1f} MiB (an f32 copy "
               f"of s: {4 * K * N / 2**20:.1f})")
@@ -1119,8 +1321,9 @@ def bf16_score_kernel_phase(torch, mm, ref, dev):
         check(plan["vec"] == (n % 8 == 0 and s.data_ptr() % 16 == 0),
               f"sample_and_pack bf16 {tag}: plan {plan}")
         for mode in ("sample", "threshold"):
-            words, grew = no_copy(
-                lambda: mm.sample_and_pack(s, seeds, mode=mode, tau=0.45), s,
+            words, grew = no_f32_copy(
+                torch, lambda: mm.sample_and_pack(s, seeds, mode=mode,
+                                                  tau=0.45), s,
                 f"sample_and_pack bf16 {tag}")
             want = ref.sample_and_pack(s, torch.tensor(seeds, device=dev),
                                        mode, 0.45)
@@ -1139,7 +1342,9 @@ def bf16_score_kernel_phase(torch, mm, ref, dev):
           f"(internlm2's shapes, {', '.join(l for l, *_ in BF16_DENSE)}, "
           f"{BF16_F32X[0]}; sample_and_pack at n = {BF16_SAP_LENS} and a "
           f"misaligned base), no launch allocated an f32 copy of its "
-          f"scores; max abs err {json.dumps(err)}")
+          f"scores")
+    bf16_grouped_conv_checks(torch, mm, ref, dev, gen, err)
+    print(f"bf16 scores: max abs err {json.dumps(err)}")
 
     # times per internlm2 layer (graph replay) beside the f32-score ones
     # of the same call's timing phase, and their bounds at 2 bytes a score
@@ -1198,6 +1403,7 @@ def bf16_score_kernel_phase(torch, mm, ref, dev):
     print(f"  sample_and_pack bf16 scores per internlm2 round (C = "
           f"{COHORTS}): {t_k:.4f} ms, bound {b_ms:.4f}: "
           f"{100 * b_ms / t_k:.1f}% of the bound")
+    bf16_grouped_conv_timing(torch, mm, ref, dev, rows, layer)
     torch.cuda.synchronize()
     return err, rows, layer
 
@@ -1292,7 +1498,7 @@ def conv_kernel_phase(torch, mm, ref, dev):
     return err
 
 
-def conv_timing_phase(torch, mm, ref, dev):
+def conv_timing_phase(torch, mm, ref, dev, score_dtype=None):
     """Per-recurrent-layer (one cohort) times of the conv kernels at
     mamba2-370m's C = 2304 (kernel 8: the forward on bf16 x and the
     flipped pass on the f32 cotangent; kernel 9: the STE ds), and at
@@ -1305,8 +1511,12 @@ def conv_timing_phase(torch, mm, ref, dev):
     CUDA-graph replay (`graph_ms`), beside the replay time of an empty
     kernel (`torch.cuda._sleep(0)`: one thread, no work), the floor of
     any kernel timed so; the per-call times with the host's launch cost
-    included (CUDA events around each call) are printed beside them."""
+    included (CUDA events around each call) are printed beside them.
+    The scores (and kernel 9's ds) are `score_dtype`: f32 by default, or
+    bf16, counted at their bytes in the bound."""
     F = torch.nn.functional
+    sd = score_dtype or torch.float32
+    sb = torch.empty((), dtype=sd).element_size()
     gen = torch.Generator(device=dev).manual_seed(6)
     W, B, S = CONV_W, CONV_B, CONV_S
     res, per_shape = {}, {"masked_conv1d": {}, "masked_conv1d_ds": {}}
@@ -1314,7 +1524,7 @@ def conv_timing_phase(torch, mm, ref, dev):
         x = torch.randn(B, S, C, generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn(B, S, C, generator=gen, device=dev)
         w = torch.randn(W, C, generator=gen, device=dev).to(torch.bfloat16)
-        s = torch.randn(W, C, generator=gen, device=dev)
+        s = torch.randn(W, C, generator=gen, device=dev).to(sd)
         wm = ref.conv_weight(w, s, 7, 0)                       # (W, C) f32
         wk = wm.T.contiguous()[:, None, :]                     # (C, 1, W)
         wk_flip = wm.flip(0).T.contiguous()[:, None, :]
@@ -1341,7 +1551,8 @@ def conv_timing_phase(torch, mm, ref, dev):
         print(f"  conv {arch} C={C} plan: fwd/flip {fplan['grid'][0]} row "
               f"blocks x {fplan['grid'][1]} channel tiles of "
               f"{fplan['threads']} threads, {fplan['chunks']} chunks")
-        print(f"  conv {arch} C={C} by graph replay, ms: kernel fwd/flip/ds "
+        print(f"  conv {arch} C={C} {str(sd)[6:]} scores by graph replay, "
+              f"ms: kernel fwd/flip/ds "
               f"{' '.join(f'{t:.4f}' for t in t_k)}; library "
               f"{' '.join(f'{t:.4f}' for t in t_l)}; an empty kernel "
               f"{t_empty:.4f}.  Per call with launch cost (events): kernel "
@@ -1351,9 +1562,10 @@ def conv_timing_phase(torch, mm, ref, dev):
               f"tiles, {plan['threads']} threads, {plan['chunks']} chunks")
         n = B * S * C
         # bytes: each input read once, each output written once
-        costs = ((2 * n + 6 * W * C + 4 * n, 2 * W * n),   # bf16 x -> f32 y
-                 (4 * n + 6 * W * C + 4 * n, 2 * W * n),   # f32 g -> f32 dx
-                 (2 * n + 4 * n + 10 * W * C, 2 * W * n))  # x, g, w, s -> ds
+        ws = (2 + sb) * W * C                              # w and s
+        costs = ((2 * n + ws + 4 * n, 2 * W * n),          # bf16 x -> f32 y
+                 (4 * n + ws + 4 * n, 2 * W * n),          # f32 g -> f32 dx
+                 (2 * n + 4 * n + ws + sb * W * C, 2 * W * n))  # -> ds
         for name, lo, hi in (("masked_conv1d", 0, 2),
                              ("masked_conv1d_ds", 2, 3)):
             nbytes = sum(c[0] for c in costs[lo:hi])
@@ -1524,11 +1736,27 @@ def smoke_extra(torch, api, f32=False):
 # norm 0.001833, cosine 0.999998 on an H100 80GB HBM3 at 700 W), and the
 # first moments and float updates, on bf16 activations, to the bf16
 # default (read 0.004554 and 0.008449).
+# deepseek-v2-lite (MoE) and mamba2 (SSM) on bf16 scores are held to the
+# same bounds (read on an H100 80GB HBM3 at 700 W, score update / first
+# moment / float update: deepseek-v2-lite 0.006709 / 0.002610 / 0.005280,
+# mamba2 0.000906 / 0.004101 / 0.013430).  recurrentgemma (hybrid) on
+# bf16 scores: its first moments and float updates are held to its bf16
+# spread (0.57, 0.85) (read 0.2789 and 0.2638); its score updates, each
+# score's bf16 rounding of a moment that spreads as the hybrid's bf16
+# step does, to the reference's own spread for them: the reference's jit
+# and eager bf16-score steps differ per leaf by up to 5.19 (cosine down
+# to 0.2312) in the score update (read 1.721, cosine 0.3747), and by up
+# to 0.604 (0.806) in the first moment (measured on the CPU at the SMOKE
+# config and the batch of `smoke_states`: `python
+# tests/test_torch_bf16_scores_conv.py`).
 BACKWARD_BOUNDS = {"bf16": (0.3, 0.97), "bf16 hybrid": (0.57, 0.85),
                    "bf16 qwen2": (0.375, 0.964), "f32": (1e-2, 0.9999),
                    "bf16 scores": {"score update": (1e-2, 0.999),
                                    "first moment": (0.3, 0.97),
-                                   "float update": (0.3, 0.97)}}
+                                   "float update": (0.3, 0.97)},
+                   "bf16 scores hybrid": {"score update": (5.2, 0.23),
+                                          "first moment": (0.57, 0.85),
+                                          "float update": (0.57, 0.85)}}
 F32_BACKWARD = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
                 "qwen2-7b", "qwen2-vl-2b", "whisper-medium")
 
@@ -1662,20 +1890,34 @@ def smoke_reference_phase(torch, dev, arch):
                   for kind, (rel, cos, n) in agree.items()))
 
 
+# The feature phase's SMOKE steps, card against CPU: (arch, smoke_states
+# keywords, BACKWARD_BOUNDS key); "score_dtype": "bfloat16" runs the step
+# on bf16 scores and moments; block-local MoE dispatch in BLOCK_DISPATCH
+# blocks (also the depth-4 path's)
+BLOCK_DISPATCH = 4
+FEATURE_STEPS = (
+    ("internlm2-1.8b", dict(over={"remat": True}, microbatch=2), "bf16"),
+    ("internlm2-1.8b", dict(score_dtype="bfloat16"), "bf16 scores"),
+    ("deepseek-v2-lite-16b",
+     dict(over={"moe_block_dispatch": BLOCK_DISPATCH}), "bf16"),
+    ("deepseek-v2-lite-16b", dict(score_dtype="bfloat16"), "bf16 scores"),
+    ("mamba2-370m", dict(score_dtype="bfloat16"), "bf16 scores"),
+    ("recurrentgemma-9b", dict(score_dtype="bfloat16"),
+     "bf16 scores hybrid"))
+
+
 def feature_backward_phase(torch, dev):
-    """`backward_check` of the slice's new step features, one SMOKE train
-    step each on the card against the same step on the CPU (bf16
-    activations): internlm2 in 2 microbatches with each layer recomputed
-    (`remat`), internlm2 on bf16 scores and moments, and deepseek-v2-lite
-    with block-local MoE dispatch (4 blocks of 16 tokens); the loss
-    within 0.5% and each leaf within its bounds (BACKWARD_BOUNDS)."""
-    for arch, kw, key in (
-            ("internlm2-1.8b", dict(over={"remat": True}, microbatch=2),
-             "bf16"),
-            ("internlm2-1.8b", dict(score_dtype=torch.bfloat16),
-             "bf16 scores"),
-            ("deepseek-v2-lite-16b",
-             dict(over={"moe_block_dispatch": BLOCK_DISPATCH}), "bf16")):
+    """`backward_check` of the step features, one SMOKE train step each
+    on the card against the same step on the CPU (bf16 activations):
+    internlm2 in 2 microbatches with each layer recomputed (`remat`),
+    internlm2, deepseek-v2-lite, mamba2 and recurrentgemma on bf16 scores
+    and moments (kernels 1-3, 5-7 and 8-9 on bf16 score blocks), and
+    deepseek-v2-lite with block-local MoE dispatch (4 blocks of 16
+    tokens); the loss within 0.5% and each leaf within its bounds
+    (FEATURE_STEPS, BACKWARD_BOUNDS)."""
+    for arch, kw, key in FEATURE_STEPS:
+        kw = {k: getattr(torch, v) if k == "score_dtype" else v
+              for k, v in kw.items()}
         api, cfg, states, toks = smoke_states(torch, arch, ("cpu", dev),
                                               **kw)
         losses, updates = zip(*(first_step_updates(api, cfg, st, toks)
@@ -2027,13 +2269,21 @@ def vlm_patch_step(torch, dispatch, dev):
     return got
 
 
-# The slice's new paths (PR 25): qwen2-7b at all 28 layers on bf16
-# scores with one cohort; internlm2-1.8b at batch 4 in 2 microbatches
-# with each layer recomputed; deepseek-v2-lite at 4 layers with
-# block-local MoE dispatch; gemma3-4b's chunked prefill forward
-FULL_DEPTH_ARCH, FULL_DEPTH_COHORTS = "qwen2-7b", 1
+# The performance features' paths: internlm2-1.8b at batch 4 in 2
+# microbatches with each layer recomputed; deepseek-v2-lite at 4 layers
+# with block-local MoE dispatch; gemma3-4b's chunked prefill forward.
+# The depth paths on bf16 scores and moments, one cohort: (arch, layers,
+# None for all).  qwen2-7b whole; deepseek-v2-lite-16b and
+# recurrentgemma-9b at the deepest cut one card holds (8 bytes a masked
+# weight in the step: bf16 w, scores, moments and score gradients; 6 in
+# the round beside ~9 bytes a weight of its largest leaf (the unpacked
+# mean, theta, the downlink's uniforms); recurrentgemma's f32 unembed of
+# its tied 1.05 G embedding ~13 GB); mamba2-370m whole (kernels 8-9 on
+# bf16 scores at the published width)
+FULL_DEPTH_COHORTS = 1
+FULL_DEPTH_PATHS = (("qwen2-7b", None), ("deepseek-v2-lite-16b", 16),
+                    ("recurrentgemma-9b", None), ("mamba2-370m", None))
 MICRO_BATCH, MICRO = 4, 2
-BLOCK_DISPATCH = 4
 CHUNK_KV, CHUNK_CHECK_LEN, CHUNK_LONG_LEN = 512, 4096, 32768
 # On bf16 activations the chunked forward rounds the attention output's
 # f32 sums at other points than the unchunked one, and 34 layers carry
@@ -2058,8 +2308,9 @@ def steps_path(torch, dispatch, dev, cfg, scfg, cohorts, batch, seq,
     (the launcher has no score-type, microbatch or remat flag, as the
     reference's has none), on a fed state of `scfg.score_dtype`:
     `steps_` steps, a round every `every`.  Returns ({kernel: launches},
-    step seconds, round seconds, round metrics, losses, peak GiB)."""
-    from repro_torch.core import masking
+    step seconds, round seconds, round metrics, losses, peak GiB) and
+    prints the state's masked weights and its largest masked leaf."""
+    from repro_torch.core import masking, tree
     from repro_torch.data import synthetic
     from repro_torch.launch import steps
     from repro_torch.models import build_model
@@ -2070,6 +2321,13 @@ def steps_path(torch, dispatch, dev, cfg, scfg, cohorts, batch, seq,
     gen = torch.Generator(device=dev).manual_seed(scfg.seed)
     state = steps.init_fed_state(gen, api, masking.MaskSpec(), C=cohorts,
                                  score_dtype=scfg.score_dtype)
+    sizes = [s[0].numel() for s in tree.leaves(state["scores"])
+             if s is not None]
+    floats = sum(f[0].numel() for f in tree.leaves(state["floats"])
+                 if f is not None)
+    print(f"  {cfg.name} at {cfg.n_layers} layers: {sum(sizes) / 1e9:.4f} G "
+          f"masked weights a cohort, the largest leaf {max(sizes) / 1e9:.4f}"
+          f" G, {floats / 1e9:.4f} G floats")
     step_fn = steps.make_train_step(api, scfg)
     round_fn = steps.make_round_step(api, scfg, codec=codec)
     toks = synthetic.make_lm_stream(scfg.seed, 500_000, cfg.vocab, dev)
@@ -2109,42 +2367,88 @@ def _fmt(ts):
     return [round(t, 4) for t in ts]
 
 
+def depth_launches(cfg, passes, rounds):
+    """{kernel: launches} of `passes` train passes (cohorts x steps) and
+    `rounds` rounds of `cfg` at its depth: dense (qwen2) 7 projections a
+    layer; MoE 8 a layer (MLA 5 and the dense or shared MLP 3) and 3
+    expert projections a MoE layer; SSM 2 projections and one conv a
+    layer; the hybrid 8 projections and one conv a rec block, 7
+    projections an attn block, its layers the block pattern repeated.
+    Kernel 8 runs twice a conv and pass (the forward and the flipped
+    dL/dx), kernel 9 once.  A round packs and unpacks every stacked
+    masked leaf once: 7 (dense), 19 (MoE: the dense layer's 8, the MoE
+    layers' MLA 5, shared MLP 3 and experts 3), 3 (SSM), and for the
+    hybrid 9, 9 and 7 under its groups' blocks and 9 under a rec tail."""
+    L, fam = cfg.n_layers, cfg.family
+    out = {}
+    if fam == "dense":
+        dense, leaves = 7 * L, 7
+    elif fam == "moe":
+        dense, leaves = 8 * L, 8 * (cfg.first_dense_layers > 0) + 11
+        out["masked_matmul_grouped"] = 3 * (L - cfg.first_dense_layers)
+    elif fam == "ssm":
+        dense, leaves = 2 * L, 3
+        out.update(masked_conv1d=2 * L, masked_conv1d_ds=L)
+    else:
+        pat = cfg.block_pattern
+        kinds = [pat[i % len(pat)] for i in range(L)]
+        rec = kinds.count("rec")
+        dense = 8 * rec + 7 * (L - rec)
+        out.update(masked_conv1d=2 * rec, masked_conv1d_ds=rec)
+        leaves = 25 * (L >= len(pat)) + 9 * (L % len(pat) > 0)
+    out.update(masked_matmul_fwd=dense, masked_matmul_dx=dense,
+               masked_matmul_ds=dense)
+    if "masked_matmul_grouped" in out:
+        out.update(masked_matmul_grouped_dx=out["masked_matmul_grouped"],
+                   masked_matmul_grouped_ds=out["masked_matmul_grouped"])
+    out = {k: v * passes for k, v in out.items()}
+    out.update(sample_and_pack=leaves * rounds, unpack_bits=leaves * rounds)
+    return out
+
+
 def full_depth_phase(torch, dispatch, dev):
-    """qwen2-7b at all 28 layers on one card: bf16 scores and moments
-    (`init_fed_state(score_dtype=torch.bfloat16)`, 2 bytes a weight each
-    beside the bf16 w and the bf16 score gradients), 1 cohort, fedpm_reg,
-    batch 2 x seq 128, 4 steps, a round every 2, 8-bit downlink,
-    arithmetic codec, seed 17.  Kernels 1-3 launch once per projection
-    (28 x 7) and step, kernel 4 and 11 once per masked leaf (7) and
-    round; the step and round seconds, the peak and the rounds' Bpp are
-    printed.  Returns the launch counts."""
+    """The depth paths (FULL_DEPTH_PATHS) on one card: bf16 scores and
+    moments (`init_fed_state(score_dtype=torch.bfloat16)`, 2 bytes a
+    weight each beside the bf16 w and the bf16 score gradients), 1
+    cohort, fedpm_reg, batch 2 x seq 128, 4 steps, a round every 2,
+    8-bit downlink, arithmetic codec, seed 17, through `steps_path`:
+    qwen2-7b at all 28 layers, deepseek-v2-lite-16b and recurrentgemma-9b
+    cut to the depth one card holds, mamba2-370m at all 48.  Each kernel
+    launches as `depth_launches` reckons; the step and round seconds, the
+    peak, the losses and the rounds' Bpp (in (0, 1]) are printed.
+    Returns the launch counts of all paths."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
-    cfg = get_config(FULL_DEPTH_ARCH)
     steps_, every = 4, 2
     scfg = steps.StepConfig(lam=1.0, lr=0.3, downlink_bits=8, seed=17,
                             score_dtype=torch.bfloat16)
-    t0 = time.time()
-    got, ts, tr, rounds, losses, peak = steps_path(
-        torch, dispatch, dev, cfg, scfg, FULL_DEPTH_COHORTS, 2, 128, steps_,
-        every)
-    n = cfg.n_layers * 7 * FULL_DEPTH_COHORTS * steps_
-    leaves = ROUND_LEAVES[cfg.name] * (steps_ // every)
-    expect = {k: 0 for k in dispatch.KERNELS}
-    expect.update(masked_matmul_fwd=n, masked_matmul_dx=n,
-                  masked_matmul_ds=n, sample_and_pack=leaves,
-                  unpack_bits=leaves)
-    check(got == expect, f"{cfg.name} full depth launches {got}, expected "
-          f"{expect}")
-    print(f"full depth: {cfg.name} at all {cfg.n_layers} layers, bf16 "
-          f"scores, {FULL_DEPTH_COHORTS} cohort, batch 2 x seq 128, "
-          f"{steps_} steps, a round every {every} ({time.time() - t0:.1f}s):"
-          f" step seconds {_fmt(ts)}; round seconds {_fmt(tr)}; losses "
-          f"{_fmt(losses)}; bpp {[round(r['bpp'], 6) for r in rounds]}, "
-          f"measured {[round(r['bpp_measured'], 6) for r in rounds]}; max "
-          f"memory allocated {peak:.2f} GiB; launches "
-          f"{json.dumps({k: v for k, v in got.items() if v})}")
-    return got
+    total = {k: 0 for k in dispatch.KERNELS}
+    for arch, layers in FULL_DEPTH_PATHS:
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.time()
+        held = torch.cuda.memory_allocated() / 2**30
+        got, ts, tr, rounds, losses, peak = steps_path(
+            torch, dispatch, dev, cfg, scfg, FULL_DEPTH_COHORTS, 2, 128,
+            steps_, every)
+        expect = {k: 0 for k in dispatch.KERNELS}
+        expect.update(depth_launches(cfg, FULL_DEPTH_COHORTS * steps_,
+                                     steps_ // every))
+        check(got == expect, f"{cfg.name} depth path launches {got}, "
+              f"expected {expect}")
+        print(f"depth path: {cfg.name} at {cfg.n_layers} of {full} layers, "
+              f"bf16 scores, {FULL_DEPTH_COHORTS} cohort, batch 2 x seq 128, "
+              f"{steps_} steps, a round every {every} "
+              f"({time.time() - t0:.1f}s): step seconds {_fmt(ts)}; round "
+              f"seconds {_fmt(tr)}; losses {_fmt(losses)}; bpp "
+              f"{[round(r['bpp'], 6) for r in rounds]}, measured "
+              f"{[round(r['bpp_measured'], 6) for r in rounds]}; max memory "
+              f"allocated {peak:.2f} GiB ({held:.2f} held before the path); "
+              f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+        total = {k: total[k] + got[k] for k in total}
+    return total
 
 
 def microbatch_remat_phase(torch, dispatch, dev):
@@ -4023,7 +4327,7 @@ def main():
     print("bf16 scores against f32 scores (same call): " + "; ".join(
         f"{k} {bf_layer[k]:.4f} ms against {timing[k]['ms']:.4f}"
         for k in bf_layer) + " (kernels 1-3 per internlm2 layer, 4 per "
-        "round)")
+        "round, 5-7 per deepseek-v2-lite MoE layer, 8-9 per mamba2 layer)")
     print(f"timing phase ({time.time() - t0:.1f}s), ms per launch (dense "
           f"at M={M}, grouped at E={N_EXPERTS} M={CAP}; conv per layer at "
           f"B={CONV_B} S={CONV_S}: fwd + flipped dx, ds; pack per leaf, "

@@ -51,21 +51,22 @@ ARGTYPES = {
                          _I, _I, _I, _I, _P],
     "sample_and_pack": [_P, _P, _P, _I, _I64, _I, _F, _I, _I, _I, _I, _P],
     "masked_matmul_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32,
-                              _I, _F, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     "masked_matmul_grouped_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _U32, _I, _F, _I, _I, _I, _I, _I, _I, _P],
+                                 _U32, _I, _F, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
     "masked_matmul_grouped_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _P],
     "masked_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _U32, _U32, _U32, _I,
-                      _F, _I, _I, _I, _I, _P],
+                      _F, _I, _I, _I, _I, _I, _P],
     "masked_conv1d_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
+                         _I, _I, _I, _P],
     "pack_bits": [_P, _P, _I64, _I64, _I, _P],
     "unpack_bits": [_P, _P, _I64, _I64, _I64, _I, _P],
     "masked_matmul_fwd_capacity": [_I, _I, _I, _I],
     "masked_matmul_dx_capacity": [_I, _I, _I, _I],
-    "masked_matmul_grouped_capacity": [_I, _I, _I],
-    "masked_matmul_grouped_dx_capacity": [_I, _I, _I],
+    "masked_matmul_grouped_capacity": [_I, _I, _I, _I],
+    "masked_matmul_grouped_dx_capacity": [_I, _I, _I, _I],
 }
 ENTRY_LIBRARY = {"masked_matmul_fwd_capacity": "masked_matmul_fwd",
                  "masked_matmul_dx_capacity": "masked_matmul_dx",

@@ -12,7 +12,9 @@
 // causal conv with the same regenerated mask.  The padding is applied by
 // index: no padded copy exists in memory.  x: (B, S, C) bf16 (the forward,
 // whose input is the bf16 output of a masked projection) or f32 (the
-// flipped pass over the f32 cotangent); w: (W, C) bf16; s: (W, C) f32.
+// flipped pass over the f32 cotangent); w: (W, C) bf16; s: (W, C) f32 or
+// bf16 (`s_bf16`: read as it lies, each score widened to f32 exactly
+// before the gating, as the reference's kernel upcasts it; no f32 copy).
 //
 // The taps accumulate in t order with separately rounded products and
 // sums (__fmul_rn / __fadd_rn, no FMA contraction): the plain PyTorch
@@ -59,15 +61,27 @@ constexpr int MAX_W = 8;        // taps (a build for each)
 struct Params {
   const void* x;
   const __nv_bfloat16* w;
-  const float* s;
+  const void* s;   // f32, or bf16 bits (s_bf16)
   float* y;
   int B, S, C;
   uint32_t seed, off, n_logical;
   int mode;
   float tau;
   int flip;
+  int s_bf16;
   int vec;   // x and y by vectors: C % 4 == 0 and bases on the 16-byte grid
 };
+
+// Score i as f32: a bf16 score widened exactly (its bits shifted up), or
+// the f32 itself.
+__device__ __forceinline__ float score_at(const void* s, int64_t i,
+                                          bool bf16) {
+  if (bf16)
+    return __uint_as_float(
+        static_cast<uint32_t>(__ldg(static_cast<const unsigned short*>(s) + i))
+        << 16);
+  return __ldg(static_cast<const float*>(s) + i);
+}
 
 // 4 channels c.. of row `row` (a flat (b, s) index) as f32: one vector
 // load, or element loads (zero past C).
@@ -148,7 +162,7 @@ masked_conv1d_kernel(const Params p) {
     for (int j = 0; j < QUAD; ++j) {
       const bool in = c + j < p.C;
       wv[j] = in ? __bfloat162float(p.w[at + j]) : 0.0f;
-      sv[j] = in && p.mode != 2 ? __ldg(p.s + at + j) : 0.0f;
+      sv[j] = in && p.mode != 2 ? score_at(p.s, at + j, p.s_bf16) : 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < QUAD; ++j)
@@ -190,18 +204,19 @@ masked_conv1d_kernel(const Params p) {
 
 }  // namespace
 
-// lanes: the launch plan (kernels.masked_matmul.conv_plan); vec: x and y
-// go by vectors (the wrapper's 16-byte-grid flag).
+// s_bf16: the scores are bf16 (f32 otherwise); lanes: the launch plan
+// (kernels.masked_matmul.conv_plan); vec: x and y go by vectors (the
+// wrapper's 16-byte-grid flag).
 extern "C" int masked_conv1d(const void* x, const void* w, const void* s,
                              void* y, int B, int S, int C, int W,
                              uint32_t seed, uint32_t off, uint32_t n_logical,
                              int mode, float tau, int flip, int x_f32,
-                             int lanes, int vec, void* stream) {
+                             int s_bf16, int lanes, int vec, void* stream) {
   if (W < 1 || W > MAX_W || lanes < 1 || lanes > MAX_LANES ||
       (vec && C % QUAD))
     return (int)cudaErrorInvalidValue;
-  const Params p{x, (const __nv_bfloat16*)w, (const float*)s, (float*)y,
-                 B, S, C, seed, off, n_logical, mode, tau, flip, vec};
+  const Params p{x, (const __nv_bfloat16*)w, s, (float*)y,
+                 B, S, C, seed, off, n_logical, mode, tau, flip, s_bf16, vec};
   const int chunks = B * ((S + RT - 1) / RT);
   const dim3 grid((chunks + lanes - 1) / lanes, (C + CB - 1) / CB);
   const dim3 block(QB * lanes);

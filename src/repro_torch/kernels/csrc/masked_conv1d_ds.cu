@@ -9,8 +9,11 @@
 // epilogue 1 ("dw") returns the raw correlation, the weight gradient of the
 // plain conv (w and s unread).  x_pad is x with W - 1 leading zeros,
 // applied by index.  x: (B, S, C) bf16 or f32; g: (B, S, C) f32 (the
-// cotangent of the conv's f32 output); w: (W, C) bf16; s: (W, C) f32;
-// ds: (W, C) f32.
+// cotangent of the conv's f32 output); w: (W, C) bf16; s: (W, C) f32 or
+// bf16 (`s_bf16`: read as it lies, each score widened to f32 exactly);
+// ds: (W, C) in s's type (the reference's `out_shape ... s.dtype`: a bf16
+// ds is the f32 value rounded once, to nearest even, at the store), the
+// "dw" epilogue's correlation f32.
 //
 // Bound on this card: the bytes of x and g, read once (6 bytes per
 // element with bf16 x), against 2W flops per element; at the main paths'
@@ -50,11 +53,22 @@ struct Params {
   const void* x;
   const float* g;
   const __nv_bfloat16* w;
-  const float* s;
-  float* ds;
-  int B, S, C, epilogue;
+  const void* s;   // f32, or bf16 bits (s_bf16)
+  void* ds;        // f32, or bf16 bits (s_bf16, epilogue 0)
+  int B, S, C, epilogue, s_bf16;
   int vec;   // x and g by vectors: C % 4 == 0 and bases on the 16-byte grid
 };
+
+// Score i as f32: a bf16 score widened exactly (its bits shifted up), or
+// the f32 itself.
+__device__ __forceinline__ float score_at(const void* s, int64_t i,
+                                          bool bf16) {
+  if (bf16)
+    return __uint_as_float(
+        static_cast<uint32_t>(__ldg(static_cast<const unsigned short*>(s) + i))
+        << 16);
+  return __ldg(static_cast<const float*>(s) + i);
+}
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -164,7 +178,7 @@ masked_conv1d_ds_kernel(const Params p) {
       if (c00 + j < p.C) {
         const int64_t at = (int64_t)(o0 / QB) * p.C + c00 + j;
         wv[j] = __bfloat162float(p.w[at]);
-        sv[j] = __ldg(p.s + at);
+        sv[j] = score_at(p.s, at, p.s_bf16);
       }
 
   float4 acc[W];
@@ -219,11 +233,15 @@ masked_conv1d_ds_kernel(const Params p) {
         float d = v[j];
         if (p.epilogue == 0) {
           const bool pre = o == o0;
-          const float sig = repro::sigmoid(pre ? sv[j] : p.s[at]);
+          const float sig =
+              repro::sigmoid(pre ? sv[j] : score_at(p.s, at, p.s_bf16));
           d = d * (pre ? wv[j] : __bfloat162float(p.w[at])) * sig *
               (1.0f - sig);
         }
-        p.ds[at] = d;
+        if (p.epilogue == 0 && p.s_bf16)
+          static_cast<__nv_bfloat16*>(p.ds)[at] = __float2bfloat16_rn(d);
+        else
+          static_cast<float*>(p.ds)[at] = d;
       }
     }
   }
@@ -232,17 +250,19 @@ masked_conv1d_ds_kernel(const Params p) {
 
 }  // namespace
 
-// cluster, lanes: the launch plan (kernels.masked_matmul.conv_ds_plan);
-// vec: x and g go by vectors (the wrapper's 16-byte-grid flag).
+// s_bf16: s and (epilogue 0) ds are bf16 (f32 otherwise); cluster, lanes:
+// the launch plan (kernels.masked_matmul.conv_ds_plan); vec: x and g go by
+// vectors (the wrapper's 16-byte-grid flag).
 extern "C" int masked_conv1d_ds(const void* x, const void* g, const void* w,
                                 const void* s, void* ds, int B, int S, int C,
-                                int W, int epilogue, int x_f32, int cluster,
-                                int lanes, int vec, void* stream) {
+                                int W, int epilogue, int x_f32, int s_bf16,
+                                int cluster, int lanes, int vec,
+                                void* stream) {
   if (W < 1 || W > MAX_W || cluster < 1 || cluster > MAX_CLUSTER ||
       lanes < 1 || lanes > MAX_LANES || (vec && C % QUAD))
     return (int)cudaErrorInvalidValue;
-  const Params p{x, (const float*)g, (const __nv_bfloat16*)w,
-                 (const float*)s, (float*)ds, B, S, C, epilogue, vec};
+  const Params p{x, (const float*)g, (const __nv_bfloat16*)w, s, ds,
+                 B, S, C, epilogue, s_bf16, vec};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, (C + CB - 1) / CB);
   cfg.blockDim = dim3(QB * lanes);

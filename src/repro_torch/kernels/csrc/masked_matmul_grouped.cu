@@ -9,7 +9,9 @@
 // offs[e] = (l*E + e)*K*N mod 2^32 the E masks are exactly layer l's slice
 // of the (L, E, K, N) leaf's uplink stream.  seeds and offs are (E,)
 // uint32 device arrays.  x: (E, M, K) f32 (the reference keeps the expert
-// chain in f32), w: (E, K, N) bf16, s: (E, K, N) f32, y: (E, M, N) f32.
+// chain in f32), w: (E, K, N) bf16, s: (E, K, N) f32 or bf16 (read as it
+// lies, each score widened to f32 exactly before the gating), y: (E, M, N)
+// f32.
 //
 // Bound on this card: at the main path's expert shapes (E = 64, M = the
 // capacity 30, K x N = 2048 x 1408 and 1408 x 2048) the bytes of w and s,
@@ -31,23 +33,26 @@
 // rank order: the same bits on every launch, no atomics.
 #include "masked_matmul_grouped_wgmma.cuh"
 
-// bc, split, w_stages, a_bufs, smem: the launch plan
-// (kernels.masked_matmul.grouped_plan); tma: the wrapper's flags of which
-// operands lie on the 16-byte grid.
+// s_bf16: the scores are bf16 (f32 otherwise); bc, split, w_stages,
+// a_bufs, smem: the launch plan (kernels.masked_matmul.grouped_plan); tma:
+// the wrapper's flags of which operands lie on the 16-byte grid.
 extern "C" int masked_matmul_grouped(const void* x, const void* w,
                                      const void* s, const void* seeds,
                                      const void* offs, void* y, int E, int M,
                                      int K, int N, uint32_t n_logical,
-                                     int mode, float tau, int bc, int split,
-                                     int w_stages, int a_bufs, int smem,
-                                     int tma, void* stream) {
+                                     int mode, float tau, int s_bf16, int bc,
+                                     int split, int w_stages, int a_bufs,
+                                     int smem, int tma, void* stream) {
   return repro::gw::launch<false>(x, w, s, seeds, offs, y, E, M, K, N,
-                                  n_logical, mode, tau, bc, split, w_stages,
-                                  a_bufs, smem, tma, (cudaStream_t)stream);
+                                  n_logical, mode, tau, s_bf16, bc, split,
+                                  w_stages, a_bufs, smem, tma,
+                                  (cudaStream_t)stream);
 }
 
 // Blocks of the body at width bc and cluster size split that the card
-// holds at once, for the launch plan; a negative cudaError on failure.
-extern "C" int masked_matmul_grouped_capacity(int bc, int split, int smem) {
-  return repro::gw::capacity<false>(bc, split, smem);
+// holds at once (s_bf16: the bf16-score build), for the launch plan; a
+// negative cudaError on failure.
+extern "C" int masked_matmul_grouped_capacity(int bc, int split, int smem,
+                                              int s_bf16) {
+  return repro::gw::capacity<false>(bc, split, smem, s_bf16);
 }

@@ -6,12 +6,14 @@
 //
 // Group e regenerates the grouped forward's mask from the same
 // (seeds[e], offs[e] + k*n_logical + n) stream, bit for bit.  g: (E, M, N)
-// f32, w: (E, K, N) bf16, s: (E, K, N) f32, seeds/offs: (E,) uint32 device
-// arrays, dx: (E, M, K) f32 (the reference casts to g.dtype).
+// f32, w: (E, K, N) bf16, s: (E, K, N) f32 or bf16 (read as it lies),
+// seeds/offs: (E,) uint32 device arrays, dx: (E, M, K) f32 (the reference
+// casts to g.dtype).
 //
 // Bound on this card: as the grouped forward's, the 6 bytes a weight of w
-// and s: 1.015 ms per deepseek-v2-lite MoE layer (E = 64, M = 30, 553.6 M
-// weights) at 3.35 TB/s, against 0.22 ms of products on the tensor cores
+// and s (4 with bf16 scores): 1.015 ms (0.68) per deepseek-v2-lite MoE
+// layer (E = 64, M = 30, 553.6 M weights) at 3.35 TB/s, against 0.22 ms
+// of products on the tensor cores
 // and ~0.7 ms of gating on the CUDA cores.
 //
 // Design: the grouped forward's tensor-core body
@@ -26,25 +28,27 @@
 // distributed shared memory in rank order.
 #include "masked_matmul_grouped_wgmma.cuh"
 
-// bc, split, w_stages, a_bufs, smem: the launch plan
-// (kernels.masked_matmul.grouped_plan); tma: the wrapper's flags of which
-// operands lie on the 16-byte grid.
+// s_bf16: the scores are bf16 (f32 otherwise); bc, split, w_stages,
+// a_bufs, smem: the launch plan (kernels.masked_matmul.grouped_plan); tma:
+// the wrapper's flags of which operands lie on the 16-byte grid.
 extern "C" int masked_matmul_grouped_dx(const void* g, const void* w,
                                         const void* s, const void* seeds,
                                         const void* offs, void* dx, int E,
                                         int M, int K, int N,
                                         uint32_t n_logical, int mode,
-                                        float tau, int bc, int split,
-                                        int w_stages, int a_bufs, int smem,
-                                        int tma, void* stream) {
+                                        float tau, int s_bf16, int bc,
+                                        int split, int w_stages, int a_bufs,
+                                        int smem, int tma, void* stream) {
   return repro::gw::launch<true>(g, w, s, seeds, offs, dx, E, M, K, N,
-                                 n_logical, mode, tau, bc, split, w_stages,
-                                 a_bufs, smem, tma, (cudaStream_t)stream);
+                                 n_logical, mode, tau, s_bf16, bc, split,
+                                 w_stages, a_bufs, smem, tma,
+                                 (cudaStream_t)stream);
 }
 
 // Blocks of the body at width bc and cluster size split that the card
-// holds at once, for the launch plan; a negative cudaError on failure.
-extern "C" int masked_matmul_grouped_dx_capacity(int bc, int split,
-                                                 int smem) {
-  return repro::gw::capacity<true>(bc, split, smem);
+// holds at once (s_bf16: the bf16-score build), for the launch plan; a
+// negative cudaError on failure.
+extern "C" int masked_matmul_grouped_dx_capacity(int bc, int split, int smem,
+                                                 int s_bf16) {
+  return repro::gw::capacity<true>(bc, split, smem, s_bf16);
 }

@@ -13,6 +13,14 @@
 // offs[e] + k*n_logical + n of seeds[e]'s stream, bit-identical to the
 // plain version's and the reference's for any tiling.
 //
+// The scores come as f32 or bf16 (SB, the score type of the launch), as
+// for kernels 1-2: a raw s stage holds them as they lie in device memory,
+// 4 or 2 bytes an element, and gate_tile widens a bf16 score to f32
+// exactly before mask_bit, so the mask of a bf16 score block is the mask
+// of its f32 upcast, as the reference's kernel upcasts it.  2-byte scores
+// make a raw stage 4 bytes a weight instead of 6, so the plan fits more
+// of them beside the A buffers.
+//
 // f32 activations on the tensor cores: m*w is a bf16 weight or zero, so
 // it is exact in bf16.  The threads split each f32 value of A into three
 // bf16 parts (split3 of masked_matmul_wgmma.cuh, kernel 3's: hi + mid +
@@ -66,7 +74,8 @@
 //
 // Bound on this card, per deepseek-v2-lite MoE layer (3 projections, E =
 // 64, M = 30, 553.6 M weights): w (bf16) and s (f32) are 6 bytes a weight,
-// 3.32 GB, 1.0 ms at 3.35 TB/s (1.015 ms with x and y); the three products
+// 3.32 GB, 1.0 ms at 3.35 TB/s (1.015 ms with x and y; 4 bytes a weight
+// and 0.68 ms with bf16 scores); the three products
 // at wgmma's 64 rows are 0.22 ms at 989 TFLOP/s; gating at ~35-40
 // instructions a weight is ~0.7 ms on 132 SMs x 128 lanes.
 //
@@ -110,7 +119,7 @@ constexpr int PARTS = 3;         // bf16 parts of an f32 value of A
 struct Params {
   const float* a;          // x (forward) or g (dx): (E*M, R) f32
   const uint16_t* w;       // (E, K, N) bf16 bits
-  const float* s;          // (E, K, N)
+  const void* s;           // (E, K, N) f32, or bf16 bits (SB)
   const uint32_t* seeds;   // (E,)
   const uint32_t* offs;    // (E,)
   float* out;              // (E*M, C) f32
@@ -139,14 +148,15 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
 // Shared-memory layout, in bytes from the 1024-aligned base:
 //   A buffers (a_bufs x 3 parts x rows*128: rows of 64 bf16, swizzled) |
 //   B tiles (2 x BC*128) | raw w stages (w_stages x BR*BC*2) |
-//   raw s stages (w_stages x BR*BC*4) | mbarriers: full_w (w_stages)
+//   raw s stages (w_stages x BR*BC*4, or *2 for bf16 scores) |
+//   mbarriers: full_w (w_stages)
 // The partials of the cluster reduction (rows x (BC + PAD) f32) are parked
 // over the start of it once the main loop is done.
-template <int BC>
+template <int BC, bool SB>
 struct Layout {
   static constexpr int B_BYTES = BC * BR * 2;
   static constexpr int W_BYTES = BR * BC * 2;
-  static constexpr int S_BYTES = BR * BC * 4;
+  static constexpr int S_BYTES = BR * BC * (SB ? 2 : 4);
   uint32_t base;
   int rows, a_bufs, ws;
   __device__ uint32_t a(int buf, int part) const {
@@ -158,7 +168,7 @@ struct Layout {
   __device__ uint32_t full_w(int i) const { return s(ws) + 8 * i; }
 };
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 __global__ void __launch_bounds__(THREADS, 1)
     grouped_gemm(const __grid_constant__ CUtensorMap map_w,
                  const __grid_constant__ CUtensorMap map_s, const Params p) {
@@ -166,7 +176,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  const Layout<BC> L{base, p.rows, p.a_bufs, p.w_stages};
+  using S = typename std::conditional<SB, uint16_t, float>::type;
+  const Layout<BC, SB> L{base, p.rows, p.a_bufs, p.w_stages};
   auto gen = [&](uint32_t addr) { return gbase + (addr - base); };
 
   const int R = DX ? p.N : p.K, C = DX ? p.K : p.N;
@@ -198,8 +209,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   // (c0, r0) for dx.
   const int64_t ge = (int64_t)e * p.K * p.N;
   const int nkr = DX ? BC : BR, nnc = DX ? BR : BC;
-  const uint32_t w_tx = ((p.tma >> 1) & 1) * Layout<BC>::W_BYTES +
-                        ((p.tma >> 2) & 1) * Layout<BC>::S_BYTES;
+  const uint32_t w_tx = ((p.tma >> 1) & 1) * Layout<BC, SB>::W_BYTES +
+                        ((p.tma >> 2) & 1) * Layout<BC, SB>::S_BYTES;
   // thread 0 issues stage i's TMA loads into its ring slot, once every
   // thread has gated the stage that held the slot before
   auto issue = [&](int i) {
@@ -216,13 +227,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int st = i % p.w_stages, r0 = (j0 + i) * BR;
     const int kr = DX ? c0 : r0, nc = DX ? r0 : c0;
     uint16_t* wd = reinterpret_cast<uint16_t*>(gen(L.w(st)));
-    float* sd = reinterpret_cast<float*>(gen(L.s(st)));
+    S* sd = reinterpret_cast<S*>(gen(L.s(st)));
+    const S* se = static_cast<const S*>(p.s);
     for (int t = tid; t < nkr * nnc; t += THREADS) {
       const int k = kr + t / nnc, c = nc + t % nnc;
       const bool in = k < p.K && c < p.N;
       const int64_t o = ge + (int64_t)k * p.N + c;
       if (!(p.tma & 2)) wd[t] = in ? p.w[o] : uint16_t(0);
-      if (!(p.tma & 4)) sd[t] = in ? p.s[o] : 0.0f;
+      if (!(p.tma & 4)) sd[t] = in ? se[o] : S(0);
     }
     consumers_sync();
   };
@@ -236,7 +248,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if ((p.tma & 6) != 6) load_by_element(i);
     mbar_wait(L.full_w(st), (i / p.w_stages) & 1);
     const uint16_t* wr = reinterpret_cast<const uint16_t*>(gen(L.w(st)));
-    const float* sr = reinterpret_cast<const float*>(gen(L.s(st)));
+    const S* sr = reinterpret_cast<const S*>(gen(L.s(st)));
     if (p.mode == 1)
       wg::gate_tile<BC, DX, 1>(gen(L.b(i & 1)), wr, sr, (j0 + i) * BR, c0,
                                smix, gp, tid);
@@ -439,20 +451,20 @@ inline cudaLaunchConfig_t cluster_config(dim3 grid, int split, int smem,
 // current device.  The allowance only grows: the plans of other row counts
 // ask the occupancy query for other sizes, and a launch must never find
 // the bytes of its plan taken back by a query for a smaller one.
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 cudaError_t allow_smem(int smem) {
   static int allowed[64] = {};   // per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 64 && smem <= allowed[dev]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      grouped_gemm<BC, DX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grouped_gemm<BC, DX, SB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err == cudaSuccess && dev < 64) allowed[dev] = smem;
   return err;
 }
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
   const int C = DX ? p.K : p.N;
   CUtensorMap maps[2] = {};
@@ -462,10 +474,12 @@ int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
        !make_map3(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.w, p.E,
                   p.K, p.N, box_k, box_n)) ||
       ((p.tma & 4) &&
-       !make_map3(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.s, p.E,
-                  p.K, p.N, box_k, box_n)))
+       !make_map3(&maps[1],
+                  SB ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  SB ? 2 : 4, p.s, p.E, p.K, p.N, box_k, box_n)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t allowed = allow_smem<BC, DX>(smem);
+  const cudaError_t allowed = allow_smem<BC, DX, SB>(smem);
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
@@ -475,34 +489,36 @@ int launch_bc(const Params& p, int split, int smem, cudaStream_t stream) {
   Params args = p;
   void* kargs[3] = {&maps[0], &maps[1], &args};
   const cudaError_t err = cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<const void*>(grouped_gemm<BC, DX>), kargs);
+      &cfg, reinterpret_cast<const void*>(grouped_gemm<BC, DX, SB>), kargs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BC, bool DX>
+template <int BC, bool DX, bool SB>
 int capacity_bc(int split, int smem) {
-  cudaError_t err = allow_smem<BC, DX>(smem);
+  cudaError_t err = allow_smem<BC, DX, SB>(smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(dim3(split, 1, 1), split, smem, nullptr, attr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(grouped_gemm<BC, DX>), &cfg);
+      &clusters, reinterpret_cast<const void*>(grouped_gemm<BC, DX, SB>),
+      &cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return clusters * split;
 }
 
 // Blocks of a plan's width and cluster size that the card holds at once;
-// a negative cudaError on failure.
+// a negative cudaError on failure.  s_bf16: the bf16-score build.
 template <bool DX>
-int capacity(int bc, int split, int smem) {
+int capacity(int bc, int split, int smem, int s_bf16) {
   if (split < 1 || split > 8) return -static_cast<int>(cudaErrorInvalidValue);
   switch (bc) {
-#define REPRO_GW_CASE(W) \
-  case W:                \
-    return capacity_bc<W, DX>(split, smem);
+#define REPRO_GW_CASE(W)                                  \
+  case W:                                                 \
+    return s_bf16 ? capacity_bc<W, DX, true>(split, smem) \
+                  : capacity_bc<W, DX, false>(split, smem);
     REPRO_GW_WIDTHS(REPRO_GW_CASE)
 #undef REPRO_GW_CASE
     default: return -static_cast<int>(cudaErrorInvalidValue);
@@ -511,28 +527,30 @@ int capacity(int bc, int split, int smem) {
 
 // Kernel 5 (DX false) or 6 (DX true) under the plan (bc, split, w_stages,
 // a_bufs, smem) of `kernels.masked_matmul.grouped_plan` and the wrapper's
-// flags `tma`.
+// flags `tma`; s_bf16: the scores are bf16 (f32 otherwise).
 template <bool DX>
 int launch(const void* a, const void* w, const void* s, const void* seeds,
            const void* offs, void* out, int E, int M, int K, int N,
-           uint32_t n_logical, int mode, float tau, int bc, int split,
-           int w_stages, int a_bufs, int smem, int tma, cudaStream_t stream) {
+           uint32_t n_logical, int mode, float tau, int s_bf16, int bc,
+           int split, int w_stages, int a_bufs, int smem, int tma,
+           cudaStream_t stream) {
   if (split < 1 || split > 8 || w_stages < 1 || a_bufs < 1 || a_bufs > 2 ||
       M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = 64 * ((min(M, MAX_ROWS) + 63) / 64);
   const Params p{static_cast<const float*>(a),
                  static_cast<const uint16_t*>(w),
-                 static_cast<const float*>(s),
+                 s,
                  static_cast<const uint32_t*>(seeds),
                  static_cast<const uint32_t*>(offs),
                  static_cast<float*>(out),
                  E, M, K, N, n_logical, mode, tau, rows, w_stages, a_bufs,
                  tma};
   switch (bc) {
-#define REPRO_GW_CASE(W) \
-  case W:                \
-    return launch_bc<W, DX>(p, split, smem, stream);
+#define REPRO_GW_CASE(W)                                           \
+  case W:                                                          \
+    return s_bf16 ? launch_bc<W, DX, true>(p, split, smem, stream) \
+                  : launch_bc<W, DX, false>(p, split, smem, stream);
     REPRO_GW_WIDTHS(REPRO_GW_CASE)
 #undef REPRO_GW_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -56,12 +56,11 @@ Kernel 4 runs a persistent grid whose warps issue several 16-byte score
 loads each before they gate, and decides each bit from a cheap sigmoid
 with an error band (the exact gating inside it), under the launch plan
 `sap_plan`.
-All take bf16 w and contiguous operands.  Kernels 1-4 take f32 or bf16
-scores (kernel 3's ds in the scores' type): the device code reads a bf16
-score block as it lies and widens each score to f32 exactly before the
-gating, so no f32 copy of it is made.  Kernels 5-9 take f32 scores; bf16
-ones are still to port (ROADMAP Queue 2) and raise.  The wrappers raise
-on anything else rather than copy.
+All take bf16 w and contiguous operands.  Kernels 1-9 take f32 or bf16
+scores (kernels 3, 7 and 9's ds in the scores' type, kernel 9's "dw"
+correlation f32): the device code reads a bf16 score block as it lies
+and widens each score to f32 exactly before the gating, so no f32 copy
+of it is made.  The wrappers raise on anything else rather than copy.
 """
 from __future__ import annotations
 
@@ -100,7 +99,7 @@ SMS = 132                       # streaming multiprocessors of an H100 SXM
 _MODES = {"sample": 0, "threshold": 1, "plain": 2}
 _EPILOGUES = {"ste": 0, "dw": 1}
 _ACTS = (torch.bfloat16, torch.float32)   # activation types built for
-_SCORES = (torch.float32, torch.bfloat16)  # score types of kernels 1-4
+_SCORES = (torch.float32, torch.bfloat16)  # score types of kernels 1-9
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -119,15 +118,6 @@ def _f32(t: torch.Tensor) -> int:
 
 def _sbf16(s: torch.Tensor) -> int:
     return int(s.dtype == torch.bfloat16)
-
-
-def _f32_scores(s: torch.Tensor, name: str) -> None:
-    """Kernels 5-9 read f32 scores only: their bf16-score builds are
-    still to port (ROADMAP Queue 2)."""
-    if s.dtype != torch.float32:
-        raise ValueError(f"{name}: the kernel takes f32 scores; bf16 scores "
-                         f"(got {s.dtype}) are still to port to kernels 5-9 "
-                         f"(ROADMAP Queue 2)")
 
 
 def _mask_mode(mode: str) -> str:
@@ -237,12 +227,10 @@ def _tma_flags(a, w, s, R: int, N: int) -> int:
 
 def card_capacity(kernel: str, s_bf16: int = 0):
     """`capacity` for `wgmma_plan` or `grouped_plan` from kernel
-    `kernel`'s occupancy query on the current card (for kernels 1-2, of
-    the build for the score type: `s_bf16`)."""
+    `kernel`'s occupancy query on the current card, of the build for the
+    score type `s_bf16`."""
     def capacity(bc: int, split: int, smem: int) -> int:
-        args = (s_bf16,) if kernel in ("masked_matmul_fwd",
-                                       "masked_matmul_dx") else ()
-        n = build.call(f"{kernel}_capacity", bc, split, smem, *args)
+        n = build.call(f"{kernel}_capacity", bc, split, smem, s_bf16)
         if n <= 0:
             raise RuntimeError(f"{kernel}: occupancy query for bc={bc} "
                                f"split={split} failed: {n}")
@@ -349,8 +337,9 @@ def ds_plan(M: int, K: int, N: int, act=torch.bfloat16,
 # BC output columns, walks its share of the reduction axis in stages of
 # WG_BR, and the blocks of a cluster (<= MAX_CLUSTER) split that axis.
 # Its shared memory: a_bufs A buffers (3 bf16 parts of rows x WG_BR), two
-# gated B tiles (BC x WG_BR bf16), w_stages raw (w bf16, s f32) tiles
-# (WG_BR x BC), an 8-byte mbarrier a stage, and 1024 bytes of alignment.
+# gated B tiles (BC x WG_BR bf16), w_stages raw (w bf16, s f32 or bf16)
+# tiles (WG_BR x BC), an 8-byte mbarrier a stage, and 1024 bytes of
+# alignment.
 GW_WIDTHS = (64, 128)                    # as REPRO_GW_WIDTHS
 GW_MAX_ROWS, GW_PARTS, GW_MAX_W_STAGES = 256, 3, 8
 
@@ -361,14 +350,16 @@ def grouped_rows(M: int) -> int:
     return 64 * _cdiv(min(M, GW_MAX_ROWS), 64)
 
 
-def grouped_smem(bc: int, rows: int, a_bufs: int, w_stages: int) -> int:
-    """Dynamic shared-memory bytes of kernels 5-6's body."""
+def grouped_smem(bc: int, rows: int, a_bufs: int, w_stages: int,
+                 s_bytes: int = 4) -> int:
+    """Dynamic shared-memory bytes of kernels 5-6's body, for scores of
+    `s_bytes` bytes (4 f32, 2 bf16)."""
     return (1024 + a_bufs * GW_PARTS * rows * WG_BR * 2 + 2 * bc * WG_BR * 2
-            + w_stages * WG_BR * bc * 6 + 8 * w_stages)
+            + w_stages * WG_BR * bc * (2 + s_bytes) + 8 * w_stages)
 
 
 def grouped_plan(E: int, M: int, R: int, C: int,
-                 capacity=ideal_capacity) -> dict:
+                 capacity=ideal_capacity, s_bytes: int = 4) -> dict:
     """Launch plan of kernels 5-6's body for out[e] (M, C) = A[e] (M, R) @
     B[e] (R, C), e < E (forward: R = K, C = N; dx: R = N, C = K): the
     width `bc`, the cluster size `split` over the reduction axis, the
@@ -379,10 +370,12 @@ def grouped_plan(E: int, M: int, R: int, C: int,
 
     Two A buffers (the split of stage i+1 beside the products of stage i)
     where two raw stages still fit beside them, else one; then as many
-    raw stages as fit, at most GW_MAX_W_STAGES.  Each stage moves
-    BR x (6 bc) bytes of w and s from device memory and rows x BR f32 of
-    A from L2; a block's time is its stages plus one for set-up and the
-    cluster reduction, and the blocks beyond what the card holds at once
+    raw stages as fit, at most GW_MAX_W_STAGES (scores of `s_bytes` 2,
+    bf16, make a stage 4 bytes a weight instead of 6, so more fit beside
+    256 rows of A).  Each stage moves BR x ((2 + s_bytes) bc) bytes of w
+    and s from device memory and rows x BR f32 of A from L2; a block's
+    time is its stages plus one for set-up and the cluster reduction,
+    and the blocks beyond what the card holds at once
     (`capacity(bc, split, smem)`, on the card the occupancy query) run in
     further waves.  The plan minimizes waves x that time, then the block
     count: the E x column-tile blocks of the deepseek-v2-lite shapes (704
@@ -392,16 +385,17 @@ def grouped_plan(E: int, M: int, R: int, C: int,
     rows = grouped_rows(M)
     best = None
     for bc in GW_WIDTHS:
-        a_bufs = 2 if grouped_smem(bc, rows, 2, 2) <= SMEM_LIMIT else 1
+        a_bufs = (2 if grouped_smem(bc, rows, 2, 2, s_bytes) <= SMEM_LIMIT
+                  else 1)
         w_stages = GW_MAX_W_STAGES
-        while grouped_smem(bc, rows, a_bufs, w_stages) > SMEM_LIMIT:
+        while grouped_smem(bc, rows, a_bufs, w_stages, s_bytes) > SMEM_LIMIT:
             w_stages -= 1
-        smem = grouped_smem(bc, rows, a_bufs, w_stages)
+        smem = grouped_smem(bc, rows, a_bufs, w_stages, s_bytes)
         tiles = E * _cdiv(C, bc) * mblocks
         for split in range(1, min(MAX_CLUSTER, max(steps, 1)) + 1):
             blocks = tiles * split
             per_block = ((_cdiv(steps, split) + 1) * WG_BR
-                         * (6 * bc + 4 * rows))
+                         * ((2 + s_bytes) * bc + 4 * rows))
             waves = _cdiv(blocks, capacity(bc, split, smem))
             key = (waves * per_block, blocks, split)
             if best is None or key < best[0]:
@@ -414,20 +408,24 @@ def grouped_plan(E: int, M: int, R: int, C: int,
 
 @functools.lru_cache(maxsize=None)
 def card_grouped_plan(kernel: str, device: int, E: int, M: int, R: int,
-                      C: int) -> dict:
-    """`grouped_plan` on card `device`, computed once per shape."""
+                      C: int, s_bytes: int = 4) -> dict:
+    """`grouped_plan` on card `device`, computed once per shape and
+    score type."""
     with torch.cuda.device(device):
-        return grouped_plan(E, M, R, C, card_capacity(kernel))
+        return grouped_plan(E, M, R, C,
+                            card_capacity(kernel, int(s_bytes == 2)), s_bytes)
 
 
 def _grouped_args(kernel: str, a, w, s, out, E: int, M: int, R: int,
                   C: int, N: int) -> tuple:
     """(bc, split, w_stages, a_bufs, smem, tma) for kernels 5-6's C entry
-    point.  tma bit 0: A (a row pitch of 4 R bytes) by 16-byte vectors;
-    1, 2: w, s by TMA; 3: out by 16-byte vectors; no w or s rows to map
-    when R is 0."""
-    plan = card_grouped_plan(kernel, a.device.index, E, M, R, C)
-    tma = _grid_flags((a, 4 * R), (w, 2 * N), (s, 4 * N), (out, 4 * C))
+    point (for the score type of s).  tma bit 0: A (a row pitch of 4 R
+    bytes) by 16-byte vectors; 1, 2: w (2 N bytes a row), s (4 N, or 2 N
+    for bf16 scores) by TMA; 3: out by 16-byte vectors; no w or s rows to
+    map when R is 0."""
+    es = s.element_size()
+    plan = card_grouped_plan(kernel, a.device.index, E, M, R, C, es)
+    tma = _grid_flags((a, 4 * R), (w, 2 * N), (s, es * N), (out, 4 * C))
     return (plan["bc"], plan["split"], plan["w_stages"], plan["a_bufs"],
             plan["smem"], tma if R else tma & 9)
 
@@ -660,8 +658,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     N = w.shape[2]
     _require(x, "x", torch.float32, (E, M, K))
     _require(w, "w", torch.bfloat16, (E, K, N))
-    _f32_scores(s, "masked_matmul_grouped")
-    _require(s, "s", torch.float32, (E, K, N))
+    _require(s, "s", _SCORES, (E, K, N))
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if E and M and N:
         coords = _group_coords(seeds, offs, x.device)
@@ -669,7 +666,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), y.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau),
+                     _MODES[mode], float(tau), _sbf16(s),
                      *_grouped_args("masked_matmul_grouped", x, w, s, y, E,
                                     M, K, N, N),
                      dispatch.stream(x))
@@ -692,8 +689,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     K = w.shape[1]
     _require(g, "g", torch.float32, (E, M, N))
     _require(w, "w", torch.bfloat16, (E, K, N))
-    _f32_scores(s, "masked_matmul_grouped_dx")
-    _require(s, "s", torch.float32, (E, K, N))
+    _require(s, "s", _SCORES, (E, K, N))
     dx = torch.empty((E, M, K), dtype=g.dtype, device=g.device)
     if E and M and K:
         coords = _group_coords(seeds, offs, g.device)
@@ -701,7 +697,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
                      s.data_ptr(), coords[0].data_ptr(),
                      coords[1].data_ptr(), dx.data_ptr(), E, M, K, N,
                      _u32(N if n_logical is None else n_logical),
-                     _MODES[mode], float(tau),
+                     _MODES[mode], float(tau), _sbf16(s),
                      *_grouped_args("masked_matmul_grouped_dx", g, w, s, dx,
                                     E, M, N, K, N),
                      dispatch.stream(g))
@@ -719,13 +715,12 @@ def masked_matmul_grouped_ds(x, g, w, s):
     _require(x, "x", torch.float32, (E, M, K))
     _require(g, "g", torch.float32, (E, M, N))
     _require(w, "w", torch.bfloat16, (E, K, N))
-    _f32_scores(s, "masked_matmul_grouped_ds")
-    _require(s, "s", torch.float32, (E, K, N))
+    _require(s, "s", _SCORES, (E, K, N))
     ds = torch.empty((E, K, N), dtype=s.dtype, device=s.device)
     if E and K and N:
         build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
-                     0, *_ds_args(x, g, w, s, ds, E, M, K, N),
+                     _sbf16(s), *_ds_args(x, g, w, s, ds, E, M, K, N),
                      dispatch.stream(x))
         dispatch.LAUNCHES["masked_matmul_grouped_ds"] += 1
     return ds
@@ -749,8 +744,7 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     _require(x, "x", _ACTS, (B, S, C))
     _require(w, "w", torch.bfloat16, (W, C))
     if not plain:
-        _f32_scores(s, "masked_conv1d")
-        _require(s, "s", torch.float32, (W, C))
+        _require(s, "s", _SCORES, (W, C))
     y = torch.empty((B, S, C), dtype=torch.float32, device=x.device)
     if B and S and C:
         vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (y, 0)) == 3)
@@ -759,6 +753,7 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
                      _u32(seed), _u32(off),
                      _u32(C if n_logical is None else n_logical),
                      _MODES[mode], float(tau), int(flip), _f32(x),
+                     0 if plain else _sbf16(s),
                      conv_plan(B, S, C)["lanes"], vec, dispatch.stream(x))
         dispatch.LAUNCHES["masked_conv1d"] += 1
     return y
@@ -766,9 +761,9 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
 
 def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     """x: (B, S, C) bf16 or f32, unpadded; g: (B, S, C) f32; w, s: (W, C)
-    -> (W, C) f32: the correlation sum_{b,s} x_pad[b,s+t,c] g[b,s,c] times
-    w * sigmoid'(s) (epilogue "ste"), or raw (epilogue "dw": the plain
-    conv's weight gradient; s unread and may be None)."""
+    -> (W, C): the correlation sum_{b,s} x_pad[b,s+t,c] g[b,s,c] times
+    w * sigmoid'(s) in s.dtype (epilogue "ste"), or raw in f32 (epilogue
+    "dw": the plain conv's weight gradient; s unread and may be None)."""
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r}: ste or dw")
     dw = epilogue == "dw"
@@ -780,16 +775,16 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     _require(g, "g", torch.float32, (B, S, C))
     _require(w, "w", torch.bfloat16, (W, C))
     if not dw:
-        _f32_scores(s, "masked_conv1d_ds")
-        _require(s, "s", torch.float32, (W, C))
-    ds = torch.empty((W, C), dtype=torch.float32, device=x.device)
+        _require(s, "s", _SCORES, (W, C))
+    ds = torch.empty((W, C), dtype=torch.float32 if dw else s.dtype,
+                     device=x.device)
     if C:
         plan = conv_ds_plan(B, S, C)
         vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (g, 0)) == 3)
         build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), 0 if dw else s.data_ptr(), ds.data_ptr(),
                      B, S, C, W, _EPILOGUES[epilogue], _f32(x),
-                     plan["cluster"], plan["lanes"], vec,
-                     dispatch.stream(x))
+                     0 if dw else _sbf16(s), plan["cluster"], plan["lanes"],
+                     vec, dispatch.stream(x))
         dispatch.LAUNCHES["masked_conv1d_ds"] += 1
     return ds

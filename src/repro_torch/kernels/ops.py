@@ -145,7 +145,7 @@ class _MaskedConv1d(torch.autograd.Function):
             dx = mm.masked_conv1d(g, w, s, seed, off, mode=mode, tau=tau,
                                   flip=True).to(x.dtype)
         if ctx.needs_input_grad[2]:
-            ds = mm.masked_conv1d_ds(x, g, w, s).to(s.dtype)
+            ds = mm.masked_conv1d_ds(x, g, w, s)
         return dx, None, ds, None, None, None, None
 
 

@@ -69,7 +69,7 @@ def main() -> int:
             def launch():
                 build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),
                              w.data_ptr(), s.data_ptr(), ds.data_ptr(), B, S,
-                             C, W, 0, 0, cluster, lanes, 1,
+                             C, W, 0, 0, 0, cluster, lanes, 1,
                              torch.cuda.current_stream().cuda_stream)
             launch()
             torch.cuda.synchronize()

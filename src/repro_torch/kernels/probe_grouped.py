@@ -173,7 +173,7 @@ def time_variant(name: str, plan: str | None) -> list:
         for x, w, s, y, c, K, N, _, args in ops:
             err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(),
                      c[0].data_ptr(), c[1].data_ptr(), y.data_ptr(), E, M, K,
-                     N, N, 0, 0.5, *args, stream)
+                     N, N, 0, 0.5, 0, *args, stream)
             if err:
                 raise RuntimeError(f"{name}: launch failed, cudaError {err}")
 

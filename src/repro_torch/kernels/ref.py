@@ -176,9 +176,9 @@ def masked_conv1d(x, w, s, seed=0, off=0, mode="sample", tau=0.5,
 
 def masked_conv1d_ds(x, g, w, s, epilogue="ste"):
     """ds[t,c] = (sum_{b,s} x_pad[b,s+t,c] g[b,s,c]) * w * sigmoid'(s)
-    (f32, the STE score gradient), or with epilogue "dw" the raw
-    correlation, the plain conv's weight gradient.  x: (B, S, C)
-    unpadded; g: (B, S, C); w, s: (W, C)."""
+    (the STE score gradient, computed in f32 and cast to s.dtype), or
+    with epilogue "dw" the raw f32 correlation, the plain conv's weight
+    gradient.  x: (B, S, C) unpadded; g: (B, S, C); w, s: (W, C)."""
     W = w.shape[0]
     S = x.shape[1]
     xp = _shifted(x, W, False).float()
@@ -188,14 +188,14 @@ def masked_conv1d_ds(x, g, w, s, epilogue="ste"):
     if epilogue == "dw":
         return xg
     sig = torch.sigmoid(s.float())
-    return xg * w.float() * sig * (1.0 - sig)
+    return (xg * w.float() * sig * (1.0 - sig)).to(s.dtype)
 
 
 def masked_conv1d_bwd(x, w, s, seed, g, off=0, mode="sample", tau=0.5):
     """The masked conv's STE backward (dx in x.dtype, ds in s.dtype)
     from the plain versions."""
     dx = masked_conv1d(g, w, s, seed, off, mode, tau, flip=True)
-    return dx.to(x.dtype), masked_conv1d_ds(x, g, w, s).to(s.dtype)
+    return dx.to(x.dtype), masked_conv1d_ds(x, g, w, s)
 
 
 def conv1d_plain(x, w):

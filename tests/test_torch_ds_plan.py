@@ -14,7 +14,10 @@ no third), and internlm2-1.8b's shapes give every SM a tile.  For kernel 7,
 at deepseek-v2-lite's expert shapes, the row counts where the stages
 change and ragged cells: the tiles cover every group once, numbered N
 fastest, each reading only its own group's rows, and one group is
-kernel 3's plan.  They also hold the plan's constants to the kernel's.
+kernel 3's plan; on bf16 scores (2 bytes a score, `s_bytes` 2) the
+plan fits the same budget with a ring at least as deep, at
+deepseek-v2-lite's and deepseek-v2-236b's expert shapes.  They also hold
+the plan's constants to the kernel's.
 """
 import re
 
@@ -321,3 +324,74 @@ def test_cnn_shapes_plan(shape):
         assert plan["bn"] == 64 and plan["per_sm"] == 1
     assert "launch_bn<64, true, true, SB>" in HEADER
     assert "launch_bn<W, true, true>" not in HEADER
+
+
+# Kernel 7 on bf16 scores: `ds_plan(..., E=E, s_bytes=2)` at the expert
+# shapes of deepseek-v2-lite (E = 64, M = 30) and deepseek-v2-236b (E =
+# 160 experts at the capacity M = 12), and the grouped cells above
+GROUPED_BF16 = GROUPED + [(160, 12, 5120, 1536), (160, 12, 1536, 5120)]
+
+
+@pytest.mark.parametrize("E,m,K,N", GROUPED_BF16)
+def test_grouped_bf16_score_plan_fits_a_block(E, m, K, N):
+    """At 2 bytes a score a (w, s) chunk is 4 bytes an element: the plan
+    fits the block's budget (half the SM at M <= DS_BMF), keeps a ring of
+    at least one chunk per consumer warp (the C entry refuses fewer) and
+    at most two tiles', as deep as fits and at least as deep as the f32
+    scores' ring; the tiles and grid are the f32 plan's."""
+    plan = mm.ds_plan(m, K, N, torch.float32, E=E, s_bytes=2)
+    f32 = mm.ds_plan(m, K, N, torch.float32, E=E)
+    assert plan["smem"] == mm.ds_smem(plan["bn"], plan["stages"],
+                                      plan["chunks"], True, 2)
+    _holds_per_sm(plan)
+    one = m <= mm.DS_BMF
+    budget = (mm.SM_SMEM // plan["per_sm"] - mm.BLOCK_RESERVED if one
+              else mm.SMEM_LIMIT)
+    assert plan["smem"] <= budget <= mm.SMEM_LIMIT
+    assert plan["bk"] // mm.DS_WR <= plan["chunks"] <= \
+        2 * plan["bk"] // mm.DS_WR
+    assert plan["chunks"] == 2 * plan["bk"] // mm.DS_WR or mm.ds_smem(
+        plan["bn"], plan["stages"], plan["chunks"] + 1, True, 2) > budget
+    assert plan["chunks"] >= f32["chunks"]
+    for key in ("bk", "bn", "stages", "per_sm", "grid"):
+        assert plan[key] == f32[key], key
+    walk = _grouped_walk(plan, E, K, N)
+    assert sorted(t for b in walk for t in b) == sorted(
+        t for b in _grouped_walk(f32, E, K, N) for t in b)
+
+
+def test_deepseek_shapes_on_bf16_scores_hold_two_tiles():
+    """At E = 64, M = 30 the bf16-score ring holds two tiles' chunks (16)
+    where the f32 one holds 12, beside the one stage, two blocks an SM."""
+    for K, N in EXPERT_SHAPES:
+        plan = mm.ds_plan(30, K, N, torch.float32, E=64, s_bytes=2)
+        assert plan["bn"] == 64 and plan["per_sm"] == 2
+        assert plan["stages"] == 1 and plan["chunks"] == 16
+        assert plan["grid"] == 2 * mm.SMS
+
+
+def test_grouped_bf16_score_flags(monkeypatch):
+    """With bf16 scores kernel 7's s and ds rows are 2 N bytes: at N =
+    1004 off the 16-byte grid (bits 3, 4 clear) where f32 rows (4016
+    bytes) lie on it, as g's do (w's 2008 do not); the plan asked for is
+    the 2-byte one."""
+    asked = []
+
+    def plan(device, M, K, N, f32, E=1, s_bytes=4):
+        asked.append(s_bytes)
+        return mm.ds_plan(M, K, N, torch.float32, mm.SMS, E, s_bytes)
+    monkeypatch.setattr(mm, "card_ds_plan", plan)
+    E, M, K, N = 4, 30, 256, 1004
+    x, g = torch.zeros(E, M, K), torch.zeros(E, M, N)
+    w = torch.zeros(E, K, N, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    s32, ds32 = torch.zeros(E, K, N), torch.zeros(E, K, N)
+    s16, ds16 = torch.zeros(E, K, N, dtype=bf), torch.zeros(E, K, N,
+                                                           dtype=bf)
+    f = mm._ds_args(x, g, w, s32, ds32, E, M, K, N)
+    b = mm._ds_args(x, g, w, s16, ds16, E, M, K, N)
+    assert asked == [4, 2]
+    assert f[-1] == 0b11011 and b[-1] == 0b00011
+    p2 = mm.ds_plan(M, K, N, torch.float32, mm.SMS, E, 2)
+    assert b[:-1] == (p2["bn"], p2["stages"], p2["chunks"], p2["smem"],
+                      p2["grid"])

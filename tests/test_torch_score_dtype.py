@@ -2,9 +2,11 @@
 JAX package: the fed state's types, kernels 1-4's plain versions on a
 bf16 score block (the reference's kernels upcast it in their bodies),
 one train step (momentum and adam, each in one batch and in 2
-microbatches), one round, and `convert` on a bf16-score state.  The tests marked `cuda`
-hold kernels 1-4's bf16-score builds against their plain versions on
-the card (and kernels 5-9's refusal) and skip here.
+microbatches), one round, and `convert` on a bf16-score state.  The
+tests marked `cuda` hold kernels 1-9's bf16-score builds against their
+plain versions on the card and skip here (the MoE, SSM and hybrid
+families' bf16-score steps are held against the JAX package in
+tests/test_torch_bf16_scores_{moe,conv,hybrid}.py).
 
 Tolerances.  Masks and packed words are exact.  Kernels 1-2's sums are
 f32 sums in another order, then the cast to the activation's type: one
@@ -109,11 +111,11 @@ def _within_an_ulp(want_leaves, got_leaves, share):
 
 
 @functools.lru_cache(maxsize=None)
-def _state(optimizer="momentum"):
-    """(JAX api, port api, a bf16-score fed state as the JAX package's,
-    with spread scores, non-zero moments (adam's second moments
-    positive) and f32 floats), drawn by the port's init."""
-    arch = "internlm2-1.8b"
+def _state(optimizer="momentum", arch="internlm2-1.8b"):
+    """(JAX api, port api, a bf16-score fed state of `arch`'s SMOKE config
+    as the JAX package's, with spread scores, non-zero moments (adam's
+    second moments positive) and f32 floats), drawn by the port's
+    init."""
     japi = jbuild_model(jget_config(arch, smoke=True))
     tapi = build_model(get_config(arch, smoke=True))
     st = steps.init_fed_state(torch.Generator().manual_seed(5), tapi,
@@ -298,15 +300,6 @@ def test_round_on_bf16_scores_is_exact():
     assert 0.0 < float(tm["bpp"]) <= 1.0
 
 
-def test_kernels_5_to_9_name_the_queue_on_bf16_scores():
-    """Kernels 5-9 take f32 scores only; a bf16 block's error names the
-    ROADMAP queue that still holds them (on the card the wrappers raise
-    it before any launch)."""
-    mm._f32_scores(torch.zeros(2, 2), "masked_conv1d")
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        mm._f32_scores(torch.zeros(2, 2, dtype=BF16), "masked_conv1d")
-
-
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -361,14 +354,85 @@ def test_card_sample_and_pack_on_bf16_scores(card, n):
         assert torch.equal(got, want)
 
 
+def _card_close(got, want, rtol, share):
+    """Within `rtol` of the plain version's value plus `share` of its
+    scale, elementwise."""
+    a, b = got.float(), want.float()
+    assert ((a - b).abs() <= rtol * b.abs() + share * b.abs().max()).all(), \
+        float((a - b).abs().max())
+
+
+# deepseek-v2-lite's expert shapes at the capacity M = 30, deepseek-v2-236b's
+# 160 experts at M = 12 (its w_up), and a ragged cell (w's and s's rows off
+# the 16-byte grid)
+CARD_GROUPED = [(64, 30, 2048, 1408), (64, 30, 1408, 2048),
+                (160, 12, 5120, 1536), (5, 29, 1000, 1500)]
+
+
 @pytest.mark.cuda
-def test_card_kernels_5_to_9_refuse_bf16_scores(card):
-    E, M, K, N = 2, 8, 64, 64
-    x = torch.zeros(E, M, K, device=card)
-    w = torch.zeros(E, K, N, device=card, dtype=BF16)
-    s = torch.zeros(E, K, N, device=card, dtype=BF16)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        mm.masked_matmul_grouped(x, w, s, [1, 2], [0, 0])
-    xc = torch.zeros(2, 16, 64, device=card)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        mm.masked_conv1d(xc, w[0, :4], s[0, :4])
+@pytest.mark.parametrize("shape", CARD_GROUPED)
+@pytest.mark.parametrize("mode", ["sample", "threshold"])
+def test_card_grouped_kernels_on_bf16_scores(card, shape, mode):
+    """Kernels 5-7 on a bf16 score block against their plain versions at
+    a non-zero stream offset: the masks exactly (an identity probe of
+    group 0 reads m * w back), y and dx within f32 rounding (1e-5 of the
+    scale), ds in bf16 within one ulp plus 1e-5 of the scale."""
+    E, M, K, N = shape
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(E, M, K, generator=gen, device=card)
+    g = torch.randn(E, M, N, generator=gen, device=card)
+    w = torch.randn(E, K, N, generator=gen, device=card).to(BF16)
+    s = (2 * torch.randn(E, K, N, generator=gen, device=card)).to(BF16)
+    seeds = [(7 + e) * 0x9E3779B9 & 0xFFFFFFFF for e in range(E)]
+    offs = [((3 * E + e) * K * N) & 0xFFFFFFFF for e in range(E)]
+    kw = dict(mode=mode, tau=0.45)
+    before = dict(dispatch.LAUNCHES)
+    y = mm.masked_matmul_grouped(x, w, s, seeds, offs, **kw)
+    dx = mm.masked_matmul_grouped_dx(g, w, s, seeds, offs, **kw)
+    ds = mm.masked_matmul_grouped_ds(x, g, w, s)
+    for name in ("masked_matmul_grouped", "masked_matmul_grouped_dx",
+                 "masked_matmul_grouped_ds"):
+        assert dispatch.LAUNCHES[name] == before[name] + 1
+    _card_close(y, ref.masked_matmul_grouped(x, w, s, seeds, offs, **kw),
+                1e-5, 1e-5)
+    _card_close(dx, ref.masked_matmul_grouped_dx(g, w, s, seeds, offs,
+                                                 **kw), 1e-5, 1e-5)
+    assert ds.dtype == BF16
+    _card_close(ds, ref.masked_matmul_grouped_ds(x, g, w, s), BF16_RTOL,
+                1e-5)
+    r = min(M, K)
+    probe = torch.zeros(E, r, K, device=card)
+    probe[:, :, :r] = torch.eye(r, device=card)
+    want = (ref.grouped_mask(s, seeds, offs, None, mode, 0.45).float()
+            * w.float())[:, :r]
+    assert torch.equal(mm.masked_matmul_grouped(probe, w, s, seeds, offs,
+                                                **kw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2304, 4096, 1001])
+@pytest.mark.parametrize("mode", ["sample", "threshold"])
+def test_card_conv_kernels_on_bf16_scores(card, C, mode):
+    """Kernels 8-9 on a bf16 score block at mamba2's and recurrentgemma's
+    conv widths (and C % 4 != 0) against their plain versions at a
+    non-zero offset: the forward and the flipped pass bit for bit (the
+    same taps in the same order), ds in bf16 within one ulp plus 1e-5 of
+    the scale, the "dw" correlation in f32."""
+    B, S, W = 2, 128, 4
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(B, S, C, generator=gen, device=card).to(BF16)
+    g = torch.randn(B, S, C, generator=gen, device=card)
+    w = torch.randn(W, C, generator=gen, device=card).to(BF16)
+    s = (2 * torch.randn(W, C, generator=gen, device=card)).to(BF16)
+    off = (47 * W * C) & 0xFFFFFFFF
+    kw = dict(mode=mode, tau=0.45)
+    for inp, flip in ((x, False), (g, True)):
+        got = mm.masked_conv1d(inp, w, s, 9, off, flip=flip, **kw)
+        assert torch.equal(got, ref.masked_conv1d(inp, w, s, 9, off,
+                                                  flip=flip, **kw))
+    ds = mm.masked_conv1d_ds(x, g, w, s)
+    assert ds.dtype == BF16
+    _card_close(ds, ref.masked_conv1d_ds(x, g, w, s), BF16_RTOL, 1e-5)
+    dw = mm.masked_conv1d_ds(x, g, w, s, epilogue="dw")
+    assert dw.dtype == torch.float32
+    _card_close(dw, ref.masked_conv1d_ds(x, g, w, s, "dw"), 1e-5, 1e-5)
