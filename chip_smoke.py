@@ -173,6 +173,14 @@ Phases (any failure exits non-zero and prints no result line):
    `tree_root_round_bits`, a run under edge crashes and partitions, and
    `chaos_smoke --tree` on the card (exactly-once commits, the same
    theta digest); (e) one faulted engine tick and one commit profiled;
+   (f) (after (b)) the mesh round in processes spawned one a card under
+   NCCL (`repro_torch.launch.mesh_round.run`, internlm2-1.8b at full
+   size, 2 cohorts, the launcher's round configuration): on one card's
+   (1, 1, 1) mesh every leaf's digest and every metric equal to the
+   `mesh=None` round's from the same seed, the unpacked bf16 baseline's
+   theta equal to the packed one, kernel 10 in `mask_mean_packed` equal
+   to its plain version, launches exact; the mesh shape, backend, round
+   seconds, the collectives' bytes and device ms, peak memory;
 9. profile one more step and round of the first four training paths
    and of whisper-medium, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
@@ -3947,6 +3955,293 @@ def kill_resume_phase(torch, dispatch):
     return ref
 
 
+# ---------------------------------------------------------------------------
+# The mesh round (multi-device): one process a card under NCCL
+# ---------------------------------------------------------------------------
+
+# `python -m repro_torch.launch.mesh_round` (the launcher's round
+# configuration): internlm2-1.8b at full size, 2 cohorts
+MESH_ARGV = ["--arch", "internlm2-1.8b", "--cohorts", str(COHORTS)]
+MESH_TIMEOUT = 300            # seconds a rank may take
+DIGEST_PIECE = 1 << 26
+
+
+def digest(torch, t):
+    """Two exact, order-free int64 sums of a tensor's bits on its device:
+    the plain sum and one weighted by position mod 8191 + 1 (a piece at
+    a time, so the int64 temporaries stay 512 MiB)."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16,
+                      4: torch.int32}[flat.element_size()])
+    d = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for j in range(0, bits.numel(), DIGEST_PIECE):
+        p = bits[j:j + DIGEST_PIECE].to(torch.int64)
+        w = torch.arange(j, j + p.numel(), device=t.device) % 8191 + 1
+        d[0] += p.sum()
+        d[1] += (p * w).sum()
+    return d.tolist()
+
+
+def state_digests(torch, state, shardings=None):
+    """{key: [digest of each tensor leaf]} of scores, floats and opt_m;
+    with `shardings`, of this rank's block of each global leaf."""
+    from repro_torch.core import tree
+    out = {}
+    for key in ("scores", "floats", "opt_m"):
+        leaves = tree.leaves(state[key])
+        shs = (tree.leaves(shardings[key]) if shardings is not None
+               else [None] * len(leaves))
+        out[key] = [digest(torch, x if sh is None else sh.local(x))
+                    for x, sh in zip(leaves, shs) if x is not None]
+    return out
+
+
+def _wire_log(torch, dist, log):
+    """Wrap the two collectives so each call logs (name, bytes sent,
+    bytes received, start event, end event); returns the undo."""
+    gather, reduce_ = dist.all_gather_into_tensor, dist.all_reduce
+
+    def timed(name, fn, sent, got):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        w = fn()
+        b.record()
+        log.append((name, sent, got, a, b))
+        return w
+
+    def all_gather_into_tensor(out, inp, group=None, async_op=False):
+        return timed(f"all_gather {inp.dtype}", lambda: gather(
+            out, inp, group=group, async_op=async_op),
+            inp.numel() * inp.element_size(),
+            out.numel() * out.element_size())
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        n = t.numel() * t.element_size()
+        return timed(f"all_reduce {t.dtype}", lambda: reduce_(
+            t, op=op, group=group, async_op=async_op), n, n)
+
+    dist.all_gather_into_tensor, dist.all_reduce = \
+        all_gather_into_tensor, all_reduce
+
+    def undo():
+        dist.all_gather_into_tensor, dist.all_reduce = gather, reduce_
+    return undo
+
+
+def _wire_totals(log):
+    """{name: [calls, bytes sent, bytes received, device ms]}."""
+    out = {}
+    for name, sent, got, a, b in log:
+        t = out.setdefault(name, [0, 0, 0, 0.0])
+        t[0] += 1
+        t[1] += sent
+        t[2] += got
+        t[3] += a.elapsed_time(b)
+    return out
+
+
+def mesh_rank(rank, world, store, out_path):
+    """One rank of `mesh_phase`: NCCL on card `rank`.  The host-global
+    state is drawn once from the launcher's seed (on the card, then moved
+    to the host), cohort c's float rows
+    shifted by c (at init every cohort's rows are the same, and a mean
+    over cohorts could not be told from a row kept).  From it: (1) the
+    plain (`mesh=None`) round on the whole state placed on the card,
+    digests of this rank's blocks; (2) the mesh round through
+    `repro_torch.launch.mesh_round.run` on this rank's block, its
+    launches, wire and peak memory, digests; (3) the unpacked bf16
+    baseline likewise; (4) `mask_mean_packed` with kernel 10 against its
+    plain version on one internlm2 layer's masks.  Writes a JSON of what
+    it found; raises on any failed check."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import aggregation, tree
+    from repro_torch.kernels import bitpack, dispatch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import mesh_round
+    from repro_torch.launch import steps as steplib
+    from repro_torch.runtime import elastic
+    dev = meshlib.init("cuda", store=dist.FileStore(store, world), rank=rank,
+                       world_size=world)
+    try:
+        mesh = meshlib.make_debug_pod_mesh()
+        args = mesh_round.parse_args(MESH_ARGV)
+        res = {"shape": mesh.shape, "backend": mesh.backend,
+               "coords": mesh.coords}
+        # NCCL sets a communicator up at a group's first collective: do
+        # that off the clock, for the two groups the round uses
+        aggregation.all_gather_rows(torch.zeros(1, device=dev),
+                                    mesh.group("pod"))
+        dist.all_reduce(torch.zeros(1, device=dev),
+                        group=mesh.group(mesh.axis_names))
+        # and one SMOKE round loads the round's kernels, so no round
+        # below pays a first call's costs
+        mesh_round.run(mesh_round.parse_args(MESH_ARGV + ["--smoke"]), mesh)
+
+        t0 = time.perf_counter()
+        api, host = mesh_round.global_state(args, dev)
+        torch.cuda.empty_cache()
+        host["floats"] = tree.tree_map(
+            lambda t: None if t is None else t + torch.arange(
+                float(COHORTS)).view((-1,) + (1,) * (t.ndim - 1)),
+            host["floats"])
+        res["draw_s"] = time.perf_counter() - t0
+        sh = steplib.fed_state_shardings(host, mesh)
+        start = elastic.reshard_server(host["floats"], sh["floats"])
+        res["start_floats"] = [digest(torch, x) for x in tree.leaves(start)
+                               if x is not None]
+        del start
+        st = elastic.reshard_server(host, dev)
+        plain = steplib.make_round_step(api, mesh_round.step_config(args),
+                                        codec=mesh_round.CODEC)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = plain(st)
+        torch.cuda.synchronize()
+        res["plain_s"] = time.perf_counter() - t0
+        res["plain_metrics"] = {k: float(v) for k, v in m.items()}
+        res["plain"] = state_digests(torch, st, sh)
+        del st, m, plain
+        torch.cuda.empty_cache()
+
+        for tag, argv in (("mesh", MESH_ARGV),
+                          ("unpacked", MESH_ARGV + ["--unpacked"])):
+            log = []
+            undo = _wire_log(torch, dist, log)
+            torch.cuda.reset_peak_memory_stats()
+            dispatch.reset_launch_counts()
+            out = mesh_round.run(mesh_round.parse_args(argv), mesh,
+                                 (api, host))
+            res[f"{tag}_launches"] = dict(dispatch.LAUNCHES)
+            undo()
+            torch.cuda.synchronize()
+            res[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res[f"{tag}_s"] = out["seconds"]
+            res[f"{tag}_metrics"] = out["metrics"]
+            res[f"{tag}_wire"] = _wire_totals(log)
+            res[tag] = state_digests(torch, out["state"])
+            del out, log
+            torch.cuda.empty_cache()
+        del host
+
+        # kernel 10 in mask_mean_packed: one layer's masks of each leaf
+        gen = torch.Generator(device=dev).manual_seed(29)
+        masks = {k: (torch.rand(s, generator=gen, device=dev) < 0.5).to(
+            torch.uint8) for k, s in LAYER_SHAPES.items()}
+        clients = mesh.group(("pod", "data"))
+        dispatch.reset_launch_counts()
+        got = aggregation.mask_mean_packed(masks, clients, True)
+        torch.cuda.synchronize()
+        res["mean_launches"] = dict(dispatch.LAUNCHES)
+        want = aggregation.mask_mean_packed(masks, clients, False)
+        res["mean_equal"] = all(torch.equal(got[k], want[k]) for k in masks)
+        res["words_equal"] = all(torch.equal(
+            bitpack.pack_bits(m.reshape(-1)),
+            bitpack.pack_bits_plain(m.reshape(-1))) for m in masks.values())
+        Path(out_path).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, dispatch):
+    """(f) the mesh round under NCCL, one process a card
+    (`torch.cuda.device_count()`, so one rank on a one-card machine, a
+    (1, 1, 1) mesh): internlm2-1.8b at full size, 2 cohorts, the
+    launcher's round configuration, on a host-drawn state whose cohorts'
+    float rows differ.  On a mesh of one rank the mesh round equals the
+    `mesh=None` round from the same state, every score and moment digest
+    and every metric, while its floats keep each cohort's row (the
+    reference's pod-only float mean) where `mesh=None` averages them; on
+    any mesh the unpacked baseline's scores equal the
+    packed round's (theta is a mean of two bits, exact in bf16, and both
+    cross the same downlink draws), and kernel 10 in `mask_mean_packed`
+    gives its plain version's words and mean.  The main path's launches
+    (the mesh round: kernel 4 and 11 once a masked leaf; the mask mean:
+    10 and 11 once a leaf) must be exact.  Returns them, summed over the
+    ranks."""
+    import multiprocessing
+    world = torch.cuda.device_count()
+    work = _scratch("chip_smoke_mesh")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.time()
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, world, str(work / "store"), str(work / f"rank{r}.json")))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MESH_TIMEOUT)
+            check(not p.is_alive(), "mesh phase: a rank did not finish")
+            check(p.exitcode == 0, f"mesh phase: a rank exited with "
+                  f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall = time.time() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(world)]
+    leaves = len(LAYER_SHAPES)
+    launches = {k: 0 for k in dispatch.KERNELS}
+    for r, x in enumerate(res):
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(sample_and_pack=leaves, unpack_bits=leaves)
+        check(x["mesh_launches"] == want, f"mesh round rank {r} launches "
+              f"{x['mesh_launches']}, expected {want}")
+        check(not any(x["unpacked_launches"].values()),
+              f"the unpacked baseline launched {x['unpacked_launches']}")
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(pack_bits=leaves, unpack_bits=leaves)
+        check(x["mean_launches"] == want, f"mask_mean_packed rank {r} "
+              f"launches {x['mean_launches']}, expected {want}")
+        check(x["mean_equal"] and x["words_equal"], f"mask_mean_packed on "
+              f"kernel 10 differs from its plain version on rank {r}")
+        check(x["unpacked"]["scores"] == x["mesh"]["scores"],
+              f"rank {r}: the unpacked theta differs from the packed one")
+        if world == 1:
+            # two cohorts on a pod of one: the mesh round's pod mean keeps
+            # each cohort's float rows, `mesh=None` averages them
+            for key in ("scores", "opt_m"):
+                check(x["mesh"][key] == x["plain"][key], f"the mesh round's "
+                      f"{key} differ from the mesh=None round's")
+            check(x["mesh"]["floats"] == x["start_floats"], "the mesh "
+                  "round's floats are not the start's rows")
+            check(x["plain"]["floats"] != x["start_floats"], "the "
+                  "mesh=None round's floats kept the start's rows")
+            check(x["mesh_metrics"] == x["plain_metrics"],
+                  f"mesh metrics {x['mesh_metrics']} differ from "
+                  f"mesh=None's {x['plain_metrics']}")
+        for k in launches:
+            launches[k] += x["mesh_launches"][k] + x["mean_launches"][k]
+    check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
+               for x in res}) == 1, "ranks disagree on bits_measured")
+    x = res[0]
+    g = x["mesh_wire"].get("all_gather torch.int32", [0, 0, 0, 0.0])
+    ru = x["unpacked_wire"].get("all_reduce torch.bfloat16", [0, 0, 0, 0.0])
+    print(f"mesh phase: {wall:.1f}s, {world} rank(s), mesh {x['shape']}, "
+          f"backend {x['backend']}; internlm2-1.8b round, {COHORTS} "
+          f"cohorts, the host state drawn in {x['draw_s']:.3f} s: mesh {x['mesh_s']:.3f} s, mesh=None {x['plain_s']:.3f}"
+          f" s, unpacked baseline {x['unpacked_s']:.3f} s; the packed "
+          f"round's all-gathers: {g[0]} calls, {g[1]} bytes sent, {g[2]} "
+          f"received, {g[3]:.3f} device ms; the unpacked round's bf16 "
+          f"all-reduces: {ru[0]} calls, {ru[1]} bytes, {ru[3]:.3f} device "
+          f"ms; every collective {json.dumps(x['mesh_wire'])} and "
+          f"{json.dumps(x['unpacked_wire'])}; peak "
+          f"{x['mesh_peak_gib']:.2f} GiB (unpacked "
+          f"{x['unpacked_peak_gib']:.2f}); metrics "
+          f"{json.dumps(x['mesh_metrics'])}; scores and moments equal to "
+          f"mesh=None's and floats the start's rows (mesh=None's their "
+          f"mean): {world == 1}; unpacked theta equal to packed; "
+          f"kernel 10 in mask_mean_packed equal to its plain version")
+    import shutil
+    shutil.rmtree(work)
+    return launches
+
+
 def _conv6_setup(torch, dev, k):
     """CONV6 at its published width on HOSTSIM's cifar10-like task, split
     IID over k clients: (setup, fedpm_reg with the bitpack codec, one
@@ -4474,6 +4769,8 @@ def main():
     got = kill_resume_phase(torch, dispatch)
     launches = {k: launches[k] + got[k] for k in launches}
     print(f"kill_resume_phase: {time.time() - t0:.1f}s")
+    got = mesh_phase(torch, dispatch)
+    launches = {k: launches[k] + got[k] for k in launches}
     t0 = time.time()
     got, profiled = async_phase(torch, dispatch, dev)
     launches = {k: launches[k] + got[k] for k in launches}

@@ -1,7 +1,8 @@
 """Server-side aggregation (eq. 8): bit packing, the round step's pieces,
 the host-side folds over client lists, the buffered-async helpers
-(staleness weights, count folds and records, the wire checksum) and the
-stochastic k-bit theta downlink.
+(staleness weights, count folds and records, the wire checksum), the
+mask means over a mesh's ranks (bf16 all-reduce or packed all-gather)
+and the stochastic k-bit theta downlink.
 
 Packed words are int32 tensors holding uint32 bit patterns: bit i of
 word w is stream position 32*w + i (little-endian), the reference's
@@ -10,14 +11,16 @@ CUDA tensor and their plain versions for a CPU one (`kernels.ops`).
 """
 from __future__ import annotations
 
+import warnings
 import zlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as tu
-from repro_torch.kernels import ops
+from repro_torch.kernels import bitpack, ops
 from repro_torch.kernels import ref as kref
 
 Pytree = Any
@@ -255,6 +258,64 @@ def words_checksum(arrays) -> int:
         b = np.ascontiguousarray(host_words(a).astype("<u4")).tobytes()
         h = zlib.crc32(b, h)
     return int(h & 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a process group (a mesh's `group(axis_names)`): each
+# rank holds its own mask tree, theta is the mean over the group's ranks
+# ---------------------------------------------------------------------------
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(R, ...) on each of the group's k ranks -> (k R, ...) in group rank
+    order, through one `all_gather_into_tensor` (the name both PyTorch
+    releases the port runs on have; later ones deprecate it for
+    `all_gather_single`)."""
+    k = dist.get_world_size(group)
+    out = torch.empty((k * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", ".*all_gather_into_tensor",
+                                FutureWarning)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def mask_mean_psum(mask: Pytree, group) -> Pytree:
+    """bf16 path: theta = the mean over the ranks of `group`, an
+    all-reduce of the masks in bf16 (16 bits a parameter), in f32."""
+    k = dist.get_world_size(group)
+
+    def one(m):
+        if m is None:
+            return None
+        s = m.to(torch.bfloat16, copy=True)
+        dist.all_reduce(s, group=group)
+        return s.float() / k
+
+    return tu.tree_map(one, mask)
+
+
+def mask_mean_packed(mask: Pytree, group, use_kernel: bool = False) -> Pytree:
+    """Bit-packed path: each leaf packs 32 mask bits a word, the ranks of
+    `group` all-gather the words (1 bit a parameter and rank on the wire)
+    and each unpacks them and takes the f32 mean.  `use_kernel` packs
+    with kernel 10 (`pack_bits`) and unpacks with kernel 11 on the card;
+    without it both are the plain versions, as the reference's jnp
+    path."""
+    k = dist.get_world_size(group)
+    pack, unpack = ((pack_bits, unpack_bits) if use_kernel else
+                    (bitpack.pack_bits_plain, bitpack.unpack_bits_plain))
+
+    def one(m):
+        if m is None:
+            return None
+        flat, _ = pad_to_words(m.reshape(-1))
+        gathered = all_gather_rows(pack(flat)[None], group)
+        return unpack(gathered, m.numel()).float().mean(
+            dim=0).reshape(m.shape)
+
+    return tu.tree_map(one, mask)
 
 
 def uplink_bits(mask: Pytree, packed: bool = True) -> int:

@@ -208,11 +208,14 @@ def conv1d_plain_dw(x, g, w):
     return masked_conv1d_ds(x, g, w, None, epilogue="dw")
 
 
-def sample_rows(s2: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+def sample_rows(s2: torch.Tensor, seeds: torch.Tensor, off: int = 0
+                ) -> torch.Tensor:
     """(C, n) score rows + (C,) uint32 seeds -> (C, n) uint8 masks; row c
-    draws flat indices 0..n-1 of seeds[c]'s stream."""
+    draws flat indices off..off+n-1 of seeds[c]'s stream (a column piece
+    of longer rows starts at its offset)."""
     _, n = s2.shape
-    idx = torch.arange(n, dtype=torch.int64, device=s2.device)[None, :]
+    idx = torch.arange(off, off + n, dtype=torch.int64,
+                       device=s2.device)[None, :]
     seeds = torch.as_tensor(seeds, dtype=torch.int64,
                             device=s2.device)[:, None]
     u = hash_uniform(idx, seeds)

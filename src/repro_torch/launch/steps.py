@@ -1,5 +1,6 @@
-"""The federated train and round steps (single device: the reference's
-`repro.launch.steps` with `mesh=None`).
+"""The federated train and round steps (the reference's
+`repro.launch.steps`), on one device or, for the round, on a mesh of
+ranks (`launch.mesh`).
 
 State layout as in the reference: `scores`, `floats`, `opt_m` (and
 `opt_v` for adam) carry a leading cohort axis C; the frozen `weights`
@@ -20,7 +21,10 @@ mask stream is keyed by.
   scores become packed mask words through the fused `sample_and_pack`
   kernel, theta is the (survivor-weighted) mean of the words, crosses
   the optional k-bit downlink, and resets every cohort's scores; the
-  codec meters each cohort's pooled words.
+  codec meters each cohort's pooled words.  `packed_masks=False` is the
+  unpacked bf16 baseline.  On a mesh (`fed_state_shardings`, each rank
+  holding its block) the words cross ranks through one all-gather over
+  "pod".
 * `make_fedavg_step` — the float reference (`--algo fedavg`): one plain
   autograd step of the float params with f32 momentum, no masks and no
   kernel of the port.
@@ -36,9 +40,11 @@ score state.  `step` is a Python int.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import codecs as codecs_lib
 from repro_torch.api import payloads as plds
@@ -46,6 +52,7 @@ from repro_torch.core import aggregation, masking, regularizer
 from repro_torch.core import tree as tu
 from repro_torch.core.masking import MaskedLeaf, MaskedParams
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import sharding as shd
 
 Pytree = Any
 
@@ -57,6 +64,7 @@ class StepConfig:
     float_lr: float = 0.01
     momentum: float = 0.9
     chunk_kv: Optional[int] = None   # attention over KV chunks (long seq)
+    packed_masks: bool = True        # bitpacked uplink (False: bf16 masks)
     score_dtype: Any = torch.float32  # the state's (`init_fed_state`)
     microbatch: int = 1              # gradient-accumulation chunks
     optimizer: str = "momentum"      # "momentum" | "adam" (scores)
@@ -93,6 +101,44 @@ def init_fed_state(gen: torch.Generator, api, spec: masking.MaskSpec, C: int,
     if optimizer == "adam":
         state["opt_v"] = zeros(scores)
     return state
+
+
+def n_cohorts(mesh) -> int:
+    return mesh.shape["pod"] if "pod" in mesh.axis_names else 1
+
+
+def fed_state_shardings(state_shapes, mesh):
+    """Shardings of the federated state (its tensors' shapes are all that
+    is read: meta or fake tensors do): the cohort axis on "pod", each
+    leaf's body by `sharding.param_spec`, the step replicated."""
+    has_pod = "pod" in mesh.axis_names
+
+    def score_like(tree):
+        def one(p, leaf):
+            if leaf is None:
+                return None
+            # leading cohort axis (+ possibly a layer-stack axis after)
+            sd = 1 + (0 if any(t in p.lower() for t in
+                               ("embed", "final_norm", "lm_head",
+                                "pos_embed")) else 1)
+            sd = min(sd, max(len(leaf.shape) - 1, 0))
+            ps = shd.param_spec(p, leaf.shape, mesh, scan_dims=sd)
+            spec = list(ps) + [None] * (len(leaf.shape) - len(ps))
+            if has_pod:
+                spec[0] = "pod"
+            return shd.NamedSharding(mesh, shd.P(*spec))
+        return shd.tree_map_with_path(one, tree)
+
+    out = {
+        "scores": score_like(state_shapes["scores"]),
+        "floats": score_like(state_shapes["floats"]),
+        "weights": shd.tree_param_shardings(state_shapes["weights"], mesh),
+        "opt_m": score_like(state_shapes["opt_m"]),
+        "step": shd.replicated(mesh),
+    }
+    if "opt_v" in state_shapes:
+        out["opt_v"] = score_like(state_shapes["opt_v"])
+    return out
 
 
 def _check_score_dtype(state, cfg: StepConfig):
@@ -335,8 +381,18 @@ def make_train_step(api, cfg: StepConfig):
     return train_step
 
 
-def make_round_step(api, cfg: StepConfig, codec=None):
+def make_round_step(api, cfg: StepConfig, mesh=None, state_sh=None,
+                    codec=None):
     """(state, participation=None, downlink_u=None) -> (state, metrics).
+
+    Each cohort's scores become mask words through the fused
+    `sample_and_pack` kernel (`cfg.packed_masks`, the default), theta is
+    the (survivor-weighted) mean of the words, crosses the optional k-bit
+    downlink, and resets every cohort's scores in place; the codec meters
+    each cohort's pooled words.  `packed_masks=False` is the unpacked
+    baseline: the plain sampler's uint8 masks (`kref.sample_rows` /
+    `threshold_rows`), their bf16 mean (an f32 weighted sum under
+    participation), the codec metering the pooled bits.
 
     `participation` (C floats, 1 = the cohort's uplink arrived) makes
     theta the survivor-renormalized mean and meters survivors only.
@@ -345,41 +401,105 @@ def make_round_step(api, cfg: StepConfig, codec=None):
     (the reference keys threefry with the same value, which torch cannot
     reproduce); `downlink_u` injects them instead (one tensor per masked
     leaf, flatten order).  Metrics: bpp (eq. 13 bound), bpp_measured,
-    bits_measured, downlink_bpp, downlink_bits — float32 tensors."""
+    bits_measured, downlink_bpp, downlink_bits: float32 tensors.
+
+    With a `launch.mesh.Mesh` and the state's shardings `state_sh`
+    (`fed_state_shardings`), `state` is this rank's block of the global
+    state (`runtime.elastic.reshard_server`) and the round runs as the
+    reference's `shard_map` does, shard by shard: every rank samples its
+    own block of its local cohorts with `dev` = its linear mesh index,
+    the packed words cross the wire through one `all_gather_into_tensor`
+    over the "pod" group (1 bit a parameter and cohort, pod-major rows),
+    the unpacked baseline through a bf16 `all_reduce` (16 bits), floats
+    through an f32 mean (or survivor-weighted sum) over "pod", and
+    `bits_measured` is summed over every rank.  As in the reference, a
+    rank whose block is replicated over an axis still draws its own
+    masks, so such replicas diverge; `bpp` is this rank's own; the
+    downlink's generator, seeded alike everywhere, draws each rank's
+    local shape."""
     codec = codecs_lib.get_codec(codec or "arithmetic")
     f32 = torch.float32
+    if (mesh is None) != (state_sh is None):
+        raise ValueError("make_round_step: give both mesh and state_sh, "
+                         "or neither")
+    has_pod = mesh is not None and "pod" in mesh.axis_names
+    pod = mesh.group("pod") if has_pod else None
+    npod = mesh.shape["pod"] if has_pod else 1
+
+    def global_totals(flat_s):
+        """(cohorts, masked parameters a cohort) of the global state."""
+        if mesh is None:
+            live = [s for s in flat_s if s is not None]
+            return live[0].shape[0], sum(s[0].numel() for s in live)
+        shapes = [sh.global_shape(tuple(s.shape)) for s, sh in zip(
+            flat_s, tu.leaves(state_sh["scores"])) if s is not None]
+        return shapes[0][0], sum(math.prod(sh[1:]) for sh in shapes)
 
     def round_step(state, participation=None, downlink_u=None):
         _check_score_dtype(state, cfg)
         step = state["step"]
         flat_s = tu.leaves(state["scores"])
-        C = next(s for s in flat_s if s is not None).shape[0]
+        Cl = next(s for s in flat_s if s is not None).shape[0]
         dev = next(s for s in flat_s if s is not None).device
-        part = wn = None
+        C, n_glob = global_totals(flat_s)
+        shard = mesh.device_index() if mesh is not None else 0
+        part = wn = alive = wn_l = None
         if participation is not None:
             part = torch.as_tensor(participation, device=dev).to(f32)
             wn = part / torch.clamp(part.sum(), min=1.0)
+            off = mesh.coords["pod"] * Cl if has_pod else 0
+            alive, wn_l = part[off:off + Cl], wn[off:off + Cl]
         gen = None
         if cfg.downlink_bits and downlink_u is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(masking.mask_stream_seed(
                 step, 0, DOWNLINK_STREAM_LEAF, 0, run_seed=cfg.seed))
         u_it = iter(downlink_u) if downlink_u is not None else None
-        ones_c, word_parts, n_pool = None, [], 0
+        ones_c, parts, n_pool = None, [], 0
         for i, sl in enumerate(flat_s):
             if sl is None:
                 continue
-            flat = sl.reshape(C, -1)
+            flat = sl.reshape(Cl, -1)
             n = flat.shape[1]
-            seeds = [masking.mask_stream_seed(step, 0, i, c,
+            seeds = [masking.mask_stream_seed(step, shard, i, c,
                                               run_seed=cfg.seed)
-                     for c in range(C)]
-            words = aggregation.sample_and_pack_rows(
-                flat, seeds, mode=cfg.mask_mode, tau=cfg.tau)
-            ones = kref.popcount32(words).sum(dim=1).to(f32)
+                     for c in range(Cl)]
+            if cfg.packed_masks:
+                words = aggregation.sample_and_pack_rows(
+                    flat, seeds, mode=cfg.mask_mode, tau=cfg.tau)
+                ones = kref.popcount32(words).sum(dim=1).to(f32)
+                parts.append(words)
+                # the words of every pod's cohorts, pod-major: the rows
+                # of the global participation vector
+                words_all = (aggregation.all_gather_rows(words, pod)
+                             if has_pod else words)
+                theta = plds.mean_from_words(words_all, n, weights=wn)
+                del words_all
+            else:
+                # the plain sampler a column piece at a time (its int64
+                # hash temporaries stay a piece's size)
+                masks = torch.cat([
+                    kref.threshold_rows(flat[:, j:j + UPDATE_PIECE], cfg.tau)
+                    if cfg.mask_mode == "threshold" else
+                    kref.sample_rows(flat[:, j:j + UPDATE_PIECE], seeds, j)
+                    for j in range(0, n, UPDATE_PIECE)], dim=1)
+                ones = masks.sum(dim=1, dtype=f32)
+                parts.append(masks)
+                if part is None:
+                    # the bf16 mean (jnp.mean sums bf16 in f32), then a
+                    # bf16 mean over the pods
+                    b = (masks.sum(dim=0, dtype=f32) / Cl).to(torch.bfloat16)
+                    if has_pod:
+                        dist.all_reduce(b, group=pod)
+                        b = b / npod
+                    theta = b.float()
+                else:
+                    theta = torch.tensordot(wn_l, masks.to(f32),
+                                            dims=([0], [0]))
+                    if has_pod:
+                        dist.all_reduce(theta, group=pod)
+                del masks
             ones_c = ones if ones_c is None else ones_c + ones
-            word_parts.append(words)
-            theta = plds.mean_from_words(words, n, weights=wn)
             u = None
             if cfg.downlink_bits:
                 # the leaf's uniforms in one draw (quantize_theta's own)
@@ -388,15 +508,15 @@ def make_round_step(api, cfg: StepConfig, codec=None):
             # theta crosses the downlink and every cohort restarts from
             # logit(theta), piece by piece (elementwise: the same bits,
             # with temporaries of a piece's size)
-            for i in range(0, n, UPDATE_PIECE):
-                t = theta[i:i + UPDATE_PIECE]
+            for j in range(0, n, UPDATE_PIECE):
+                t = theta[j:j + UPDATE_PIECE]
                 if u is not None:
                     q = aggregation.quantize_theta(
                         [t], bits=cfg.downlink_bits,
-                        u=[u[i:i + UPDATE_PIECE]])
+                        u=[u[j:j + UPDATE_PIECE]])
                     t = aggregation.dequantize_theta(
                         q, bits=cfg.downlink_bits)[0]
-                flat[:, i:i + UPDATE_PIECE].copy_(masking.logit(t)[None])
+                flat[:, j:j + UPDATE_PIECE].copy_(masking.logit(t)[None])
             del theta, u
             n_pool += n
 
@@ -404,44 +524,61 @@ def make_round_step(api, cfg: StepConfig, codec=None):
             if f is None:
                 continue
             ff = f.float()
-            avg = ff.mean(dim=0) if wn is None else torch.tensordot(
-                wn, ff, dims=([0], [0]))
-            f.copy_(avg.to(f.dtype)[None])
+            if wn_l is not None:
+                avg = torch.tensordot(wn_l, ff, dims=([0], [0]))[None]
+                if has_pod:
+                    dist.all_reduce(avg, group=pod)
+            elif has_pod:
+                # each local cohort row with its peers on the other pods
+                avg = ff.clone() if ff is f else ff
+                dist.all_reduce(avg, group=pod)
+                avg = avg / npod
+            else:
+                avg = ff.mean(dim=0)[None]
+            f.copy_(avg.to(f.dtype))
         for key in ("opt_m", "opt_v"):
             for m in tu.leaves(state.get(key)):
                 if m is not None:
                     m.zero_()
 
-        # eq. 13 meter from the popcounts (the packed words are never
-        # unpacked for it); survivors only under participation
+        # eq. 13 meter from this rank's popcounts (the packed words are
+        # never unpacked for it); survivors only under participation
         if n_pool:
             if part is None:
-                p1 = ones_c.sum() / torch.tensor(float(n_pool * C), dtype=f32,
-                                                 device=dev)
+                p1 = ones_c.sum() / torch.tensor(float(n_pool * Cl),
+                                                 dtype=f32, device=dev)
             else:
-                p1 = (ones_c * part).sum() / (
+                p1 = (ones_c * alive).sum() / (
                     torch.tensor(float(n_pool), dtype=f32, device=dev)
-                    * torch.clamp(part.sum(), min=1.0))
+                    * torch.clamp(alive.sum(), min=1.0))
             bpp = regularizer.binary_entropy(p1)
         else:
             bpp = torch.zeros((), dtype=f32, device=dev)
-        pooled = torch.cat(word_parts, dim=1) if word_parts else None
+        # the codec meters each cohort's pooled stream of this rank's
+        # blocks; the sum over every rank is the round's total
+        pooled = torch.cat(parts, dim=1) if parts else None
+        del parts
         per_cohort = torch.tensor(
-            [codec.measure_pooled_words(pooled[c], n_pool) if n_pool else 0
-             for c in range(C)], dtype=torch.int64).to(f32).to(dev)
-        if part is not None:
-            per_cohort = per_cohort * part
+            [0 if not n_pool else
+             codec.measure_pooled_words(pooled[c], n_pool)
+             if cfg.packed_masks else
+             codec.measure_pooled_bits(pooled[c]) for c in range(Cl)],
+            dtype=torch.int64).to(f32).to(dev)
+        if alive is not None:
+            per_cohort = per_cohort * alive
         bits_total = per_cohort.sum()
+        if mesh is not None:
+            dist.all_reduce(bits_total, group=mesh.group(mesh.axis_names))
         eff = (torch.tensor(float(C), dtype=f32, device=dev) if part is None
                else torch.clamp(part.sum(), min=1.0))
         dl_bpp = float(cfg.downlink_bits) if cfg.downlink_bits else 32.0
         metrics = {
             "bpp": bpp,
             "bpp_measured": bits_total / (torch.tensor(
-                float(n_pool), dtype=f32, device=dev) * eff),
+                float(n_glob), dtype=f32, device=dev) * eff),
             "bits_measured": bits_total,
             "downlink_bpp": torch.tensor(dl_bpp, dtype=f32),
-            "downlink_bits": torch.tensor(dl_bpp * n_pool, dtype=f32,
+            "downlink_bits": torch.tensor(dl_bpp * n_glob, dtype=f32,
                                           device=dev) * eff,
         }
         state["step"] += 1
@@ -464,6 +601,14 @@ def init_fedavg_state(gen: torch.Generator, api):
                 lambda x: None if x is None else torch.zeros_like(
                     x, dtype=torch.float32), params),
             "step": 0}
+
+
+def fedavg_state_shardings(state_shapes, mesh):
+    return {"params": shd.tree_param_shardings(state_shapes["params"],
+                                               mesh),
+            "opt_m": shd.tree_param_shardings(state_shapes["opt_m"],
+                                              mesh),
+            "step": shd.replicated(mesh)}
 
 
 def make_fedavg_step(api, cfg: StepConfig):

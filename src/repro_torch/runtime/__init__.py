@@ -1,4 +1,5 @@
-"""`repro_torch.runtime`: fault draws and elastic restore, the
+"""`repro_torch.runtime`: fault draws and elastic restore (host arrays
+placed on a device or as each rank's block on a mesh), the
 buffered-async and aggregator-tree round engines, and the multi-tenant
 serving engine (`repro.runtime`)."""
 from repro_torch.runtime.fault import (  # noqa: F401

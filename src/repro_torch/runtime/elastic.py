@@ -4,9 +4,9 @@
 The paper's global state is only (theta, seed, float leaves), with no
 per-client optimizer floats, so re-entry after a resize is simple: new
 cohorts re-derive their local scores from theta (eq. 4).  This module
-places restored host arrays on a device and re-plans the client ->
-cohort assignment.  (The reference's mesh form of `reshard_server`
-waits for the port's multi-device slice; here it places on one device.)
+places restored host arrays on one device, or as each rank's block on a
+mesh (`launch.sharding.NamedSharding`), and re-plans the client ->
+cohort assignment.
 """
 from __future__ import annotations
 
@@ -21,16 +21,38 @@ from repro_torch.core import tree as tu
 Pytree = Any
 
 
-def reshard_server(host_tree: Pytree, device) -> Pytree:
-    """Place host arrays (numpy or CPU tensors; None kept) on `device`.
-    Works for any source layout because the source is host-global."""
-    def place(x):
-        if x is None:
-            return None
+def reshard_server(host_tree: Pytree, target) -> Pytree:
+    """Place host-global arrays (numpy or tensors; None kept) on a device,
+    or as this rank's blocks on a mesh.  Works for any source layout
+    because the source is global.
+
+    `target` a device: every array placed there whole.  `target` a tree of
+    `launch.sharding.NamedSharding` matching `host_tree` (the state's
+    `steps.fed_state_shardings`): each array's block for this rank, on
+    the mesh's device, as `jax.device_put` places a shard.  What is no
+    array (the int step) is kept.  Either way each array lands in memory
+    of its own, contiguous, so a source that is a broadcast view (one
+    cohort's tensor expanded over the cohort axis) is materialized only
+    as far as the block placed, and the source is never written."""
+    def fresh(x, device):
+        out = torch.empty(x.shape, dtype=x.dtype, device=device)
+        if x.ndim and x.shape[0] > 1 and x.stride(0) == 0:
+            # a broadcast over the leading axis crosses once
+            return out.copy_(x[:1].to(device).expand(x.shape))
+        return out.copy_(x)
+
+    def place(x, sh):
+        if not isinstance(x, (np.ndarray, torch.Tensor)):
+            return x
         if isinstance(x, np.ndarray):
             x = _ckpt._to_tensor(x, x.dtype.name == "bfloat16")
-        return x.to(device)
-    return tu.tree_map(place, host_tree)
+        if isinstance(target, (str, torch.device)):
+            return fresh(x, target)
+        return fresh(sh.local(x), sh.mesh.device)
+
+    if isinstance(target, (str, torch.device)):
+        return tu.tree_map(lambda x: place(x, None), host_tree)
+    return tu.tree_map(place, host_tree, target)
 
 
 def cohort_plan(n_clients: int, n_slices: int) -> list[np.ndarray]:

@@ -59,7 +59,11 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          "repro_torch.configs.deepseek_v2_236b",
          "repro_torch.models.encdec", "repro_torch.models.transformer",
          "repro_torch.launch.plans", "repro_torch.launch.steps",
-         "repro_torch.launch.serve")
+         "repro_torch.launch.serve",
+         # multi-device: the mesh, the sharding rules, the mesh round's
+         # torchrun entry point
+         "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+         "repro_torch.launch.mesh_round")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():
