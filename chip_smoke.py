@@ -180,7 +180,16 @@ Phases (any failure exits non-zero and prints no result line):
    `mesh=None` round's from the same seed, the unpacked bf16 baseline's
    theta equal to the packed one, kernel 10 in `mask_mean_packed` equal
    to its plain version, launches exact; the mesh shape, backend, round
-   seconds, the collectives' bytes and device ms, peak memory;
+   seconds, the collectives' bytes and device ms, peak memory; both
+   rounds' collectives recorded (`analysis.comm_model`): the packed wire
+   pure at 1 bit a parameter and cohort, the baseline impure, a bitpack
+   round's uplink bits equal to its meter, the shard lint clean; (g) the
+   analysis engines: the op walker over one full-width internlm2-1.8b
+   train step and the three aligned check configs (no weight-shaped f32
+   value or mask outside the kernels, no f64, every leaf in place), the
+   walked and bare step seconds and the peak memory, and the stream
+   cover over every arch at full size on the (2, 16, 16) grid's 512
+   shards (findings only on the leaves past the uint32 index);
 9. profile one more step and round of the first four training paths
    and of whisper-medium, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
@@ -3996,47 +4005,35 @@ def state_digests(torch, state, shardings=None):
     return out
 
 
-def _wire_log(torch, dist, log):
-    """Wrap the two collectives so each call logs (name, bytes sent,
-    bytes received, start event, end event); returns the undo."""
-    gather, reduce_ = dist.all_gather_into_tensor, dist.all_reduce
-
-    def timed(name, fn, sent, got):
+def _wire_log(torch, log):
+    """A runner for `analysis.comm_model.record_collectives`: each call
+    between two CUDA events, logged as (its sites, start event, end
+    event)."""
+    def run(sites, call):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        w = fn()
+        w = call()
         b.record()
-        log.append((name, sent, got, a, b))
+        log.append((sites, a, b))
         return w
-
-    def all_gather_into_tensor(out, inp, group=None, async_op=False):
-        return timed(f"all_gather {inp.dtype}", lambda: gather(
-            out, inp, group=group, async_op=async_op),
-            inp.numel() * inp.element_size(),
-            out.numel() * out.element_size())
-
-    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
-        n = t.numel() * t.element_size()
-        return timed(f"all_reduce {t.dtype}", lambda: reduce_(
-            t, op=op, group=group, async_op=async_op), n, n)
-
-    dist.all_gather_into_tensor, dist.all_reduce = \
-        all_gather_into_tensor, all_reduce
-
-    def undo():
-        dist.all_gather_into_tensor, dist.all_reduce = gather, reduce_
-    return undo
+    return run
 
 
-def _wire_totals(log):
-    """{name: [calls, bytes sent, bytes received, device ms]}."""
+def _wire_totals(log, mesh):
+    """{"prim dtype": [calls, bytes sent, bytes received, device ms]}, a
+    call keyed by its first operand: an all-gather receives its operand
+    from every rank of its group, an all-reduce as much as it sends."""
     out = {}
-    for name, sent, got, a, b in log:
-        t = out.setdefault(name, [0, 0, 0, 0.0])
+    for sites, a, b in log:
+        t = out.setdefault(f"{sites[0].prim} {sites[0].dtype}",
+                           [0, 0, 0, 0.0])
         t[0] += 1
-        t[1] += sent
-        t[2] += got
+        for site in sites:
+            sent = site.bits // 8
+            k = math.prod(mesh.shape[x] for x in site.axes)
+            t[1] += sent
+            t[2] += sent * k if site.prim == "all_gather" else sent
         t[3] += a.elapsed_time(b)
     return out
 
@@ -4050,12 +4047,16 @@ def mesh_rank(rank, world, store, out_path):
     plain (`mesh=None`) round on the whole state placed on the card,
     digests of this rank's blocks; (2) the mesh round through
     `repro_torch.launch.mesh_round.run` on this rank's block, its
-    launches, wire and peak memory, digests; (3) the unpacked bf16
-    baseline likewise; (4) `mask_mean_packed` with kernel 10 against its
-    plain version on one internlm2 layer's masks.  Writes a JSON of what
-    it found; raises on any failed check."""
+    launches, peak memory, digests and wire, recorded by
+    `analysis.comm_model.record_collectives` with CUDA events around each
+    call: its cost model and wire purity; (3) the unpacked bf16 baseline
+    likewise; (4) a bitpack-codec round's comm model against its meter,
+    and the shard lint's declared vs held; (5) `mask_mean_packed` with
+    kernel 10 against its plain version on one internlm2 layer's masks.
+    Writes a JSON of what it found; raises on any failed check."""
     import torch
     import torch.distributed as dist
+    from repro_torch.analysis import collective_lint, comm_model, shard_lint
     from repro_torch.core import aggregation, tree
     from repro_torch.kernels import bitpack, dispatch
     from repro_torch.launch import mesh as meshlib
@@ -4080,7 +4081,9 @@ def mesh_rank(rank, world, store, out_path):
         mesh_round.run(mesh_round.parse_args(MESH_ARGV + ["--smoke"]), mesh)
 
         t0 = time.perf_counter()
-        api, host = mesh_round.global_state(args, dev)
+        api, host = mesh_round.global_state(args.arch, args.cohorts,
+                                            smoke=args.smoke,
+                                            draw_device=dev)
         torch.cuda.empty_cache()
         host["floats"] = tree.tree_map(
             lambda t: None if t is None else t + torch.arange(
@@ -4108,22 +4111,49 @@ def mesh_rank(rank, world, store, out_path):
         for tag, argv in (("mesh", MESH_ARGV),
                           ("unpacked", MESH_ARGV + ["--unpacked"])):
             log = []
-            undo = _wire_log(torch, dist, log)
             torch.cuda.reset_peak_memory_stats()
             dispatch.reset_launch_counts()
-            out = mesh_round.run(mesh_round.parse_args(argv), mesh,
-                                 (api, host))
+            margs = mesh_round.parse_args(argv)
+            with comm_model.record_collectives(
+                    mesh, run=_wire_log(torch, log)) as sites:
+                out = mesh_round.run(margs, mesh, (api, host))
             res[f"{tag}_launches"] = dict(dispatch.LAUNCHES)
-            undo()
             torch.cuda.synchronize()
             res[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             res[f"{tag}_s"] = out["seconds"]
             res[f"{tag}_metrics"] = out["metrics"]
-            res[f"{tag}_wire"] = _wire_totals(log)
+            res[f"{tag}_wire"] = _wire_totals(log, mesh)
             res[tag] = state_digests(torch, out["state"])
-            del out, log
+            # the recorded round's cost model and wire purity
+            model = comm_model.round_comm_model(
+                sites, host, sh, mesh, mesh_round.step_config(margs))
+            res[f"{tag}_comm"] = {k: model[k] for k in (
+                "n_sites", "uplink_bits", "bpp_wire", "mask_params",
+                "ring_bytes_per_axis", "ring_bytes_per_prim")}
+            res[f"{tag}_roles"] = sorted(
+                f"{r['prim']} {r['dtype']} {r['role']}"
+                for r in model["sites"])
+            res[f"{tag}_purity"] = [str(f) for f in
+                                    collective_lint.round_purity_findings(
+                                        sites, host, sh, mesh)]
+            del out, log, sites
             torch.cuda.empty_cache()
-        del host
+        # the comm model's uplink bits against the bits the round meters
+        # under the bitpack codec, and declared vs held on the placed
+        # state (its contents at 4096 positions a leaf)
+        t0 = time.perf_counter()
+        model = comm_model.arch_round_comm_model(
+            "internlm2-1.8b", mesh=mesh, C=COHORTS, start=(api, host))
+        res["bitpack_uplink_bits"] = model["uplink_bits"]
+        res["bitpack_metered_bits"] = model.pop("_run")[-1]["bits_measured"]
+        torch.cuda.empty_cache()
+        rep = shard_lint.round_shard_report(mesh, COHORTS, start=(api, host),
+                                            positions=4096)
+        res["shard_findings"] = [str(f) for f in rep["findings"]]
+        res["shard_leaves"] = rep["n_leaves"]
+        res["comm_shard_s"] = time.perf_counter() - t0
+        del host, model, rep
+        torch.cuda.empty_cache()
 
         # kernel 10 in mask_mean_packed: one layer's masks of each leaf
         gen = torch.Generator(device=dev).manual_seed(29)
@@ -4156,7 +4186,11 @@ def mesh_phase(torch, dispatch):
     any mesh the unpacked baseline's scores equal the
     packed round's (theta is a mean of two bits, exact in bf16, and both
     cross the same downlink draws), and kernel 10 in `mask_mean_packed`
-    gives its plain version's words and mean.  The main path's launches
+    gives its plain version's words and mean.  The recorded wire
+    (`analysis`): the packed round pure and at 1 bit a parameter and
+    cohort plus word padding, the bf16 baseline impure once a mask leaf,
+    no ring bytes on an axis of size 1, a bitpack round's uplink bits
+    equal to its meter, no shard-lint finding.  The main path's launches
     (the mesh round: kernel 4 and 11 once a masked leaf; the mask mean:
     10 and 11 once a leaf) must be exact.  Returns them, summed over the
     ranks."""
@@ -4215,13 +4249,45 @@ def mesh_phase(torch, dispatch):
             check(x["mesh_metrics"] == x["plain_metrics"],
                   f"mesh metrics {x['mesh_metrics']} differ from "
                   f"mesh=None's {x['plain_metrics']}")
+        # the recorded rounds: the packed wire clean and at 1 bit a
+        # parameter and cohort (plus word padding: <= 32 bits a leaf,
+        # cohort and shard), the bf16 baseline firing once a mask leaf at
+        # 16 bits a parameter and shard (its local cohorts are averaged
+        # before they cross, so 16 / cohorts-a-shard a cohort); no ring
+        # traffic on an axis of size 1; the uplink bits equal
+        # to what the round meters under the bitpack codec; every placed
+        # leaf the block its sharding names
+        check(x["mesh_purity"] == [], f"rank {r}: the packed round's wire "
+              f"is impure: {x['mesh_purity']}")
+        check(len(x["unpacked_purity"]) == leaves and all(
+            "[collective-f32-weight]" in f for f in x["unpacked_purity"]),
+              f"rank {r}: the unpacked baseline's purity findings "
+              f"{x['unpacked_purity']}")
+        slack = 32 * leaves * world / x["mesh_comm"]["mask_params"]
+        check(x["mesh_comm"]["bpp_wire"] <= 1 + slack, f"rank {r}: packed "
+              f"bpp_wire {x['mesh_comm']['bpp_wire']} > 1 + {slack}")
+        local = COHORTS // x["shape"]["pod"]
+        check(x["unpacked_comm"]["bpp_wire"] == 16.0 / local, f"rank {r}: "
+              f"unpacked bpp_wire {x['unpacked_comm']['bpp_wire']}, "
+              f"expected 16 / {local}")
+        for tag in ("mesh", "unpacked"):
+            for ax, v in x[f"{tag}_comm"]["ring_bytes_per_axis"].items():
+                if all(x["shape"][a] == 1 for a in ax.split("x")):
+                    check(v == 0.0, f"rank {r}: {v} ring bytes on {ax}, "
+                          f"an axis of size 1")
+        check(x["bitpack_uplink_bits"] == x["bitpack_metered_bits"],
+              f"rank {r}: comm model uplink bits "
+              f"{x['bitpack_uplink_bits']} against the metered "
+              f"{x['bitpack_metered_bits']}")
+        check(x["shard_findings"] == [], f"rank {r}: shard lint "
+              f"{x['shard_findings']}")
         for k in launches:
             launches[k] += x["mesh_launches"][k] + x["mean_launches"][k]
     check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
                for x in res}) == 1, "ranks disagree on bits_measured")
     x = res[0]
-    g = x["mesh_wire"].get("all_gather torch.int32", [0, 0, 0, 0.0])
-    ru = x["unpacked_wire"].get("all_reduce torch.bfloat16", [0, 0, 0, 0.0])
+    g = x["mesh_wire"].get("all_gather int32", [0, 0, 0, 0.0])
+    ru = x["unpacked_wire"].get("psum bfloat16", [0, 0, 0, 0.0])
     print(f"mesh phase: {wall:.1f}s, {world} rank(s), mesh {x['shape']}, "
           f"backend {x['backend']}; internlm2-1.8b round, {COHORTS} "
           f"cohorts, the host state drawn in {x['draw_s']:.3f} s: mesh {x['mesh_s']:.3f} s, mesh=None {x['plain_s']:.3f}"
@@ -4237,8 +4303,155 @@ def mesh_phase(torch, dispatch):
           f"mesh=None's and floats the start's rows (mesh=None's their "
           f"mean): {world == 1}; unpacked theta equal to packed; "
           f"kernel 10 in mask_mean_packed equal to its plain version")
+    print(f"mesh phase, recorded rounds (analysis.comm_model): packed "
+          f"{json.dumps(x['mesh_comm'])}, sites {x['mesh_roles']}; "
+          f"unpacked {json.dumps(x['unpacked_comm'])}, purity findings "
+          f"{len(x['unpacked_purity'])} (packed {len(x['mesh_purity'])}); "
+          f"bitpack round: uplink bits {x['bitpack_uplink_bits']} = metered "
+          f"{x['bitpack_metered_bits']}; shard lint: {x['shard_leaves']} "
+          f"weights explained, declared vs held on every state leaf, "
+          f"{len(x['shard_findings'])} finding(s); "
+          f"{x['comm_shard_s']:.1f} s for both")
     import shutil
     shutil.rmtree(work)
+    return launches
+
+
+ANALYSIS_SEQ = 128             # the launcher's batch 2 x seq 128
+
+
+def _walk_step(torch, op_lint, step, state, batch, rules):
+    """One train step under an op walker: (the walker, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with op_lint.OpWalker(rules) as w:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return w, time.perf_counter() - t0
+
+
+def analysis_phase(torch, dispatch, dev):
+    """(h) the analysis engines on the card.  The op walker over one
+    full-width internlm2-1.8b train step at the launcher's configuration
+    (2 cohorts x batch 2 x seq 128; kernels 1-3) and over the three
+    aligned check configs' steps (the dense one on kernels 1-3, the moe
+    one on 5-7, the hybrid one on 8-9, each of them launched by the fused
+    step alone): no weight-shaped f32 value and no mask at a block shape
+    outside the kernels, no f64, every state leaf in place through the
+    step and a round; the materializing path above the fused one at
+    every leaf shape.  Then the stream cover over every arch at full size
+    on the (2, 16, 16) grid's 512 shards: findings only on the leaves past
+    the uint32 stream index (2**32 elements).  Returns the fused steps'
+    launches."""
+    from repro_torch.analysis import model_check, op_lint, stream_cover
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.core import masking, tree
+    from repro_torch.launch import steps as steplib
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    t0 = time.time()
+    launches = {k: 0 for k in dispatch.KERNELS}
+    args = train.parse_args(["--arch", "internlm2-1.8b", "--cohorts",
+                             str(COHORTS), "--batch", "2", "--seq",
+                             str(ANALYSIS_SEQ), "--device", "cuda"])
+    cfg = get_config(args.arch)
+    api = build_model(cfg)
+    scfg = steplib.StepConfig(lam=args.lam, lr=args.lr,
+                              optimizer=args.score_opt,
+                              downlink_bits=args.downlink_bits,
+                              seed=args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = steplib.init_fed_state(gen, api, masking.MaskSpec(),
+                                   C=args.cohorts, optimizer=args.score_opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (args.cohorts, 2,
+                                                    ANALYSIS_SEQ),
+                                     generator=gen, device=dev)}
+    state_bytes = sum(t.numel() * t.element_size() for k in (
+        "scores", "floats", "weights", "opt_m")
+        for t in tree.leaves(state[k]) if t is not None)
+    blocks = model_check.masked_block_shapes(state)
+    leaves = model_check.masked_leaf_shapes(state)
+    rules = [op_lint.weight_f32_temporaries(sh) for sh in blocks]
+    rules += [op_lint.mask_materialization(sh) for sh in blocks]
+    rules.append(op_lint.DtypePromotionRule())
+    counters = {sh: model_check.CountRule(model_check.LeafShapeRule(sh))
+                for sh in leaves}
+    step = steplib.make_train_step(api, scfg)
+    step(state, batch)                       # loads the kernels
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    bare_s = time.perf_counter() - t1
+    keep = op_lint.InPlaceRule(state)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    w, walked_s = _walk_step(torch, op_lint, step, state, batch,
+                             rules + list(counters.values()))
+    got = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    found = w.findings + keep.check(state)
+    keep = op_lint.InPlaceRule(state)
+    steplib.make_round_step(api, scfg, codec=args.codec)(state)
+    found += keep.check(state)
+    check(found == [], f"op walker on internlm2-1.8b: "
+          f"{[str(f) for f in found[:8]]}")
+    per_pass = N_LAYERS * len(LAYER_SHAPES) * args.cohorts
+    for k in ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds"):
+        check(got[k] == per_pass, f"walked step launched {k} {got[k]} "
+              f"times, expected {per_pass}")
+    launches = {k: launches[k] + got[k] for k in launches}
+    leaf_counts = {"x".join(map(str, sh)): c.n for sh, c in counters.items()}
+    print(f"analysis phase, op walker: internlm2-1.8b full width, "
+          f"{args.cohorts} cohorts x batch 2 x seq {ANALYSIS_SEQ}: {w.n_ops} "
+          f"aten ops and {w.n_kernels} kernel calls walked, 0 findings at "
+          f"{len(blocks)} block shapes {blocks}; f32 values at the leaf "
+          f"shapes (fused): {leaf_counts}; "
+          f"step {bare_s:.3f} s bare, {walked_s:.3f} s walked; peak "
+          f"{peak / 2**30:.2f} GiB against the state's "
+          f"{state_bytes / 2**30:.2f} GiB; every leaf in place through the "
+          f"step and a round")
+    del state, batch, step, w, keep
+    torch.cuda.empty_cache()
+
+    for fam, (ccfg, S) in model_check.MODEL_CHECK_CFGS.items():
+        out = model_check.model_step_weight_defs(ccfg, S=S, device=dev)
+        got = {k: out["fused_launches"].get(k, 0) for k in launches}
+        for sh, c in out["block_shapes"].items():
+            check(c["fused"] == 0 and c["fused_masks"] == 0,
+                  f"check config {fam}: block {sh} {c}")
+        for sh, c in out["leaf_shapes"].items():
+            check(c["eff"] > c["fused"], f"check config {fam}: leaf {sh} "
+                  f"{c}")
+        want = {"dense": ("masked_matmul_fwd", "masked_matmul_dx",
+                          "masked_matmul_ds"),
+                "moe": ("masked_matmul_grouped", "masked_matmul_grouped_dx",
+                        "masked_matmul_grouped_ds"),
+                "hybrid": ("masked_conv1d", "masked_conv1d_ds")}[fam]
+        check(all(got[k] > 0 for k in want), f"check config {fam}'s fused "
+              f"step launched {out['fused_launches']}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"analysis phase, check config {fam}: {json.dumps(out)}")
+
+    t1 = time.time()
+    wrapped = {}
+    for arch in ARCH_NAMES:
+        rep = stream_cover.arch_stream_report(arch, smoke=False, C=COHORTS,
+                                              devs=range(512))
+        big = {iv.owner for iv in rep["intervals"]
+               if iv.flat_size > 2 ** 32}
+        where = {f.where for f in rep["findings"]}
+        check(where == big, f"stream cover {arch}: findings on {where}, "
+              f"leaves past 2**32 elements {big}")
+        if big:
+            wrapped[arch] = len(rep["findings"])
+        print(f"analysis phase, stream cover {arch} (full size, 512 "
+              f"shards x {COHORTS} cohorts): {rep['n_leaves']} leaves, "
+              f"{rep['n_intervals']} intervals, {rep['n_streams']} streams, "
+              f"{len(rep['findings'])} finding(s)"
+              + (f" on {sorted(big)} (past 2**32 elements)" if big else ""))
+    print(f"analysis phase: {time.time() - t0:.1f}s (stream cover "
+          f"{time.time() - t1:.1f}s; uint32 index wraps: {wrapped})")
     return launches
 
 
@@ -4770,6 +4983,8 @@ def main():
     launches = {k: launches[k] + got[k] for k in launches}
     print(f"kill_resume_phase: {time.time() - t0:.1f}s")
     got = mesh_phase(torch, dispatch)
+    launches = {k: launches[k] + got[k] for k in launches}
+    got = analysis_phase(torch, dispatch, dev)
     launches = {k: launches[k] + got[k] for k in launches}
     t0 = time.time()
     got, profiled = async_phase(torch, dispatch, dev)

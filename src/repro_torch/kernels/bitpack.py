@@ -11,7 +11,8 @@ uint32 bit patterns.  A 1-D input is one row.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises (`kernels.dispatch`).  Each
-launch adds one to `dispatch.LAUNCHES[name]`.  The kernels take
+launch adds one to `dispatch.LAUNCHES[name]`; each wrapper runs inside
+`dispatch.kernel_boundary`, one opaque op to the op walker.  The kernels take
 contiguous uint8 (or bool) bits and int32 words and raise on anything
 else rather than copy.
 """
@@ -48,6 +49,7 @@ def _rows(t: torch.Tensor, name: str, dtypes) -> torch.Tensor:
     return t.reshape(1, -1) if t.ndim == 1 else t
 
 
+@dispatch.kernel_boundary("pack_bits")
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """bits: (n,) or (R, n) {0,1} -> (ceil(n/32),) or (R, ceil(n/32))
     int32 words; bits at or past n are zero."""
@@ -64,6 +66,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return words.reshape(-1) if bits.ndim == 1 else words
 
 
+@dispatch.kernel_boundary("unpack_bits")
 def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     """words: (W,) or (R, W) int32 -> (n,) or (R, n) uint8, n <= 32W."""
     n = int(n)

@@ -5,8 +5,17 @@ A wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on one CUDA device; anything else
 raises.  Each launch adds one to `LAUNCHES[name]`, so a run can show
 that it went through the kernels.
+
+Every wrapper runs its body inside `kernel_boundary`: while an op walker
+(`analysis.op_lint.OpWalker`) is open, the ops of the body are hidden
+from it and the call is shown to it as one opaque op, on the CPU (whose
+plain version computes m * w, which the card never holds) and on the
+card alike; the twin of the reference's jaxpr walker never entering a
+``pallas_call``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,6 +24,40 @@ KERNELS = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds",
            "masked_matmul_grouped_dx", "masked_matmul_grouped_ds",
            "masked_conv1d", "masked_conv1d_ds", "pack_bits", "unpack_bits")
 LAUNCHES = {name: 0 for name in KERNELS}
+
+
+# the op walkers open now, and how deep the calls are inside wrappers (a
+# count, not a flag: a wrapper's body may call another wrapper)
+WALKERS: list = []
+_DEPTH = [0]
+
+
+def kernel_boundary(name: str):
+    """Decorator of a kernel wrapper: with a walker open, the wrapper's
+    body runs hidden from it and the walker's `kernel(name, outputs)` is
+    called once the outermost wrapper returns.  With none open it only
+    calls the wrapper."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not WALKERS:
+                return fn(*args, **kwargs)
+            _DEPTH[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _DEPTH[0] -= 1
+            if not _DEPTH[0]:
+                for w in list(WALKERS):
+                    w.kernel(name, out)
+            return out
+        return call
+    return wrap
+
+
+def inside_kernel() -> bool:
+    """True while a wrapper's body runs under an open walker."""
+    return _DEPTH[0] > 0
 
 
 def reset_launch_counts() -> None:

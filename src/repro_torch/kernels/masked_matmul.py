@@ -34,7 +34,8 @@ Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
 raises.  Nothing falls back.  Each launch adds one to
 `dispatch.LAUNCHES[name]`, so a run can show that it went through the
-kernels.
+kernels.  Each wrapper runs inside `dispatch.kernel_boundary`, so the op
+walker (`analysis.op_lint`) sees a call as one opaque op.
 
 The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
 f32 activation (recurrentgemma's gate projections).  Kernels 1-2 run a
@@ -547,6 +548,7 @@ def sap_plan(C: int, n: int, sms: int = SMS, aligned: bool = True,
                 grid=max(1, min(_cdiv(items, warps), sms * SAP_PER_SM)))
 
 
+@dispatch.kernel_boundary("masked_matmul_fwd")
 def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
                   tau=0.5):
     """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
@@ -570,6 +572,7 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
     return y
 
 
+@dispatch.kernel_boundary("masked_matmul_dx")
 def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
                      mode="sample", tau=0.5):
     """g: (M, N); w, s: (K, N) -> dx = g @ (m * w)^T : (M, K) in g.dtype."""
@@ -594,6 +597,7 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
     return dx
 
 
+@dispatch.kernel_boundary("masked_matmul_ds")
 def masked_matmul_ds(x, g, w, s):
     """x: (M, K); g: (M, N); w, s: (K, N) -> ds : (K, N) in s.dtype."""
     if dispatch.on_cpu(x, g, w, s):
@@ -615,6 +619,7 @@ def masked_matmul_ds(x, g, w, s):
     return ds
 
 
+@dispatch.kernel_boundary("sample_and_pack")
 def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     """s: (C, n) score rows; seeds: C uint32 row seeds (ints or a
     tensor) -> (C, ceil(n/32)) int32 words holding the uint32 bit
@@ -642,6 +647,7 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     return words
 
 
+@dispatch.kernel_boundary("masked_matmul_grouped")
 def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
                           mode="sample", tau=0.5):
     """x: (E, M, K); w, s: (E, K, N); seeds, offs: per-group uint32
@@ -674,6 +680,7 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     return y
 
 
+@dispatch.kernel_boundary("masked_matmul_grouped_dx")
 def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
                              mode="sample", tau=0.5):
     """g: (E, M, N); w, s: (E, K, N) -> dx[e] = g[e] @ (m[e] * w[e])^T :
@@ -705,6 +712,7 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     return dx
 
 
+@dispatch.kernel_boundary("masked_matmul_grouped_ds")
 def masked_matmul_grouped_ds(x, g, w, s):
     """x: (E, M, K); g: (E, M, N); w, s: (E, K, N) -> ds : (E, K, N) in
     s.dtype."""
@@ -726,6 +734,7 @@ def masked_matmul_grouped_ds(x, g, w, s):
     return ds
 
 
+@dispatch.kernel_boundary("masked_conv1d")
 def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
                   tau=0.5, flip=False):
     """x: (B, S, C) bf16 or f32, unpadded; w, s: (W, C) (s unread and may
@@ -759,6 +768,7 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     return y
 
 
+@dispatch.kernel_boundary("masked_conv1d_ds")
 def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     """x: (B, S, C) bf16 or f32, unpadded; g: (B, S, C) f32; w, s: (W, C)
     -> (W, C): the correlation sum_{b,s} x_pad[b,s+t,c] g[b,s,c] times

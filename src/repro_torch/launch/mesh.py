@@ -134,6 +134,16 @@ class Mesh:
                              f"{sorted(self._groups)}")
         return self._groups[axes]
 
+    def group_axes(self, group) -> tuple:
+        """The axis tuple a process group of this mesh spans: the inverse
+        of `group` (None, the default group, spans every axis)."""
+        if group is None or group is dist.group.WORLD:
+            return self.axis_names
+        for axes, g in self._groups.items():
+            if g is group:
+                return axes
+        raise ValueError("the process group is not one of this mesh's")
+
     def device_index(self) -> int:
         """The linear index of this rank's coordinates over every axis,
         row-major (the reference's per-shard `dev`)."""

@@ -54,16 +54,17 @@ def step_config(args) -> steplib.StepConfig:
                               packed_masks=not args.unpacked)
 
 
-def global_state(args, draw_device="cpu"):
-    """(model api, the host-global fed state drawn from SEED).  The draw
-    runs on `draw_device` and its tensors then move to the host: a card
-    draws far faster than the CPU's one generator stream, and holds one
-    cohort's tensors only while it draws.  Every cohort starts from
-    the same tensors (`init_fed_state`), so the cohort axis of each leaf
-    is a broadcast of one cohort's: `reshard_server` materializes only
-    the block it places."""
-    api = build_model(get_config(args.arch, smoke=args.smoke))
-    gen = torch.Generator(device=draw_device).manual_seed(SEED)
+def global_state(arch: str, cohorts: int, *, smoke: bool = False,
+                 seed: int = SEED, draw_device="cpu"):
+    """(model api, the host-global fed state of `cohorts` cohorts drawn
+    from `seed`).  The draw runs on `draw_device` and its tensors then
+    move to the host: a card draws far faster than the CPU's one
+    generator stream, and holds one cohort's tensors only while it draws.
+    Every cohort starts from the same tensors (`init_fed_state`), so the
+    cohort axis of each leaf is a broadcast of one cohort's:
+    `reshard_server` materializes only the block it places."""
+    api = build_model(get_config(arch, smoke=smoke))
+    gen = torch.Generator(device=draw_device).manual_seed(seed)
     state = steplib.init_fed_state(gen, api, masking.MaskSpec(), C=1)
     for key in ("scores", "floats", "opt_m", "weights"):
         state[key] = tu.tree_map(lambda t: None if t is None else t.cpu(),
@@ -71,19 +72,21 @@ def global_state(args, draw_device="cpu"):
     for key in ("scores", "floats", "opt_m"):
         state[key] = tu.tree_map(
             lambda t: None if t is None else
-            t.expand((args.cohorts,) + tuple(t.shape[1:])), state[key])
+            t.expand((cohorts,) + tuple(t.shape[1:])), state[key])
     return api, state
 
 
 def run(args, mesh, start=None) -> dict:
     """One mesh round on this rank's block of the state: {"state": the
     rank's state after it, "metrics": {name: float}, "seconds": the
-    round's wall seconds, synchronized}.  `start` is `global_state(args)`
-    (drawn here when not given); it is read, never written."""
+    round's wall seconds, synchronized}.  `start` is `global_state(...)`
+    of the args' arch and cohorts (drawn here when not given); it is
+    read, never written."""
     if args.cohorts % steplib.n_cohorts(mesh):
         raise ValueError(f"--cohorts {args.cohorts} does not split over "
                          f"the mesh's {steplib.n_cohorts(mesh)} pods")
-    api, host = start if start is not None else global_state(args)
+    api, host = start if start is not None else global_state(
+        args.arch, args.cohorts, smoke=args.smoke)
     sh = steplib.fed_state_shardings(host, mesh)
     state = elastic.reshard_server(host, sh)
     round_fn = steplib.make_round_step(api, step_config(args), mesh=mesh,

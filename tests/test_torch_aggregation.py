@@ -23,6 +23,7 @@ from repro.core import aggregation as jagg
 from repro_torch.api import payloads
 from repro_torch.core import aggregation as agg
 from repro_torch.core import tree as tu
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 K = 4
 

@@ -26,6 +26,7 @@ from repro_torch.ckpt import checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import aggregation, federated, masking, tree
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ULP = 2.0 ** -23        # float32 ulp just below 1.0
 _NONE = lambda x: x is None

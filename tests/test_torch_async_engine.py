@@ -37,6 +37,7 @@ from repro_torch.core import tree as tu
 from repro_torch.models import cnn
 from repro_torch.runtime.async_engine import AsyncConfig, AsyncRoundEngine
 from repro_torch.runtime.fault import FaultInjector
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TINY = dict(name="t", conv_planes=(8, 8), dense_sizes=(16,), n_classes=4,
             img_size=8)

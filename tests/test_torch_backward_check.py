@@ -26,6 +26,7 @@ from repro_torch.kernels import bitpack, dispatch
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",

@@ -35,6 +35,7 @@ from test_torch_bf16_scores_moe import (_bf16, _close, _step_matches,
                                         round_is_exact)
 from test_torch_score_dtype import (BF16, BF16_RTOL, _jleaves, _jx,
                                     _tleaves, _within_an_ulp)
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH = "mamba2-370m"
 M32 = 0xFFFFFFFF

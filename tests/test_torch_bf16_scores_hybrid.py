@@ -20,6 +20,7 @@ from test_torch_bf16_scores_conv import assert_conv_leaves
 from test_torch_bf16_scores_moe import (_step_matches, convert_both_ways,
                                         pieces_reach, round_is_exact)
 from test_torch_score_dtype import _jleaves, _tleaves
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH = "recurrentgemma-9b"
 

@@ -40,6 +40,7 @@ from repro_torch.launch import steps
 from test_torch_score_dtype import (BF16, BF16_RTOL, C, RUN_SEED, _NONE,
                                     _jleaves, _jx, _np, _state, _tleaves,
                                     _ulps, _within_an_ulp)
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH = "deepseek-v2-lite-16b"
 M32 = 0xFFFFFFFF

@@ -20,6 +20,7 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.launch import train
 from repro_torch.runtime import agg_tree
 from repro_torch.tools import chaos_smoke
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 BASE = ["--smoke", "--device", "cpu", "--round-every", "2", "--cohorts", "3",
         "--batch", "2", "--seq", "16", "--fail-prob", "0.3", "--quorum-frac",

@@ -19,6 +19,7 @@ from repro.core import federated as jfederated
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import federated
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 BF = np.linspace(-3, 3, 12).astype(ml_dtypes.bfloat16).reshape(3, 4)
 F32 = np.arange(10, dtype=np.float32) / 7

@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.core import masking, regularizer
 from repro_torch.core import tree as tu
 from repro_torch.models import cnn, layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 _NONE = lambda x: x is None
 QUICK = dict(name="quick", conv_planes=(8, 8), dense_sizes=(32,),

@@ -28,6 +28,7 @@ from repro_torch.core import masking
 from repro_torch.core import tree as tu
 from repro_torch.data import partition, synthetic
 from repro_torch.models import cnn
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 PACKED = ("bitpack", "golomb", "arithmetic")
 EXACT_MEASURE = ("bitpack", "golomb", "signpack", "float32")

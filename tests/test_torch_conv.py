@@ -15,6 +15,7 @@ and skip where there is none.
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -18,6 +18,7 @@ import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels import masked_matmul as mm
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SOURCE = (build.CSRC / "masked_conv1d_ds.cu").read_text()
 # (B, S, C): mamba2-370m's conv and recurrentgemma-9b's at the main

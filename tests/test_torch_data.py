@@ -13,6 +13,7 @@ from repro.data import partition as jpartition
 from repro.data import synthetic as jsynthetic
 
 from repro_torch.data import partition, synthetic
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("how", ["iid", "by_class", "dirichlet"])

@@ -28,6 +28,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import masked_matmul as mm
 
 from test_torch_wgmma_plan import ARCHS, M, RAGGED, _dense_shapes
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ACTS = {"bf16": torch.bfloat16, "f32": torch.float32}
 SHAPES = sorted({(M, K, N) for arch in ARCHS

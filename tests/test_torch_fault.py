@@ -26,6 +26,7 @@ from repro_torch.core import tree as tu
 from repro_torch.launch import steps
 from repro_torch.models import build_model
 from repro_torch.runtime import agg_tree, elastic, fault
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SEEDS = (0, 7, 2**31 + 5, 2**40 + 3)
 ROUNDS = (0, 1, 17, 10_000)

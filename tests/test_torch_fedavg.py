@@ -29,6 +29,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import plans  # noqa: F401  (registers plans)
 from repro_torch.launch import steps, train
 from repro_torch.models import build_model, layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH = "internlm2-1.8b"
 _NONE = lambda x: x is None

@@ -25,6 +25,7 @@ from repro.models import cnn as jcnn
 from repro_torch.benchmarks import common, fig1_iid
 from repro_torch.data import synthetic
 from repro_torch.models import cnn
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 HEADER = "dataset,algo,round,acc,bpp,bpp_measured,sparsity,cum_mb"
 QUICK = dict(name="quick", conv_planes=(8, 8), dense_sizes=(32,),

@@ -28,6 +28,7 @@ from repro.models import cnn as jcnn
 from repro_torch.benchmarks import common, fig2_noniid
 from repro_torch.data import synthetic
 from repro_torch.models import cnn
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from benchmarks import common as jcommon  # noqa: E402

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import masking, tree
 from repro_torch.core.masking import MaskedParams
 from repro_torch.models import build_model, transformer
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH, STEPS, RUN_SEED = "gemma3-4b", 24, 17
 _NONE = lambda x: x is None

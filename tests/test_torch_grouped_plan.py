@@ -25,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import masked_matmul as mm
 
 from test_torch_wgmma_plan import CAPACITIES, _gpc_capacity, _split_ranges
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 HEADER = (build.CSRC / "masked_matmul_grouped_wgmma.cuh").read_text()
 CFG = get_config("deepseek-v2-lite-16b")

@@ -33,6 +33,7 @@ from repro_torch.api import payloads
 from repro_torch.core import federated, masking
 from repro_torch.core import tree as tu
 from repro_torch.models import cnn
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 _NONE = lambda x: x is None
 QUICK = dict(name="quick", conv_planes=(8, 8), dense_sizes=(32,),

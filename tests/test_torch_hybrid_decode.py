@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, hybrid, transformer
 from repro_torch.models import layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH, STEPS = "recurrentgemma-9b", 12
 _NONE = lambda x: x is None

@@ -4,6 +4,7 @@ import ast
 import pathlib
 
 import pytest
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -63,7 +64,16 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          # multi-device: the mesh, the sharding rules, the mesh round's
          # torchrun entry point
          "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-         "repro_torch.launch.mesh_round")
+         "repro_torch.launch.mesh_round",
+         # the analysis engines and their command line (the package's
+         # __init__ by its file, as the loop below finds each module)
+         "repro_torch.analysis.__init__", "repro_torch.analysis.report",
+         "repro_torch.analysis.stream_cover", "repro_torch.analysis.op_lint",
+         "repro_torch.analysis.model_check",
+         "repro_torch.analysis.collective_lint",
+         "repro_torch.analysis.shard_lint",
+         "repro_torch.analysis.source_lint",
+         "repro_torch.tools.repro_lint")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():

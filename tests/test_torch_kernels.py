@@ -14,6 +14,7 @@ skip where there is none.
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -24,6 +24,7 @@ from repro_torch.core import masking, tree
 from repro_torch.launch import serve, steps
 from repro_torch.models import build_model
 from repro_torch.runtime.serve_engine import ServeEngine
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
          "recurrentgemma-9b", "gemma3-4b", "gemma3-4b ring")

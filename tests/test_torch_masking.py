@@ -24,6 +24,7 @@ from repro_torch.core import masking, regularizer, tree
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 PATHS = ["layers/attn/w_q", "layers/attn_norm/scale", "embed/table",
          "lm_head/table", "ssm/D", "ssm/d_inner", "ssm/A_log", "rec/a_param",

@@ -10,10 +10,11 @@ spawn of 8 gloo ranks runs the port's counterparts, each rank on its own
 block.  The comparisons are per rank against that device's shard, never
 against a global array: the reference's shards of a leaf replicated over
 an axis differ (each "data" shard draws its own masks), and so does its
-per-device `bpp`.  The ranks also record every collective they issue, so
-the wire's payload is checked: one int32 all-gather of ceil(n_local/32)
-words a cohort per leaf for the packed round, a bf16 all-reduce of
-n_local values per leaf for the unpacked one.  A world-size-1 mesh gives
+per-device `bpp`.  The ranks also record every collective they issue
+(and check that none went past the recorder), so the wire's payload is
+checked: one int32 all-gather of ceil(n_local/32) words a cohort per
+leaf for the packed round, a bf16 all-reduce of n_local values per leaf
+for the unpacked one.  A world-size-1 mesh gives
 the `mesh=None` round bit for bit.
 
 Theta is held exactly, as its level (the reset scores are logit(theta),
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.launch import sharding as shd
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH, AXES = (2, 2, 2), ("pod", "data", "model")
@@ -197,6 +199,24 @@ for tag, x in zip(("psum", "packed"), mm(gm)):
     for s in x.addressable_shards:
         res[f"maskmean/{tag}/{rank(s.device)}"] = np.asarray(s.data)
 np.savez(out_path, **res)
+
+# the static comm model and the purity findings of internlm2-1.8b's SMOKE
+# round, packed and unpacked.  jax 0.9.0 moved ClosedJaxpr / Jaxpr out of
+# jax.core into jax.extend.core; the reference's jaxpr engines read them
+# through the alias `jcore`, so it is pointed there in this process
+import json
+import jax.extend.core
+from repro.analysis import collective_lint, comm_model, jaxpr_lint
+jaxpr_lint.jcore = jax.extend.core
+comm = {}
+for packed in (True, False):
+    m = comm_model.arch_round_comm_model("internlm2-1.8b", packed=packed)
+    jxp, shapes, sh_, _, mesh_ = m.pop("_trace")
+    comm[str(packed)] = {"model": m, "purity": [
+        str(f) for f in collective_lint.round_purity_findings(
+            jxp, shapes, sh_, mesh_)]}
+with open(out_path + ".comm.json", "w") as f:
+    json.dump(comm, f)
 '''
 
 
@@ -227,24 +247,12 @@ def _uniforms(local_bodies):
 # ---------------------------------------------------------------------------
 
 
-def _record_collectives(records):
-    """Wrap the two collectives the port issues, so a rank can list each
-    call's payload: (name, dtype, elements sent, group size)."""
-    import torch.distributed as dist
-    gather, reduce_ = dist.all_gather_into_tensor, dist.all_reduce
-
-    def all_gather_into_tensor(out, inp, group=None, async_op=False):
-        records.append(("all_gather", str(inp.dtype), inp.numel(),
-                        dist.get_world_size(group)))
-        return gather(out, inp, group=group, async_op=async_op)
-
-    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
-        records.append(("all_reduce", str(t.dtype), t.numel(),
-                        dist.get_world_size(group)))
-        return reduce_(t, op=op, group=group, async_op=async_op)
-
-    dist.all_gather_into_tensor = all_gather_into_tensor
-    dist.all_reduce = all_reduce
+def _calls(sites):
+    """A rank's recorded collectives as [prim, dtype, elements sent, group
+    size] rows."""
+    return [[s.prim, s.dtype, s.elems,
+             math.prod(dict(zip(AXES, MESH))[a] for a in s.axes)]
+            for s in sites]
 
 
 def _clone(t):
@@ -264,9 +272,10 @@ def _save_tree(out, prefix, local, shardings, host):
 
 def _rank_main(rank, world, store, inp, out_dir):
     import torch.distributed as dist
+    from repro_torch.analysis import collective_lint, comm_model, shard_lint
     from repro_torch.core import aggregation
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.launch import steps
+    from repro_torch.launch import mesh_round, steps
     from repro_torch.runtime import elastic
     torch.set_num_threads(1)
     # pieces of 1000 columns: the reset, the downlink and the unpacked
@@ -283,35 +292,61 @@ def _rank_main(rank, world, store, inp, out_dir):
         placed = elastic.reshard_server(_clone(host), sh)
         for key in ("scores", "floats", "weights", "opt_m"):
             _save_tree(out, "placed/" + key, placed[key], sh[key], host[key])
-        records = []
-        _record_collectives(records)
         u = [torch.from_numpy(arrs[f"u/{j}"]) for j in range(
             sum(1 for _, s in SCORES if s is not None))]
         for name, (kw, part) in VARIANTS.items():
             cfg = steps.StepConfig(seed=SEED, **kw)
             st = elastic.reshard_server(_clone(host), sh)
-            del records[:]
-            st, m = steps.make_round_step(None, cfg, mesh=mesh, state_sh=sh)(
-                st, PART if part else None,
-                downlink_u=u if cfg.downlink_bits else None)
-            calls[name] = list(records)
+            with comm_model.record_collectives(mesh, check=True) as sites:
+                st, m = steps.make_round_step(
+                    None, cfg, mesh=mesh, state_sh=sh)(
+                    st, PART if part else None,
+                    downlink_u=u if cfg.downlink_bits else None)
+            calls[name] = _calls(sites)
             for key in ("scores", "floats", "opt_m"):
                 _save_tree(out, f"{name}/{key}", st[key], sh[key], host[key])
             for k, v in m.items():
                 out[f"{name}/metric/{k}"] = v.numpy()
         msh = shd.NamedSharding(mesh, shd.P(("pod", "data", "model"), None))
         mask = {"m": msh.local(torch.from_numpy(arrs["mask"])), "none": None}
-        del records[:]
         clients = mesh.group(("pod", "data"))
-        out["maskmean/psum"] = aggregation.mask_mean_psum(
-            mask, clients)["m"].numpy()
-        calls["psum"] = list(records)
-        del records[:]
-        for use_kernel in (False, True):
-            got = aggregation.mask_mean_packed(mask, clients, use_kernel)
-            assert got["none"] is None
-            out[f"maskmean/packed/{use_kernel}"] = got["m"].numpy()
-        calls["packed_mean"] = list(records)
+        with comm_model.record_collectives(mesh, check=True) as sites:
+            out["maskmean/psum"] = aggregation.mask_mean_psum(
+                mask, clients)["m"].numpy()
+        calls["psum"] = _calls(sites)
+        with comm_model.record_collectives(mesh, check=True) as sites:
+            for use_kernel in (False, True):
+                got = aggregation.mask_mean_packed(mask, clients, use_kernel)
+                assert got["none"] is None
+                out[f"maskmean/packed/{use_kernel}"] = got["m"].numpy()
+        calls["packed_mean"] = _calls(sites)
+        # declared vs held: the placed state is each rank's block, and a
+        # block cut wrong (rolled contents, a short last dim) is caught
+        calls["shard/placed"] = [
+            str(f) for k in ("scores", "floats", "weights", "opt_m")
+            for f in shard_lint.placement_mismatches(
+                placed[k], sh[k], host[k], label=f"{k}/")]
+        placed["scores"]["layers"]["w"] = \
+            placed["scores"]["layers"]["w"].roll(1, -1)
+        placed["weights"]["layers"]["w"] = \
+            placed["weights"]["layers"]["w"][..., :-1]
+        calls["shard/cut"] = [
+            str(f) for k in ("scores", "weights")
+            for f in shard_lint.placement_mismatches(
+                placed[k], sh[k], host[k], label=f"{k}/")]
+        calls["shard/round"] = [str(f) for f in shard_lint.round_shard_report(
+            mesh, 2, start=mesh_round.global_state(
+                "internlm2-1.8b", 2, smoke=True))[
+                "findings"]]
+        # internlm2-1.8b's SMOKE round, packed and unpacked, recorded:
+        # the cost model, the purity findings and the metered bits
+        for packed in (True, False):
+            rep = collective_lint.arch_collective_report(
+                "internlm2-1.8b", mesh=mesh, packed=packed)
+            calls[f"comm/{packed}"] = {
+                "model": rep["model"],
+                "purity": [str(f) for f in rep["findings"]],
+                "bits_measured": rep["metrics"]["bits_measured"]}
         out["coords"] = np.array([mesh.coords[a] for a in AXES])
         out["dev"] = np.array(mesh.device_index())
         np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
@@ -366,8 +401,9 @@ def _local_bodies():
 
 @pytest.fixture(scope="module")
 def mesh_run():
-    """({rank: the port's arrays}, {rank: its collective calls}, the
-    reference's arrays), from one reference run and one spawn."""
+    """({rank: the port's arrays}, {rank: its collective calls and comm
+    models}, the reference's arrays, the reference's comm models), from
+    one reference run and one spawn."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         inp = tmp / "inputs.npz"
@@ -390,7 +426,8 @@ def mesh_run():
         calls = {r: json.loads((tmp / f"calls{r}.json").read_text())
                  for r in range(8)}
         want = dict(np.load(tmp / "ref.npz"))
-    return port, calls, want
+        comm = json.loads((tmp / "ref.npz.comm.json").read_text())
+    return port, calls, want, comm
 
 
 def _leaf_keys(want, prefix):
@@ -399,14 +436,14 @@ def _leaf_keys(want, prefix):
 
 
 def test_ranks_sit_on_the_reference_devices(mesh_run):
-    port, _, _ = mesh_run
+    port, _, _, _ = mesh_run
     for r in range(8):
         assert tuple(port[r]["coords"]) == tuple(np.unravel_index(r, MESH))
         assert int(port[r]["dev"]) == r
 
 
 def test_reshard_server_places_device_put_shards(mesh_run):
-    port, _, want = mesh_run
+    port, _, want, _ = mesh_run
     keys = [k for key in ("scores", "floats", "weights", "opt_m")
             for k in _leaf_keys(want, "placed/" + key)]
     assert len(keys) == 11
@@ -431,7 +468,7 @@ def test_packed_round_equals_reference_shard_by_shard(mesh_run, variant):
     8-bit downlink), the floats and the zeroed moments bit for bit, the
     scores logit(theta) and bpp within LOG_TOL, and the bit totals
     exactly."""
-    port, _, want = mesh_run
+    port, _, want, _ = mesh_run
     keys = [k for key in ("scores", "floats", "opt_m")
             for k in _leaf_keys(want, f"{variant}/{key}")]
     assert len(keys) == 8
@@ -466,7 +503,7 @@ def test_replicated_blocks_diverge_as_in_the_reference(mesh_run):
     """w_odd's 33 rows do not split over "data": ranks (p, 0, m) and
     (p, 1, m) hold the same block, yet each drew its own masks, in the
     port as in the reference; bpp is each rank's own."""
-    port, _, want = mesh_run
+    port, _, want, _ = mesh_run
     k = "packed/scores/layers/w_odd"
     a, b = port[0][k], port[2][k]           # coords (0,0,0) and (0,1,0)
     assert np.array_equal(port[0][f"{k}/index"], port[2][f"{k}/index"])
@@ -478,7 +515,7 @@ def test_replicated_blocks_diverge_as_in_the_reference(mesh_run):
 
 @pytest.mark.parametrize("variant", ("unpacked", "unpacked_part"))
 def test_unpacked_round_within_one_bf16_rounding(mesh_run, variant):
-    port, _, want = mesh_run
+    port, _, want, _ = mesh_run
     sig = lambda s: 1.0 / (1.0 + np.exp(-s.astype(np.float64)))
     for k in _leaf_keys(want, f"{variant}/scores"):
         for r in range(8):
@@ -492,7 +529,7 @@ def test_unpacked_round_within_one_bf16_rounding(mesh_run, variant):
 
 
 def test_mask_means_match_reference(mesh_run):
-    port, _, want = mesh_run
+    port, _, want, _ = mesh_run
     for r in range(8):
         ref_psum = want[f"maskmean/psum/{r}"]
         ref_packed = want[f"maskmean/packed/{r}"]
@@ -514,35 +551,104 @@ def test_packed_wire_is_one_bit_a_parameter(mesh_run, variant):
     """The packed round's only mask-sized collective is one int32
     all-gather over the pod pair a leaf, of ceil(n_local/32) words a
     cohort; every all-reduce is f32 (floats and the bit total)."""
-    _, calls, _ = mesh_run
+    _, calls, _, _ = mesh_run
     n_local, cl = _mask_sizes()
     for r in range(8):
         got = calls[r][variant]
         gathers = [c for c in got if c[0] == "all_gather"]
-        assert gathers == [["all_gather", "torch.int32", cl * -(-n // 32), 2]
+        assert gathers == [["all_gather", "int32", cl * -(-n // 32), 2]
                            for n in n_local]
         for c in got:
-            if c[0] == "all_reduce":
-                assert c[1] == "torch.float32" and c[2] not in n_local
+            if c[0] != "all_gather":
+                assert c[:2] == ["psum", "float32"] and c[2] not in n_local
         assert sum(c[2] * 32 for c in gathers) == sum(
             cl * 32 * -(-n // 32) for n in n_local)
 
 
 def test_unpacked_wire_is_sixteen_bits_a_parameter(mesh_run):
-    _, calls, _ = mesh_run
+    _, calls, _, _ = mesh_run
     n_local, _ = _mask_sizes()
     for r in range(8):
         got = calls[r]["unpacked"]
         assert not [c for c in got if c[0] == "all_gather"]
         masks = [c for c in got if c[2] in n_local]
-        assert masks == [["all_reduce", "torch.bfloat16", n, 2]
-                         for n in n_local]
+        assert masks == [["psum", "bfloat16", n, 2] for n in n_local]
         psum = calls[r]["psum"]
-        assert psum == [["all_reduce", "torch.bfloat16", MASK_ROWS * MASK_N,
-                         4]]
+        assert psum == [["psum", "bfloat16", MASK_ROWS * MASK_N, 4]]
         packed = calls[r]["packed_mean"]
-        assert packed == [["all_gather", "torch.int32",
+        assert packed == [["all_gather", "int32",
                            -(-MASK_ROWS * MASK_N // 32), 4]] * 2
+
+
+# the one place a dtype is mapped: the port's packed words are int32
+# tensors holding uint32 bits, the reference's uint32
+def _as_reference(model):
+    rows = [dict(r, dtype="uint32") if r["role"] == "uplink"
+            and r["dtype"] == "int32" else r for r in model["sites"]]
+    return dict(model, sites=rows)
+
+
+def _site_multiset(model):
+    return sorted(json.dumps(r, sort_keys=True) for r in model["sites"])
+
+
+@pytest.mark.parametrize("packed", (True, False))
+def test_comm_model_equals_reference(mesh_run, packed):
+    """internlm2-1.8b's SMOKE round on the (2, 2, 2) mesh: every rank's
+    recorded sites (as a multiset) and whole `round_comm_model` dict equal
+    the reference's, read off its jaxpr: 13 sites (7 word all-gathers or
+    bf16 mask psums over "pod", 5 float-sidecar psums, 1 scalar bit
+    total), bpp_wire 1.0 / 16.0."""
+    _, calls, _, comm = mesh_run
+    want = comm[str(packed)]["model"]
+    assert want["n_sites"] == 13
+    assert want["bpp_wire"] == (1.0 if packed else 16.0)
+    assert want["uplink_bits"] == (147456 if packed else 2359296)
+    for r in range(8):
+        got = _as_reference(calls[r][f"comm/{packed}"]["model"])
+        assert _site_multiset(got) == _site_multiset(want), r
+        assert {k: v for k, v in got.items() if k != "sites"} == {
+            k: v for k, v in want.items() if k != "sites"}, r
+
+
+def test_uplink_bits_equal_the_metered_bits(mesh_run):
+    """The packed round's uplink accounting bits equal the bits the round
+    meters under the bitpack codec (every leaf's per-shard size is a
+    multiple of 32 here, so no word padding separates them)."""
+    _, calls, _, _ = mesh_run
+    for r in range(8):
+        c = calls[r]["comm/True"]
+        assert c["model"]["uplink_bits"] == c["bits_measured"] == 147456
+
+
+def test_purity_findings_equal_reference(mesh_run):
+    """The packed round is clean; the unpacked baseline fires
+    `collective-f32-weight` once a mask leaf (7), as the reference's."""
+    _, calls, _, comm = mesh_run
+    assert comm["True"]["purity"] == []
+    assert len(comm["False"]["purity"]) == 7
+    for r in range(8):
+        for packed in ("True", "False"):
+            assert sorted(calls[r][f"comm/{packed}"]["purity"]) == sorted(
+                comm[packed]["purity"]), (r, packed)
+    assert all("[collective-f32-weight] psum[pod]" in f
+               for f in comm["False"]["purity"])
+
+
+def test_declared_shardings_are_held(mesh_run):
+    """Declared vs held on the 8 ranks: every placed leaf is the block its
+    NamedSharding names (the test's state, and internlm2-1.8b's SMOKE fed
+    state with its weights' silent-replication check), and a block cut
+    wrong on a rank is caught, by contents and by shape."""
+    _, calls, _, _ = mesh_run
+    for r in range(8):
+        assert calls[r]["shard/placed"] == [], r
+        assert calls[r]["shard/round"] == [], r
+        cut = calls[r]["shard/cut"]
+        assert len(cut) == 2 and all(
+            f.startswith("[shard-spec-mismatch] ") for f in cut), (r, cut)
+        assert "scores/layers/w: the rank's" in cut[0]
+        assert "weights/layers/w: declared" in cut[1]
 
 
 def test_world_of_one_equals_the_plain_round(tmp_path):
@@ -590,7 +696,8 @@ def test_world_of_one_equals_the_plain_round(tmp_path):
         # plain round's
         args = mesh_round.parse_args(["--arch", "internlm2-1.8b", "--smoke",
                                       "--device", "cpu", "--cohorts", "2"])
-        api, start = mesh_round.global_state(args)
+        api, start = mesh_round.global_state(args.arch, args.cohorts,
+                                             smoke=args.smoke)
         start["floats"] = tree.tree_map(
             lambda t: None if t is None else t + torch.arange(
                 2.0).view((2,) + (1,) * (t.ndim - 1)), start["floats"])

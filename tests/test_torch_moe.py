@@ -27,6 +27,7 @@ from repro_torch.core import masking
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ULP = 2.0 ** -23        # float32 ulp just below 1.0
 BF16_RTOL = 2.0 ** -7   # one bfloat16 ulp, relative

@@ -15,6 +15,7 @@ from repro.optim import optimizers as jopt
 
 from repro_torch import convert
 from repro_torch.optim import optimizers as topt
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 STEPS = 5
 

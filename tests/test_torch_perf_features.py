@@ -40,6 +40,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.launch import steps
 from repro_torch.models import build_model, hybrid
 from repro_torch.models import layers as L
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 _NONE = lambda x: x is None
 RUN_SEED = 17

@@ -41,6 +41,7 @@ from repro_torch.core import aggregation, masking, tree
 from repro_torch.core.masking import MaskedParams
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 C, RUN_SEED = 2, 17
 _NONE = lambda x: x is None

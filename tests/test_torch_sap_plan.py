@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import masked_matmul as mm
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SOURCE = (build.CSRC / "sample_and_pack.cu").read_text()
 # internlm2-1.8b's masked leaves, 24 layers stacked: w_k / w_v, w_q /

@@ -51,6 +51,7 @@ from repro_torch.kernels import masked_matmul as mm
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 C, RUN_SEED = 2, 17
 BF16 = torch.bfloat16

@@ -32,6 +32,7 @@ from repro_torch.core.masking import MaskedParams
 from repro_torch.launch import serve
 from repro_torch.models import build_model, transformer
 from repro_torch.runtime.serve_engine import ServeEngine
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 _NONE = lambda x: x is None
 DECODE_ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",

@@ -27,6 +27,7 @@ from repro_torch.core import masking, tree
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 _NONE = lambda x: x is None
 C = 2

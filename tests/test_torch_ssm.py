@@ -23,6 +23,7 @@ from repro_torch.core.masking import MaskedParams
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import build_model, ssm
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH, C, RUN_SEED = "mamba2-370m", 2, 17
 _NONE = lambda x: x is None

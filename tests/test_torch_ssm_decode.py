@@ -20,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import masking
 from repro_torch.core.masking import MaskedLeaf
 from repro_torch.models import build_model, layers, ssm
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH = "mamba2-370m"
 _NONE = lambda x: x is None

@@ -24,6 +24,7 @@ from repro_torch.core import aggregation, masking, tree
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 C = 2
 _NONE = lambda x: x is None

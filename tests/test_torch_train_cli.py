@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.launch import train
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROUND = re.compile(r"step (\d+): loss=([\d.]+) uplink=([\d.]+)Bpp "
                    r"\(wire ([\d.]+)Bpp (\w+)\) cum=([\d.]+)MB")

@@ -16,6 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import masking, tree
 from repro_torch.core.masking import MaskedParams
 from repro_torch.models import build_model
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 RUN_SEED, STEP = 17, 3
 

@@ -33,6 +33,7 @@ from repro_torch.core.masking import MaskedParams
 from repro_torch.launch import steps
 from repro_torch.models import build_model, transformer
 from repro_torch.models import layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ARCH, C, RUN_SEED = "qwen2-vl-2b", 2, 17
 

@@ -23,6 +23,7 @@ from repro_torch.core import tree
 from repro_torch.kernels import build
 from repro_torch.kernels import masked_matmul as mm
 from repro_torch.models import build_model, layers
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 M = 256                 # tokens per cohort on the main path
 ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",

@@ -9,6 +9,7 @@ from repro.configs import ARCH_NAMES as JARCH_NAMES
 from repro.configs import get_config as jget_config
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from test_torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def test_arch_names_equal_the_reference():
