@@ -1,5 +1,6 @@
 """Config registry: --arch <id> resolution."""
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES, \
+    LONG_CONTEXT_OK  # noqa: F401
 from repro_torch.configs import (
     gemma3_4b, internlm2_1_8b, deepseek_7b, qwen2_7b,
     deepseek_v2_lite_16b, deepseek_v2_236b, whisper_medium, mamba2_370m,

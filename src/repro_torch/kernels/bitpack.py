@@ -10,7 +10,8 @@ reference's zero-pad to 32 does.  Words are int32 tensors holding the
 uint32 bit patterns.  A 1-D input is one row.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain version,
-a CUDA tensor launches the kernel or raises (`kernels.dispatch`).  Each
+a CUDA tensor launches the kernel or raises, a meta tensor gets an empty
+meta result of the kernel's shape (`kernels.dispatch`).  Each
 launch adds one to `dispatch.LAUNCHES[name]`; each wrapper runs inside
 `dispatch.kernel_boundary`, one opaque op to the op walker.  The kernels take
 contiguous uint8 (or bool) bits and int32 words and raise on anything
@@ -53,13 +54,15 @@ def _rows(t: torch.Tensor, name: str, dtypes) -> torch.Tensor:
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """bits: (n,) or (R, n) {0,1} -> (ceil(n/32),) or (R, ceil(n/32))
     int32 words; bits at or past n are zero."""
-    if dispatch.on_cpu(bits):
+    where = dispatch.placement(bits)
+    if where == "cpu":
         return pack_bits_plain(bits)
     b2 = _rows(bits, "bits", (torch.uint8, torch.bool))
     R, n = b2.shape
     words = torch.empty((R, (n + 31) // 32), dtype=torch.int32,
                         device=bits.device)
-    if R and n:
+    dispatch.count_work("pack_bits", 0, dispatch.nbytes(b2, words))
+    if where == "cuda" and R and n:
         build.launch("pack_bits", b2.data_ptr(), words.data_ptr(), R, n,
                      _aligned(b2, n), dispatch.stream(b2))
         dispatch.LAUNCHES["pack_bits"] += 1
@@ -73,12 +76,14 @@ def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     if not 0 <= n <= 32 * words.shape[-1]:
         raise ValueError(f"unpack_bits: n={n} does not fit "
                          f"{words.shape[-1]} words")
-    if dispatch.on_cpu(words):
+    where = dispatch.placement(words)
+    if where == "cpu":
         return unpack_bits_plain(words, n)
     w2 = _rows(words, "words", (torch.int32,))
     R, W = w2.shape
     bits = torch.empty((R, n), dtype=torch.uint8, device=words.device)
-    if R and n:
+    dispatch.count_work("unpack_bits", 0, dispatch.nbytes(w2, bits))
+    if where == "cuda" and R and n:
         build.launch("unpack_bits", w2.data_ptr(), bits.data_ptr(), R, W, n,
                      _aligned(bits, n), dispatch.stream(w2))
         dispatch.LAUNCHES["unpack_bits"] += 1

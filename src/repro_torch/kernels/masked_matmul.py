@@ -32,9 +32,13 @@ pre-materialized weights) and with the taps flipped (dL/dx).
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (`*_plain`, from `kernels.ref`), a CUDA tensor launches the kernel or
-raises.  Nothing falls back.  Each launch adds one to
-`dispatch.LAUNCHES[name]`, so a run can show that it went through the
-kernels.  Each wrapper runs inside `dispatch.kernel_boundary`, so the op
+raises, a meta tensor gets an empty meta result of the kernel's output
+shape and type (the dry run's shape-only path).  Nothing falls back.
+Each launch adds one to `dispatch.LAUNCHES[name]`, so a run can show
+that it went through the kernels; on the card and on meta each call
+states its flops and bytes (`dispatch.count_work`): 2 M K N for kernels
+1-2 and 5-6 (times E), the same plus EPILOGUE_FLOPS a score for 3 and 7,
+2 W B S C for 8 and 9 (plus the epilogue), none for 4.  Each wrapper runs inside `dispatch.kernel_boundary`, so the op
 walker (`analysis.op_lint`) sees a call as one opaque op.
 
 The dense kernels take bf16 x/g, or f32 x/g where the reference feeds an
@@ -101,6 +105,12 @@ _MODES = {"sample": 0, "threshold": 1, "plain": 2}
 _EPILOGUES = {"ste": 0, "dw": 1}
 _ACTS = (torch.bfloat16, torch.float32)   # activation types built for
 _SCORES = (torch.float32, torch.bfloat16)  # score types of kernels 1-9
+
+
+# flops an element of the ds epilogue (kernels 3, 7, 9): sigmoid'(s) =
+# sigma * (1 - sigma) from the sigmoid (exp, add, divide), and the
+# products with w and with the correlation
+EPILOGUE_FLOPS = 7
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -553,7 +563,8 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
                   tau=0.5):
     """x: (M, K); w, s: (K, N) -> (M, N) in x.dtype."""
     mode = _mask_mode(mode)
-    if dispatch.on_cpu(x, w, s):
+    where = dispatch.placement(x, w, s)
+    if where == "cpu":
         return masked_matmul_plain(x, w, s, seed, off, n_logical, mode, tau)
     M, K = x.shape
     N = w.shape[1]
@@ -561,7 +572,9 @@ def masked_matmul(x, w, s, seed, off=0, *, n_logical=None, mode="sample",
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", _SCORES, (K, N))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M and N:
+    dispatch.count_work("masked_matmul_fwd", 2 * M * K * N,
+                        dispatch.nbytes(x, w, s, y))
+    if where == "cuda" and M and N:
         build.launch("masked_matmul_fwd", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), y.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
@@ -577,7 +590,8 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
                      mode="sample", tau=0.5):
     """g: (M, N); w, s: (K, N) -> dx = g @ (m * w)^T : (M, K) in g.dtype."""
     mode = _mask_mode(mode)
-    if dispatch.on_cpu(g, w, s):
+    where = dispatch.placement(g, w, s)
+    if where == "cpu":
         return masked_matmul_dx_plain(g, w, s, seed, off, n_logical, mode,
                                       tau)
     M, N = g.shape
@@ -586,7 +600,9 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", _SCORES, (K, N))
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    if M and K:
+    dispatch.count_work("masked_matmul_dx", 2 * M * K * N,
+                        dispatch.nbytes(g, w, s, dx))
+    if where == "cuda" and M and K:
         build.launch("masked_matmul_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), dx.data_ptr(), M, K, N, _u32(seed),
                      _u32(off), _u32(N if n_logical is None else n_logical),
@@ -600,7 +616,8 @@ def masked_matmul_dx(g, w, s, seed, off=0, *, n_logical=None,
 @dispatch.kernel_boundary("masked_matmul_ds")
 def masked_matmul_ds(x, g, w, s):
     """x: (M, K); g: (M, N); w, s: (K, N) -> ds : (K, N) in s.dtype."""
-    if dispatch.on_cpu(x, g, w, s):
+    where = dispatch.placement(x, g, w, s)
+    if where == "cpu":
         return masked_matmul_ds_plain(x, g, w, s)
     M, K = x.shape
     N = g.shape[1]
@@ -609,7 +626,10 @@ def masked_matmul_ds(x, g, w, s):
     _require(w, "w", torch.bfloat16, (K, N))
     _require(s, "s", _SCORES, (K, N))
     ds = torch.empty((K, N), dtype=s.dtype, device=s.device)
-    if K and N:
+    dispatch.count_work("masked_matmul_ds",
+                        2 * M * K * N + EPILOGUE_FLOPS * K * N,
+                        dispatch.nbytes(x, g, w, s, ds))
+    if where == "cuda" and K and N:
         build.launch("masked_matmul_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), M, K, N,
                      _f32(x), _sbf16(s),
@@ -625,15 +645,17 @@ def sample_and_pack(s, seeds, mode="sample", tau=0.5):
     tensor) -> (C, ceil(n/32)) int32 words holding the uint32 bit
     patterns; bits past n are zero."""
     mode = _mask_mode(mode)
+    where = dispatch.placement(s)
     seeds = torch.as_tensor([_u32(v) for v in seeds], dtype=torch.int64,
-                            device=s.device)
-    if dispatch.on_cpu(s):
+                            device="cpu" if where == "meta" else s.device)
+    if where == "cpu":
         return sample_and_pack_plain(s, seeds, mode, tau)
     C, n = s.shape
     _require(s, "s", _SCORES, (C, n))
     words = torch.empty((C, (n + 31) // 32), dtype=torch.int32,
                         device=s.device)
-    if C and n:
+    dispatch.count_work("sample_and_pack", 0, dispatch.nbytes(s, words))
+    if where == "cuda" and C and n:
         seeds32 = _i32_bits(seeds)
         plan = sap_plan(C, n, card_sms(s.device.index),
                         aligned=s.data_ptr() % 16 == 0,
@@ -657,7 +679,8 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     E = x.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
-    if dispatch.on_cpu(x, w, s):
+    where = dispatch.placement(x, w, s)
+    if where == "cpu":
         return masked_matmul_grouped_plain(x, w, s, seeds, offs, n_logical,
                                            mode, tau)
     _, M, K = x.shape
@@ -666,7 +689,9 @@ def masked_matmul_grouped(x, w, s, seeds, offs, *, n_logical=None,
     _require(w, "w", torch.bfloat16, (E, K, N))
     _require(s, "s", _SCORES, (E, K, N))
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
-    if E and M and N:
+    dispatch.count_work("masked_matmul_grouped", 2 * E * M * K * N,
+                        dispatch.nbytes(x, w, s, y))
+    if where == "cuda" and E and M and N:
         coords = _group_coords(seeds, offs, x.device)
         build.launch("masked_matmul_grouped", x.data_ptr(), w.data_ptr(),
                      s.data_ptr(), coords[0].data_ptr(),
@@ -689,7 +714,8 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     E = g.shape[0]
     seeds = _group_u32(seeds, E, "seeds")
     offs = _group_u32(offs, E, "offs")
-    if dispatch.on_cpu(g, w, s):
+    where = dispatch.placement(g, w, s)
+    if where == "cpu":
         return masked_matmul_grouped_dx_plain(g, w, s, seeds, offs,
                                               n_logical, mode, tau)
     _, M, N = g.shape
@@ -698,7 +724,9 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
     _require(w, "w", torch.bfloat16, (E, K, N))
     _require(s, "s", _SCORES, (E, K, N))
     dx = torch.empty((E, M, K), dtype=g.dtype, device=g.device)
-    if E and M and K:
+    dispatch.count_work("masked_matmul_grouped_dx", 2 * E * M * K * N,
+                        dispatch.nbytes(g, w, s, dx))
+    if where == "cuda" and E and M and K:
         coords = _group_coords(seeds, offs, g.device)
         build.launch("masked_matmul_grouped_dx", g.data_ptr(), w.data_ptr(),
                      s.data_ptr(), coords[0].data_ptr(),
@@ -716,7 +744,8 @@ def masked_matmul_grouped_dx(g, w, s, seeds, offs, *, n_logical=None,
 def masked_matmul_grouped_ds(x, g, w, s):
     """x: (E, M, K); g: (E, M, N); w, s: (E, K, N) -> ds : (E, K, N) in
     s.dtype."""
-    if dispatch.on_cpu(x, g, w, s):
+    where = dispatch.placement(x, g, w, s)
+    if where == "cpu":
         return masked_matmul_grouped_ds_plain(x, g, w, s)
     E, M, K = x.shape
     N = g.shape[2]
@@ -725,7 +754,10 @@ def masked_matmul_grouped_ds(x, g, w, s):
     _require(w, "w", torch.bfloat16, (E, K, N))
     _require(s, "s", _SCORES, (E, K, N))
     ds = torch.empty((E, K, N), dtype=s.dtype, device=s.device)
-    if E and K and N:
+    dispatch.count_work("masked_matmul_grouped_ds",
+                        2 * E * M * K * N + EPILOGUE_FLOPS * E * K * N,
+                        dispatch.nbytes(x, g, w, s, ds))
+    if where == "cuda" and E and K and N:
         build.launch("masked_matmul_grouped_ds", x.data_ptr(), g.data_ptr(),
                      w.data_ptr(), s.data_ptr(), ds.data_ptr(), E, M, K, N,
                      _sbf16(s), *_ds_args(x, g, w, s, ds, E, M, K, N),
@@ -745,7 +777,8 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     if mode not in _MODES:
         raise ValueError(f"conv mode {mode!r}: sample, threshold or plain")
     plain = mode == "plain"
-    if dispatch.on_cpu(x, w, *(() if plain else (s,))):
+    where = dispatch.placement(x, w, *(() if plain else (s,)))
+    if where == "cpu":
         return masked_conv1d_plain(x, w, s, seed, off, mode, tau, n_logical,
                                    flip)
     B, S, C = x.shape
@@ -755,7 +788,9 @@ def masked_conv1d(x, w, s, seed=0, off=0, *, n_logical=None, mode="sample",
     if not plain:
         _require(s, "s", _SCORES, (W, C))
     y = torch.empty((B, S, C), dtype=torch.float32, device=x.device)
-    if B and S and C:
+    dispatch.count_work("masked_conv1d", 2 * W * B * S * C,
+                        dispatch.nbytes(x, w, None if plain else s, y))
+    if where == "cuda" and B and S and C:
         vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (y, 0)) == 3)
         build.launch("masked_conv1d", x.data_ptr(), w.data_ptr(),
                      0 if plain else s.data_ptr(), y.data_ptr(), B, S, C, W,
@@ -777,7 +812,8 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r}: ste or dw")
     dw = epilogue == "dw"
-    if dispatch.on_cpu(x, g, w, *(() if dw else (s,))):
+    where = dispatch.placement(x, g, w, *(() if dw else (s,)))
+    if where == "cpu":
         return masked_conv1d_ds_plain(x, g, w, s, epilogue)
     B, S, C = x.shape
     W = w.shape[0]
@@ -788,7 +824,10 @@ def masked_conv1d_ds(x, g, w, s, *, epilogue="ste"):
         _require(s, "s", _SCORES, (W, C))
     ds = torch.empty((W, C), dtype=torch.float32 if dw else s.dtype,
                      device=x.device)
-    if C:
+    dispatch.count_work("masked_conv1d_ds", 2 * W * B * S * C
+                        + (0 if dw else EPILOGUE_FLOPS * W * C),
+                        dispatch.nbytes(x, g, w, None if dw else s, ds))
+    if where == "cuda" and C:
         plan = conv_ds_plan(B, S, C)
         vec = int(C % CONV_QUAD == 0 and _grid_flags((x, 0), (g, 0)) == 3)
         build.launch("masked_conv1d_ds", x.data_ptr(), g.data_ptr(),

@@ -63,15 +63,34 @@ def init(device: str = "cuda", *, store=None, rank: Optional[int] = None,
     return dev
 
 
+def init_dry(world_size: int, rank: int = 0) -> None:
+    """Start torch's stand-in process group for the dry run
+    (`launch.dryrun`): the "fake" backend over a `FakeStore`, this
+    process joining as `rank` of `world_size`.  Every collective on it
+    returns at once and moves no data (an all-reduce leaves its buffer as
+    it was, an all-gather's output holds no peer's rows), so a round on it
+    shows one rank's shapes, bytes, collective sites and memory, never an
+    exchange.  `FakeStore` lives in `torch.testing._internal`, whose
+    interface torch does not promise; it is imported here only.  Start it
+    once per process world size (`dist.destroy_process_group()` ends it);
+    `init` ("cuda", "cpu") never gives way to it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 class Mesh:
     """A named grid of the process group's ranks.
 
     `shape` maps axis name -> size (the reference mesh's `.shape`),
     `ranks` is the rank grid, `coords` this rank's index on each axis and
-    `device` its device.  A process group is made for each axis tuple a
-    collective of the port uses ("pod": the round's exchange; the client
-    axes: the mask means; every axis: the round's bit total), every rank
-    making them in the same order at construction, as NCCL requires:
+    `device` its device (the caller's when given; else the current card
+    under NCCL and the CPU under any other backend, so a dry run over
+    the stand-in group names its card here).  A process group is made
+    for each axis tuple a collective of the port uses ("pod": the
+    round's exchange; the client axes: the mask means; every axis: the
+    round's bit total), every rank making them in the same order at
+    construction, as NCCL requires:
     `group(axes)` is the group of the ranks that share this rank's
     coordinates off those axes, its members ordered row-major over them
     (pod-major for ("pod", "data"))."""
@@ -153,10 +172,11 @@ class Mesh:
         return dev
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[torch.device] = None) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes)
+    return Mesh(shape, axes, device=device)
 
 
 def make_debug_mesh(n_data: int = 1, n_model: int = 1) -> Mesh:
@@ -165,7 +185,8 @@ def make_debug_mesh(n_data: int = 1, n_model: int = 1) -> Mesh:
 
 
 def make_debug_pod_mesh(n_pod: int = 0, n_data: int = 0,
-                        n_model: int = 0) -> Mesh:
+                        n_model: int = 0,
+                        device: Optional[torch.device] = None) -> Mesh:
     """Smallest mesh with all three production axes (the pod axis is what
     gives the round step its cross-cohort collectives).  With no
     arguments, the largest of (2,2,2) / (2,2,1) / (2,1,1) / (1,1,1) that
@@ -176,7 +197,8 @@ def make_debug_pod_mesh(n_pod: int = 0, n_data: int = 0,
         n_pod, n_data, n_model = ((2, 2, 2) if n >= 8 else
                                   (2, 2, 1) if n >= 4 else
                                   (2, 1, 1) if n >= 2 else (1, 1, 1))
-    return Mesh((n_pod, n_data, n_model), ("pod", "data", "model"))
+    return Mesh((n_pod, n_data, n_model), ("pod", "data", "model"),
+                device=device)
 
 
 def client_axes(mesh) -> tuple:

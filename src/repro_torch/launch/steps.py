@@ -28,6 +28,9 @@ mask stream is keyed by.
 * `make_fedavg_step` — the float reference (`--algo fedavg`): one plain
   autograd step of the float params with f32 momentum, no masks and no
   kernel of the port.
+* `make_serve_step` — one decode token of the deployed artifact:
+  `api.decode_step` itself (the dry run's decode cells and the serving
+  example run it).
 * `make_multi_serve_step` — the lockstep serving step: one vmapped
   decode over B slots, each with its own frozen tree, cache, token and
   position.
@@ -641,8 +644,17 @@ def make_fedavg_step(api, cfg: StepConfig):
 
 
 # ---------------------------------------------------------------------------
-# Lockstep serving: one vmapped decode over slots
+# Serving: one decode token (the deployed artifact), and lockstep slots
 # ---------------------------------------------------------------------------
+
+
+def make_serve_step(api):
+    """(params, cache, token, pos) -> (logits f32 (B, V), cache): one
+    decode token through `api.decode_step`, which writes the token's
+    cache entries in place."""
+    def serve_step(params, cache, token, pos):
+        return api.decode_step(params, cache, token, pos)
+    return serve_step
 
 
 def make_multi_serve_step(api):

@@ -192,7 +192,8 @@ def apply_mrope(x, positions3, sections=(16, 24, 24), theta=10000.0):
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))               # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                      # (half,)
     pos = positions3.index_select(0, sec_id)                   # (half, B, S)
     ang = pos.movedim(0, -1).float() * freqs                   # (B, S, half)
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]

@@ -123,19 +123,31 @@ def test_unpack_rejects_n_beyond_words():
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
-    """A tensor that is not on the CPU goes to the kernel or raises; the
-    plain versions are only ever called with CPU tensors."""
+    """A tensor that is not on the CPU goes to the kernel or raises, or,
+    on the meta device, gets an empty meta result of the kernel's shape
+    and launches nothing; the plain versions are only ever called with
+    CPU tensors."""
     calls = []
     monkeypatch.setattr(bitpack, "pack_bits_plain",
                         lambda b: calls.append(b.device))
     monkeypatch.setattr(bitpack, "unpack_bits_plain",
                         lambda w, n: calls.append(w.device))
+    dispatch.reset_launch_counts()
+    words = bitpack.pack_bits(torch.zeros(64, dtype=torch.uint8,
+                                          device="meta"))
+    assert (words.device.type, tuple(words.shape), words.dtype) == (
+        "meta", (2,), torch.int32)
+    bits = bitpack.unpack_bits(torch.zeros(2, dtype=torch.int32,
+                                           device="meta"), 64)
+    assert (bits.device.type, tuple(bits.shape), bits.dtype) == (
+        "meta", (64,), torch.uint8)
     with pytest.raises((RuntimeError, ValueError)):
-        bitpack.pack_bits(torch.zeros(64, dtype=torch.uint8, device="meta"))
+        bitpack.pack_bits(torch.zeros(64, dtype=torch.float32,
+                                      device="meta"))
     with pytest.raises((RuntimeError, ValueError)):
-        bitpack.unpack_bits(torch.zeros(2, dtype=torch.int32, device="meta"),
+        bitpack.unpack_bits(torch.zeros(2, dtype=torch.int64, device="meta"),
                             64)
-    assert calls == []
+    assert calls == [] and not any(dispatch.LAUNCHES.values())
     bitpack.pack_bits(torch.zeros(64, dtype=torch.uint8))
     bitpack.unpack_bits(torch.zeros(2, dtype=torch.int32), 64)
     assert calls == [torch.device("cpu")] * 2

@@ -73,7 +73,15 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          "repro_torch.analysis.collective_lint",
          "repro_torch.analysis.shard_lint",
          "repro_torch.analysis.source_lint",
-         "repro_torch.tools.repro_lint")
+         "repro_torch.tools.repro_lint",
+         # the multi-pod dry run, the shape cells it reads, and the four
+         # examples
+         "repro_torch.launch.dryrun", "repro_torch.configs.base",
+         "repro_torch.kernels.dispatch", "repro_torch.examples.__init__",
+         "repro_torch.examples.quickstart",
+         "repro_torch.examples.serve_masked",
+         "repro_torch.examples.train_lm_masked",
+         "repro_torch.examples.fault_tolerance_demo")
 
 
 def test_slice_modules_import_with_jax_and_repro_blocked():
