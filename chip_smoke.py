@@ -32,7 +32,14 @@ Phases (any failure exits non-zero and prints no result line):
    The masked matmul at the decode's M = 1, 2, 4, 8 rows: bf16 x at
    internlm2's and gemma3-4b's leaf shapes, f32 x at recurrentgemma's
    4096 x 4096;
-4. time each kernel, its plain version and a PyTorch call computing the
+4. kernels 1-3 on a rank's column block of each internlm2 leaf (the
+   partitioned train step's, `launch.partition`): a 16-way column
+   block from the middle of the leaf, n_logical = N at offset c0: the
+   block leaf's masks equal the full leaf's columns bit for bit,
+   kernels 1-2's one-hot probes on the block equal their probes on the
+   full leaf, y, dx and ds within their bounds of the plain versions,
+   each block launch timed by graph replay beside the full launch; and
+   time each kernel, its plain version and a PyTorch call computing the
    same function on the pre-masked weight (the library yardstick; none
    packs bits) with CUDA events (kernels 1-3, the tensor-core bodies,
    and 8-9 by CUDA-graph replay, their per-call times and an empty
@@ -183,10 +190,18 @@ Phases (any failure exits non-zero and prints no result line):
    seconds, the collectives' bytes and device ms, peak memory; both
    rounds' collectives recorded (`analysis.comm_model`): the packed wire
    pure at 1 bit a parameter and cohort, the baseline impure, a bitpack
-   round's uplink bits equal to its meter, the shard lint clean; (g) the
-   analysis engines: the op walker over one full-width internlm2-1.8b
-   train step and the three aligned check configs (no weight-shaped f32
-   value or mask outside the kernels, no f64, every leaf in place), the
+   round's uplink bits equal to its meter, the shard lint clean; then 4
+   partitioned train steps (`steps.make_train_step(api, cfg, mesh,
+   state_sh)`, the launcher's configuration and batches) on the rank's
+   block beside 4 `mesh=None` steps, one state on the card at a time:
+   on one card every score, moment and float digest and every loss
+   equal, kernels 1-3 once a projection, layer, cohort and step, the
+   first step's collectives recorded (gathers over "data" and "model",
+   the dx all-reduce over "model", the ds reduce-scatter over "data"),
+   the seconds of both and their peaks; (g) the analysis engines: the op
+   walker over one full-width internlm2-1.8b train step and the three
+   aligned check configs (no weight-shaped f32 value or mask outside
+   the kernels, no f64, every leaf in place), the
    walked and bare step seconds and the peak memory, and the stream
    cover over every arch at full size on the (2, 16, 16) grid's 512
    shards (findings only on the leaves past the uint32 index); (h) the
@@ -194,9 +209,13 @@ Phases (any failure exits non-zero and prints no result line):
    cuda`, in processes side by side, each rank 0 of torch's stand-in
    process group): every arch's train_4k cell on the (2, 16, 16) mesh
    (the mask-stream gate over 512 shards, the train step's flops on meta
-   tensors, the round run on rank 0's block on the card with its
-   collectives recorded: wire purity, the comm model, the uplink bits
-   against the bitpack meter, kernels 4 and 11 once a masked leaf),
+   tensors and, for the six archs the partitioned step runs, rank 0's
+   partitioned step on meta blocks with its collectives recorded: every
+   kind over its axis present, internlm2-1.8b's kernel 1-2 flops a
+   512th of the global step's; the round run on rank 0's block on the
+   card with its collectives recorded: wire purity, the comm model,
+   the uplink bits against the bitpack meter, kernels 4 and 11 once a
+   masked leaf),
    internlm2-1.8b's train_4k on (16, 16), its prefill_32k and
    decode_32k, and its unpacked round (a purity finding a leaf, 16 bits
    a parameter); (i) the four examples (`repro_torch.examples`:
@@ -211,6 +230,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last two lines are a JSON object per kernel and
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -402,6 +422,17 @@ def mask_exact(torch, got, want, u, theta, what):
     return n
 
 
+def close_bf16(a, b, what):
+    """A bf16 kernel output against its plain version: f32 sums in another
+    order, then a bf16 cast, so within one bf16 ulp (plus 1e-4 of the
+    largest value); returns the largest difference."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
+          f"{what}: max |diff| {float(d.max())}")
+    return float(d.max())
+
+
 def kernel_phase(torch, mm, ref, dev):
     """Kernels vs plain versions at the main path's shapes; returns
     {kernel: max_abs_err} (sample_and_pack: differing bits)."""
@@ -415,14 +446,6 @@ def kernel_phase(torch, mm, ref, dev):
         s = 2 * torch.randn(k, n, generator=gen, device=dev)
         g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
         return x, w, s, g
-
-    def close_bf16(a, b, what):
-        # f32 sums in another order, then a bf16 cast: one bf16 ulp
-        a, b = a.float(), b.float()
-        d = (a - b).abs()
-        check(bool((d <= BF16_RTOL * b.abs() + 1e-4 * b.abs().max()).all()),
-              f"{what}: max |diff| {float(d.max())}")
-        return float(d.max())
 
     shapes = sorted(set(LAYER_SHAPES.values()))
     for (K, N) in shapes + [RAGGED[1:]]:
@@ -791,6 +814,118 @@ def timing_phase(torch, mm, ref, dev):
     del x, w, s, g, wm
     torch.cuda.empty_cache()
     return res, per_shape
+
+
+# the partitioned train step's column blocks (`launch.partition`): each
+# internlm2 leaf cut to a 16-way column block over "model", the 9th, in
+# the middle of the leaf
+BLOCK_SPLIT, BLOCK_AT = 16, 8
+
+
+def block_kernel_phase(torch, mm, ref, dev):
+    """Kernels 1-3 on a rank's column block of each internlm2 leaf (M =
+    256): columns c0 .. c0 + N/16 of the leaf, launched with n_logical = N
+    at stream offset c0.  The block leaf's masks (`effective_weight`)
+    equal the full leaf's columns bit for bit; kernels 1 and 2 read the
+    full leaf's masks, their one-hot probes on the block equal to their
+    probes on the full leaf's columns bit for bit (and to the plain masks
+    but for boundary flips, `mask_exact`); y, dx and ds within the
+    kernels' bounds of their plain versions on random operands.  Each
+    block launch is timed by CUDA-graph replay beside the full leaf's
+    launch.  Returns ({kernel: max abs err}, {kernel: {leaf: (block ms,
+    full ms, block bound ms)}})."""
+    import numpy as np
+    from repro_torch.core import masking
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(41)
+    names = ("masked_matmul_fwd", "masked_matmul_dx", "masked_matmul_ds")
+    err = dict.fromkeys(names, 0.0)
+    rows = {k: {} for k in names}
+    seed = 1234
+
+    for name, (K, N) in LAYER_SHAPES.items():
+        nl = N // BLOCK_SPLIT
+        c0, c1 = BLOCK_AT * nl, (BLOCK_AT + 1) * nl
+        w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(K, N, generator=gen, device=dev)
+        wb, sb = w[:, c0:c1].contiguous(), s[:, c0:c1].contiguous()
+        tag = f"block {name} K={K} N={N} cols {c0}..{c1}"
+        full = layers.effective_weight(masking.MaskedLeaf(
+            w, s, np.uint32(seed), np.uint32(0))).detach()
+        blk = layers.effective_weight(masking.MaskedLeaf(
+            wb, sb, np.uint32(seed), np.uint32(c0), n_logical=N)).detach()
+        check(torch.equal(blk, full[:, c0:c1]), f"{tag}: the block leaf's "
+              f"masks differ from the full leaf's columns")
+        # one-hot probes: rows ks of m*w through kernel 1, columns ns
+        # through kernel 2, on the block and on the full leaf
+        ks = torch.arange(M, device=dev) * (K // M)
+        ns = torch.arange(M, device=dev) % nl
+        px = torch.zeros(M, K, device=dev, dtype=torch.bfloat16)
+        px[torch.arange(M, device=dev), ks] = 1
+        y = mm.masked_matmul(px, wb, sb, seed, c0, n_logical=N)
+        check(torch.equal(y, mm.masked_matmul(px, w, s, seed, 0)[:, c0:c1]),
+              f"{tag}: kernel 1's block probe differs from its full probe")
+        u = ref.hash_uniform(ref.flat_index(K, N, 0, N, dev), seed)
+        theta = torch.sigmoid(s)
+        nf = mask_exact(torch, y != 0, blk[ks] != 0, u[ks, c0:c1],
+                        theta[ks, c0:c1], "fwd " + tag)
+        check(nf or torch.equal(y, blk[ks]), f"{tag}: kernel 1's probe")
+        pg = torch.zeros(M, nl, device=dev, dtype=torch.bfloat16)
+        pg[torch.arange(M, device=dev), ns] = 1
+        pf = torch.zeros(M, N, device=dev, dtype=torch.bfloat16)
+        pf[:, c0:c1] = pg
+        dx = mm.masked_matmul_dx(pg, wb, sb, seed, c0, n_logical=N)
+        check(torch.equal(dx, mm.masked_matmul_dx(pf, w, s, seed, 0)),
+              f"{tag}: kernel 2's block probe differs from its full probe")
+        nd = mask_exact(torch, dx.T != 0, blk[:, ns] != 0, u[:, c0 + ns],
+                        theta[:, c0 + ns], "dx " + tag)
+        check(nd or torch.equal(dx.T, blk[:, ns]), f"{tag}: kernel 2's probe")
+        # random operands against the plain versions
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(M, nl, generator=gen, device=dev).to(torch.bfloat16)
+        err["masked_matmul_fwd"] = max(err["masked_matmul_fwd"], close_bf16(
+            mm.masked_matmul(x, wb, sb, seed, c0, n_logical=N),
+            ref.masked_matmul(x, wb, sb, seed, c0, N), "fwd " + tag))
+        err["masked_matmul_dx"] = max(err["masked_matmul_dx"], close_bf16(
+            mm.masked_matmul_dx(g, wb, sb, seed, c0, n_logical=N),
+            ref.masked_matmul_dx(g, wb, sb, seed, c0, N), "dx " + tag))
+        ds = mm.masked_matmul_ds(x, g, wb, sb)
+        want = ref.masked_matmul_ds(x, g, wb, sb)
+        check(bool(torch.allclose(ds, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max()))),
+              f"ds {tag}: max |diff| {float((ds - want).abs().max())}")
+        err["masked_matmul_ds"] = max(err["masked_matmul_ds"],
+                                      float((ds - want).abs().max()))
+        gf = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+        t = graph_ms(torch, [
+            lambda: mm.masked_matmul(x, wb, sb, seed, c0, n_logical=N),
+            lambda: mm.masked_matmul(x, w, s, seed, 0),
+            lambda: mm.masked_matmul_dx(g, wb, sb, seed, c0, n_logical=N),
+            lambda: mm.masked_matmul_dx(gf, w, s, seed, 0),
+            lambda: mm.masked_matmul_ds(x, g, wb, sb),
+            lambda: mm.masked_matmul_ds(x, gf, w, s)], 20)
+        cost = {"masked_matmul_fwd": 2 * M * K + 6 * K * nl + 2 * M * nl,
+                "masked_matmul_dx": 2 * M * nl + 6 * K * nl + 2 * M * K,
+                "masked_matmul_ds": 2 * M * K + 2 * M * nl + 10 * K * nl}
+        for j, k in enumerate(names):
+            rows[k][name] = (t[2 * j], t[2 * j + 1],
+                             bound(cost[k], 2 * M * K * nl)[0])
+        del w, s, wb, sb, full, blk, x, g, gf, px, pg, pf, u, theta
+        torch.cuda.empty_cache()
+    print(f"block phase (kernels 1-3 on column block {BLOCK_AT} of "
+          f"{BLOCK_SPLIT} of each internlm2 leaf, n_logical = N, off = c0, "
+          f"M = {M}; graph replay, ms): block / full / full over "
+          f"{BLOCK_SPLIT} / block bound; the block's masks equal the full "
+          f"leaf's columns, kernels 1-2's block probes their full probes")
+    for k in names:
+        for leaf, (tb, tf, bb) in rows[k].items():
+            print(f"  {k:18s} {leaf:7s} {tb:9.4f} {tf:9.4f} "
+                  f"{tf / BLOCK_SPLIT:9.4f} {bb:9.4f}")
+        tb, tf = (sum(r[i] for r in rows[k].values()) for i in (0, 1))
+        print(f"  {k:18s} layer   {tb:9.4f} {tf:9.4f} "
+              f"{tf / BLOCK_SPLIT:9.4f} "
+              f"{sum(r[2] for r in rows[k].values()):9.4f}")
+    return err, rows
 
 
 def grouped_timing_phase(torch, mm, ref, dev, score_dtype=None):
@@ -3843,8 +3978,10 @@ RUNTIME_CFG = dict(quorum_frac=0.8, deadline_rounds=2, max_staleness=3)
 TREE_K, TREE_FANOUT = 8, 2
 TREE_FAULTS = dict(crash_prob=0.1, corrupt_prob=0.1, agg_crash_prob=0.3,
                    agg_partition_prob=0.15)
-# the kill-and-resume cell: internlm2-1.8b at full width cut to 4 layers
-CHAOS_LAYERS, CHAOS_STEPS, CHAOS_EVERY = 4, 6, 2
+# the kill-and-resume cell: internlm2-1.8b at full width cut to 2 layers
+# (its four launcher processes and their checkpoints are the script's
+# longest phase)
+CHAOS_LAYERS, CHAOS_STEPS, CHAOS_EVERY = 2, 6, 2
 CHAOS_ARGV = ["--device", "cuda", "--arch", "internlm2-1.8b", "--full-size",
               "--layers", str(CHAOS_LAYERS), "--steps", str(CHAOS_STEPS),
               "--round-every", str(CHAOS_EVERY), "--cohorts", str(COHORTS),
@@ -3930,7 +4067,7 @@ def checkpoint_phase(torch, dev):
 
 def kill_resume_phase(torch, dispatch):
     """(b) `python -m repro_torch.tools.chaos_smoke` on the card:
-    internlm2-1.8b at full width cut to 4 layers, fedpm_reg, 6 steps, a
+    internlm2-1.8b at full width cut to 2 layers, fedpm_reg, 6 steps, a
     round every 2, --fail-prob 0.3 --tree-fanout 1 --agg-fault-prob 0.3,
     --ckpt-dir: an uninterrupted run, one SIGKILLed after its first
     durable round, its resumption (every later loss, round metric and
@@ -3987,6 +4124,7 @@ def kill_resume_phase(torch, dispatch):
 # configuration): internlm2-1.8b at full size, 2 cohorts
 MESH_ARGV = ["--arch", "internlm2-1.8b", "--cohorts", str(COHORTS)]
 MESH_TIMEOUT = 300            # seconds a rank may take
+MESH_STEPS = 4                # partitioned train steps before the round
 DIGEST_PIECE = 1 << 26
 
 
@@ -4057,8 +4195,10 @@ def mesh_rank(rank, world, store, out_path):
     """One rank of `mesh_phase`: NCCL on card `rank`.  The host-global
     state is drawn once from the launcher's seed (on the card, then moved
     to the host), cohort c's float rows
-    shifted by c (at init every cohort's rows are the same, and a mean
-    over cohorts could not be told from a row kept).  From it: (1) the
+    shifted by c in their own type (at init every cohort's rows are the
+    same, and a mean over cohorts could not be told from a row kept; the
+    bf16 tables stay bf16, so the train steps see the launcher's bf16
+    activations).  From it: (1) the
     plain (`mesh=None`) round on the whole state placed on the card,
     digests of this rank's blocks; (2) the mesh round through
     `repro_torch.launch.mesh_round.run` on this rank's block, its
@@ -4067,17 +4207,26 @@ def mesh_rank(rank, world, store, out_path):
     call: its cost model and wire purity; (3) the unpacked bf16 baseline
     likewise; (4) a bitpack-codec round's comm model against its meter,
     and the shard lint's declared vs held; (5) `mask_mean_packed` with
-    kernel 10 against its plain version on one internlm2 layer's masks.
+    kernel 10 against its plain version on one internlm2 layer's masks;
+    (6) MESH_STEPS partitioned train steps (`make_train_step(api, cfg,
+    mesh, state_sh)`, the launcher's configuration and batches) on this
+    rank's block beside MESH_STEPS `mesh=None` steps on the whole state,
+    one after the other: losses, seconds, peak memory, launches, digests,
+    the first partitioned step's collectives, and one more step of each
+    under torch.profiler (wall, device busy, collective calls).
     Writes a JSON of what it found; raises on any failed check."""
     import torch
     import torch.distributed as dist
     from repro_torch.analysis import collective_lint, comm_model, shard_lint
     from repro_torch.core import aggregation, tree
     from repro_torch.kernels import bitpack, dispatch
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import mesh_round
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps as steplib
     from repro_torch.runtime import elastic
+    from torch.profiler import ProfilerActivity, profile
     dev = meshlib.init("cuda", store=dist.FileStore(store, world), rank=rank,
                        world_size=world)
     try:
@@ -4091,6 +4240,9 @@ def mesh_rank(rank, world, store, out_path):
                                     mesh.group("pod"))
         dist.all_reduce(torch.zeros(1, device=dev),
                         group=mesh.group(mesh.axis_names))
+        for axes in (("data",), ("model",), ("pod", "data")):
+            dist.all_reduce(torch.zeros(1, device=dev),
+                            group=mesh.group(axes))
         # and one SMOKE round loads the round's kernels, so no round
         # below pays a first call's costs
         mesh_round.run(mesh_round.parse_args(MESH_ARGV + ["--smoke"]), mesh)
@@ -4101,9 +4253,9 @@ def mesh_rank(rank, world, store, out_path):
                                             draw_device=dev)
         torch.cuda.empty_cache()
         host["floats"] = tree.tree_map(
-            lambda t: None if t is None else t + torch.arange(
-                float(COHORTS)).view((-1,) + (1,) * (t.ndim - 1)),
-            host["floats"])
+            lambda t: None if t is None else (t + torch.arange(
+                float(COHORTS)).view((-1,) + (1,) * (t.ndim - 1))).to(
+                    t.dtype), host["floats"])
         res["draw_s"] = time.perf_counter() - t0
         sh = steplib.fed_state_shardings(host, mesh)
         start = elastic.reshard_server(host["floats"], sh["floats"])
@@ -4153,6 +4305,65 @@ def mesh_rank(rank, world, store, out_path):
                                         sites, host, sh, mesh)]
             del out, log, sites
             torch.cuda.empty_cache()
+        # (6) the partitioned train step (`launch.partition`): MESH_STEPS
+        # steps of the launcher's configuration and batches on this
+        # rank's block against mesh=None from the same start, one state on
+        # the card at a time (two do not fit beside the activations), held
+        # by digests; the first partitioned step's collectives recorded
+        targs = mesh_round.parse_args(MESH_ARGV + ["--steps",
+                                                   str(MESH_STEPS)])
+        tcfg = mesh_round.step_config(targs)
+        batches = [mesh_round.step_batch(targs, api, i, dev)
+                   for i in range(MESH_STEPS)]
+        rows = shd.NamedSharding(mesh, shd.P("pod", "data"))
+        for tag in ("train_plain", "train_mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            part = tag == "train_mesh"
+            st = elastic.reshard_server(host, sh if part else dev)
+            fn = (steplib.make_train_step(api, tcfg, mesh, sh) if part
+                  else steplib.make_train_step(api, tcfg))
+            dispatch.reset_launch_counts()
+            losses, secs, log = [], [], []
+            for i, b in enumerate(batches):
+                if part:
+                    b = {k: rows.local(v) for k, v in b.items()}
+                rec = (comm_model.record_collectives(
+                    mesh, run=_wire_log(torch, log)) if part and i == 0
+                    else contextlib.nullcontext([]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with rec as sites:
+                    st, m = fn(st, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                if sites:
+                    res["train_sites"] = len(sites)
+                    res["train_axes"] = dryrun.collective_axes(sites)
+                    res["train_wire"] = _wire_totals(log, mesh)
+            res[f"{tag}_launches"] = dict(dispatch.LAUNCHES)
+            res[f"{tag}_losses"], res[f"{tag}_s"] = losses, secs
+            res[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res[tag] = state_digests(torch, st, None if part else sh)
+            # one more step under torch.profiler, after the digests: its
+            # wall ms, the device's busy ms and the collective calls
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                st, m = fn(st, b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ka = prof.key_averages()
+            res[f"{tag}_profile"] = [
+                wall * 1e3,
+                sum(e.self_device_time_total for e in ka
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3,
+                sum(e.count for e in ka if e.key.startswith("c10d::"))]
+            del st, fn, m, prof, ka
+        del batches
+        torch.cuda.empty_cache()
+
         # the comm model's uplink bits against the bits the round meters
         # under the bitpack codec, and declared vs held on the placed
         # state (its contents at 4096 positions a leaf)
@@ -4249,6 +4460,24 @@ def mesh_phase(torch, dispatch):
               f"launches {x['mean_launches']}, expected {want}")
         check(x["mean_equal"] and x["words_equal"], f"mask_mean_packed on "
               f"kernel 10 differs from its plain version on rank {r}")
+        # the partitioned train steps: kernels 1-3 once a projection, layer,
+        # local cohort and step, nothing else
+        want = {k: 0 for k in dispatch.KERNELS}
+        n = N_LAYERS * leaves * (COHORTS // x["shape"]["pod"]) * MESH_STEPS
+        want.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                    masked_matmul_ds=n)
+        check(x["train_mesh_launches"] == want, f"partitioned train steps "
+              f"rank {r} launched {x['train_mesh_launches']}, expected "
+              f"{want}")
+        check(len(set(x["train_mesh_losses"])) == MESH_STEPS and all(
+            math.isfinite(v) for v in x["train_mesh_losses"]),
+              f"rank {r}: partitioned losses {x['train_mesh_losses']}")
+        for kind, axes in (("all-gather", "data"), ("all-gather", "model"),
+                           ("all-reduce", "model"),
+                           ("reduce-scatter", "data")):
+            check(x["train_axes"].get(f"{kind} {axes}", 0) > 0,
+                  f"rank {r}: no {kind} over {axes} in the partitioned "
+                  f"step: {x['train_axes']}")
         check(x["unpacked"]["scores"] == x["mesh"]["scores"],
               f"rank {r}: the unpacked theta differs from the packed one")
         if world == 1:
@@ -4264,6 +4493,14 @@ def mesh_phase(torch, dispatch):
             check(x["mesh_metrics"] == x["plain_metrics"],
                   f"mesh metrics {x['mesh_metrics']} differ from "
                   f"mesh=None's {x['plain_metrics']}")
+            # one rank holds every block: the partitioned steps are the
+            # mesh=None steps bit for bit
+            check(x["train_mesh"] == x["train_plain"], "the partitioned "
+                  "train steps' scores, moments or floats differ from "
+                  "mesh=None's")
+            check(x["train_mesh_losses"] == x["train_plain_losses"],
+                  f"partitioned losses {x['train_mesh_losses']} against "
+                  f"mesh=None's {x['train_plain_losses']}")
         # the recorded rounds: the packed wire clean and at 1 bit a
         # parameter and cohort (plus word padding: <= 32 bits a leaf,
         # cohort and shard), the bf16 baseline firing once a mask leaf at
@@ -4297,7 +4534,8 @@ def mesh_phase(torch, dispatch):
         check(x["shard_findings"] == [], f"rank {r}: shard lint "
               f"{x['shard_findings']}")
         for k in launches:
-            launches[k] += x["mesh_launches"][k] + x["mean_launches"][k]
+            launches[k] += (x["mesh_launches"][k] + x["mean_launches"][k]
+                            + x["train_mesh_launches"][k])
     check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
                for x in res}) == 1, "ranks disagree on bits_measured")
     x = res[0]
@@ -4318,6 +4556,25 @@ def mesh_phase(torch, dispatch):
           f"mesh=None's and floats the start's rows (mesh=None's their "
           f"mean): {world == 1}; unpacked theta equal to packed; "
           f"kernel 10 in mask_mean_packed equal to its plain version")
+    steady = lambda ts: sum(ts[1:]) / (len(ts) - 1)
+    print(f"mesh phase, partitioned train steps (internlm2-1.8b, "
+          f"{COHORTS} cohorts, batch 2 x 128, {MESH_STEPS} steps): "
+          f"partitioned {_fmt(x['train_mesh_s'])} s (steps 2-{MESH_STEPS} "
+          f"{steady(x['train_mesh_s']):.4f} s a step), mesh=None "
+          f"{_fmt(x['train_plain_s'])} s ({steady(x['train_plain_s']):.4f}"
+          f" s); overhead {steady(x['train_mesh_s']) / steady(x['train_plain_s']) - 1:+.2%}; peak "
+          f"{x['train_mesh_peak_gib']:.2f} GiB against "
+          f"{x['train_plain_peak_gib']:.2f}; losses {x['train_mesh_losses']}"
+          f" (mesh=None {x['train_plain_losses']}); digests equal: "
+          f"{x['train_mesh'] == x['train_plain']}; the first step's "
+          f"{x['train_sites']} collectives, bytes by kind and axes "
+          f"{json.dumps(x['train_axes'])}, calls {json.dumps(x['train_wire'])}")
+    pm, pp = x["train_mesh_profile"], x["train_plain_profile"]
+    print(f"mesh phase, one more step under torch.profiler: partitioned "
+          f"wall {pm[0]:.1f} ms, device busy {pm[1]:.1f} ms "
+          f"({100 * pm[1] / pm[0]:.1f}%), {pm[2]} collective calls; "
+          f"mesh=None wall {pp[0]:.1f} ms, device busy {pp[1]:.1f} ms "
+          f"({100 * pp[1] / pp[0]:.1f}%), {pp[2]} collective calls")
     print(f"mesh phase, recorded rounds (analysis.comm_model): packed "
           f"{json.dumps(x['mesh_comm'])}, sites {x['mesh_roles']}; "
           f"unpacked {json.dumps(x['unpacked_comm'])}, purity findings "
@@ -4495,6 +4752,8 @@ def dryrun_cell_check(key, res, unpacked):
     """The checks of `dryrun_phase` on one cell's result (a value of the
     dry run's --out JSON); prints its lines and returns the round's
     launches ({} for a prefill or decode cell)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition
     check(res["ok"], f"dry run {key}: {res.get('error')}")
     arch, shape, mesh = key.split("|")
     n_dev = DRYRUN_DEVICES[mesh]
@@ -4514,6 +4773,27 @@ def dryrun_cell_check(key, res, unpacked):
                   for k, r in res.items() if k.endswith("_step")),
               f"dry run {key}: {res}")
         return {}
+    train = res.get("train_step")
+    if train is not None and get_config(arch).family in partition.FAMILIES:
+        # rank 0's block of the partitioned step: FSDP gathers over
+        # "data", the output gathers and dx all-reduces over "model", the
+        # ds reduce-scatters over "data"
+        axes = train["collective_axes"]
+        check(train["collective_bytes"] is not None and all(
+            axes.get(k, 0) > 0 for k in (
+                "all-gather data", "all-gather model", "all-reduce model",
+                "reduce-scatter data")), f"{key}: partitioned train step "
+              f"collectives {axes}")
+        ratio = {k: train["global_step"]["kernel_work"][k]["flops"]
+                 / train["kernel_work"][k]["flops"]
+                 for k in ("masked_matmul_fwd", "masked_matmul_dx")}
+        if arch == "internlm2-1.8b":           # every leaf divides
+            check(all(v == n_dev for v in ratio.values()), f"{key}: the "
+                  f"global step's kernel 1-2 flops over rank 0's {ratio}, "
+                  f"expected {n_dev}")
+        print(f"dry run {key} partitioned train step: {train['n_sites']} "
+              f"collectives, bytes by kind and axes {json.dumps(axes)}; "
+              f"global over rank 0 kernel 1-2 flops {ratio}")
     rnd = res["round_step"]
     cm = rnd["comm_model"]
     leaves = res["stream_cover"]["n_leaves"]
@@ -5043,6 +5323,9 @@ def main():
     p_timing, p_per_shape = bitpack_timing_phase(torch, bp, dev)
     timing.update(p_timing)
     per_shape.update(p_per_shape)
+    block_err, _ = block_kernel_phase(torch, mm, ref, dev)
+    for k, v in block_err.items():
+        err[k] = max(err[k], v)
     zoo_err, zoo_rows = zoo_kernel_phase(torch, mm, ref, dev)
     for k, v in zoo_err.items():
         err[k] = max(err[k], v)

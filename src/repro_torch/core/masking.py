@@ -222,6 +222,14 @@ def mask_stream_seed(step, dev, leaf_idx: int, cohort, run_seed=0) -> int:
     return (base + (int(cohort) & _M32) * 0x01000193) & _M32
 
 
+def stream_offsets(lead, K: int, N: int) -> np.ndarray:
+    """uint32 stream offsets b*K*N mod 2**32 of the (K, N) blocks of a
+    leaf of shape lead + (K, N), shaped `lead`."""
+    nblk = int(np.prod(lead, dtype=np.int64))
+    return ((np.arange(nblk, dtype=np.uint64) * np.uint64(K * N))
+            & np.uint64(_M32)).astype(np.uint32).reshape(tuple(lead))
+
+
 @dataclasses.dataclass
 class MaskedLeaf:
     """One maskable tensor on the fused path: frozen weights `w`, score
@@ -232,32 +240,41 @@ class MaskedLeaf:
     leading axis, so layer l of a stacked (L, E, K, N) expert leaf has the
     (E,) seeds and offsets (l*E + e)*K*N of one grouped launch.  `s` may
     also be a sequence of per-layer tensors (the train step makes each
-    layer's block its own autograd leaf)."""
+    layer's block its own autograd leaf).
+
+    `n_logical` is the row length of the stream the (K, N) blocks are
+    cut from: mask (row, col) of a block is drawn at off + row*n_logical
+    + col, so a block of columns c0.. of a wider leaf, with `off` moved
+    by c0, draws that leaf's masks bit for bit.  None: the block's own
+    N.  `layout`, when set, is a rank's placement of the leaf on a mesh
+    (`launch.partition.BlockLayout`): `w` and `s` are then the rank's
+    blocks, and `layers.masked_dense_apply` runs the layout's
+    partitioned product."""
     w: Any
     s: Any
     seed: Any
     off: Any
     mode: str = "sample"
     tau: float = 0.5
+    n_logical: Optional[int] = None
+    layout: Any = None
 
     @classmethod
     def build(cls, w, s, seed: int, mode: str = "sample", tau: float = 0.5):
         lead = tuple(w.shape[:-2])
         K, N = w.shape[-2:]
-        nblk = int(np.prod(lead, dtype=np.int64))
-        off = ((np.arange(nblk, dtype=np.uint64) * np.uint64(K * N))
-               & np.uint64(_M32)).astype(np.uint32).reshape(lead)
         seed = np.full(lead, int(seed) & _M32, dtype=np.uint32)
-        return cls(w, s, seed, off, mode, tau)
+        return cls(w, s, seed, stream_offsets(lead, K, N), mode, tau)
 
     def block(self, i: int) -> "MaskedLeaf":
         return MaskedLeaf(self.w[i], self.s[i], self.seed[i], self.off[i],
-                          self.mode, self.tau)
+                          self.mode, self.tau, self.n_logical, self.layout)
 
 
 def materialize_leaf(leaf: MaskedLeaf) -> torch.Tensor:
     """Effective weights m * w for a MaskedLeaf with the fused kernels'
-    masks (same stream, same offsets) and straight-through grads to s."""
+    masks (same stream, same offsets, the leaf's `n_logical`) and
+    straight-through grads to s."""
     K, N = leaf.w.shape[-2:]
     s = leaf.s if isinstance(leaf.s, torch.Tensor) else torch.stack(
         list(leaf.s))
@@ -268,8 +285,8 @@ def materialize_leaf(leaf: MaskedLeaf) -> torch.Tensor:
         dev = s.device
         off = torch.as_tensor(leaf.off.astype(np.int64), device=dev)
         seed = torch.as_tensor(leaf.seed.astype(np.int64), device=dev)
-        idx = off[..., None, None] + torch.arange(
-            K * N, dtype=torch.int64, device=dev).reshape(K, N)
+        idx = off[..., None, None] + kref.flat_index(
+            K, N, 0, N if leaf.n_logical is None else leaf.n_logical, dev)
         u = kref.hash_uniform(idx, seed[..., None, None])
         m = (u < theta).to(torch.uint8)
     return _STE.apply(theta, m).to(leaf.w.dtype) * leaf.w

@@ -49,37 +49,42 @@ from repro_torch.kernels import masked_matmul as mm
 
 class _MaskedDense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, s, seed, off, mode, tau):
+    def forward(ctx, x, w, s, seed, off, mode, tau, n_logical):
         K, N = w.shape
         x2 = x.reshape(-1, K).contiguous()
-        y = mm.masked_matmul(x2, w, s, seed, off, mode=mode, tau=tau)
+        y = mm.masked_matmul(x2, w, s, seed, off, n_logical=n_logical,
+                             mode=mode, tau=tau)
         ctx.save_for_backward(x2, w, s)
-        ctx.coords = (seed, off, mode, tau, x.shape)
+        ctx.coords = (seed, off, mode, tau, n_logical, x.shape)
         return y.reshape(*x.shape[:-1], N)
 
     @staticmethod
     def backward(ctx, g):
         x2, w, s = ctx.saved_tensors
-        seed, off, mode, tau, shape = ctx.coords
+        seed, off, mode, tau, n_logical, shape = ctx.coords
         g2 = g.reshape(-1, w.shape[1]).contiguous()
         dx = ds = None
         if ctx.needs_input_grad[0]:
-            dx = mm.masked_matmul_dx(g2, w, s, seed, off, mode=mode,
+            dx = mm.masked_matmul_dx(g2, w, s, seed, off, n_logical=n_logical,
+                                     mode=mode,
                                      tau=tau).reshape(shape).to(x2.dtype)
         if ctx.needs_input_grad[2]:
             ds = mm.masked_matmul_ds(x2, g2, w, s).to(s.dtype)
-        return dx, None, ds, None, None, None, None
+        return dx, None, ds, None, None, None, None, None
 
 
-def masked_dense(x, w, s, seed, off=0):
+def masked_dense(x, w, s, seed, off=0, n_logical=None):
     """y = x @ (bern(sigmoid(s); seed, off) * w), STE backward.
-    x: (..., K); w, s: (K, N); seed/off: uint32 ints."""
-    return _MaskedDense.apply(x, w, s, int(seed), int(off), "sample", 0.5)
+    x: (..., K); w, s: (K, N); seed/off: uint32 ints; mask (k, n) drawn
+    at off + k*n_logical + n (n_logical None: N), so a column block of a
+    wider leaf draws that leaf's masks."""
+    return _MaskedDense.apply(x, w, s, int(seed), int(off), "sample", 0.5,
+                              n_logical)
 
 
 def masked_dense_threshold(x, w, s, tau=0.5):
     """y = x @ (1[sigmoid(s) > tau] * w), STE backward (FedMask)."""
-    return _MaskedDense.apply(x, w, s, 0, 0, "threshold", float(tau))
+    return _MaskedDense.apply(x, w, s, 0, 0, "threshold", float(tau), None)
 
 
 class _MaskedDenseGrouped(torch.autograd.Function):

@@ -17,7 +17,13 @@ side of each cell instead:
   the state's shardings; the train step's flops under
   `torch.utils.flop_counter.FlopCounterMode` on meta tensors at the
   global shapes (the kernels state theirs, `kernels.dispatch`), and the
-  argument bytes of rank 0's block of state and batch; then the round
+  argument bytes of rank 0's block of state and batch.  For the
+  families the partitioned step runs (`partition.FAMILIES`) the step
+  runs partitioned (`steps.make_train_step(api, cfg, mesh, state_sh)`)
+  on rank 0's block as meta tensors at the local shapes, its collectives
+  recorded: the cell reports rank 0's flops, kernel work and collective
+  bytes (by kind, and by kind and mesh axes), the global step's beside
+  them under "global"; then the round
   step run once on rank 0's block of the state, drawn on `device` alone
   (the global state of deepseek-v2-236b is 4.2 TB), with its
   collectives recorded: wire purity, the static comm model, the
@@ -32,8 +38,8 @@ stand-in group an all-reduce leaves its buffer as it was and an
 all-gather brings no peer's rows, so theta and the scores after the
 round mean nothing.  Every result carries ``"peers": "fake"``.  Fields
 with no twin here are None: `generated_code_size`, and the collective
-bytes of the train, prefill and decode steps, which the port runs
-unpartitioned (the tensor-parallel steps are not ported yet).
+bytes of the steps the port runs unpartitioned: the train step of the
+moe, ssm and hybrid families, prefill and decode.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import tree as tu
 from repro_torch.kernels import dispatch
 from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import partition
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steplib
 from repro_torch.models import build_model
@@ -178,6 +185,25 @@ def collective_bytes(sites) -> dict:
     return out
 
 
+def collective_axes(sites) -> dict:
+    """Operand bytes of recorded sites by "kind axis x axis" (the
+    reference's kind names), sorted."""
+    out: dict = {}
+    for s in sites:
+        key = f"{HLO_KINDS.get(s.prim, s.prim)} {'x'.join(s.axes)}"
+        out[key] = out.get(key, 0) + s.bits // 8
+    return dict(sorted(out.items()))
+
+
+def local_meta(tree, shardings, mesh):
+    """This rank's block of each tensor of `tree` as a meta tensor (non
+    tensors as they are)."""
+    return tu.tree_map(
+        lambda t, sh: _meta(comm_model.shard_shape(tuple(t.shape), sh.spec,
+                                                   mesh), t.dtype)
+        if isinstance(t, torch.Tensor) else t, tree, shardings)
+
+
 def block_bytes(tree, shardings, mesh) -> list:
     """Bytes of this rank's block of each array of `tree` (meta or real
     tensors read for their global shapes), flatten order, None leaves
@@ -295,11 +321,12 @@ def _counting():
         yield fc, work
 
 
-def _meta_result(fc, work, arg_bytes) -> dict:
+def _meta_result(fc, work, arg_bytes, sites=None) -> dict:
     return {"flops": float(fc.get_total_flops()),
             "kernel_work": {k: dict(v) for k, v in sorted(work.items())},
             "bytes_accessed": None,
-            "collective_bytes": None,
+            "collective_bytes": (None if sites is None
+                                 else collective_bytes(sites)),
             "memory": {"argument_size": int(sum(arg_bytes)),
                        "output_size": None, "temp_size": None,
                        "generated_code_size": None}}
@@ -428,6 +455,19 @@ def cell(arch: str, shape_name: str, multi_pod: bool, *,
             with _whole_pieces(), _counting() as (fc, work):
                 fn(meta_state, batch)
             results["train_step"] = _meta_result(fc, work, arg)
+            if cfg.family in partition.FAMILIES:
+                glob = {k: results["train_step"][k]
+                        for k in ("flops", "kernel_work")}
+                fn = steplib.make_train_step(api, scfg, mesh, state_sh)
+                with _whole_pieces(), _counting() as (fc, work), \
+                        comm_model.record_collectives(mesh,
+                                                      check=True) as sites:
+                    fn(local_meta(state_shapes, state_sh, mesh),
+                       local_meta(batch, batch_sh, mesh))
+                results["train_step"] = dict(
+                    _meta_result(fc, work, arg, sites), global_step=glob,
+                    collective_axes=collective_axes(sites),
+                    n_sites=len(sites))
             results["train_step"]["seconds"] = time.perf_counter() - t1
         if step_kind in ("auto", "round"):
             t1 = time.perf_counter()

@@ -88,8 +88,10 @@ class Mesh:
     under NCCL and the CPU under any other backend, so a dry run over
     the stand-in group names its card here).  A process group is made
     for each axis tuple a collective of the port uses ("pod": the
-    round's exchange; the client axes: the mask means; every axis: the
-    round's bit total), every rank making them in the same order at
+    round's exchange; the client axes: the mask means and the train
+    step's loss; every axis: the round's bit total; "data" and "model":
+    the partitioned train step's gathers and reductions,
+    `launch.partition`), every rank making them in the same order at
     construction, as NCCL requires:
     `group(axes)` is the group of the ranks that share this rank's
     coordinates off those axes, its members ordered row-major over them
@@ -119,7 +121,8 @@ class Mesh:
                       if self.backend == "nccl" else torch.device("cpu"))
         self.device = device
         used = [("pod",) if "pod" in axis_names else (),
-                client_axes(self), axis_names]
+                client_axes(self), axis_names] + [
+                    (a,) for a in ("data", "model") if a in axis_names]
         self._groups = {}
         for axes in used:
             if axes and axes not in self._groups:

@@ -1,9 +1,10 @@
-"""A federated round on a mesh of ranks, one process a card: the paper's
-cross-pod mask exchange through `steps.make_round_step(api, cfg, mesh,
-state_sh)`.
+"""Partitioned train steps and a federated round on a mesh of ranks, one
+process a card: `steps.make_train_step(api, cfg, mesh, state_sh)` and
+the paper's cross-pod mask exchange through `steps.make_round_step(api,
+cfg, mesh, state_sh)`.
 
     torchrun --nproc_per_node=<cards> -m repro_torch.launch.mesh_round \\
-        --arch internlm2-1.8b --cohorts 2
+        --arch internlm2-1.8b --cohorts 2 [--steps 4]
 
 Each rank starts the process group from torchrun's environment
 (`mesh.init`: NCCL with the rank on its card; `--device cpu`: gloo) and
@@ -11,11 +12,16 @@ builds `mesh.make_debug_pod_mesh()` from the world size.  It draws the
 global fed state on the CPU from the launcher's seed (every rank the
 same state; the cohort axis is a broadcast view, so the host holds one
 cohort's tensors), places only its own block of it on its device
-(`steps.fed_state_shardings` -> `elastic.reshard_server`) and runs one
-round with the launcher's round configuration (the arithmetic codec, the
-8-bit downlink, seed 17); `--unpacked` runs the bf16 baseline.  Each
-rank prints one line: its mesh coordinates, the round's metrics and
-seconds.  `--cohorts` must be a multiple of the mesh's pod size.
+(`steps.fed_state_shardings` -> `elastic.reshard_server`), runs
+`--steps` partitioned train steps on it (`launch.partition`; the
+launcher's step configuration and batches: `BATCH` rows of `SEQ`
+tokens a cohort from its token stream, keyed by (seed, step), each rank
+taking its pod's cohorts and its "data" rows) and then one round with
+the launcher's round configuration (the arithmetic codec, the 8-bit
+downlink, seed 17); `--unpacked` runs the bf16 baseline.  Each rank
+prints one line: its mesh coordinates, the steps' losses, the round's
+metrics and seconds.  `--cohorts` must be a multiple of the mesh's pod
+size.
 """
 from __future__ import annotations
 
@@ -28,13 +34,18 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import masking
 from repro_torch.core import tree as tu
+from repro_torch.data import synthetic
 from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import plans
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steplib
 from repro_torch.models import build_model
-from repro_torch.runtime import elastic
+from repro_torch.runtime import elastic, fault
 
-# the launcher's round configuration (`launch.train`'s defaults)
-CODEC, DOWNLINK_BITS, SEED = "arithmetic", 8, 17
+# the launcher's step and round configuration (`launch.train`'s defaults)
+CODEC, DOWNLINK_BITS, SEED, LR = "arithmetic", 8, 17, 0.3
+BATCH, SEQ = 2, 128           # rows a cohort, tokens a row
+STREAM_TOKENS = 500_000       # the launcher's token stream
 
 
 def parse_args(argv=None):
@@ -46,12 +57,24 @@ def parse_args(argv=None):
     ap.add_argument("--unpacked", action="store_true",
                     help="the bf16 all-reduce baseline (16 bits a "
                          "parameter) instead of the packed all-gather")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="partitioned train steps before the round")
     return ap.parse_args(argv)
 
 
 def step_config(args) -> steplib.StepConfig:
-    return steplib.StepConfig(downlink_bits=DOWNLINK_BITS, seed=SEED,
+    return steplib.StepConfig(lr=LR, downlink_bits=DOWNLINK_BITS, seed=SEED,
                               packed_masks=not args.unpacked)
+
+
+def step_batch(args, api, step: int, device) -> dict:
+    """The launcher's global batch of train step `step`: (cohorts, batch,
+    seq) windows of its token stream at starts drawn from (seed, step)."""
+    toks = synthetic.make_lm_stream(SEED, STREAM_TOKENS, api.cfg.vocab,
+                                    device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(fault.counter_seed(SEED, step, fault.S_BATCH))
+    return plans._cohort_batch(args.cohorts)(gen, toks, BATCH, SEQ)
 
 
 def global_state(arch: str, cohorts: int, *, smoke: bool = False,
@@ -77,9 +100,11 @@ def global_state(arch: str, cohorts: int, *, smoke: bool = False,
 
 
 def run(args, mesh, start=None) -> dict:
-    """One mesh round on this rank's block of the state: {"state": the
-    rank's state after it, "metrics": {name: float}, "seconds": the
-    round's wall seconds, synchronized}.  `start` is `global_state(...)`
+    """`args.steps` partitioned train steps, then one mesh round, on this
+    rank's block of the state: {"state": the rank's state after them,
+    "losses": each step's global mean loss, "step_seconds": each step's
+    wall seconds, "metrics": the round's {name: float}, "seconds": the
+    round's wall seconds}, synchronized.  `start` is `global_state(...)`
     of the args' arch and cohorts (drawn here when not given); it is
     read, never written."""
     if args.cohorts % steplib.n_cohorts(mesh):
@@ -89,16 +114,30 @@ def run(args, mesh, start=None) -> dict:
         args.arch, args.cohorts, smoke=args.smoke)
     sh = steplib.fed_state_shardings(host, mesh)
     state = elastic.reshard_server(host, sh)
-    round_fn = steplib.make_round_step(api, step_config(args), mesh=mesh,
-                                       state_sh=sh, codec=CODEC)
     sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
             else lambda: None)
+    out = {"losses": [], "step_seconds": []}
+    if args.steps:
+        train = steplib.make_train_step(api, step_config(args), mesh=mesh,
+                                        state_sh=sh)
+        rows = shd.NamedSharding(mesh, shd.P("pod", "data"))
+        for i in range(args.steps):
+            batch = {k: rows.local(v) for k, v in step_batch(
+                args, api, i, mesh.device).items()}
+            sync()
+            t0 = time.perf_counter()
+            state, m = train(state, batch)
+            sync()
+            out["step_seconds"].append(time.perf_counter() - t0)
+            out["losses"].append(float(m["loss"]))
+    round_fn = steplib.make_round_step(api, step_config(args), mesh=mesh,
+                                       state_sh=sh, codec=CODEC)
     sync()
     t0 = time.perf_counter()
     state, m = round_fn(state)
     sync()
-    return {"state": state, "seconds": time.perf_counter() - t0,
-            "metrics": {k: float(v) for k, v in m.items()}}
+    return dict(out, state=state, seconds=time.perf_counter() - t0,
+                metrics={k: float(v) for k, v in m.items()})
 
 
 def main(argv=None) -> None:
@@ -107,7 +146,9 @@ def main(argv=None) -> None:
     try:
         mesh = meshlib.make_debug_pod_mesh()
         out = run(args, mesh)
-        print(f"rank {mesh.rank} {mesh.coords} {mesh.backend} round: "
+        print(f"rank {mesh.rank} {mesh.coords} {mesh.backend} "
+              + (f"losses {[round(x, 6) for x in out['losses']]} "
+                 if out["losses"] else "") + "round: "
               + " ".join(f"{k}={v:.6g}" for k, v in out["metrics"].items())
               + f" ({out['seconds']:.3f}s)", flush=True)
     finally:

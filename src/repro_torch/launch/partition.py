@@ -1,0 +1,332 @@
+"""The partitioned train step: the twin of what GSPMD does to the
+reference's train step when it is jitted with `in_shardings` =
+(`steps.fed_state_shardings`, the batch's shardings), as its dry run
+jits it, written out as collectives over the mesh's process groups.
+
+A rank holds its block of every leaf (`elastic.reshard_server`): a
+masked leaf's (K, N) layer blocks split by rows over "data" and by
+columns over "model" where they divide (`sharding.param_spec`), a float
+leaf's body likewise, the cohort axis on "pod".  Its batch is its block
+too: its pod's cohorts, its "data" rows, the same rows on every "model"
+rank.  The step is the global one, with the scheme applied where each
+leaf is used, so no model code changes:
+
+* A masked dense leaf (`BlockLayout.dense`, which
+  `layers.masked_dense_apply` runs for a leaf that carries it), a layer
+  block at a time: the block's w and s rows are all-gathered over "data"
+  (the FSDP gather) into the rank's (K, N/d_model) column block, and
+  kernel 1 runs on it at the leaf's stream offset moved by the block's
+  first column c0, with n_logical = N, so the block draws the global
+  leaf's masks bit for bit (the placed leaf carries the offset of its
+  own block, r0 rows and c0 columns in, and n_logical = N).  Its output
+  columns are all-gathered over "model", so every model rank holds the
+  whole activation of its rows.
+  Backward: the output gather's is a slice (what follows it is computed
+  alike on every "model" rank); kernel 2's partial dx is all-reduced over
+  "model"; kernel 3's ds of the column block is reduce-scattered over
+  "data" back to the rank's rows and divided by the data size (a
+  cohort's gradient is the mean of its data ranks').  A leaf whose K
+  does not split over "data" is held whole on every data rank and its ds
+  all-reduced there; one whose N does not split over "model" is computed
+  whole on every model rank.
+* A float leaf (`TrainPlan.gather_floats`: embedding tables, norm
+  scales, biases) is gathered whole over its sharded axes before the
+  forward.  Its gradient is sliced back to the block on "model" (not
+  summed: that compute is replicated), summed over "data"
+  (reduce-scattered where the block splits there, else all-reduced) and
+  divided by the data size.
+
+Every collective is a public `torch.distributed` tensor collective over
+a `Mesh.group`, inside an autograd Function, and none uses a float
+atomic, so `analysis.comm_model.record_collectives` sees them all.  A
+layer's gathered w and s are held by its kernel's autograd node until
+that layer's backward has run (they are kept, not gathered again).
+Collectives over an axis of size 1 still run (a copy), so one rank
+runs the scheme as many do.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import masking
+from repro_torch.core import tree as tu
+from repro_torch.core.masking import MaskedLeaf
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as meshlib
+
+# the families whose masked leaves are all 2-D dense blocks (kernels 1-3)
+FAMILIES = ("dense", "vlm", "encdec")
+_M32 = 0xFFFFFFFF
+
+
+def check_train(api, cfg) -> None:
+    """Raise NotImplementedError for what the partitioned train step does
+    not run: a family with grouped expert or conv leaves, microbatches
+    (the global step's chunks cut across data shards)."""
+    if api.cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the partitioned train step runs the families {FAMILIES}; "
+            f"{api.cfg.name} is {api.cfg.family!r}")
+    if cfg.microbatch > 1:
+        raise NotImplementedError(
+            "the partitioned train step runs microbatch = 1 only")
+
+
+# ---------------------------------------------------------------------------
+# collectives along a dim
+# ---------------------------------------------------------------------------
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The blocks `t` of every rank of `group` joined along `dim` in
+    group-rank order, contiguous: one `all_gather_into_tensor` along dim
+    0 (the name both PyTorch releases the port runs on have), then the
+    stack of blocks moved to `dim` (a copy unless `dim` is 0 or the group
+    one rank)."""
+    dim %= t.ndim
+    k = dist.get_world_size(group)
+    out = torch.empty((k * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", ".*all_gather_into_tensor",
+                                FutureWarning)
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.view((k,) + tuple(t.shape)).movedim(0, dim).flatten(
+        dim, dim + 1).contiguous()
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of `t` over `group`, this rank keeping its block along
+    `dim` (block j for group rank j): the blocks stacked along dim 0 (a
+    copy unless `dim` is 0 or the group one rank), then one
+    `reduce_scatter_tensor`."""
+    dim %= t.ndim
+    k = dist.get_world_size(group)
+    src = t.unflatten(dim, (k, t.shape[dim] // k)).movedim(dim, 0)
+    src = src.contiguous()
+    out = torch.empty(tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", ".*reduce_scatter_tensor",
+                                FutureWarning)
+        dist.reduce_scatter_tensor(out, src.flatten(0, 1), group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# placements and their autograd Functions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """How a rank's block of a leaf body becomes the tensor the global
+    step uses: all-gathered along each (dim, axis) of `gathers` in turn.
+    The gradient of that tensor comes back to the block (`reduce`)."""
+    mesh: Any
+    gathers: tuple
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        for dim, axis in self.gathers:
+            t = all_gather(t, self.mesh.group(axis), dim)
+        return t
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """The gathered tensor's gradient g, which every "model" rank holds
+        alike and each "data" rank holds for its own rows of the batch:
+        sliced to the block on "model" dims, summed over "data"
+        (reduce-scattered on a "data" dim, else all-reduced) and divided by
+        the data size; a fresh tensor."""
+        mesh = self.mesh
+        for dim, axis in self.gathers:
+            if axis == "model":
+                n = g.shape[dim] // mesh.shape["model"]
+                g = g.narrow(dim, mesh.coords["model"] * n, n)
+        data = [dim for dim, axis in self.gathers if axis == "data"]
+        if data:
+            g = reduce_scatter(g, mesh.group("data"), data[0])
+        else:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=mesh.group("data"))
+        return g.div_(mesh.shape["data"])
+
+
+class _Gathered(torch.autograd.Function):
+    """A block gathered by its `Placement`; backward: `Placement.reduce`."""
+
+    @staticmethod
+    def forward(ctx, t, placement):
+        ctx.placement = placement
+        out = placement.gather(t)
+        return t.view_as(t) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.placement.reduce(g), None
+
+
+class _ToModel(torch.autograd.Function):
+    """Forward: x as it is (every "model" rank holds it alike).  Backward:
+    the partial gradients of the ranks' column blocks all-reduced over
+    "model"."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """Forward: the ranks' output column blocks all-gathered over "model".
+    Backward: this rank's columns of the gradient (a slice: what follows
+    is computed alike on every "model" rank)."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank):
+        ctx.cols = (rank * y.shape[-1], y.shape[-1])
+        return all_gather(y, group, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, *ctx.cols), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """A rank's placement of one masked dense leaf: its layer blocks'
+    rows gathered over "data" by `rows` (or held whole), its own columns
+    the rank's N/d_model when `cols` (else all N)."""
+    mesh: Any
+    rows: Placement
+    cols: bool
+
+    def dense(self, x: torch.Tensor, p: MaskedLeaf) -> torch.Tensor:
+        """y = x @ (m * w) of the global leaf's layer block on this rank's
+        rows of the batch, every column, with the global masks: `p` is the
+        rank's block as `TrainPlan.place` gives it (its w, s and the
+        stream offset and row length that draw its own masks); the rows
+        gathered over "data" start `r0` rows above it on the stream."""
+        w = self.rows.gather(p.w)
+        s = _Gathered.apply(p.s, self.rows)
+        if self.cols:
+            model = self.mesh.group("model")
+            x = _ToModel.apply(x, model)
+        if p.mode == "threshold":
+            y = ops.masked_dense_threshold(x, w, s, p.tau)
+        else:
+            r0 = (self.mesh.coords["data"] * p.w.shape[-2]
+                  if self.rows.gathers else 0)
+            y = ops.masked_dense(x, w, s, int(p.seed),
+                                 (int(p.off) - r0 * p.n_logical) & _M32,
+                                 p.n_logical)
+        if self.cols:
+            y = _FromModel.apply(y, model, self.mesh.coords["model"])
+        return y
+
+
+# ---------------------------------------------------------------------------
+# the plan of one step
+# ---------------------------------------------------------------------------
+
+
+def _parts(spec, ndim: int, what: str) -> list:
+    """One mesh axis name or None a dim (an axis tuple is outside this
+    scheme)."""
+    parts = list(spec) + [None] * (ndim - len(spec))
+    if any(p is not None and not isinstance(p, str) for p in parts):
+        raise NotImplementedError(f"{what}: spec {spec} shards a dim over "
+                                  f"several axes")
+    return parts
+
+
+class TrainPlan:
+    """The partitioned train step's view of one rank's state: each masked
+    leaf's `BlockLayout`, the stream offsets of the rank's layer blocks
+    and the leaf's row length N, each float leaf's
+    `Placement`, the global score count a cohort (the entropy proxy's n)
+    and the rank's first global cohort.  Built from the rank's blocks and
+    the state's shardings; raises NotImplementedError for a leaf this
+    scheme does not place (a sharded stack axis, an expert leaf)."""
+
+    def __init__(self, mesh, state, state_sh):
+        self.mesh = mesh
+        self.layouts, self.n_scores = {}, 0
+        for i, (s, sh, wsh) in enumerate(zip(
+                tu.leaves(state["scores"]), tu.leaves(state_sh["scores"]),
+                tu.leaves(state_sh["weights"]))):
+            if s is None:
+                continue
+            g = sh.global_shape(tuple(s.shape))
+            parts = _parts(sh.spec, len(g), f"scores leaf {i}")
+            if parts[1:] != _parts(wsh.spec, len(g) - 1, f"weights leaf {i}"):
+                raise NotImplementedError(
+                    f"leaf {i}: scores {sh.spec} and weights {wsh.spec} are "
+                    f"placed apart")
+            if (any(parts[1:-2]) or parts[-2] not in (None, "data")
+                    or parts[-1] not in (None, "model")):
+                raise NotImplementedError(
+                    f"leaf {i} of shape {g}: spec {sh.spec} is not a (K, N) "
+                    f"block over (\"data\", \"model\")")
+            K, N = g[-2:]
+            cols = parts[-1] == "model"
+            # the rank's block starts at row r0, column c0 of each layer's
+            c0 = mesh.coords["model"] * s.shape[-1] if cols else 0
+            r0 = mesh.coords["data"] * s.shape[-2] if parts[-2] else 0
+            rows = Placement(mesh, ((0, "data"),) if parts[-2] else ())
+            off = ((masking.stream_offsets(g[1:-2], K, N).astype(np.uint64)
+                    + np.uint64(r0 * N + c0)) & np.uint64(_M32))
+            self.layouts[i] = (BlockLayout(mesh, rows, cols),
+                               off.astype(np.uint32), N)
+            self.n_scores += math.prod(g[1:])
+        self.floats = []
+        for i, (f, sh) in enumerate(zip(tu.leaves(state["floats"]),
+                                        tu.leaves(state_sh["floats"]))):
+            if f is None:
+                self.floats.append(None)
+                continue
+            parts = _parts(sh.spec, f.ndim, f"floats leaf {i}")
+            self.floats.append(Placement(mesh, tuple(
+                (d - 1, a) for d, a in enumerate(parts) if d and a)))
+        self.clients = mesh.group(meshlib.client_axes(mesh))
+        self.n_clients = math.prod(mesh.shape[a]
+                                   for a in meshlib.client_axes(mesh))
+
+    def first_cohort(self, local: int) -> int:
+        """The global index of this rank's first cohort (cohorts on
+        "pod")."""
+        return self.mesh.coords.get("pod", 0) * local
+
+    def gather_floats(self, floats: Any) -> Any:
+        """A cohort's float leaves (the rank's blocks) gathered whole,
+        through autograd."""
+        flat, tdef = tu.flatten(floats)
+        return tu.unflatten(tdef, [
+            None if f is None else _Gathered.apply(f, pl)
+            for f, pl in zip(flat, self.floats)])
+
+    def place(self, i: int, leaf: MaskedLeaf) -> MaskedLeaf:
+        """Masked leaf `i` of a forward tree built on the rank's blocks,
+        given this rank's layout and the offsets and row length at which
+        its blocks draw the global leaf's masks (so `materialize_leaf` of
+        it is the global leaf's block too)."""
+        layout, off, n = self.layouts[i]
+        return dataclasses.replace(leaf, off=off, n_logical=n, layout=layout)
+
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of every client rank's mean loss (all-reduced over the
+        client axes): the global mean, alike on every rank."""
+        loss = loss.clone()
+        dist.all_reduce(loss, group=self.clients)
+        return loss / self.n_clients

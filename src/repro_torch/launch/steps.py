@@ -1,6 +1,6 @@
 """The federated train and round steps (the reference's
-`repro.launch.steps`), on one device or, for the round, on a mesh of
-ranks (`launch.mesh`).
+`repro.launch.steps`), on one device or on a mesh of ranks
+(`launch.mesh`).
 
 State layout as in the reference: `scores`, `floats`, `opt_m` (and
 `opt_v` for adam) carry a leading cohort axis C; the frozen `weights`
@@ -11,6 +11,8 @@ mask stream is keyed by.
   the fused path: the forward consumes a `masked_forward_tree`, every
   masked projection runs the masked-matmul kernels, and scores get the
   straight-through gradient plus lam times the eq. 12 entropy proxy's.
+  On a mesh each rank updates its block (`launch.partition`: FSDP
+  gathers over "data", kernels 1-3 on column blocks over "model").
   `StepConfig.microbatch` = M splits each cohort's batch into M
   contiguous chunks, one mask-stream tick each (step * M + j), and
   averages their gradients in f32; `chunk_kv` chunks attention over its
@@ -55,6 +57,7 @@ from repro_torch.core import aggregation, masking, regularizer
 from repro_torch.core import tree as tu
 from repro_torch.core.masking import MaskedLeaf, MaskedParams
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import partition
 from repro_torch.launch import sharding as shd
 
 Pytree = Any
@@ -251,7 +254,7 @@ def _update_low(cfg, g, s, m, v, bc, g_low: bool):
                 / (torch.sqrt(v.float() / bc[1]) + cfg.adam_eps))
 
 
-def make_train_step(api, cfg: StepConfig):
+def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
     """(state, batch) -> (state, {"loss"}); batch["tokens"]: (C, B, S)
     (and any other (C, B, ...) entries the family reads).  With
     `cfg.microbatch` = M > 1 each cohort's batch runs as M contiguous
@@ -259,25 +262,45 @@ def make_train_step(api, cfg: StepConfig):
     the score and float gradients are summed over the chunks in f32 and
     divided by M (f32 scores sum in their `.grad`, bf16 ones in an f32
     buffer a block), the loss is the chunks' mean, and the entropy
-    proxy's gradient is added once to the mean."""
+    proxy's gradient is added once to the mean.
+
+    With a `launch.mesh.Mesh` and the state's shardings `state_sh`
+    (`fed_state_shardings`; both or neither), `state` is this rank's
+    block of the global state (`runtime.elastic.reshard_server`) and
+    `batch` its block of the global batch (its pod's cohorts, its "data"
+    rows, alike on every "model" rank); the step runs the global step's
+    semantics partitioned (`launch.partition`), updates the blocks in
+    place and returns the global mean loss on every rank.  Cohort c of
+    the rank keys its mask stream by its global index, the proxy's n is
+    the global score count a cohort, and each cohort's gradient is the
+    mean of its data ranks'.  The dense, vlm and encdec families only,
+    at microbatch 1 (others raise NotImplementedError)."""
     b1, b2 = ADAM_BETAS
     M = cfg.microbatch
+    if (mesh is None) != (state_sh is None):
+        raise ValueError("make_train_step: give both mesh and state_sh, "
+                         "or neither")
+    if mesh is not None:
+        partition.check_train(api, cfg)
 
-    def cohort_update(state, c, batch_c):
+    def cohort_update(state, c, cohort, batch_c, plan):
         step = state["step"]
         scores_c = tu.tree_map(lambda s: None if s is None else s[c],
                                state["scores"])
         floats_c = tu.tree_map(
             lambda f: None if f is None else
             f[c].detach().requires_grad_(), state["floats"])
-        mp = MaskedParams(state["weights"], scores_c, floats_c)
+        mp = MaskedParams(state["weights"], scores_c,
+                          floats_c if plan is None
+                          else plan.gather_floats(floats_c))
         grad_s = [None if s is None else _grad_blocks(s)
                   for s in tu.leaves(scores_c)]
         blocks = [b for g in grad_s if g is not None
                   for b in ([g] if isinstance(g, torch.Tensor) else g)]
         dev = blocks[0].device
         # d(lam * (1/n) sum sigmoid(s)) / ds = (lam / n) sigmoid'(s)
-        n = sum(b.numel() for b in blocks)
+        n = (sum(b.numel() for b in blocks) if plan is None
+             else plan.n_scores)
         coef = (torch.tensor(cfg.lam, dtype=torch.float32) /
                 torch.tensor(float(n), dtype=torch.float32)).to(dev)
         B = next(iter(batch_c.values())).shape[0]
@@ -291,12 +314,13 @@ def make_train_step(api, cfg: StepConfig):
         for j in range(M):
             tick = step * M + j
             params = masking.masked_forward_tree(
-                mp, lambda i: masking.mask_stream_seed(tick, 0, i, c,
+                mp, lambda i: masking.mask_stream_seed(tick, 0, i, cohort,
                                                        run_seed=cfg.seed),
                 mode=cfg.mask_mode, tau=cfg.tau)
             flat, tdef = tu.flatten(params)
             params = tu.unflatten(tdef, [
-                dataclasses.replace(p, s=grad_s[i])
+                dataclasses.replace(p if plan is None else plan.place(i, p),
+                                    s=grad_s[i])
                 if isinstance(p, MaskedLeaf) else p
                 for i, p in enumerate(flat)])
             chunk = batch_c if M == 1 else {
@@ -372,14 +396,23 @@ def make_train_step(api, cfg: StepConfig):
                 f.grad = None
         return loss_sum / M if M > 1 else loss_sum
 
+    plan = None     # on a mesh: the rank's TrainPlan, built on the first call
+
     def train_step(state, batch):
+        nonlocal plan
         _check_score_dtype(state, cfg)
         C = next(s for s in tu.leaves(state["scores"]) if s is not None
                  ).shape[0]
-        losses = [cohort_update(state, c, {k: v[c] for k, v in batch.items()})
+        if mesh is not None and plan is None:
+            plan = partition.TrainPlan(mesh, state, state_sh)
+        first = 0 if plan is None else plan.first_cohort(C)
+        losses = [cohort_update(state, c, first + c,
+                                {k: v[c] for k, v in batch.items()}, plan)
                   for c in range(C)]
         state["step"] += 1
-        return state, {"loss": torch.stack(losses).mean()}
+        loss = torch.stack(losses).mean()
+        return state, {"loss": loss if plan is None
+                       else plan.mean_loss(loss)}
 
     return train_step
 

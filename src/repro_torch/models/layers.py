@@ -28,11 +28,15 @@ DEFAULT_DTYPE = torch.bfloat16
 
 
 def masked_dense_apply(x: torch.Tensor, p) -> torch.Tensor:
-    """y = x @ w_eff for a plain weight or a `MaskedLeaf` block."""
+    """y = x @ w_eff for a plain weight or a `MaskedLeaf` block (a rank's
+    block on a mesh: its layout's partitioned product)."""
     if isinstance(p, MaskedLeaf):
+        if p.layout is not None:
+            return p.layout.dense(x, p)
         if p.mode == "threshold":
             return ops.masked_dense_threshold(x, p.w, p.s, p.tau)
-        return ops.masked_dense(x, p.w, p.s, int(p.seed), int(p.off))
+        return ops.masked_dense(x, p.w, p.s, int(p.seed), int(p.off),
+                                p.n_logical)
     # JAX's promotion: an f32 activation times a bf16 weight is f32
     dt = torch.promote_types(x.dtype, p.dtype)
     return x.to(dt) @ p.to(dt)

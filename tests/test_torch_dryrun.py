@@ -325,8 +325,15 @@ def test_round_cell_comm_model_equals_the_reference(runs):
     slack = 32 * 7 * 256 / rnd["mask_params"]
     assert 1.0 <= rnd["comm_model"]["bpp_wire"] <= 1.0 + slack
     assert port["cell"]["stream_cover"]["ok"]
-    assert port["cell"]["train_step"]["collective_bytes"] is None
-    assert port["cell"]["train_step"]["flops"] > 0
+    # the train step runs partitioned on rank 0's block: its collectives
+    # recorded, kernels 1 and 2 a 512th of the global step's flops
+    train = port["cell"]["train_step"]
+    assert set(train["collective_bytes"]) == {
+        "all-gather", "all-reduce", "reduce-scatter", "total"}
+    assert train["flops"] > 0
+    for k in ("masked_matmul_fwd", "masked_matmul_dx"):
+        assert train["kernel_work"][k]["flops"] * 512 == \
+            train["global_step"]["kernel_work"][k]["flops"]
     assert rnd["memory"]["generated_code_size"] is None
 
 

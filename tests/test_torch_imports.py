@@ -65,6 +65,8 @@ SLICE = ("repro_torch.optim.optimizers", "repro_torch.data.partition",
          # torchrun entry point
          "repro_torch.launch.mesh", "repro_torch.launch.sharding",
          "repro_torch.launch.mesh_round",
+         # the partitioned train step
+         "repro_torch.launch.partition",
          # the analysis engines and their command line (the package's
          # __init__ by its file, as the loop below finds each module)
          "repro_torch.analysis.__init__", "repro_torch.analysis.report",

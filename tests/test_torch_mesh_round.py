@@ -690,7 +690,7 @@ def test_world_of_one_equals_the_plain_round(tmp_path):
                             x, torch.Tensor) else x == y, (name, key)
             assert all(torch.equal(ma[k], mb[k]) for k in ma), name
         with pytest.raises(ValueError):        # no collective spans it
-            mesh.group("model")
+            mesh.group(("pod", "model"))
         # the entry point's round from a start whose cohorts' float rows
         # differ: the pod-only float mean keeps each row, the rest is the
         # plain round's
