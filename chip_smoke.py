@@ -928,6 +928,69 @@ def block_kernel_phase(torch, mm, ref, dev):
     return err, rows
 
 
+def grouped_block_checks(torch, mm, ref, dev):
+    """Kernels 5-6 on a column block of deepseek-v2-lite's experts (E =
+    8, M = CAP; the partitioned step's fallback where E does not split
+    over "model"): columns c0 .. c0 + N/16 of each expert, launched with
+    n_logical = N at each group's offset moved by c0.  One-hot probes on
+    the block equal the full launch's columns (kernel 5) and its rows
+    (kernel 6) bit for bit; y and dx on random operands within the f32
+    bound of their plain versions.  Returns {kernel: max abs err}."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    names = ("masked_matmul_grouped", "masked_matmul_grouped_dx")
+    err = dict.fromkeys(names, 0.0)
+    E = 8
+    for K, N in sorted(set(EXPERT_SHAPES.values())):
+        nl = N // BLOCK_SPLIT
+        c0, c1 = BLOCK_AT * nl, (BLOCK_AT + 1) * nl
+        w = torch.randn(E, K, N, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(E, K, N, generator=gen, device=dev)
+        wb, sb = w[..., c0:c1].contiguous(), s[..., c0:c1].contiguous()
+        seeds = [0x5EED0000 + e for e in range(E)]
+        offs = [((2 * N_EXPERTS + e) * K * N) & M32 for e in range(E)]
+        boffs = [(o + c0) & M32 for o in offs]
+        tag = f"grouped block E={E} K={K} N={N} cols {c0}..{c1}"
+        r = min(CAP, K, nl)
+        px = torch.zeros(E, r, K, device=dev)
+        px[:, :, :r] = torch.eye(r, device=dev)
+        y = mm.masked_matmul_grouped(px, wb, sb, seeds, boffs, n_logical=N)
+        check(torch.equal(y, mm.masked_matmul_grouped(
+            px, w, s, seeds, offs)[..., c0:c1]), f"{tag}: kernel 5's block "
+              f"probe differs from its full probe")
+        pg = torch.zeros(E, r, nl, device=dev)
+        pg[:, :, :r] = torch.eye(r, device=dev)
+        pf = torch.zeros(E, r, N, device=dev)
+        pf[..., c0:c1] = pg
+        check(torch.equal(
+            mm.masked_matmul_grouped_dx(pg, wb, sb, seeds, boffs,
+                                        n_logical=N),
+            mm.masked_matmul_grouped_dx(pf, w, s, seeds, offs)),
+              f"{tag}: kernel 6's block probe differs from its full probe")
+        x = torch.randn(E, CAP, K, generator=gen, device=dev)
+        g = torch.randn(E, CAP, nl, generator=gen, device=dev)
+        for name, got, want in (
+                (names[0],
+                 mm.masked_matmul_grouped(x, wb, sb, seeds, boffs,
+                                          n_logical=N),
+                 ref.masked_matmul_grouped(x, wb, sb, seeds, boffs, N)),
+                (names[1],
+                 mm.masked_matmul_grouped_dx(g, wb, sb, seeds, boffs,
+                                             n_logical=N),
+                 ref.masked_matmul_grouped_dx(g, wb, sb, seeds, boffs, N))):
+            d = float((got - want).abs().max())
+            check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5
+                                      * float(want.abs().max()))),
+                  f"{name} {tag}: max |diff| {d}")
+            err[name] = max(err[name], d)
+        del w, s, wb, sb, px, pg, pf, x, g, y
+        torch.cuda.empty_cache()
+    print(f"grouped block checks (kernels 5-6 on column block {BLOCK_AT} "
+          f"of {BLOCK_SPLIT} of each deepseek-v2-lite expert, E = {E}, M = "
+          f"{CAP}, n_logical = N): probes equal the full launch's, max abs "
+          f"err {json.dumps(err)}")
+    return err
+
+
 def grouped_timing_phase(torch, mm, ref, dev, score_dtype=None):
     """Per-MoE-layer (3 expert projections, one cohort) times of the
     grouped kernels at E = 64, M = 30: kernel, plain version and the
@@ -4191,6 +4254,136 @@ def _wire_totals(log, mesh):
     return out
 
 
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def moe_config():
+    """deepseek-v2-lite-16b at full width cut to MOE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                               n_layers=MOE_LAYERS)
+
+
+def moe_expert_sites(cfg, tokens, shape, cohorts):
+    """The collectives a MoE layer's expert layout issues on one rank in
+    one partitioned train step (`partition.ExpertLayout.moe`), as
+    `dryrun.collective_operands` keys them ({"kind axes dtype":
+    {elements: calls}}), with the cohort's capacity and its slots (the
+    capacity padded to a multiple of d_data).  `tokens`: a cohort's
+    tokens on the rank; `shape`: the mesh's axis sizes; `cohorts`: the
+    rank's cohorts.  Per MoE layer and cohort: the router logits
+    gathered over "data" and their gradient reduce-scattered; the slots
+    reduce-scattered over "data" forward and gathered backward; the
+    experts' outputs gathered over "data" forward (reduce-scattered
+    backward) and over "model"; each expert leaf's w (bf16) and s rows
+    gathered over "data" and its ds reduce-scattered there."""
+    dd, dm = shape["data"], shape["model"]
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    El, T = E // dm, tokens * dd
+    cap = max(int(T * cfg.top_k * cfg.capacity_factor / E), 4)
+    slots = -(-cap // dd) * dd
+    n = (cfg.n_layers - cfg.first_dense_layers) * cohorts
+    out = {}
+
+    def add(key, elems, calls):
+        out.setdefault(key, {})
+        out[key][str(elems)] = out[key].get(str(elems), 0) + calls
+    add("all-gather data float32", tokens * E, n)
+    add("reduce-scatter data float32", T * E, n)
+    add("reduce-scatter data float32", El * slots * D, 2 * n)
+    add("all-gather data float32", El * slots // dd * D, 2 * n)
+    add("all-gather model float32", El * slots * D, n)
+    # w_gate and w_up (E, D, F), w_down (E, F, D): alike a rank's rows
+    add("all-gather data bfloat16", El * D // dd * F, 3 * n)
+    add("all-gather data float32", El * D // dd * F, 3 * n)
+    add("reduce-scatter data float32", El * D * F, 3 * n)
+    return out, cap, slots
+
+
+def missing_sites(want, got) -> list:
+    """The (key, elements, calls expected, calls recorded) of `want`
+    (`moe_expert_sites`) that `got` (`dryrun.collective_operands`) does
+    not hold exactly."""
+    return [(k, e, c, got.get(k, {}).get(e, 0)) for k, v in want.items()
+            for e, c in v.items() if got.get(k, {}).get(e, 0) != c]
+
+
+def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
+                   profiled):
+    """`len(batches)` train steps of `tcfg` on this rank's block of `host`
+    (`make_train_step(api, tcfg, mesh, sh)`, batches cut to the rank's
+    rows) and as many `mesh=None` steps on the whole state, one state on
+    the card at a time.  Writes into `res` under `tag` and `tag`_plain /
+    `tag`_mesh: each side's losses, seconds, peak GiB, launches and
+    digests, the first partitioned step's collectives (count, bytes by
+    kind and axes, calls by operand, calls and device ms by kind); with
+    `profiled`, one more step of each under torch.profiler (wall ms,
+    device busy ms, collective calls)."""
+    from repro_torch.analysis import comm_model
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as steplib
+    from repro_torch.runtime import elastic
+    from torch.profiler import ProfilerActivity, profile
+    rows = shd.NamedSharding(mesh, shd.P("pod", "data"))
+    for side in ("plain", "mesh"):
+        key = f"{tag}_{side}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        part = side == "mesh"
+        st = elastic.reshard_server(host, sh if part else mesh.device)
+        fn = (steplib.make_train_step(api, tcfg, mesh, sh) if part
+              else steplib.make_train_step(api, tcfg))
+        dispatch.reset_launch_counts()
+        losses, secs, log = [], [], []
+        for i, b in enumerate(batches):
+            if part:
+                b = {k: rows.local(v) for k, v in b.items()}
+            rec = (comm_model.record_collectives(
+                mesh, run=_wire_log(torch, log)) if part and i == 0
+                else contextlib.nullcontext([]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rec as sites:
+                st, m = fn(st, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if sites:
+                res[f"{tag}_sites"] = len(sites)
+                res[f"{tag}_axes"] = dryrun.collective_axes(sites)
+                res[f"{tag}_operands"] = dryrun.collective_operands(sites)
+                res[f"{tag}_wire"] = _wire_totals(log, mesh)
+        res[f"{key}_launches"] = dict(dispatch.LAUNCHES)
+        res[f"{key}_losses"], res[f"{key}_s"] = losses, secs
+        res[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res[key] = state_digests(torch, st, None if part else sh)
+        if profiled:
+            # one more step under torch.profiler, after the digests: its
+            # wall ms, the device's busy ms and the collective calls
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                st, m = fn(st, b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ka = prof.key_averages()
+            res[f"{key}_profile"] = [
+                wall * 1e3,
+                sum(e.self_device_time_total for e in ka
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3,
+                sum(e.count for e in ka if e.key.startswith("c10d::"))]
+            del prof, ka
+        del st, fn, m
+    torch.cuda.empty_cache()
+
+
 def mesh_rank(rank, world, store, out_path):
     """One rank of `mesh_phase`: NCCL on card `rank`.  The host-global
     state is drawn once from the launcher's seed (on the card, then moved
@@ -4213,20 +4406,20 @@ def mesh_rank(rank, world, store, out_path):
     rank's block beside MESH_STEPS `mesh=None` steps on the whole state,
     one after the other: losses, seconds, peak memory, launches, digests,
     the first partitioned step's collectives, and one more step of each
-    under torch.profiler (wall, device busy, collective calls).
+    under torch.profiler (wall, device busy, collective calls); (7) the
+    same MESH_STEPS steps both ways for deepseek-v2-lite-16b at full width
+    cut to MOE_LAYERS layers (its expert leaves through
+    `partition.ExpertLayout`), without the profiled step.
     Writes a JSON of what it found; raises on any failed check."""
     import torch
     import torch.distributed as dist
     from repro_torch.analysis import collective_lint, comm_model, shard_lint
     from repro_torch.core import aggregation, tree
     from repro_torch.kernels import bitpack, dispatch
-    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import mesh_round
-    from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps as steplib
     from repro_torch.runtime import elastic
-    from torch.profiler import ProfilerActivity, profile
     dev = meshlib.init("cuda", store=dist.FileStore(store, world), rank=rank,
                        world_size=world)
     try:
@@ -4315,54 +4508,9 @@ def mesh_rank(rank, world, store, out_path):
         tcfg = mesh_round.step_config(targs)
         batches = [mesh_round.step_batch(targs, api, i, dev)
                    for i in range(MESH_STEPS)]
-        rows = shd.NamedSharding(mesh, shd.P("pod", "data"))
-        for tag in ("train_plain", "train_mesh"):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            part = tag == "train_mesh"
-            st = elastic.reshard_server(host, sh if part else dev)
-            fn = (steplib.make_train_step(api, tcfg, mesh, sh) if part
-                  else steplib.make_train_step(api, tcfg))
-            dispatch.reset_launch_counts()
-            losses, secs, log = [], [], []
-            for i, b in enumerate(batches):
-                if part:
-                    b = {k: rows.local(v) for k, v in b.items()}
-                rec = (comm_model.record_collectives(
-                    mesh, run=_wire_log(torch, log)) if part and i == 0
-                    else contextlib.nullcontext([]))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with rec as sites:
-                    st, m = fn(st, b)
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-                losses.append(float(m["loss"]))
-                if sites:
-                    res["train_sites"] = len(sites)
-                    res["train_axes"] = dryrun.collective_axes(sites)
-                    res["train_wire"] = _wire_totals(log, mesh)
-            res[f"{tag}_launches"] = dict(dispatch.LAUNCHES)
-            res[f"{tag}_losses"], res[f"{tag}_s"] = losses, secs
-            res[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            res[tag] = state_digests(torch, st, None if part else sh)
-            # one more step under torch.profiler, after the digests: its
-            # wall ms, the device's busy ms and the collective calls
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                st, m = fn(st, b)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            ka = prof.key_averages()
-            res[f"{tag}_profile"] = [
-                wall * 1e3,
-                sum(e.self_device_time_total for e in ka
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3,
-                sum(e.count for e in ka if e.key.startswith("c10d::"))]
-            del st, fn, m, prof, ka
+        _train_compare(torch, mesh, api, host, sh, tcfg, batches, res,
+                       "train", profiled=True)
         del batches
-        torch.cuda.empty_cache()
 
         # the comm model's uplink bits against the bits the round meters
         # under the bitpack codec, and declared vs held on the placed
@@ -4380,6 +4528,23 @@ def mesh_rank(rank, world, store, out_path):
         res["comm_shard_s"] = time.perf_counter() - t0
         del host, model, rep
         torch.cuda.empty_cache()
+
+        # (7) the MoE family's partitioned train step: deepseek-v2-lite-16b
+        # at full width cut to MOE_LAYERS layers, the launcher's cohorts
+        # and batches, MESH_STEPS steps on this rank's block against
+        # mesh=None from one host state drawn on the card
+        t0 = time.perf_counter()
+        api, host = mesh_round.global_state(
+            "deepseek-v2-lite-16b", COHORTS, draw_device=dev,
+            n_layers=MOE_LAYERS)
+        torch.cuda.empty_cache()
+        res["moe_draw_s"] = time.perf_counter() - t0
+        batches = [mesh_round.step_batch(targs, api, i, dev)
+                   for i in range(MESH_STEPS)]
+        _train_compare(torch, mesh, api, host,
+                       steplib.fed_state_shardings(host, mesh), tcfg,
+                       batches, res, "moe", profiled=False)
+        del api, host, batches
 
         # kernel 10 in mask_mean_packed: one layer's masks of each leaf
         gen = torch.Generator(device=dev).manual_seed(29)
@@ -4418,9 +4583,16 @@ def mesh_phase(torch, dispatch):
     no ring bytes on an axis of size 1, a bitpack round's uplink bits
     equal to its meter, no shard-lint finding.  The main path's launches
     (the mesh round: kernel 4 and 11 once a masked leaf; the mask mean:
-    10 and 11 once a leaf) must be exact.  Returns them, summed over the
-    ranks."""
+    10 and 11 once a leaf) must be exact.  The partitioned train steps
+    of internlm2-1.8b and of deepseek-v2-lite-16b at MOE_LAYERS layers:
+    on one rank the `mesh=None` steps bit for bit (digests and losses),
+    kernels 1-3 (and 5-7 for the experts) launched once a projection,
+    layer, local cohort and step, the expert layout's collectives each
+    of the closed form's operand size and count (`moe_expert_sites`).
+    Returns the launches, summed over the ranks."""
     import multiprocessing
+
+    from repro_torch.launch import mesh_round
     world = torch.cuda.device_count()
     work = _scratch("chip_smoke_mesh")
     torch.cuda.empty_cache()
@@ -4469,15 +4641,37 @@ def mesh_phase(torch, dispatch):
         check(x["train_mesh_launches"] == want, f"partitioned train steps "
               f"rank {r} launched {x['train_mesh_launches']}, expected "
               f"{want}")
-        check(len(set(x["train_mesh_losses"])) == MESH_STEPS and all(
-            math.isfinite(v) for v in x["train_mesh_losses"]),
-              f"rank {r}: partitioned losses {x['train_mesh_losses']}")
-        for kind, axes in (("all-gather", "data"), ("all-gather", "model"),
-                           ("all-reduce", "model"),
-                           ("reduce-scatter", "data")):
-            check(x["train_axes"].get(f"{kind} {axes}", 0) > 0,
-                  f"rank {r}: no {kind} over {axes} in the partitioned "
-                  f"step: {x['train_axes']}")
+        # the MoE steps: kernels 1-3 once a dense projection (MLA 5, the
+        # dense or shared MLP 3), layer, local cohort and step; kernels
+        # 5-7 once an expert projection, MoE layer, local cohort and step
+        local = COHORTS // x["shape"]["pod"]
+        want = {k: 0 for k in dispatch.KERNELS}
+        n = 8 * MOE_LAYERS * local * MESH_STEPS
+        want.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                    masked_matmul_ds=n)
+        n = 3 * (MOE_LAYERS - 1) * local * MESH_STEPS
+        want.update(masked_matmul_grouped=n, masked_matmul_grouped_dx=n,
+                    masked_matmul_grouped_ds=n)
+        check(x["moe_mesh_launches"] == want, f"partitioned MoE steps rank "
+              f"{r} launched {x['moe_mesh_launches']}, expected {want}")
+        for tag in ("train", "moe"):
+            check(len(set(x[f"{tag}_mesh_losses"])) == MESH_STEPS and all(
+                math.isfinite(v) for v in x[f"{tag}_mesh_losses"]),
+                  f"rank {r}: partitioned losses {x[f'{tag}_mesh_losses']}")
+            for kind, axes in (("all-gather", "data"),
+                               ("all-gather", "model"),
+                               ("all-reduce", "model"),
+                               ("reduce-scatter", "data")):
+                check(x[f"{tag}_axes"].get(f"{kind} {axes}", 0) > 0,
+                      f"rank {r}: no {kind} over {axes} in the partitioned "
+                      f"{tag} step: {x[f'{tag}_axes']}")
+        # the expert layout's collectives, each operand size and count
+        moe_sites, cap, slots = moe_expert_sites(
+            moe_config(), mesh_round.BATCH // x["shape"]["data"]
+            * mesh_round.SEQ, x["shape"], local)
+        miss = missing_sites(moe_sites, x["moe_operands"])
+        check(not miss, f"rank {r}: the partitioned MoE step's expert "
+              f"collectives (kind, elements, expected, recorded): {miss}")
         check(x["unpacked"]["scores"] == x["mesh"]["scores"],
               f"rank {r}: the unpacked theta differs from the packed one")
         if world == 1:
@@ -4501,6 +4695,12 @@ def mesh_phase(torch, dispatch):
             check(x["train_mesh_losses"] == x["train_plain_losses"],
                   f"partitioned losses {x['train_mesh_losses']} against "
                   f"mesh=None's {x['train_plain_losses']}")
+            check(x["moe_mesh"] == x["moe_plain"], "the partitioned MoE "
+                  "train steps' scores, moments or floats differ from "
+                  "mesh=None's")
+            check(x["moe_mesh_losses"] == x["moe_plain_losses"],
+                  f"partitioned MoE losses {x['moe_mesh_losses']} against "
+                  f"mesh=None's {x['moe_plain_losses']}")
         # the recorded rounds: the packed wire clean and at 1 bit a
         # parameter and cohort (plus word padding: <= 32 bits a leaf,
         # cohort and shard), the bf16 baseline firing once a mask leaf at
@@ -4535,7 +4735,8 @@ def mesh_phase(torch, dispatch):
               f"{x['shard_findings']}")
         for k in launches:
             launches[k] += (x["mesh_launches"][k] + x["mean_launches"][k]
-                            + x["train_mesh_launches"][k])
+                            + x["train_mesh_launches"][k]
+                            + x["moe_mesh_launches"][k])
     check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
                for x in res}) == 1, "ranks disagree on bits_measured")
     x = res[0]
@@ -4569,6 +4770,26 @@ def mesh_phase(torch, dispatch):
           f"{x['train_mesh'] == x['train_plain']}; the first step's "
           f"{x['train_sites']} collectives, bytes by kind and axes "
           f"{json.dumps(x['train_axes'])}, calls {json.dumps(x['train_wire'])}")
+    mw = x["moe_wire"]
+    print(f"mesh phase, partitioned MoE train steps (deepseek-v2-lite-16b "
+          f"at full width, {MOE_LAYERS} layers, {COHORTS} cohorts, batch 2 "
+          f"x 128: capacity {cap}, {slots} slots a data rank's share of "
+          f"{x['shape']['data']}; state drawn in {x['moe_draw_s']:.3f} s; "
+          f"{smi_line()}): partitioned {_fmt(x['moe_mesh_s'])} s (steps "
+          f"2-{MESH_STEPS} {steady(x['moe_mesh_s']):.4f} s a step), "
+          f"mesh=None {_fmt(x['moe_plain_s'])} s "
+          f"({steady(x['moe_plain_s']):.4f} s); overhead "
+          f"{steady(x['moe_mesh_s']) / steady(x['moe_plain_s']) - 1:+.2%}; "
+          f"peak {x['moe_mesh_peak_gib']:.2f} GiB against "
+          f"{x['moe_plain_peak_gib']:.2f}; losses {x['moe_mesh_losses']} "
+          f"(mesh=None {x['moe_plain_losses']}); digests equal: "
+          f"{x['moe_mesh'] == x['moe_plain']}; the first step's "
+          f"{x['moe_sites']} collectives ({sum(v[0] for v in mw.values())} "
+          f"calls, {sum(v[1] for v in mw.values())} bytes sent), bytes by "
+          f"kind and axes {json.dumps(x['moe_axes'])}, calls, bytes sent, "
+          f"received and device ms by kind {json.dumps(mw)}; the expert "
+          f"layout's {sum(sum(v.values()) for v in moe_sites.values())} "
+          f"collectives as the closed form gives them")
     pm, pp = x["train_mesh_profile"], x["train_plain_profile"]
     print(f"mesh phase, one more step under torch.profiler: partitioned "
           f"wall {pm[0]:.1f} ms, device busy {pm[1]:.1f} ms "
@@ -4737,6 +4958,7 @@ DRYRUN_GROUPS = (
      ()),
     ("gemma3-4b,deepseek-v2-lite-16b,qwen2-vl-2b", "train_4k", "multi", ()),
     ("internlm2-1.8b", "train_4k", "single", ()),
+    ("deepseek-v2-lite-16b,deepseek-v2-236b", "train_4k", "single", ()),
     ("internlm2-1.8b", "prefill_32k,decode_32k", "multi", ()),
     ("internlm2-1.8b", "train_4k", "multi", ("--unpacked",)),
 )
@@ -4752,7 +4974,7 @@ def dryrun_cell_check(key, res, unpacked):
     """The checks of `dryrun_phase` on one cell's result (a value of the
     dry run's --out JSON); prints its lines and returns the round's
     launches ({} for a prefill or decode cell)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import partition
     check(res["ok"], f"dry run {key}: {res.get('error')}")
     arch, shape, mesh = key.split("|")
@@ -4791,9 +5013,35 @@ def dryrun_cell_check(key, res, unpacked):
             check(all(v == n_dev for v in ratio.values()), f"{key}: the "
                   f"global step's kernel 1-2 flops over rank 0's {ratio}, "
                   f"expected {n_dev}")
+        moe = ""
+        if get_config(arch).family == "moe":
+            # the expert layout's collectives, each operand size and
+            # count; kernels 5-6 on rank 0's experts and slots: the
+            # global step's flops over rank 0's are the device count, or
+            # that times cap / slots where the slots are padded
+            cohorts = 2 if mesh == "pod2x16x16" else 1
+            shape = {"data": 16, "model": 16}
+            tokens = (SHAPES["train_4k"].global_batch // cohorts
+                      // shape["data"] * SHAPES["train_4k"].seq_len)
+            want, cap, slots = moe_expert_sites(get_config(arch), tokens,
+                                                shape, 1)
+            miss = missing_sites(want, train["collective_operands"])
+            check(not miss, f"{key}: expert collectives (kind, elements, "
+                  f"expected, recorded) {miss}")
+            for k in ("masked_matmul_grouped", "masked_matmul_grouped_dx"):
+                glob = int(train["global_step"]["kernel_work"][k]["flops"])
+                mine = int(train["kernel_work"][k]["flops"])
+                check(glob * slots == mine * n_dev * cap, f"{key}: {k} "
+                      f"global flops {glob} over rank 0's {mine}, expected "
+                      f"{n_dev} x {cap} / {slots}")
+                ratio[k] = glob / mine
+            moe = (f"; capacity {cap}, {slots} slots ({slots - cap} "
+                   f"padded), the expert layout's "
+                   f"{sum(sum(v.values()) for v in want.values())} "
+                   f"collectives as the closed form gives them")
         print(f"dry run {key} partitioned train step: {train['n_sites']} "
               f"collectives, bytes by kind and axes {json.dumps(axes)}; "
-              f"global over rank 0 kernel 1-2 flops {ratio}")
+              f"global over rank 0 kernel flops {ratio}{moe}")
     rnd = res["round_step"]
     cm = rnd["comm_model"]
     leaves = res["stream_cover"]["n_leaves"]
@@ -5292,11 +5540,7 @@ def main():
         print(f"== nvcc -Xptxas -v {name}.cu")
         print(log.strip())
     print(f"build: {time.time() - t0:.1f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5324,6 +5568,7 @@ def main():
     timing.update(p_timing)
     per_shape.update(p_per_shape)
     block_err, _ = block_kernel_phase(torch, mm, ref, dev)
+    block_err.update(grouped_block_checks(torch, mm, ref, dev))
     for k, v in block_err.items():
         err[k] = max(err[k], v)
     zoo_err, zoo_rows = zoo_kernel_phase(torch, mm, ref, dev)
@@ -5364,8 +5609,7 @@ def main():
             "2", "--seq", "128", "--steps", str(steps_), "--round-every",
             str(every), "--downlink-bits", "8", "--device", "cuda"]
     dense = N_LAYERS * len(LAYER_SHAPES) * COHORTS * steps_
-    moe_cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
-                                  n_layers=MOE_LAYERS)
+    moe_cfg = moe_config()
     # per MoE-path train step: 8 dense projections in every layer (MLA 5
     # + the dense or shared MLP 3), 3 expert projections in each MoE
     # layer; 19 masked leaves per round

@@ -89,46 +89,50 @@ def masked_dense_threshold(x, w, s, tau=0.5):
 
 class _MaskedDenseGrouped(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, s, seeds, offs, mode, tau):
+    def forward(ctx, x, w, s, seeds, offs, mode, tau, n_logical):
         E = x.shape[0]
         K, N = w.shape[-2:]
         x3 = x.reshape(E, -1, K).contiguous()
-        y = mm.masked_matmul_grouped(x3, w, s, seeds, offs, mode=mode,
-                                     tau=tau)
+        y = mm.masked_matmul_grouped(x3, w, s, seeds, offs,
+                                     n_logical=n_logical, mode=mode, tau=tau)
         ctx.save_for_backward(x3, w, s)
-        ctx.coords = (seeds, offs, mode, tau, x.shape)
+        ctx.coords = (seeds, offs, mode, tau, n_logical, x.shape)
         return y.reshape(*x.shape[:-1], N)
 
     @staticmethod
     def backward(ctx, g):
         x3, w, s = ctx.saved_tensors
-        seeds, offs, mode, tau, shape = ctx.coords
+        seeds, offs, mode, tau, n_logical, shape = ctx.coords
         g3 = g.reshape(x3.shape[0], -1, w.shape[-1]).contiguous()
         dx = ds = None
         if ctx.needs_input_grad[0]:
             dx = mm.masked_matmul_grouped_dx(
-                g3, w, s, seeds, offs, mode=mode,
+                g3, w, s, seeds, offs, n_logical=n_logical, mode=mode,
                 tau=tau).reshape(shape).to(x3.dtype)
         if ctx.needs_input_grad[2]:
             ds = mm.masked_matmul_grouped_ds(x3, g3, w, s).to(s.dtype)
-        return dx, None, ds, None, None, None, None
+        return dx, None, ds, None, None, None, None, None
 
 
-def masked_dense_grouped(x, w, s, seeds, offs=None):
+def masked_dense_grouped(x, w, s, seeds, offs=None, n_logical=None):
     """y[e] = x[e] @ (bern(sigmoid(s[e]); seeds[e], offs[e]) * w[e]) for
     stacked (E, K, N) weights, STE backward.  x: (E, ..., K); seeds, offs:
-    one uint32 or E of them (offs default e*K*N)."""
+    one uint32 or E of them (offs default e*K*N).  `n_logical`: the row
+    length of the stream each group's block is cut from (None: N), so a
+    column block of wider experts, its offsets moved by its first
+    column, draws their masks."""
     if offs is None:
         K, N = w.shape[-2:]
         offs = np.arange(x.shape[0], dtype=np.int64) * (K * N)
-    return _MaskedDenseGrouped.apply(x, w, s, seeds, offs, "sample", 0.5)
+    return _MaskedDenseGrouped.apply(x, w, s, seeds, offs, "sample", 0.5,
+                                     n_logical)
 
 
 def masked_dense_grouped_threshold(x, w, s, tau=0.5):
     """y[e] = x[e] @ (1[sigmoid(s[e]) > tau] * w[e]), STE backward
     (FedMask; no hash stream)."""
     return _MaskedDenseGrouped.apply(x, w, s, 0, 0, "threshold",
-                                     float(tau))
+                                     float(tau), None)
 
 
 class _MaskedConv1d(torch.autograd.Function):

@@ -18,12 +18,14 @@ side of each cell instead:
   `torch.utils.flop_counter.FlopCounterMode` on meta tensors at the
   global shapes (the kernels state theirs, `kernels.dispatch`), and the
   argument bytes of rank 0's block of state and batch.  For the
-  families the partitioned step runs (`partition.FAMILIES`) the step
-  runs partitioned (`steps.make_train_step(api, cfg, mesh, state_sh)`)
-  on rank 0's block as meta tensors at the local shapes, its collectives
-  recorded: the cell reports rank 0's flops, kernel work and collective
-  bytes (by kind, and by kind and mesh axes), the global step's beside
-  them under "global"; then the round
+  families the partitioned step runs (`partition.FAMILIES`: the
+  dense-leaf archs and the moe family, whose expert leaves' E is on
+  "model") the step runs partitioned (`steps.make_train_step(api, cfg,
+  mesh, state_sh)`) on rank 0's block as meta tensors at the local
+  shapes, its collectives recorded: the cell reports rank 0's flops,
+  kernel work and collective bytes (by kind, and by kind and mesh axes;
+  its calls by kind, axes, type and operand size), the global step's
+  beside them under "global_step"; then the round
   step run once on rank 0's block of the state, drawn on `device` alone
   (the global state of deepseek-v2-236b is 4.2 TB), with its
   collectives recorded: wire purity, the static comm model, the
@@ -39,7 +41,7 @@ all-gather brings no peer's rows, so theta and the scores after the
 round mean nothing.  Every result carries ``"peers": "fake"``.  Fields
 with no twin here are None: `generated_code_size`, and the collective
 bytes of the steps the port runs unpartitioned: the train step of the
-moe, ssm and hybrid families, prefill and decode.
+ssm and hybrid families, prefill and decode.
 """
 from __future__ import annotations
 
@@ -193,6 +195,18 @@ def collective_axes(sites) -> dict:
         key = f"{HLO_KINDS.get(s.prim, s.prim)} {'x'.join(s.axes)}"
         out[key] = out.get(key, 0) + s.bits // 8
     return dict(sorted(out.items()))
+
+
+def collective_operands(sites) -> dict:
+    """Calls of recorded sites by "kind axis x axis dtype" and operand
+    elements: {key: {elements: calls}}, sorted."""
+    out: dict = {}
+    for s in sites:
+        key = f"{HLO_KINDS.get(s.prim, s.prim)} {'x'.join(s.axes)} {s.dtype}"
+        calls = out.setdefault(key, {})
+        calls[str(s.elems)] = calls.get(str(s.elems), 0) + 1
+    return {k: dict(sorted(v.items(), key=lambda kv: int(kv[0])))
+            for k, v in sorted(out.items())}
 
 
 def local_meta(tree, shardings, mesh):
@@ -467,6 +481,7 @@ def cell(arch: str, shape_name: str, multi_pod: bool, *,
                 results["train_step"] = dict(
                     _meta_result(fc, work, arg, sites), global_step=glob,
                     collective_axes=collective_axes(sites),
+                    collective_operands=collective_operands(sites),
                     n_sites=len(sites))
             results["train_step"]["seconds"] = time.perf_counter() - t1
         if step_kind in ("auto", "round"):

@@ -26,6 +26,7 @@ size.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -78,15 +79,19 @@ def step_batch(args, api, step: int, device) -> dict:
 
 
 def global_state(arch: str, cohorts: int, *, smoke: bool = False,
-                 seed: int = SEED, draw_device="cpu"):
+                 seed: int = SEED, draw_device="cpu", n_layers=None):
     """(model api, the host-global fed state of `cohorts` cohorts drawn
-    from `seed`).  The draw runs on `draw_device` and its tensors then
+    from `seed`; `n_layers` cuts the arch's depth).  The draw runs on
+    `draw_device` and its tensors then
     move to the host: a card draws far faster than the CPU's one
     generator stream, and holds one cohort's tensors only while it draws.
     Every cohort starts from the same tensors (`init_fed_state`), so the
     cohort axis of each leaf is a broadcast of one cohort's:
     `reshard_server` materializes only the block it places."""
-    api = build_model(get_config(arch, smoke=smoke))
+    cfg = get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    api = build_model(cfg)
     gen = torch.Generator(device=draw_device).manual_seed(seed)
     state = steplib.init_fed_state(gen, api, masking.MaskSpec(), C=1)
     for key in ("scores", "floats", "opt_m", "weights"):

@@ -29,6 +29,32 @@ leaf is used, so no model code changes:
   does not split over "data" is held whole on every data rank and its ds
   all-reduced there; one whose N does not split over "model" is computed
   whole on every model rank.
+* A stacked (E, K, N) expert leaf (`ExpertLayout`, which
+  `layers.moe_apply` hands a MoE layer's routed experts to).  The
+  routing is the global step's over the cohort's tokens of every data
+  rank: the router logits are all-gathered over "data" in data-rank
+  order (each data rank holds a contiguous run of the cohort's rows, so
+  that is the global token order) and every rank routes all of them:
+  the capacity, the queue positions, the keep mask, the gates and the
+  aux loss of the cohort's T tokens.  Each rank scatters only its own
+  tokens into the (E, cap, D) slots (a slot is filled by one token of
+  the cohort, so the sum over "data" is exact), and the slots are
+  reduce-scattered over "data" along the slot axis (cap padded up to a
+  multiple of the data size with zero rows, never combined): rank
+  (data j, model i) runs kernels 5-6-7 on its slots and its experts,
+  E/d_model of them from e0 = i*E/d_model on (the reference's
+  `moe-expert` rule), their rows all-gathered over "data" at the global
+  leaf's per-(layer, expert) offsets; an E that does not split over
+  "model" falls to the generic rule, a column block of every expert,
+  run as a dense block is (kernels 5-6 at the block's column offset,
+  n_logical = N).  The experts' outputs are all-gathered over "data"
+  (slots) and "model" (experts), and each rank combines its own tokens.
+  Backward: the slot gather's gradient is summed over "data" (what
+  follows it differs per data rank), the expert gather's is sliced (the
+  combine is computed alike on every "model" rank), the rank's partial
+  dx over its experts is all-reduced over "model", and kernel 7's ds is
+  reduce-scattered over "data" to the rank's rows and divided by the
+  data size.
 * A float leaf (`TrainPlan.gather_floats`: embedding tables, norm
   scales, biases) is gathered whole over its sharded axes before the
   forward.  Its gradient is sliced back to the block on "model" (not
@@ -60,20 +86,26 @@ from repro_torch.core import tree as tu
 from repro_torch.core.masking import MaskedLeaf
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as meshlib
+from repro_torch.models import layers
 
-# the families whose masked leaves are all 2-D dense blocks (kernels 1-3)
-FAMILIES = ("dense", "vlm", "encdec")
+# the families whose masked leaves are 2-D dense blocks (kernels 1-3) or
+# stacked (E, K, N) expert blocks (kernels 5-7)
+FAMILIES = ("dense", "vlm", "encdec", "moe")
 _M32 = 0xFFFFFFFF
 
 
 def check_train(api, cfg) -> None:
     """Raise NotImplementedError for what the partitioned train step does
-    not run: a family with grouped expert or conv leaves, microbatches
-    (the global step's chunks cut across data shards)."""
+    not run: a family with conv leaves, block-local MoE dispatch,
+    microbatches (the global step's chunks cut across data shards)."""
     if api.cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the partitioned train step runs the families {FAMILIES}; "
             f"{api.cfg.name} is {api.cfg.family!r}")
+    if api.cfg.moe_block_dispatch > 0:
+        raise NotImplementedError(
+            "the partitioned train step routes the cohort's tokens "
+            "globally; moe_block_dispatch > 0 does not run on a mesh")
     if cfg.microbatch > 1:
         raise NotImplementedError(
             "the partitioned train step runs microbatch = 1 only")
@@ -189,18 +221,49 @@ class _ToModel(torch.autograd.Function):
 
 
 class _FromModel(torch.autograd.Function):
-    """Forward: the ranks' output column blocks all-gathered over "model".
-    Backward: this rank's columns of the gradient (a slice: what follows
-    is computed alike on every "model" rank)."""
+    """Forward: the ranks' output blocks along `dim` (columns, or a MoE
+    layer's experts) all-gathered over "model".  Backward: this rank's
+    block of the gradient (a slice: what follows is computed alike on
+    every "model" rank)."""
 
     @staticmethod
-    def forward(ctx, y, group, rank):
-        ctx.cols = (rank * y.shape[-1], y.shape[-1])
-        return all_gather(y, group, -1)
+    def forward(ctx, y, group, rank, dim):
+        ctx.block = (dim, rank * y.shape[dim], y.shape[dim])
+        return all_gather(y, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, *ctx.cols), None, None
+        return g.narrow(*ctx.block), None, None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """Forward: the ranks' blocks all-gathered over `group` along `dim`.
+    Backward: the gradient summed over the group, this rank keeping its
+    block (what follows the gather differs per rank)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Forward: the sum of the ranks' tensors over `group`, this rank
+    keeping its block along `dim`.  Backward: the blocks' gradients
+    all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,22 +281,96 @@ class BlockLayout:
         rank's block as `TrainPlan.place` gives it (its w, s and the
         stream offset and row length that draw its own masks); the rows
         gathered over "data" start `r0` rows above it on the stream."""
+        return self._product(x, p, False)
+
+    def _product(self, x, p: MaskedLeaf, grouped: bool) -> torch.Tensor:
         w = self.rows.gather(p.w)
         s = _Gathered.apply(p.s, self.rows)
         if self.cols:
             model = self.mesh.group("model")
             x = _ToModel.apply(x, model)
         if p.mode == "threshold":
-            y = ops.masked_dense_threshold(x, w, s, p.tau)
+            y = (ops.masked_dense_grouped_threshold if grouped
+                 else ops.masked_dense_threshold)(x, w, s, p.tau)
         else:
             r0 = (self.mesh.coords["data"] * p.w.shape[-2]
                   if self.rows.gathers else 0)
-            y = ops.masked_dense(x, w, s, int(p.seed),
-                                 (int(p.off) - r0 * p.n_logical) & _M32,
-                                 p.n_logical)
+            off = (np.asarray(p.off, np.int64) - r0 * p.n_logical) & _M32
+            y = (ops.masked_dense_grouped(x, w, s, p.seed, off, p.n_logical)
+                 if grouped else
+                 ops.masked_dense(x, w, s, int(p.seed), int(off),
+                                  p.n_logical))
         if self.cols:
-            y = _FromModel.apply(y, model, self.mesh.coords["model"])
+            y = _FromModel.apply(y, model, self.mesh.coords["model"], -1)
         return y
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertLayout(BlockLayout):
+    """A rank's placement of one stacked (E, K, N) expert leaf: its layer
+    blocks' rows gathered over "data" by `rows` (or held whole), and
+    either the rank's own E/d_model experts (`experts`, the reference's
+    `moe-expert` rule), or its N/d_model columns of every expert
+    (`cols`: E does not split over "model"), or all of it."""
+    experts: bool
+
+    def grouped(self, x: torch.Tensor, p: MaskedLeaf) -> torch.Tensor:
+        """y[e] = x[e] @ (m[e] * w[e]) of the rank's experts (x: (E_rank,
+        slots, K)), every column, with the global masks."""
+        return self._product(x, p, True)
+
+    def moe(self, p: dict, x: torch.Tensor, n_experts: int, k: int,
+            capacity_factor: float):
+        """The routed experts of `layers.moe_apply` (a MoE layer's params
+        `p`, its expert leaves placed, the float leaves gathered whole) on
+        this rank's rows x (B, S, D) of the cohort: (y (B, S, D), aux),
+        the global step's semantics (module docstring).
+
+        Every data rank adds the whole aux term to its loss.  The logits'
+        gather sums the d_data copies of its gradient, and the router's
+        float `Placement.reduce` divides by d_data: the router gets the
+        gradient of the mean loss plus the aux term once, as in the global
+        step.  A rank's tokens reach the other data ranks' losses only
+        through the aux term (a slot is combined into the one token that
+        filled it), so the summed slot gradients give every rank the
+        gradient of its own tokens."""
+        mesh = self.mesh
+        data, j = mesh.group("data"), mesh.coords["data"]
+        B, S, D = x.shape
+        xt = x.reshape(1, B * S, D)
+        logits = _GatherSum.apply(xt.float() @ p["router_w"], data, 1)
+        probs, gval, _, onehot, pos, keep, cap = layers.moe_route(
+            logits, n_experts, k, capacity_factor)
+        mine = slice(j * B * S, (j + 1) * B * S)
+        own, pos, keep, gval = (onehot[:, mine], pos[:, mine],
+                                keep[:, mine], gval[:, mine])
+        pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)
+                  ).float() * keep[..., None]                 # (1, t, k, C)
+        n = n_experts // mesh.shape["model"] if self.experts else n_experts
+        e0 = mesh.coords["model"] * n if self.experts else 0
+        if self.experts:
+            model = mesh.group("model")
+            xt = _ToModel.apply(xt, model)
+        disp = torch.einsum("gtke,gtkc->gtec", own[..., e0:e0 + n], pos_oh)
+        xe = torch.einsum("gtec,gtd->egcd", disp, xt.float()).reshape(
+            n, cap, D)
+        pad = -cap % mesh.shape["data"]
+        if pad:
+            xe = torch.nn.functional.pad(xe, (0, 0, 0, pad))
+        xe = _ScatterSum.apply(xe, data, 1)          # (n, slots, D)
+        h = (torch.nn.functional.silu(p["w_gate"].layout.grouped(
+            xe, p["w_gate"])) * p["w_up"].layout.grouped(xe, p["w_up"]))
+        ye = _GatherSum.apply(p["w_down"].layout.grouped(h, p["w_down"]),
+                              data, 1)
+        if self.experts:
+            ye = _FromModel.apply(ye, model, mesh.coords["model"], 0)
+        ye = ye[:, :cap].reshape(n_experts, 1, cap, D)
+        comb = torch.einsum("gtke,gtkc,gtk->gtec", own, pos_oh, gval.float())
+        y = torch.einsum("gtec,egcd->gtd", comb, ye.float())
+        me = probs.mean(dim=-2)
+        ce = onehot.sum(-2).mean(dim=-2)
+        return (y.to(x.dtype).reshape(B, S, D),
+                (n_experts * (me * ce).sum(-1)).mean())
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +390,13 @@ def _parts(spec, ndim: int, what: str) -> list:
 
 class TrainPlan:
     """The partitioned train step's view of one rank's state: each masked
-    leaf's `BlockLayout`, the stream offsets of the rank's layer blocks
+    leaf's `BlockLayout` (`ExpertLayout` for a stacked expert leaf), the
+    stream offsets of the rank's layer blocks (of each of their experts)
     and the leaf's row length N, each float leaf's
     `Placement`, the global score count a cohort (the entropy proxy's n)
     and the rank's first global cohort.  Built from the rank's blocks and
     the state's shardings; raises NotImplementedError for a leaf this
-    scheme does not place (a sharded stack axis, an expert leaf)."""
+    scheme does not place (a sharded stack axis)."""
 
     def __init__(self, mesh, state, state_sh):
         self.mesh = mesh
@@ -274,21 +412,34 @@ class TrainPlan:
                 raise NotImplementedError(
                     f"leaf {i}: scores {sh.spec} and weights {wsh.spec} are "
                     f"placed apart")
-            if (any(parts[1:-2]) or parts[-2] not in (None, "data")
-                    or parts[-1] not in (None, "model")):
+            # a stacked (C, L, E, K, N) expert leaf: a layer's (E, K, N)
+            # block is one grouped launch, its E on "model" or whole
+            body = 3 if len(g) == 5 else 2
+            ep = body == 3 and parts[-3] == "model"
+            if (any(parts[1:-body]) or parts[-2] not in (None, "data")
+                    or parts[-1] not in (None, "model")
+                    or (body == 3 and parts[-3] not in (None, "model"))
+                    or (ep and parts[-1])):
                 raise NotImplementedError(
                     f"leaf {i} of shape {g}: spec {sh.spec} is not a (K, N) "
-                    f"block over (\"data\", \"model\")")
+                    f"block over (\"data\", \"model\") or an expert block "
+                    f"with E on \"model\"")
             K, N = g[-2:]
             cols = parts[-1] == "model"
             # the rank's block starts at row r0, column c0 of each layer's
+            # (of each of its experts')
             c0 = mesh.coords["model"] * s.shape[-1] if cols else 0
             r0 = mesh.coords["data"] * s.shape[-2] if parts[-2] else 0
-            rows = Placement(mesh, ((0, "data"),) if parts[-2] else ())
-            off = ((masking.stream_offsets(g[1:-2], K, N).astype(np.uint64)
-                    + np.uint64(r0 * N + c0)) & np.uint64(_M32))
-            self.layouts[i] = (BlockLayout(mesh, rows, cols),
-                               off.astype(np.uint32), N)
+            rows = Placement(mesh, ((body - 2, "data"),) if parts[-2] else ())
+            off = masking.stream_offsets(g[1:-2], K, N)
+            if ep:
+                e0 = mesh.coords["model"] * s.shape[-3]
+                off = off[..., e0:e0 + s.shape[-3]]
+            off = ((off.astype(np.uint64) + np.uint64(r0 * N + c0))
+                   & np.uint64(_M32))
+            layout = (ExpertLayout(mesh, rows, cols, ep) if body == 3
+                      else BlockLayout(mesh, rows, cols))
+            self.layouts[i] = (layout, off.astype(np.uint32), N)
             self.n_scores += math.prod(g[1:])
         self.floats = []
         for i, (f, sh) in enumerate(zip(tu.leaves(state["floats"]),

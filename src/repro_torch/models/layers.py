@@ -513,7 +513,17 @@ def moe_apply(p, x, n_experts, k, capacity_factor=1.25, block_dispatch=0):
     `moe_apply` over the blocks).  Every block sends its tokens through
     the same expert weights, so the blocks' expert rows are folded into
     one (E, G*C, D) operand: one grouped launch per projection whatever
-    G, and kernel 7's score gradient sums over every block."""
+    G, and kernel 7's score gradient sums over every block.
+
+    Expert leaves that carry a mesh layout (`launch.partition.
+    ExpertLayout`, a rank's block on a mesh) hand the routing, the
+    dispatch, the expert chain and the combine to it (the global step's
+    routing over the cohort's tokens of every data rank)."""
+    if isinstance(p["w_up"], MaskedLeaf) and p["w_up"].layout is not None:
+        y, aux = p["w_up"].layout.moe(p, x, n_experts, k, capacity_factor)
+        if "shared" in p:
+            y = y + mlp_apply(p["shared"], x)
+        return y, aux
     B, S, D = x.shape
     T = B * S
     G = block_dispatch

@@ -36,7 +36,9 @@ shapes by kind, axis and bytes, and check that each placed leaf
 In this process: a (1, 1, 1) mesh gives the `mesh=None` steps bit for
 bit, the torchrun entry's steps too; a block leaf's masks are the
 global leaf's block's, at an offset that wraps past 2**32; the step
-refuses microbatches and the families outside the slice.
+refuses microbatches, block-local MoE dispatch and the families outside
+the slice.  The MoE family's partitioned step is held in
+`test_torch_mesh_train_moe.py`.
 """
 import dataclasses
 import importlib.util
@@ -179,7 +181,7 @@ def _blocks(prefix, local, shardings, host, out):
 # The reference: two GSPMD-jitted steps on 8 forced CPU devices
 # ---------------------------------------------------------------------------
 
-REFERENCE = r'''
+REFERENCE_TEMPLATE = r'''
 import os
 import sys
 import numpy as np
@@ -253,16 +255,22 @@ for run, arch, opts, held, fused in REF_RUNS:
                     if key in st:
                         shards(f"{tag}/{key}", st[key])
 np.savez(out_path, **res)
-'''.replace("LR", repr(LR)).replace("SEED", repr(SEED)).replace(
-    "REF_RUNS", repr(REF_RUNS))
+'''
 
 
-def _inputs(path):
+def reference_script(runs) -> str:
+    """The reference subprocess's script for the runs `runs` (REF_RUNS'
+    layout)."""
+    return REFERENCE_TEMPLATE.replace("LR", repr(LR)).replace(
+        "SEED", repr(SEED)).replace("REF_RUNS", repr(runs))
+
+
+def _inputs(path, runs=REF_RUNS):
     """Each reference run's start states (the port's init, f32 floats) and
     two global batches, as numpy arrays keyed by
     '{run}/{opt}/{key}/{path}' and '{run}/batch{i}/{name}'."""
     out = {}
-    for run, arch, opts, _, _ in REF_RUNS:
+    for run, arch, opts, _, _ in runs:
         api = _api(arch)
         for opt in opts:
             st = _start(api, optimizer=opt)
@@ -277,12 +285,13 @@ def _inputs(path):
     return out
 
 
-def _start_reference(inp, out):
+def _start_reference(inp, out, runs=REF_RUNS):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    return subprocess.Popen([sys.executable, "-c", REFERENCE, str(inp),
-                             str(out)], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen([sys.executable, "-c", reference_script(runs),
+                             str(inp), str(out)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
 
 
 # ---------------------------------------------------------------------------
@@ -741,14 +750,18 @@ def test_block_leaf_draws_the_global_leafs_masks(mode):
 
 
 def test_refusals():
-    """Microbatches and the families outside the slice raise on a mesh
-    (no mesh is built: the step refuses before it reads one); mesh
-    without state_sh raises."""
+    """Microbatches, block-local MoE dispatch and the families outside the
+    slice raise on a mesh (no mesh is built: the step refuses before it
+    reads one); mesh without state_sh raises."""
     api = _api("internlm2-1.8b")
     with pytest.raises(NotImplementedError, match="microbatch"):
         steps.make_train_step(api, steps.StepConfig(microbatch=2),
                               mesh=object(), state_sh={})
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m", "recurrentgemma-9b"):
+    with pytest.raises(NotImplementedError, match="moe_block_dispatch"):
+        steps.make_train_step(
+            _api("deepseek-v2-lite-16b", {"moe_block_dispatch": 4}),
+            steps.StepConfig(), mesh=object(), state_sh={})
+    for arch in ("mamba2-370m", "recurrentgemma-9b"):
         with pytest.raises(NotImplementedError, match="families"):
             steps.make_train_step(_api(arch), steps.StepConfig(),
                                   mesh=object(), state_sh={})
