@@ -38,7 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
    block leaf's masks equal the full leaf's columns bit for bit,
    kernels 1-2's one-hot probes on the block equal their probes on the
    full leaf, y, dx and ds within their bounds of the plain versions,
-   each block launch timed by graph replay beside the full launch; and
+   each block launch timed by graph replay beside the full launch;
+   kernels 5-6 on a column block of deepseek-v2-lite's experts; kernels
+   8-9 on a 16-way channel block of the mamba2 and recurrentgemma convs
+   and kernels 1-2 on f32 on a column block of recurrentgemma's w_rg,
+   each equal to the full launch's channels or columns bit for bit and
+   timed by graph replay beside it (`conv_block_checks`); and
    time each kernel, its plain version and a PyTorch call computing the
    same function on the pre-masked weight (the library yardstick; none
    packs bits) with CUDA events (kernels 1-3, the tensor-core bodies,
@@ -198,7 +203,11 @@ Phases (any failure exits non-zero and prints no result line):
    equal, kernels 1-3 once a projection, layer, cohort and step, the
    first step's collectives recorded (gathers over "data" and "model",
    the dx all-reduce over "model", the ds reduce-scatter over "data"),
-   the seconds of both and their peaks; (g) the analysis engines: the op
+   the seconds of both and their peaks; the same for deepseek-v2-lite-16b
+   at 4 layers (its expert collectives against a closed form) and for
+   mamba2-370m at all 48 layers (bit for bit, its losses by their bits;
+   every collective of its first step as `block_sites` gives it); (g)
+   the analysis engines: the op
    walker over one full-width internlm2-1.8b train step and the three
    aligned check configs (no weight-shaped f32 value or mask outside
    the kernels, no f64, every leaf in place), the
@@ -209,14 +218,17 @@ Phases (any failure exits non-zero and prints no result line):
    cuda`, in processes side by side, each rank 0 of torch's stand-in
    process group): every arch's train_4k cell on the (2, 16, 16) mesh
    (the mask-stream gate over 512 shards, the train step's flops on meta
-   tensors and, for the six archs the partitioned step runs, rank 0's
-   partitioned step on meta blocks with its collectives recorded: every
-   kind over its axis present, internlm2-1.8b's kernel 1-2 flops a
-   512th of the global step's; the round run on rank 0's block on the
+   tensors and rank 0's partitioned step on meta blocks with its
+   collectives recorded: every kind over its axis present, internlm2's,
+   mamba2's and recurrentgemma's kernel 1-2 flops a 512th of the global
+   step's, the moe cells' expert collectives and the ssm and hybrid
+   cells' every collective against their closed forms, kernel 8's flops
+   a 512th; the round run on rank 0's block on the
    card with its collectives recorded: wire purity, the comm model,
    the uplink bits against the bitpack meter, kernels 4 and 11 once a
    masked leaf),
-   internlm2-1.8b's train_4k on (16, 16), its prefill_32k and
+   internlm2-1.8b's, the moe archs', mamba2-370m's and
+   recurrentgemma-9b's train_4k on (16, 16), internlm2's prefill_32k and
    decode_32k, and its unpacked round (a purity finding a leaf, 16 bits
    a parameter); (i) the four examples (`repro_torch.examples`:
    quickstart, serve_masked, train_lm_masked at ~40M parameters,
@@ -989,6 +1001,145 @@ def grouped_block_checks(torch, mm, ref, dev):
           f"{CAP}, n_logical = N): probes equal the full launch's, max abs "
           f"err {json.dumps(err)}")
     return err
+
+
+def conv_block_checks(torch, mm, ref, dev):
+    """The partitioned step's channel blocks at the launcher's rows (B =
+    CONV_B, S = CONV_S): kernel 8 (forward on bf16 x, flipped on the f32
+    cotangent) and kernel 9 on a rank's 16-way channel block of
+    mamba2-370m's and recurrentgemma-9b's conv (channels c0 .. c0 + C/16,
+    launched at the layer's offset moved by c0 with n_logical = C), and
+    kernels 1-2 on f32 activations (the SIMT tile that carries
+    recurrentgemma's gates) on a 16-way column block of its w_rg (4096 x
+    4096, M = B * S).  The conv blocks on random operands equal the full
+    launch's channels bit for bit (a depthwise conv sums each channel on
+    its own, in an order set by (B, S) alone), and kernel 8 equals its
+    plain version; kernels 1-2's one-hot probes on the block equal their
+    probes on the full leaf's columns bit for bit, and on random f32
+    operands they are within f32 rounding of their plain versions.  Each
+    block launch is timed by CUDA-graph replay beside the full launch.
+    Returns ({kernel: max abs err against the plain version}, {kernel:
+    {shape: (block ms, full ms, block bound ms)}})."""
+    gen = torch.Generator(device=dev).manual_seed(47)
+    names = ("masked_conv1d", "masked_conv1d_ds", "masked_matmul_fwd",
+             "masked_matmul_dx")
+    err, rows = dict.fromkeys(names, 0.0), {k: {} for k in names}
+    W, B, S, seed = CONV_W, CONV_B, CONV_S, 1234
+    for arch, C in CONV_SHAPES.items():
+        cb = C // BLOCK_SPLIT
+        c0, c1 = BLOCK_AT * cb, (BLOCK_AT + 1) * cb
+        off = ((MAMBA_LAYERS - 1) * W * C) & M32
+        boff = (off + c0) & M32
+        x = torch.randn(B, S, C, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(B, S, C, generator=gen, device=dev)
+        w = torch.randn(W, C, generator=gen, device=dev).to(torch.bfloat16)
+        s = 2 * torch.randn(W, C, generator=gen, device=dev)
+        xb, gb = x[..., c0:c1].contiguous(), g[..., c0:c1].contiguous()
+        wb, sb = w[:, c0:c1].contiguous(), s[:, c0:c1].contiguous()
+        tag = f"conv block {arch} C={C} channels {c0}..{c1}"
+        for flip, full, blk in ((False, x, xb), (True, g, gb)):
+            got = mm.masked_conv1d(blk, wb, sb, seed, boff, n_logical=C,
+                                   flip=flip)
+            check(torch.equal(got, mm.masked_conv1d(
+                full, w, s, seed, off, flip=flip)[..., c0:c1]),
+                  f"{tag} flip={flip}: the block differs from the full "
+                  f"launch's channels")
+            want = ref.masked_conv1d(blk, wb, sb, seed, boff, n_logical=C,
+                                     flip=flip)
+            d = float((got - want).abs().max())
+            check(torch.equal(got, want), f"{tag} flip={flip}: max |diff| "
+                  f"{d} against the plain version")
+            err["masked_conv1d"] = max(err["masked_conv1d"], d)
+        ds = mm.masked_conv1d_ds(xb, gb, wb, sb)
+        check(torch.equal(ds, mm.masked_conv1d_ds(x, g, w, s)[:, c0:c1]),
+              f"{tag}: kernel 9's block differs from the full launch's "
+              f"channels")
+        want = ref.masked_conv1d_ds(xb, gb, wb, sb)
+        d = float((ds - want).abs().max())
+        check(bool(torch.allclose(ds, want, rtol=1e-5, atol=1e-5
+                                  * float(want.abs().max()))),
+              f"{tag} ds: max |diff| {d}")
+        err["masked_conv1d_ds"] = max(err["masked_conv1d_ds"], d)
+        t = graph_ms(torch, [
+            lambda: mm.masked_conv1d(xb, wb, sb, seed, boff, n_logical=C),
+            lambda: mm.masked_conv1d(x, w, s, seed, off),
+            lambda: mm.masked_conv1d(gb, wb, sb, seed, boff, n_logical=C,
+                                     flip=True),
+            lambda: mm.masked_conv1d(g, w, s, seed, off, flip=True),
+            lambda: mm.masked_conv1d_ds(xb, gb, wb, sb),
+            lambda: mm.masked_conv1d_ds(x, g, w, s)], 50)
+        n, ws = B * S * cb, 6 * W * cb          # w bf16 and s f32
+        rows["masked_conv1d"][f"{arch} fwd"] = (t[0], t[1], bound(
+            2 * n + ws + 4 * n, 2 * W * n, F32_FLOPS_PER_S)[0])
+        rows["masked_conv1d"][f"{arch} flip"] = (t[2], t[3], bound(
+            4 * n + ws + 4 * n, 2 * W * n, F32_FLOPS_PER_S)[0])
+        rows["masked_conv1d_ds"][arch] = (t[4], t[5], bound(
+            2 * n + 4 * n + ws + 4 * W * cb, 2 * W * n, F32_FLOPS_PER_S)[0])
+        del x, g, w, s, xb, gb, wb, sb, ds, want
+    # kernels 1-2 on f32 activations: a column block of recurrentgemma's
+    # w_rg (its gates run on f32 u)
+    K = N = CONV_SHAPES["recurrentgemma-9b"]
+    Mr, nl = B * S, N // BLOCK_SPLIT
+    c0, c1 = BLOCK_AT * nl, (BLOCK_AT + 1) * nl
+    off = (7 * K * N) & M32
+    w = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
+    s = 2 * torch.randn(K, N, generator=gen, device=dev)
+    wb, sb = w[:, c0:c1].contiguous(), s[:, c0:c1].contiguous()
+    tag = f"f32 block w_rg K={K} N={N} cols {c0}..{c1}"
+    r = min(Mr, nl)
+    px = torch.zeros(r, K, device=dev)
+    px[torch.arange(r, device=dev), torch.arange(r, device=dev) * (K // r)] = 1
+    check(torch.equal(
+        mm.masked_matmul(px, wb, sb, seed, off + c0, n_logical=N),
+        mm.masked_matmul(px, w, s, seed, off)[:, c0:c1]),
+          f"{tag}: kernel 1's block probe differs from its full probe")
+    pg = torch.zeros(r, nl, device=dev)
+    pg[:, :r] = torch.eye(r, device=dev)
+    pf = torch.zeros(r, N, device=dev)
+    pf[:, c0:c1] = pg
+    check(torch.equal(
+        mm.masked_matmul_dx(pg, wb, sb, seed, off + c0, n_logical=N),
+        mm.masked_matmul_dx(pf, w, s, seed, off)),
+          f"{tag}: kernel 2's block probe differs from its full probe")
+    x = torch.randn(Mr, K, generator=gen, device=dev)
+    g = torch.randn(Mr, nl, generator=gen, device=dev)
+    gf = torch.randn(Mr, N, generator=gen, device=dev)
+    for name, got, want in (
+            ("masked_matmul_fwd",
+             mm.masked_matmul(x, wb, sb, seed, off + c0, n_logical=N),
+             ref.masked_matmul(x, wb, sb, seed, off + c0, N)),
+            ("masked_matmul_dx",
+             mm.masked_matmul_dx(g, wb, sb, seed, off + c0, n_logical=N),
+             ref.masked_matmul_dx(g, wb, sb, seed, off + c0, N))):
+        d = float((got - want).abs().max())
+        check(got.dtype == torch.float32 and bool(torch.allclose(
+            got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))),
+              f"{name} {tag}: max |diff| {d}")
+        err[name] = max(err[name], d)
+    t = graph_ms(torch, [
+        lambda: mm.masked_matmul(x, wb, sb, seed, off + c0, n_logical=N),
+        lambda: mm.masked_matmul(x, w, s, seed, off),
+        lambda: mm.masked_matmul_dx(g, wb, sb, seed, off + c0, n_logical=N),
+        lambda: mm.masked_matmul_dx(gf, w, s, seed, off)], 20)
+    # f32 x or g, bf16 w, f32 s; 2 M K N/16 flops on the f32 units
+    cost = (4 * Mr * K + 6 * K * nl + 4 * Mr * nl, 2 * Mr * K * nl)
+    rows["masked_matmul_fwd"]["w_rg f32"] = (t[0], t[1],
+                                             bound(*cost, F32_FLOPS_PER_S)[0])
+    rows["masked_matmul_dx"]["w_rg f32"] = (t[2], t[3],
+                                            bound(*cost, F32_FLOPS_PER_S)[0])
+    del w, s, wb, sb, x, g, gf, px, pg, pf
+    torch.cuda.empty_cache()
+    print(f"conv block checks (channel block {BLOCK_AT} of {BLOCK_SPLIT} of "
+          f"each conv at B={B} S={S}, off + c0, n_logical = C; kernels 1-2 "
+          f"on f32 at M={Mr} on column block {BLOCK_AT} of w_rg): blocks "
+          f"equal the full launches' channels and the probes bit for bit, "
+          f"max abs err {json.dumps(err)}; graph replay, ms: block / full / "
+          f"full over {BLOCK_SPLIT} / block bound")
+    for k in names:
+        for leaf, (tb, tf, bb) in rows[k].items():
+            print(f"  {k:18s} {leaf:26s} {tb:9.4f} {tf:9.4f} "
+                  f"{tf / BLOCK_SPLIT:9.4f} {bb:9.4f}")
+    return err, rows
 
 
 def grouped_timing_phase(torch, mm, ref, dev, score_dtype=None):
@@ -4313,15 +4464,96 @@ def missing_sites(want, got) -> list:
             for e, c in v.items() if got.get(k, {}).get(e, 0) != c]
 
 
+def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
+                f32_inputs=()):
+    """The collectives one partitioned train step issues on one rank
+    (`partition.BlockLayout`, `TrainPlan.gather_floats`) for a state whose
+    masked leaves are dense (K, N) or depthwise conv (W, C) layer blocks,
+    as `dryrun.collective_operands` keys them ({"kind axes dtype":
+    {elements: calls}}), from the global shapes and dtypes of `state`
+    (meta tensors do) and its shardings: `shape` the mesh's axis sizes,
+    `tokens` a cohort's tokens on the rank, `cohorts` the rank's cohorts,
+    `act` the activations' type but for the leaves named in `f32_inputs`
+    (the hybrid's gates, on f32).  Returns (every site, the conv leaves'
+    own).  Per layer block and cohort: its w (bf16) and s rows gathered
+    over "data" and its ds reduce-scattered there (rows held whole: ds
+    all-reduced there); where its columns split over "model", a dense
+    block's output columns gathered and its dx all-reduced over "model",
+    a conv block's f32 output channels gathered and its input channels'
+    dx gathered there.  Per float leaf and cohort: each sharded dim
+    gathered in turn, the gradient (model dims sliced) reduce-scattered
+    over "data" on a data dim, else all-reduced.  The loss once over the
+    client axes."""
+    from repro_torch.core import tree
+    dd, dm = shape["data"], shape["model"]
+    out, conv = {}, {}
+
+    def add(sites, kind, axes, dtype, elems, calls):
+        key = f"{kind} {axes} {str(dtype).removeprefix('torch.')}"
+        sites.setdefault(key, {})
+        sites[key][str(elems)] = sites[key].get(str(elems), 0) + calls
+    for (path, s), sh in zip(tree.flatten_with_paths(state["scores"]),
+                             tree.leaves(state_sh["scores"])):
+        if s is None:
+            continue
+        spec = list(sh.spec) + [None] * (s.ndim - len(sh.spec))
+        rows, cols = spec[-2] == "data", spec[-1] == "model"
+        K, N = s.shape[-2:]
+        kl, nl = K // dd if rows else K, N // dm if cols else N
+        n = math.prod(s.shape[1:-2]) * cohorts
+        is_conv = path.endswith("conv/w_conv")
+        x = "float32" if path.rsplit("/", 1)[-1] in f32_inputs else act
+        for sites in (out, conv) if is_conv else (out,):
+            if rows:
+                add(sites, "all-gather", "data", "bfloat16", kl * nl, n)
+                add(sites, "all-gather", "data", s.dtype, kl * nl, n)
+                add(sites, "reduce-scatter", "data", s.dtype, K * nl, n)
+            else:
+                add(sites, "all-reduce", "data", s.dtype, K * nl, n)
+            if cols and is_conv:
+                add(sites, "all-gather", "model", "float32", tokens * nl, n)
+                add(sites, "all-gather", "model", x, tokens * nl, n)
+            elif cols:
+                add(sites, "all-gather", "model", x, tokens * nl, n)
+                add(sites, "all-reduce", "model", x, tokens * K, n)
+    for f, sh in zip(tree.leaves(state["floats"]),
+                     tree.leaves(state_sh["floats"])):
+        if f is None:
+            continue
+        parts = list(sh.spec)[1:] + [None] * (f.ndim - len(sh.spec))
+        dims = [d // {"data": dd, "model": dm}.get(p, 1)
+                for d, p in zip(f.shape[1:], parts)]
+        for i, p in enumerate(parts):
+            if p is not None:
+                add(out, "all-gather", p, f.dtype, math.prod(dims), cohorts)
+                dims[i] = f.shape[1 + i]
+        grad = math.prod(d // dm if p == "model" else d
+                         for d, p in zip(f.shape[1:], parts))
+        add(out, "reduce-scatter" if "data" in parts else "all-reduce",
+            "data", f.dtype, grad, cohorts)
+    add(out, "all-reduce", "x".join(a for a in ("pod", "data") if a in shape),
+        "float32", 1, 1)
+    return out, conv
+
+
+def stub_mesh(shape):
+    """A stand-in for `launch.mesh.Mesh` that `steps.fed_state_shardings`
+    reads: its axis names and sizes (`shape`, in mesh order)."""
+    return type("Stub", (), {"shape": dict(shape),
+                             "axis_names": tuple(shape),
+                             "coords": dict.fromkeys(shape, 0)})()
+
+
 def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
                    profiled):
     """`len(batches)` train steps of `tcfg` on this rank's block of `host`
     (`make_train_step(api, tcfg, mesh, sh)`, batches cut to the rank's
     rows) and as many `mesh=None` steps on the whole state, one state on
     the card at a time.  Writes into `res` under `tag` and `tag`_plain /
-    `tag`_mesh: each side's losses, seconds, peak GiB, launches and
-    digests, the first partitioned step's collectives (count, bytes by
-    kind and axes, calls by operand, calls and device ms by kind); with
+    `tag`_mesh: each side's losses (and their f32 bits), seconds, peak
+    GiB, launches and digests, the first partitioned step's collectives
+    (count, bytes by kind and axes, calls by operand, calls and device ms
+    by kind); with
     `profiled`, one more step of each under torch.profiler (wall ms,
     device busy ms, collective calls)."""
     from repro_torch.analysis import comm_model
@@ -4341,7 +4573,7 @@ def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
         fn = (steplib.make_train_step(api, tcfg, mesh, sh) if part
               else steplib.make_train_step(api, tcfg))
         dispatch.reset_launch_counts()
-        losses, secs, log = [], [], []
+        losses, bits, secs, log = [], [], [], []
         for i, b in enumerate(batches):
             if part:
                 b = {k: rows.local(v) for k, v in b.items()}
@@ -4355,6 +4587,8 @@ def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
+            bits.append(int(m["loss"].detach().float().reshape(1).view(
+                torch.int32).item()))
             if sites:
                 res[f"{tag}_sites"] = len(sites)
                 res[f"{tag}_axes"] = dryrun.collective_axes(sites)
@@ -4362,6 +4596,7 @@ def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
                 res[f"{tag}_wire"] = _wire_totals(log, mesh)
         res[f"{key}_launches"] = dict(dispatch.LAUNCHES)
         res[f"{key}_losses"], res[f"{key}_s"] = losses, secs
+        res[f"{key}_loss_bits"] = bits
         res[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res[key] = state_digests(torch, st, None if part else sh)
         if profiled:
@@ -4409,7 +4644,9 @@ def mesh_rank(rank, world, store, out_path):
     under torch.profiler (wall, device busy, collective calls); (7) the
     same MESH_STEPS steps both ways for deepseek-v2-lite-16b at full width
     cut to MOE_LAYERS layers (its expert leaves through
-    `partition.ExpertLayout`), without the profiled step.
+    `partition.ExpertLayout`), without the profiled step; (8) the same for
+    mamba2-370m at all MAMBA_LAYERS layers (its conv leaves through
+    `partition.BlockLayout.conv`), the phase's seconds beside.
     Writes a JSON of what it found; raises on any failed check."""
     import torch
     import torch.distributed as dist
@@ -4546,6 +4783,23 @@ def mesh_rank(rank, world, store, out_path):
                        batches, res, "moe", profiled=False)
         del api, host, batches
 
+        # (8) the ssm family's partitioned train step: mamba2-370m at all
+        # its layers, the launcher's cohorts and batches, MESH_STEPS steps
+        # on this rank's block (its conv leaves on the rank's channels)
+        # against mesh=None from one host state drawn on the card
+        t0 = time.perf_counter()
+        api, host = mesh_round.global_state("mamba2-370m", COHORTS,
+                                            draw_device=dev)
+        torch.cuda.empty_cache()
+        res["ssm_draw_s"] = time.perf_counter() - t0
+        batches = [mesh_round.step_batch(targs, api, i, dev)
+                   for i in range(MESH_STEPS)]
+        _train_compare(torch, mesh, api, host,
+                       steplib.fed_state_shardings(host, mesh), tcfg,
+                       batches, res, "ssm", profiled=False)
+        res["ssm_phase_s"] = time.perf_counter() - t0
+        del api, host, batches
+
         # kernel 10 in mask_mean_packed: one layer's masks of each leaf
         gen = torch.Generator(device=dev).manual_seed(29)
         masks = {k: (torch.rand(s, generator=gen, device=dev) < 0.5).to(
@@ -4589,10 +4843,20 @@ def mesh_phase(torch, dispatch):
     kernels 1-3 (and 5-7 for the experts) launched once a projection,
     layer, local cohort and step, the expert layout's collectives each
     of the closed form's operand size and count (`moe_expert_sites`).
+    The partitioned train steps of mamba2-370m at all its layers: on one
+    rank the `mesh=None` steps bit for bit (digests, and the losses by
+    their bits: the launcher's lr diverges mamba2 in both packages, and a
+    NaN must neither fail the check nor hide a difference), kernels 1-3
+    once a dense projection, layer, local cohort and step, kernel 8
+    twice a conv and 9 once, every collective of the first step as the
+    closed form gives it (`block_sites`, the conv leaves' among them).
     Returns the launches, summed over the ranks."""
     import multiprocessing
 
+    from repro_torch.analysis import stream_cover
+    from repro_torch.configs import get_config
     from repro_torch.launch import mesh_round
+    from repro_torch.launch import steps as steplib
     world = torch.cuda.device_count()
     work = _scratch("chip_smoke_mesh")
     torch.cuda.empty_cache()
@@ -4672,6 +4936,27 @@ def mesh_phase(torch, dispatch):
         miss = missing_sites(moe_sites, x["moe_operands"])
         check(not miss, f"rank {r}: the partitioned MoE step's expert "
               f"collectives (kind, elements, expected, recorded): {miss}")
+        # the ssm steps: kernels 1-3 once a dense projection (w_in, w_out),
+        # layer, local cohort and step; kernel 8 twice a conv (forward,
+        # flipped dx), 9 once
+        want = {k: 0 for k in dispatch.KERNELS}
+        n = 2 * MAMBA_LAYERS * local * MESH_STEPS
+        want.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                    masked_matmul_ds=n, masked_conv1d=n,
+                    masked_conv1d_ds=n // 2)
+        check(x["ssm_mesh_launches"] == want, f"partitioned ssm steps rank "
+              f"{r} launched {x['ssm_mesh_launches']}, expected {want}")
+        _, meta = stream_cover.meta_fed_state(get_config("mamba2-370m"),
+                                              COHORTS)
+        ssm_sites, ssm_conv = block_sites(
+            meta, steplib.fed_state_shardings(meta, stub_mesh(x["shape"])),
+            x["shape"], mesh_round.BATCH // x["shape"]["data"]
+            * mesh_round.SEQ, local)
+        check(x["ssm_operands"] == ssm_sites, f"rank {r}: the partitioned "
+              f"ssm step's collectives {x['ssm_operands']}, the closed form "
+              f"{ssm_sites}")
+        check(len(x["ssm_mesh_loss_bits"]) == MESH_STEPS, f"rank {r}: ssm "
+              f"losses {x['ssm_mesh_losses']}")
         check(x["unpacked"]["scores"] == x["mesh"]["scores"],
               f"rank {r}: the unpacked theta differs from the packed one")
         if world == 1:
@@ -4701,6 +4986,12 @@ def mesh_phase(torch, dispatch):
             check(x["moe_mesh_losses"] == x["moe_plain_losses"],
                   f"partitioned MoE losses {x['moe_mesh_losses']} against "
                   f"mesh=None's {x['moe_plain_losses']}")
+            check(x["ssm_mesh"] == x["ssm_plain"], "the partitioned ssm "
+                  "train steps' scores, moments or floats differ from "
+                  "mesh=None's")
+            check(x["ssm_mesh_loss_bits"] == x["ssm_plain_loss_bits"],
+                  f"partitioned ssm losses {x['ssm_mesh_losses']} against "
+                  f"mesh=None's {x['ssm_plain_losses']} (by their bits)")
         # the recorded rounds: the packed wire clean and at 1 bit a
         # parameter and cohort (plus word padding: <= 32 bits a leaf,
         # cohort and shard), the bf16 baseline firing once a mask leaf at
@@ -4736,7 +5027,8 @@ def mesh_phase(torch, dispatch):
         for k in launches:
             launches[k] += (x["mesh_launches"][k] + x["mean_launches"][k]
                             + x["train_mesh_launches"][k]
-                            + x["moe_mesh_launches"][k])
+                            + x["moe_mesh_launches"][k]
+                            + x["ssm_mesh_launches"][k])
     check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
                for x in res}) == 1, "ranks disagree on bits_measured")
     x = res[0]
@@ -4790,6 +5082,30 @@ def mesh_phase(torch, dispatch):
           f"received and device ms by kind {json.dumps(mw)}; the expert "
           f"layout's {sum(sum(v.values()) for v in moe_sites.values())} "
           f"collectives as the closed form gives them")
+    sw = x["ssm_wire"]
+    conv_calls = sum(sum(v.values()) for v in ssm_conv.values())
+    conv_bytes = sum(int(e) * c * (2 if "bfloat16" in k else 4)
+                     for k, v in ssm_conv.items() for e, c in v.items())
+    print(f"mesh phase, partitioned ssm train steps (mamba2-370m, all "
+          f"{MAMBA_LAYERS} layers, {COHORTS} cohorts, batch 2 x 128; state "
+          f"drawn in {x['ssm_draw_s']:.3f} s, the whole step (8) "
+          f"{x['ssm_phase_s']:.1f} s; {smi_line()}): partitioned "
+          f"{_fmt(x['ssm_mesh_s'])} s (steps 2-{MESH_STEPS} "
+          f"{steady(x['ssm_mesh_s']):.4f} s a step), mesh=None "
+          f"{_fmt(x['ssm_plain_s'])} s ({steady(x['ssm_plain_s']):.4f} s); "
+          f"overhead "
+          f"{steady(x['ssm_mesh_s']) / steady(x['ssm_plain_s']) - 1:+.2%}; "
+          f"peak {x['ssm_mesh_peak_gib']:.2f} GiB against "
+          f"{x['ssm_plain_peak_gib']:.2f}; losses {x['ssm_mesh_losses']} "
+          f"(mesh=None {x['ssm_plain_losses']}), bits equal: "
+          f"{x['ssm_mesh_loss_bits'] == x['ssm_plain_loss_bits']}; digests "
+          f"equal: {x['ssm_mesh'] == x['ssm_plain']}; the first step's "
+          f"{x['ssm_sites']} collectives ({sum(v[0] for v in sw.values())} "
+          f"calls, {sum(v[1] for v in sw.values())} bytes sent) as the "
+          f"closed form gives them, the conv leaves' {conv_calls} "
+          f"({conv_bytes} bytes); bytes by kind and axes "
+          f"{json.dumps(x['ssm_axes'])}, calls, bytes sent, received and "
+          f"device ms by kind {json.dumps(sw)}")
     pm, pp = x["train_mesh_profile"], x["train_plain_profile"]
     print(f"mesh phase, one more step under torch.profiler: partitioned "
           f"wall {pm[0]:.1f} ms, device busy {pm[1]:.1f} ms "
@@ -4957,7 +5273,8 @@ DRYRUN_GROUPS = (
     ("recurrentgemma-9b,whisper-medium,deepseek-7b", "train_4k", "multi",
      ()),
     ("gemma3-4b,deepseek-v2-lite-16b,qwen2-vl-2b", "train_4k", "multi", ()),
-    ("internlm2-1.8b", "train_4k", "single", ()),
+    ("internlm2-1.8b,mamba2-370m,recurrentgemma-9b", "train_4k", "single",
+     ()),
     ("deepseek-v2-lite-16b,deepseek-v2-236b", "train_4k", "single", ()),
     ("internlm2-1.8b", "prefill_32k,decode_32k", "multi", ()),
     ("internlm2-1.8b", "train_4k", "multi", ("--unpacked",)),
@@ -5009,11 +5326,14 @@ def dryrun_cell_check(key, res, unpacked):
         ratio = {k: train["global_step"]["kernel_work"][k]["flops"]
                  / train["kernel_work"][k]["flops"]
                  for k in ("masked_matmul_fwd", "masked_matmul_dx")}
-        if arch == "internlm2-1.8b":           # every leaf divides
+        if arch in ("internlm2-1.8b", "mamba2-370m", "recurrentgemma-9b"):
+            # every leaf divides
             check(all(v == n_dev for v in ratio.values()), f"{key}: the "
                   f"global step's kernel 1-2 flops over rank 0's {ratio}, "
                   f"expected {n_dev}")
         moe = ""
+        if get_config(arch).family in ("ssm", "hybrid"):
+            moe = conv_cell_check(key, train, n_dev, ratio)
         if get_config(arch).family == "moe":
             # the expert layout's collectives, each operand size and
             # count; kernels 5-6 on rank 0's experts and slots: the
@@ -5081,6 +5401,59 @@ def dryrun_cell_check(key, res, unpacked):
           f"{res['stream_cover']['wrapped_findings']} (past 2**32 "
           f"elements: {res['stream_cover']['wrapped_leaves']})")
     return got
+
+
+def conv_cell_check(key, train, n_dev, ratio):
+    """The partitioned train step of an ssm or hybrid dry-run cell (rank 0
+    of the production mesh, one cohort a pod): every collective as the
+    closed form gives it (`block_sites`, its conv leaves' among them);
+    kernel 8 exactly the global step's flops over the device count, and
+    kernel 9 too but for its epilogue, which runs on the rank's C/16
+    channels of every tap (W = 4 does not split over 16 data ranks).
+    Adds kernels 8-9's ratios to `ratio`; returns a line's tail."""
+    from repro_torch.analysis import stream_cover
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.launch import steps as steplib
+    arch, _, mesh = key.split("|")
+    cfg = get_config(arch)
+    shape = ({"pod": 2, "data": 16, "model": 16} if mesh == "pod2x16x16"
+             else {"data": 16, "model": 16})
+    cohorts = shape.get("pod", 1)
+    _, meta = stream_cover.meta_fed_state(cfg, cohorts)
+    sh = steplib.fed_state_shardings(meta, stub_mesh(shape))
+    rows = SHAPES["train_4k"].global_batch // cohorts
+    S = SHAPES["train_4k"].seq_len
+    want, conv = block_sites(
+        meta, sh, shape, rows // shape["data"] * S, 1,
+        f32_inputs=("w_rg", "w_ri") if cfg.family == "hybrid" else ())
+    got = train["collective_operands"]
+    bad = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+           if got.get(k) != want.get(k)}
+    check(not bad, f"{key}: collectives (recorded, closed form) {bad}")
+    convs = [s for p, s in tree.flatten_with_paths(meta["scores"])
+             if s is not None and p.endswith("conv/w_conv")]
+    W, C = convs[0].shape[-2:]
+    L = sum(math.prod(s.shape[1:-2]) for s in convs)   # conv layers
+    cl, rl = C // shape["model"], rows // shape["data"]
+    epi = mm.EPILOGUE_FLOPS * W
+    work = train["kernel_work"]
+    glob = train["global_step"]["kernel_work"]
+    k8 = (int(glob["masked_conv1d"]["flops"]),
+          int(work["masked_conv1d"]["flops"]))
+    k9 = (int(glob["masked_conv1d_ds"]["flops"]),
+          int(work["masked_conv1d_ds"]["flops"]))
+    check(k8 == (cohorts * L * 2 * 2 * W * rows * S * C,
+                 L * 2 * 2 * W * rl * S * cl) and k8[0] == n_dev * k8[1],
+          f"{key}: kernel 8 flops (global, rank 0) {k8}")
+    check(k9 == (cohorts * L * (2 * W * rows * S * C + epi * C),
+                 L * (2 * W * rl * S * cl + epi * cl)), f"{key}: kernel 9 "
+          f"flops (global, rank 0) {k9}")
+    ratio.update(masked_conv1d=k8[0] / k8[1], masked_conv1d_ds=k9[0] / k9[1])
+    n = sum(sum(v.values()) for v in conv.values())
+    return (f"; every collective as the closed form gives it, the {L} conv "
+            f"layers' {n} (C = {C} on \"model\": {cl} channels a rank)")
 
 
 def dryrun_phase(torch, dispatch):
@@ -5569,6 +5942,10 @@ def main():
     per_shape.update(p_per_shape)
     block_err, _ = block_kernel_phase(torch, mm, ref, dev)
     block_err.update(grouped_block_checks(torch, mm, ref, dev))
+    t1 = time.time()
+    for k, v in conv_block_checks(torch, mm, ref, dev)[0].items():
+        block_err[k] = max(block_err.get(k, 0.0), v)
+    print(f"conv_block_checks: {time.time() - t1:.1f}s")
     for k, v in block_err.items():
         err[k] = max(err[k], v)
     zoo_err, zoo_rows = zoo_kernel_phase(torch, mm, ref, dev)

@@ -137,38 +137,43 @@ def masked_dense_grouped_threshold(x, w, s, tau=0.5):
 
 class _MaskedConv1d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, s, seed, off, mode, tau):
+    def forward(ctx, x, w, s, seed, off, mode, tau, n_logical):
         x = x.contiguous()
-        y = mm.masked_conv1d(x, w, s, seed, off, mode=mode, tau=tau)
+        y = mm.masked_conv1d(x, w, s, seed, off, n_logical=n_logical,
+                             mode=mode, tau=tau)
         ctx.save_for_backward(x, w, s)
-        ctx.coords = (seed, off, mode, tau)
+        ctx.coords = (seed, off, mode, tau, n_logical)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, s = ctx.saved_tensors
-        seed, off, mode, tau = ctx.coords
+        seed, off, mode, tau, n_logical = ctx.coords
         g = g.contiguous()
         dx = ds = None
         if ctx.needs_input_grad[0]:
-            dx = mm.masked_conv1d(g, w, s, seed, off, mode=mode, tau=tau,
-                                  flip=True).to(x.dtype)
+            dx = mm.masked_conv1d(g, w, s, seed, off, n_logical=n_logical,
+                                  mode=mode, tau=tau, flip=True).to(x.dtype)
         if ctx.needs_input_grad[2]:
             ds = mm.masked_conv1d_ds(x, g, w, s)
-        return dx, None, ds, None, None, None, None
+        return dx, None, ds, None, None, None, None, None
 
 
-def masked_conv1d(x, w, s, seed, off=0):
+def masked_conv1d(x, w, s, seed, off=0, n_logical=None):
     """Depthwise causal conv through the masked (W, C) kernel leaf,
     y[b,s,c] = sum_t x[b, s+t-(W-1), c] * (m*w)[t,c] with m ~
     bern(sigmoid(s); seed, off), STE backward.  x: (B, S, C); returns f32
-    (B, S, C) (bias and cast stay with the caller)."""
-    return _MaskedConv1d.apply(x, w, s, int(seed), int(off), "sample", 0.5)
+    (B, S, C) (bias and cast stay with the caller).  Mask (t, c) is drawn
+    at off + t*n_logical + c (n_logical None: C), so a channel block of a
+    wider leaf, its offset moved by its first channel, draws that leaf's
+    masks."""
+    return _MaskedConv1d.apply(x, w, s, int(seed), int(off), "sample", 0.5,
+                               n_logical)
 
 
 def masked_conv1d_threshold(x, w, s, tau=0.5):
     """The same with m = 1[sigmoid(s) > tau] (FedMask; no hash stream)."""
-    return _MaskedConv1d.apply(x, w, s, 0, 0, "threshold", float(tau))
+    return _MaskedConv1d.apply(x, w, s, 0, 0, "threshold", float(tau), None)
 
 
 class _Conv1dPlain(torch.autograd.Function):

@@ -18,12 +18,13 @@ side of each cell instead:
   `torch.utils.flop_counter.FlopCounterMode` on meta tensors at the
   global shapes (the kernels state theirs, `kernels.dispatch`), and the
   argument bytes of rank 0's block of state and batch.  For the
-  families the partitioned step runs (`partition.FAMILIES`: the
-  dense-leaf archs and the moe family, whose expert leaves' E is on
-  "model") the step runs partitioned (`steps.make_train_step(api, cfg,
-  mesh, state_sh)`) on rank 0's block as meta tensors at the local
-  shapes, its collectives recorded: the cell reports rank 0's flops,
-  kernel work and collective bytes (by kind, and by kind and mesh axes;
+  families the partitioned step runs (`partition.FAMILIES`: every
+  family's, the moe family's expert leaves with E on "model", the ssm
+  and hybrid families' conv leaves with C on "model") the step runs
+  partitioned (`steps.make_train_step(api, cfg, mesh, state_sh)`) on
+  rank 0's block as meta tensors at the local shapes, its collectives
+  recorded: the cell reports rank 0's flops, kernel work and collective
+  bytes (by kind, and by kind and mesh axes;
   its calls by kind, axes, type and operand size), the global step's
   beside them under "global_step"; then the round
   step run once on rank 0's block of the state, drawn on `device` alone
@@ -40,8 +41,7 @@ stand-in group an all-reduce leaves its buffer as it was and an
 all-gather brings no peer's rows, so theta and the scores after the
 round mean nothing.  Every result carries ``"peers": "fake"``.  Fields
 with no twin here are None: `generated_code_size`, and the collective
-bytes of the steps the port runs unpartitioned: the train step of the
-ssm and hybrid families, prefill and decode.
+bytes of the steps the port runs unpartitioned: prefill and decode.
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@ cfg, mesh, state_sh)`.
     torchrun --nproc_per_node=<cards> -m repro_torch.launch.mesh_round \\
         --arch internlm2-1.8b --cohorts 2 [--steps 4]
 
+`--arch` takes any arch of the zoo: `--arch mamba2-370m --steps 4` runs
+the ssm family's partitioned steps, its conv leaves on each rank's
+channel block.
+
 Each rank starts the process group from torchrun's environment
 (`mesh.init`: NCCL with the rank on its card; `--device cpu`: gloo) and
 builds `mesh.make_debug_pod_mesh()` from the world size.  It draws the

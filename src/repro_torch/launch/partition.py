@@ -55,6 +55,23 @@ leaf is used, so no model code changes:
   dx over its experts is all-reduced over "model", and kernel 7's ds is
   reduce-scattered over "data" to the rank's rows and divided by the
   data size.
+* A depthwise (W, C) conv leaf (`BlockLayout.conv`, which
+  `layers.masked_conv1d_apply` runs for a leaf that carries a layout:
+  mamba2's and recurrentgemma's `conv/w_conv`), a layer block at a time:
+  its taps gathered over "data" where W splits there (the generic
+  rule's rows; on the production meshes d_data = 16 leaves W = 4 whole),
+  the rank's C/d_model channels from c0 on, the same scheme as a dense
+  block's columns.  x (B, S, C), alike on every "model" rank, is sliced
+  to the rank's channels; kernel 8 runs on them at the leaf's offset
+  moved by c0 with n_logical = C; its f32 output channels are
+  all-gathered over "model".  Backward: the output gather's is a slice;
+  kernel 8's flipped dx of the channel block is all-gathered over
+  "model" (a rank holds only its own channels' gradient, and what
+  precedes the conv is computed alike on every "model" rank); kernel 9's
+  ds goes back as a dense block's does (reduce-scattered over "data"
+  where the taps split, else all-reduced there, divided by the data
+  size).  A C that does not split over "model" is convolved whole on
+  every model rank.
 * A float leaf (`TrainPlan.gather_floats`: embedding tables, norm
   scales, biases) is gathered whole over its sharded axes before the
   forward.  Its gradient is sliced back to the block on "model" (not
@@ -88,16 +105,18 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import layers
 
-# the families whose masked leaves are 2-D dense blocks (kernels 1-3) or
-# stacked (E, K, N) expert blocks (kernels 5-7)
-FAMILIES = ("dense", "vlm", "encdec", "moe")
+# the families whose masked leaves are 2-D dense blocks (kernels 1-3),
+# stacked (E, K, N) expert blocks (kernels 5-7) or depthwise (W, C) conv
+# blocks (kernels 8-9)
+FAMILIES = ("dense", "vlm", "encdec", "moe", "ssm", "hybrid")
 _M32 = 0xFFFFFFFF
 
 
 def check_train(api, cfg) -> None:
     """Raise NotImplementedError for what the partitioned train step does
-    not run: a family with conv leaves, block-local MoE dispatch,
-    microbatches (the global step's chunks cut across data shards)."""
+    not run: a family outside FAMILIES, block-local MoE dispatch (its
+    blocks of the cohort's tokens cut across data ranks), microbatches
+    (the global step's chunks cut across data shards)."""
     if api.cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the partitioned train step runs the families {FAMILIES}; "
@@ -236,6 +255,22 @@ class _FromModel(torch.autograd.Function):
         return g.narrow(*ctx.block), None, None, None
 
 
+class _ModelSlice(torch.autograd.Function):
+    """Forward: this rank's block of x along `dim` (x alike on every
+    "model" rank; a view).  Backward: the ranks' blocks of the gradient
+    all-gathered over "model" (each holds only its own block's, and what
+    precedes is computed alike on every "model" rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, n, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.narrow(dim, rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
 class _GatherSum(torch.autograd.Function):
     """Forward: the ranks' blocks all-gathered over `group` along `dim`.
     Backward: the gradient summed over the group, this rank keeping its
@@ -268,9 +303,10 @@ class _ScatterSum(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class BlockLayout:
-    """A rank's placement of one masked dense leaf: its layer blocks'
-    rows gathered over "data" by `rows` (or held whole), its own columns
-    the rank's N/d_model when `cols` (else all N)."""
+    """A rank's placement of one masked dense or depthwise conv leaf: its
+    layer blocks' rows (a conv's taps) gathered over "data" by `rows` (or
+    held whole), its own columns (a conv's channels) the rank's N/d_model
+    when `cols` (else all N)."""
     mesh: Any
     rows: Placement
     cols: bool
@@ -283,6 +319,34 @@ class BlockLayout:
         gathered over "data" start `r0` rows above it on the stream."""
         return self._product(x, p, False)
 
+    def conv(self, x: torch.Tensor, p: MaskedLeaf) -> torch.Tensor:
+        """The causal depthwise conv of the global (W, C) leaf's layer
+        block on this rank's rows of the batch x (B, S, C), every
+        channel, with the global masks, f32 (bias and cast stay with the
+        caller): `p` is the rank's block as `TrainPlan.place` gives it,
+        its taps gathered over "data", kernel 8 on its channels (module
+        docstring)."""
+        w = self.rows.gather(p.w)
+        s = _Gathered.apply(p.s, self.rows)
+        if self.cols:
+            model, i = self.mesh.group("model"), self.mesh.coords["model"]
+            x = _ModelSlice.apply(x, model, i, p.w.shape[-1], -1)
+        if p.mode == "threshold":
+            y = ops.masked_conv1d_threshold(x, w, s, p.tau)
+        else:
+            y = ops.masked_conv1d(x, w, s, int(p.seed),
+                                  int(self._gathered_off(p)), p.n_logical)
+        if self.cols:
+            y = _FromModel.apply(y, model, i, -1)
+        return y
+
+    def _gathered_off(self, p: MaskedLeaf):
+        """The stream offsets of the gathered rows: the block's, moved back
+        by its first row r0 (its first column c0 stays in)."""
+        r0 = (self.mesh.coords["data"] * p.w.shape[-2]
+              if self.rows.gathers else 0)
+        return (np.asarray(p.off, np.int64) - r0 * p.n_logical) & _M32
+
     def _product(self, x, p: MaskedLeaf, grouped: bool) -> torch.Tensor:
         w = self.rows.gather(p.w)
         s = _Gathered.apply(p.s, self.rows)
@@ -293,9 +357,7 @@ class BlockLayout:
             y = (ops.masked_dense_grouped_threshold if grouped
                  else ops.masked_dense_threshold)(x, w, s, p.tau)
         else:
-            r0 = (self.mesh.coords["data"] * p.w.shape[-2]
-                  if self.rows.gathers else 0)
-            off = (np.asarray(p.off, np.int64) - r0 * p.n_logical) & _M32
+            off = self._gathered_off(p)
             y = (ops.masked_dense_grouped(x, w, s, p.seed, off, p.n_logical)
                  if grouped else
                  ops.masked_dense(x, w, s, int(p.seed), int(off),
@@ -413,7 +475,10 @@ class TrainPlan:
                     f"leaf {i}: scores {sh.spec} and weights {wsh.spec} are "
                     f"placed apart")
             # a stacked (C, L, E, K, N) expert leaf: a layer's (E, K, N)
-            # block is one grouped launch, its E on "model" or whole
+            # block is one grouped launch, its E on "model" or whole; every
+            # other leaf's layer block, a dense (K, N) or a conv's (W, C)
+            # (mamba2's (C, L, W, C), recurrentgemma's (C, G, W, C)), is a
+            # 2-D body
             body = 3 if len(g) == 5 else 2
             ep = body == 3 and parts[-3] == "model"
             if (any(parts[1:-body]) or parts[-2] not in (None, "data")

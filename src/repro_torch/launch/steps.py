@@ -12,7 +12,8 @@ mask stream is keyed by.
   masked projection runs the masked-matmul kernels, and scores get the
   straight-through gradient plus lam times the eq. 12 entropy proxy's.
   On a mesh each rank updates its block (`launch.partition`: FSDP
-  gathers over "data", kernels 1-3 on column blocks over "model").
+  gathers over "data", kernels 1-3 on column blocks over "model",
+  kernels 5-7 on the rank's experts, kernels 8-9 on its conv channels).
   `StepConfig.microbatch` = M splits each cohort's batch into M
   contiguous chunks, one mask-stream tick each (step * M + j), and
   averages their gradients in f32; `chunk_kv` chunks attention over its
@@ -273,8 +274,8 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
     place and returns the global mean loss on every rank.  Cohort c of
     the rank keys its mask stream by its global index, the proxy's n is
     the global score count a cohort, and each cohort's gradient is the
-    mean of its data ranks'.  The dense, vlm and encdec families only,
-    at microbatch 1 (others raise NotImplementedError)."""
+    mean of its data ranks'.  Microbatch 1 and global MoE dispatch only
+    (`partition.check_train` raises NotImplementedError otherwise)."""
     b1, b2 = ADAM_BETAS
     M = cfg.microbatch
     if (mesh is None) != (state_sh is None):

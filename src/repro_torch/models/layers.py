@@ -59,12 +59,16 @@ def masked_grouped_apply(x: torch.Tensor, p) -> torch.Tensor:
 def masked_conv1d_apply(x: torch.Tensor, p) -> torch.Tensor:
     """Depthwise causal conv y[b,s,c] = sum_t x[b,s+t-(W-1),c] w_eff[t,c]
     for a (W, C) kernel leaf, f32 output (bias and cast stay with the
-    caller).  A `MaskedLeaf` runs the fused masked conv kernels, a plain
-    tensor the same kernels mask-free."""
+    caller).  A `MaskedLeaf` runs the fused masked conv kernels (a rank's
+    block on a mesh: its layout's partitioned conv), a plain tensor the
+    same kernels mask-free."""
     if isinstance(p, MaskedLeaf):
+        if p.layout is not None:
+            return p.layout.conv(x, p)
         if p.mode == "threshold":
             return ops.masked_conv1d_threshold(x, p.w, p.s, p.tau)
-        return ops.masked_conv1d(x, p.w, p.s, int(p.seed), int(p.off))
+        return ops.masked_conv1d(x, p.w, p.s, int(p.seed), int(p.off),
+                                 p.n_logical)
     return ops.conv1d_plain(x, p)
 
 

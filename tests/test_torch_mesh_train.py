@@ -21,8 +21,8 @@ activations: only the order of the sums differs), after both steps
 (whisper: after the first, see REF_RUNS).
 
 The same ranks hold the partitioned step against the port's own
-`mesh=None` step from one state, one step, at f32: every arch of
-`partition.FAMILIES`' SMOKE model (internlm2, qwen2-7b with its qkv
+`mesh=None` step from one state, one step, at f32: every dense-leaf
+arch's SMOKE model (internlm2, qwen2-7b with its qkv
 biases, deepseek-7b, gemma3-4b with its windows, qwen2-vl-2b with patch
 embeddings, whisper-medium with frames), internlm2 on bf16 scores, and
 internlm2 with d_ff = 129, whose w_gate and w_up columns do not split
@@ -36,9 +36,9 @@ shapes by kind, axis and bytes, and check that each placed leaf
 In this process: a (1, 1, 1) mesh gives the `mesh=None` steps bit for
 bit, the torchrun entry's steps too; a block leaf's masks are the
 global leaf's block's, at an offset that wraps past 2**32; the step
-refuses microbatches, block-local MoE dispatch and the families outside
-the slice.  The MoE family's partitioned step is held in
-`test_torch_mesh_train_moe.py`.
+refuses microbatches and block-local MoE dispatch.  The MoE family's
+partitioned step is held in `test_torch_mesh_train_moe.py`, the ssm and
+hybrid families' in `test_torch_mesh_train_ssm.py`.
 """
 import dataclasses
 import importlib.util
@@ -750,9 +750,9 @@ def test_block_leaf_draws_the_global_leafs_masks(mode):
 
 
 def test_refusals():
-    """Microbatches, block-local MoE dispatch and the families outside the
-    slice raise on a mesh (no mesh is built: the step refuses before it
-    reads one); mesh without state_sh raises."""
+    """Microbatches and block-local MoE dispatch raise on a mesh (no mesh
+    is built: the step refuses before it reads one), while the ssm and
+    hybrid families' steps build; mesh without state_sh raises."""
     api = _api("internlm2-1.8b")
     with pytest.raises(NotImplementedError, match="microbatch"):
         steps.make_train_step(api, steps.StepConfig(microbatch=2),
@@ -761,9 +761,10 @@ def test_refusals():
         steps.make_train_step(
             _api("deepseek-v2-lite-16b", {"moe_block_dispatch": 4}),
             steps.StepConfig(), mesh=object(), state_sh={})
+    # the ssm and hybrid families build (their partitioned step:
+    # test_torch_mesh_train_ssm.py)
     for arch in ("mamba2-370m", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="families"):
-            steps.make_train_step(_api(arch), steps.StepConfig(),
-                                  mesh=object(), state_sh={})
+        assert callable(steps.make_train_step(_api(arch), steps.StepConfig(),
+                                              mesh=object(), state_sh={}))
     with pytest.raises(ValueError):
         steps.make_train_step(api, steps.StepConfig(), mesh=object())
