@@ -145,7 +145,7 @@ Phases (any failure exits non-zero and prints no result line):
    each with their seconds, client-update seconds, peak memory and the
    launches of kernels 10 and 11 a round, and one CONV6 round profiled;
    (d) the torch Fig. 1 benchmark (`python -m
-   repro_torch.benchmarks.fig1_iid`) at its defaults for 6 rounds,
+   repro_torch.benchmarks.fig1_iid`) at its defaults for 4 rounds,
    gated on invariants and launch counts; then the rest of the host-sim
    API: (e) topk (k_frac 0.3), mv_signsgd and fedavg through `run_round`
    at CONV6's published width, non-IID (2 classes a client), 2 rounds
@@ -206,7 +206,12 @@ Phases (any failure exits non-zero and prints no result line):
    the seconds of both and their peaks; the same for deepseek-v2-lite-16b
    at 4 layers (its expert collectives against a closed form) and for
    mamba2-370m at all 48 layers (bit for bit, its losses by their bits;
-   every collective of its first step as `block_sites` gives it); (g)
+   every collective of its first step as `block_sites` gives it), then 2
+   steps at microbatch 2 of internlm2-1.8b and of deepseek-v2-lite-16b
+   with moe_block_dispatch 4 (a rank's rows as pieces inside the global
+   chunks, each at its chunk's tick; bit for bit, the kernels once a
+   piece, every collective as `block_sites` and `moe_step_sites` give
+   it); (g)
    the analysis engines: the op
    walker over one full-width internlm2-1.8b train step and the three
    aligned check configs (no weight-shaped f32 value or mask outside
@@ -230,7 +235,13 @@ Phases (any failure exits non-zero and prints no result line):
    internlm2-1.8b's, the moe archs', mamba2-370m's and
    recurrentgemma-9b's train_4k on (16, 16), internlm2's prefill_32k and
    decode_32k, and its unpacked round (a purity finding a leaf, 16 bits
-   a parameter); (i) the four examples (`repro_torch.examples`:
+   a parameter), and deepseek-v2-lite-16b's partitioned train_4k step
+   on (2, 16, 16) at microbatch 2 (routing over 8-rank data subgroups)
+   and at moe_block_dispatch 64 (4 blocks a rank, routed there), in a
+   process of their own (`--step train --patch ...`): their expert
+   collectives and kernel 5-6 flops against the closed form, and the
+   counted flops no kernel states beside the global dispatch's; (i) the
+   four examples (`repro_torch.examples`:
    quickstart, serve_masked, train_lm_masked at ~40M parameters,
    fault_tolerance_demo) on the card, launches reckoned;
 9. profile one more step and round of the first four training paths
@@ -3405,9 +3416,10 @@ def lockstep_profile_phase(torch, dev):
 
 CNN_BATCH = 32                # the host-sim local batch (run_fedpm_variant)
 HOSTSIM = dict(k=10, local_steps=3, rounds=2, n=1024, seed=31)
-# the reference benchmark's default is 12 rounds; 6 keep the script in
-# its time limit beside the dry-run and examples phases
-FIG1_ROUNDS = 6
+# the reference benchmark's default is 12 rounds; 4 keep the script in
+# its time limit beside the dry-run, examples and mesh phases (6 until
+# the mesh phase's microbatched steps)
+FIG1_ROUNDS = 4
 
 
 def cnn_shapes(cfg, batch=CNN_BATCH):
@@ -3835,7 +3847,7 @@ def fig1_phase(torch, dispatch, dev):
 BASELINES = (("topk", dict(k_frac=0.3, lr=0.1)), ("mv_signsgd", {}),
              ("fedavg", {}))
 NONIID_C = 2                  # classes a client (the paper's non-IID split)
-FIG2_ROUNDS = 6
+FIG2_ROUNDS = 4               # 6 until the mesh phase's microbatched steps
 
 
 def baselines_phase(torch, dispatch, dev):
@@ -4339,6 +4351,7 @@ def kill_resume_phase(torch, dispatch):
 MESH_ARGV = ["--arch", "internlm2-1.8b", "--cohorts", str(COHORTS)]
 MESH_TIMEOUT = 300            # seconds a rank may take
 MESH_STEPS = 4                # partitioned train steps before the round
+MICROBATCH, MICRO_STEPS = 2, 2  # the microbatched partitioned steps
 DIGEST_PIECE = 1 << 26
 
 
@@ -4398,7 +4411,7 @@ def _wire_totals(log, mesh):
         t[0] += 1
         for site in sites:
             sent = site.bits // 8
-            k = math.prod(mesh.shape[x] for x in site.axes)
+            k = math.prod(mesh.axis_size(x) for x in site.axes)
             t[1] += sent
             t[2] += sent * k if site.prim == "all_gather" else sent
         t[3] += a.elapsed_time(b)
@@ -4420,40 +4433,70 @@ def moe_config():
                                n_layers=MOE_LAYERS)
 
 
-def moe_expert_sites(cfg, tokens, shape, cohorts):
+def moe_routing(cfg, tokens, shape, microbatch=1, block_dispatch=0):
+    """A MoE layer's routing on one rank of a partitioned train step, from
+    the shapes: `tokens` a cohort's tokens on the rank, `shape` the
+    mesh's axis sizes.  The cohort's tokens run as `microbatch` chunks
+    (T tokens each, global), a chunk in blocks of T/G where G =
+    `block_dispatch` gives blocks of at least 8 tokens, else whole: a
+    routing group of L tokens.  The rank runs its tokens as pieces of
+    gcd(T, tokens), each holding `groups` whole groups (span 1) or one
+    rank's share of a group over `span` data ranks.  The capacity of a
+    group and a piece's slots an expert: its groups' capacities, or the
+    capacity padded to a multiple of the span."""
+    T = tokens * shape["data"] // microbatch
+    piece = math.gcd(T, tokens)
+    G = block_dispatch
+    G = G if G and T % G == 0 and T // G >= 8 else 1
+    L = T // G
+    check(piece % L == 0 or L % piece == 0, f"routing groups of {L} tokens "
+          f"on pieces of {piece}: unaligned")
+    groups, span = (piece // L, 1) if piece % L == 0 else (1, L // piece)
+    cap = max(int(L * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 4)
+    return {"chunk": T, "blocks": G, "group": L, "pieces": tokens // piece,
+            "piece": piece, "groups": groups, "span": span, "cap": cap,
+            "slots": groups * cap if span == 1 else -(-cap // span) * span}
+
+
+def moe_expert_sites(cfg, tokens, shape, cohorts, microbatch=1,
+                     block_dispatch=0):
     """The collectives a MoE layer's expert layout issues on one rank in
     one partitioned train step (`partition.ExpertLayout.moe`), as
     `dryrun.collective_operands` keys them ({"kind axes dtype":
-    {elements: calls}}), with the cohort's capacity and its slots (the
-    capacity padded to a multiple of d_data).  `tokens`: a cohort's
-    tokens on the rank; `shape`: the mesh's axis sizes; `cohorts`: the
-    rank's cohorts.  Per MoE layer and cohort: the router logits
-    gathered over "data" and their gradient reduce-scattered; the slots
-    reduce-scattered over "data" forward and gathered backward; the
-    experts' outputs gathered over "data" forward (reduce-scattered
-    backward) and over "model"; each expert leaf's w (bf16) and s rows
-    gathered over "data" and its ds reduce-scattered there."""
+    {elements: calls}}), and the layer's routing (`moe_routing`).
+    `tokens`: a cohort's tokens on the rank; `shape`: the mesh's axis
+    sizes; `cohorts`: the rank's cohorts.  Per MoE layer, cohort and
+    piece, where a routing group spans k > 1 data ranks (their subgroup
+    "data/k", or "data" at k = d_data): the router logits gathered there
+    and their gradient reduce-scattered; the slots reduce-scattered
+    there forward and gathered backward; the experts' outputs gathered
+    there forward (reduce-scattered backward).  Always: the experts'
+    outputs gathered over "model"; each expert leaf's w (bf16) and s
+    rows gathered over "data" and its ds reduce-scattered there, once a
+    piece."""
     dd, dm = shape["data"], shape["model"]
     E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
-    El, T = E // dm, tokens * dd
-    cap = max(int(T * cfg.top_k * cfg.capacity_factor / E), 4)
-    slots = -(-cap // dd) * dd
-    n = (cfg.n_layers - cfg.first_dense_layers) * cohorts
+    El = E // dm
+    rt = moe_routing(cfg, tokens, shape, microbatch, block_dispatch)
+    k, slots = rt["span"], rt["slots"]
+    n = (cfg.n_layers - cfg.first_dense_layers) * cohorts * rt["pieces"]
     out = {}
 
     def add(key, elems, calls):
         out.setdefault(key, {})
         out[key][str(elems)] = out[key].get(str(elems), 0) + calls
-    add("all-gather data float32", tokens * E, n)
-    add("reduce-scatter data float32", T * E, n)
-    add("reduce-scatter data float32", El * slots * D, 2 * n)
-    add("all-gather data float32", El * slots // dd * D, 2 * n)
+    if k > 1:
+        ax = "data" if k == dd else f"data/{k}"
+        add(f"all-gather {ax} float32", rt["piece"] * E, n)
+        add(f"reduce-scatter {ax} float32", rt["group"] * E, n)
+        add(f"reduce-scatter {ax} float32", El * slots * D, 2 * n)
+        add(f"all-gather {ax} float32", El * slots // k * D, 2 * n)
     add("all-gather model float32", El * slots * D, n)
     # w_gate and w_up (E, D, F), w_down (E, F, D): alike a rank's rows
     add("all-gather data bfloat16", El * D // dd * F, 3 * n)
     add("all-gather data float32", El * D // dd * F, 3 * n)
     add("reduce-scatter data float32", El * D * F, 3 * n)
-    return out, cap, slots
+    return out, rt
 
 
 def missing_sites(want, got) -> list:
@@ -4465,7 +4508,7 @@ def missing_sites(want, got) -> list:
 
 
 def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
-                f32_inputs=()):
+                f32_inputs=(), pieces=1):
     """The collectives one partitioned train step issues on one rank
     (`partition.BlockLayout`, `TrainPlan.gather_floats`) for a state whose
     masked leaves are dense (K, N) or depthwise conv (W, C) layer blocks,
@@ -4474,16 +4517,19 @@ def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
     (meta tensors do) and its shardings: `shape` the mesh's axis sizes,
     `tokens` a cohort's tokens on the rank, `cohorts` the rank's cohorts,
     `act` the activations' type but for the leaves named in `f32_inputs`
-    (the hybrid's gates, on f32).  Returns (every site, the conv leaves'
-    own).  Per layer block and cohort: its w (bf16) and s rows gathered
-    over "data" and its ds reduce-scattered there (rows held whole: ds
-    all-reduced there); where its columns split over "model", a dense
-    block's output columns gathered and its dx all-reduced over "model",
-    a conv block's f32 output channels gathered and its input channels'
-    dx gathered there.  Per float leaf and cohort: each sharded dim
-    gathered in turn, the gradient (model dims sliced) reduce-scattered
-    over "data" on a data dim, else all-reduced.  The loss once over the
-    client axes."""
+    (the hybrid's gates, on f32), `pieces` the microbatch pieces a cohort
+    runs in (`partition.batch_pieces`: tokens / pieces each).  Returns
+    (every site, the conv leaves' own).  Per layer block, cohort and
+    piece (the w and s gathers are not hoisted out of the piece loop):
+    its w (bf16) and s rows gathered over "data" and its ds
+    reduce-scattered there (rows held whole: ds all-reduced there);
+    where its columns split over "model", a dense block's output columns
+    gathered and its dx all-reduced over "model", a conv block's f32
+    output channels gathered and its input channels' dx gathered there.
+    Per float leaf and cohort: each sharded dim gathered in turn, once
+    (the gather precedes the piece loop); the gradient (model dims
+    sliced) reduce-scattered over "data" on a data dim, else
+    all-reduced, once a piece.  The loss once over the client axes."""
     from repro_torch.core import tree
     dd, dm = shape["data"], shape["model"]
     out, conv = {}, {}
@@ -4500,7 +4546,8 @@ def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
         rows, cols = spec[-2] == "data", spec[-1] == "model"
         K, N = s.shape[-2:]
         kl, nl = K // dd if rows else K, N // dm if cols else N
-        n = math.prod(s.shape[1:-2]) * cohorts
+        n = math.prod(s.shape[1:-2]) * cohorts * pieces
+        t = tokens // pieces
         is_conv = path.endswith("conv/w_conv")
         x = "float32" if path.rsplit("/", 1)[-1] in f32_inputs else act
         for sites in (out, conv) if is_conv else (out,):
@@ -4511,11 +4558,11 @@ def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
             else:
                 add(sites, "all-reduce", "data", s.dtype, K * nl, n)
             if cols and is_conv:
-                add(sites, "all-gather", "model", "float32", tokens * nl, n)
-                add(sites, "all-gather", "model", x, tokens * nl, n)
+                add(sites, "all-gather", "model", "float32", t * nl, n)
+                add(sites, "all-gather", "model", x, t * nl, n)
             elif cols:
-                add(sites, "all-gather", "model", x, tokens * nl, n)
-                add(sites, "all-reduce", "model", x, tokens * K, n)
+                add(sites, "all-gather", "model", x, t * nl, n)
+                add(sites, "all-reduce", "model", x, t * K, n)
     for f, sh in zip(tree.leaves(state["floats"]),
                      tree.leaves(state_sh["floats"])):
         if f is None:
@@ -4530,10 +4577,37 @@ def block_sites(state, state_sh, shape, tokens, cohorts, act="bfloat16",
         grad = math.prod(d // dm if p == "model" else d
                          for d, p in zip(f.shape[1:], parts))
         add(out, "reduce-scatter" if "data" in parts else "all-reduce",
-            "data", f.dtype, grad, cohorts)
+            "data", f.dtype, grad, cohorts * pieces)
     add(out, "all-reduce", "x".join(a for a in ("pod", "data") if a in shape),
         "float32", 1, 1)
     return out, conv
+
+
+def moe_step_sites(cfg, state, state_sh, shape, tokens, cohorts,
+                   act="bfloat16", microbatch=1, block_dispatch=0):
+    """Every collective one partitioned train step of a moe arch issues on
+    one rank, keyed as `block_sites` keys them: `block_sites` of its
+    dense leaves and floats, `moe_expert_sites` of its expert layouts,
+    and per MoE layer, cohort and piece the dispatch's dx all-reduced
+    over "model" (the rank's experts' partial gradient of the piece's
+    tokens).  Returns (the sites, the routing)."""
+    from repro_torch.core import tree
+    dense = dict(state, scores=tree.tree_map(
+        lambda s: None if s is None or s.ndim == 5 else s, state["scores"]))
+    rt = moe_routing(cfg, tokens, shape, microbatch, block_dispatch)
+    out, _ = block_sites(dense, state_sh, shape, tokens, cohorts, act,
+                         pieces=rt["pieces"])
+    experts, _ = moe_expert_sites(cfg, tokens, shape, cohorts, microbatch,
+                                  block_dispatch)
+    n = (cfg.n_layers - cfg.first_dense_layers) * cohorts * rt["pieces"]
+    experts.setdefault(f"all-reduce model {act}", {})
+    experts[f"all-reduce model {act}"][str(rt["piece"] * cfg.d_model)] = n
+    for key, calls in experts.items():
+        for e, c in calls.items():
+            out.setdefault(key, {})
+            out[key][e] = out[key].get(e, 0) + c
+    return {k: dict(sorted(v.items(), key=lambda kv: int(kv[0])))
+            for k, v in sorted(out.items())}, rt
 
 
 def stub_mesh(shape):
@@ -4641,10 +4715,13 @@ def mesh_rank(rank, world, store, out_path):
     rank's block beside MESH_STEPS `mesh=None` steps on the whole state,
     one after the other: losses, seconds, peak memory, launches, digests,
     the first partitioned step's collectives, and one more step of each
-    under torch.profiler (wall, device busy, collective calls); (7) the
-    same MESH_STEPS steps both ways for deepseek-v2-lite-16b at full width
-    cut to MOE_LAYERS layers (its expert leaves through
-    `partition.ExpertLayout`), without the profiled step; (8) the same for
+    under torch.profiler (wall, device busy, collective calls), then
+    MICRO_STEPS steps both ways at microbatch MICROBATCH (`micro`); (7)
+    the same MESH_STEPS steps both ways for deepseek-v2-lite-16b at full
+    width cut to MOE_LAYERS layers (its expert leaves through
+    `partition.ExpertLayout`), without the profiled step, then
+    MICRO_STEPS steps both ways at microbatch MICROBATCH with
+    `moe_block_dispatch` = BLOCK_DISPATCH (`moe_micro`); (8) the same for
     mamba2-370m at all MAMBA_LAYERS layers (its conv leaves through
     `partition.BlockLayout.conv`), the phase's seconds beside.
     Writes a JSON of what it found; raises on any failed check."""
@@ -4656,6 +4733,7 @@ def mesh_rank(rank, world, store, out_path):
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import mesh_round
     from repro_torch.launch import steps as steplib
+    from repro_torch.models import build_model
     from repro_torch.runtime import elastic
     dev = meshlib.init("cuda", store=dist.FileStore(store, world), rank=rank,
                        world_size=world)
@@ -4747,6 +4825,13 @@ def mesh_rank(rank, world, store, out_path):
                    for i in range(MESH_STEPS)]
         _train_compare(torch, mesh, api, host, sh, tcfg, batches, res,
                        "train", profiled=True)
+        # microbatches on the mesh: each rank's rows as pieces inside the
+        # global chunks, each at its chunk's tick
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(tcfg, microbatch=MICROBATCH)
+        _train_compare(torch, mesh, api, host, sh, mcfg,
+                       batches[:MICRO_STEPS], res, "micro", profiled=False)
+        res["micro_phase_s"] = time.perf_counter() - t0
         del batches
 
         # the comm model's uplink bits against the bits the round meters
@@ -4781,6 +4866,14 @@ def mesh_rank(rank, world, store, out_path):
         _train_compare(torch, mesh, api, host,
                        steplib.fed_state_shardings(host, mesh), tcfg,
                        batches, res, "moe", profiled=False)
+        # microbatches and block-local dispatch: each piece's routing
+        # groups the global chunk's blocks
+        t0 = time.perf_counter()
+        _train_compare(torch, mesh, build_model(dataclasses.replace(
+            api.cfg, moe_block_dispatch=BLOCK_DISPATCH)), host,
+            steplib.fed_state_shardings(host, mesh), mcfg,
+            batches[:MICRO_STEPS], res, "moe_micro", profiled=False)
+        res["moe_micro_phase_s"] = time.perf_counter() - t0
         del api, host, batches
 
         # (8) the ssm family's partitioned train step: mamba2-370m at all
@@ -4850,7 +4943,14 @@ def mesh_phase(torch, dispatch):
     once a dense projection, layer, local cohort and step, kernel 8
     twice a conv and 9 once, every collective of the first step as the
     closed form gives it (`block_sites`, the conv leaves' among them).
-    Returns the launches, summed over the ranks."""
+    The microbatched steps (MICRO_STEPS at MICROBATCH, a rank's rows as
+    pieces inside the global chunks) of internlm2-1.8b and of
+    deepseek-v2-lite-16b with `moe_block_dispatch` = BLOCK_DISPATCH: on
+    one rank the `mesh=None` steps bit for bit (digests and loss bits),
+    the kernels once a projection, layer, local cohort, piece and step,
+    every collective of the first step as `block_sites` (pieces) and
+    `moe_step_sites` give them.  Returns the launches, summed over the
+    ranks."""
     import multiprocessing
 
     from repro_torch.analysis import stream_cover
@@ -4930,12 +5030,61 @@ def mesh_phase(torch, dispatch):
                       f"rank {r}: no {kind} over {axes} in the partitioned "
                       f"{tag} step: {x[f'{tag}_axes']}")
         # the expert layout's collectives, each operand size and count
-        moe_sites, cap, slots = moe_expert_sites(
-            moe_config(), mesh_round.BATCH // x["shape"]["data"]
-            * mesh_round.SEQ, x["shape"], local)
+        tokens = mesh_round.BATCH // x["shape"]["data"] * mesh_round.SEQ
+        moe_sites, rt = moe_expert_sites(moe_config(), tokens, x["shape"],
+                                         local)
+        cap, slots = rt["cap"], rt["slots"]
         miss = missing_sites(moe_sites, x["moe_operands"])
         check(not miss, f"rank {r}: the partitioned MoE step's expert "
               f"collectives (kind, elements, expected, recorded): {miss}")
+        # the microbatched steps: kernels once a projection, layer, local
+        # cohort, piece and step (a rank's rows as pieces inside the
+        # global chunks, `partition.batch_pieces`); every collective of
+        # the first step as the closed forms give them
+        rows = mesh_round.BATCH // x["shape"]["data"]
+        pieces = rows // math.gcd(mesh_round.BATCH // MICROBATCH, rows)
+        want = {k: 0 for k in dispatch.KERNELS}
+        n = N_LAYERS * leaves * local * pieces * MICRO_STEPS
+        want.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                    masked_matmul_ds=n)
+        check(x["micro_mesh_launches"] == want, f"microbatched partitioned "
+              f"steps rank {r} launched {x['micro_mesh_launches']}, "
+              f"expected {want}")
+        want = {k: 0 for k in dispatch.KERNELS}
+        n = 8 * MOE_LAYERS * local * pieces * MICRO_STEPS
+        want.update(masked_matmul_fwd=n, masked_matmul_dx=n,
+                    masked_matmul_ds=n)
+        n = 3 * (MOE_LAYERS - 1) * local * pieces * MICRO_STEPS
+        want.update(masked_matmul_grouped=n, masked_matmul_grouped_dx=n,
+                    masked_matmul_grouped_ds=n)
+        check(x["moe_micro_mesh_launches"] == want, f"microbatched "
+              f"partitioned MoE steps rank {r} launched "
+              f"{x['moe_micro_mesh_launches']}, expected {want}")
+        _, meta = stream_cover.meta_fed_state(get_config("internlm2-1.8b"),
+                                              COHORTS)
+        micro_sites, _ = block_sites(
+            meta, steplib.fed_state_shardings(meta, stub_mesh(x["shape"])),
+            x["shape"], tokens, local, pieces=pieces)
+        check(x["micro_operands"] == micro_sites, f"rank {r}: the "
+              f"microbatched partitioned step's collectives "
+              f"{x['micro_operands']}, the closed form {micro_sites}")
+        mcfg = dataclasses.replace(moe_config(),
+                                   moe_block_dispatch=BLOCK_DISPATCH)
+        _, meta = stream_cover.meta_fed_state(mcfg, COHORTS)
+        moe_micro_sites, mrt = moe_step_sites(
+            mcfg, meta, steplib.fed_state_shardings(
+                meta, stub_mesh(x["shape"])), x["shape"], tokens, local,
+            microbatch=MICROBATCH, block_dispatch=BLOCK_DISPATCH)
+        check(mrt["pieces"] == pieces, f"rank {r}: {mrt} against {pieces} "
+              f"pieces")
+        check(x["moe_micro_operands"] == moe_micro_sites, f"rank {r}: the "
+              f"microbatched block-dispatched MoE step's collectives "
+              f"{x['moe_micro_operands']}, the closed form "
+              f"{moe_micro_sites}")
+        for tag in ("micro", "moe_micro"):
+            check(len(x[f"{tag}_mesh_losses"]) == MICRO_STEPS and all(
+                math.isfinite(v) for v in x[f"{tag}_mesh_losses"]),
+                  f"rank {r}: {tag} losses {x[f'{tag}_mesh_losses']}")
         # the ssm steps: kernels 1-3 once a dense projection (w_in, w_out),
         # layer, local cohort and step; kernel 8 twice a conv (forward,
         # flipped dx), 9 once
@@ -4986,6 +5135,15 @@ def mesh_phase(torch, dispatch):
             check(x["moe_mesh_losses"] == x["moe_plain_losses"],
                   f"partitioned MoE losses {x['moe_mesh_losses']} against "
                   f"mesh=None's {x['moe_plain_losses']}")
+            for tag in ("micro", "moe_micro"):
+                check(x[f"{tag}_mesh"] == x[f"{tag}_plain"], f"the "
+                      f"partitioned {tag} train steps' scores, moments or "
+                      f"floats differ from mesh=None's")
+                check(x[f"{tag}_mesh_loss_bits"]
+                      == x[f"{tag}_plain_loss_bits"], f"partitioned {tag} "
+                      f"losses {x[f'{tag}_mesh_losses']} against "
+                      f"mesh=None's {x[f'{tag}_plain_losses']} (by their "
+                      f"bits)")
             check(x["ssm_mesh"] == x["ssm_plain"], "the partitioned ssm "
                   "train steps' scores, moments or floats differ from "
                   "mesh=None's")
@@ -5028,7 +5186,9 @@ def mesh_phase(torch, dispatch):
             launches[k] += (x["mesh_launches"][k] + x["mean_launches"][k]
                             + x["train_mesh_launches"][k]
                             + x["moe_mesh_launches"][k]
-                            + x["ssm_mesh_launches"][k])
+                            + x["ssm_mesh_launches"][k]
+                            + x["micro_mesh_launches"][k]
+                            + x["moe_micro_mesh_launches"][k])
     check(len({json.dumps(x["mesh_metrics"]["bits_measured"])
                for x in res}) == 1, "ranks disagree on bits_measured")
     x = res[0]
@@ -5106,6 +5266,32 @@ def mesh_phase(torch, dispatch):
           f"({conv_bytes} bytes); bytes by kind and axes "
           f"{json.dumps(x['ssm_axes'])}, calls, bytes sent, received and "
           f"device ms by kind {json.dumps(sw)}")
+    for tag, what, sites in (
+            ("micro", f"internlm2-1.8b at full size, {COHORTS} cohorts, "
+             f"batch 2 x 128 at microbatch {MICROBATCH}", micro_sites),
+            ("moe_micro", f"deepseek-v2-lite-16b at full width, "
+             f"{MOE_LAYERS} layers, {COHORTS} cohorts, batch 2 x 128 at "
+             f"microbatch {MICROBATCH}, moe_block_dispatch {BLOCK_DISPATCH}"
+             f" ({mrt['groups']} routing groups of {mrt['group']} tokens a "
+             f"piece, capacity {mrt['cap']}, {mrt['slots']} slots an "
+             f"expert)", moe_micro_sites)):
+        w = x[f"{tag}_wire"]
+        ms, ps = x[f"{tag}_mesh_s"], x[f"{tag}_plain_s"]
+        print(f"mesh phase, microbatched partitioned train steps ({what}; "
+              f"{pieces} piece(s) a rank; {smi_line()}): the whole run "
+              f"{x[f'{tag}_phase_s']:.1f} s; partitioned {_fmt(ms)} s "
+              f"(step 2 {ms[-1]:.4f} s), mesh=None {_fmt(ps)} s (step 2 "
+              f"{ps[-1]:.4f} s); peak {x[f'{tag}_mesh_peak_gib']:.2f} GiB "
+              f"against {x[f'{tag}_plain_peak_gib']:.2f}; losses "
+              f"{x[f'{tag}_mesh_losses']} (mesh=None "
+              f"{x[f'{tag}_plain_losses']}); digests and loss bits equal: "
+              f"{x[f'{tag}_mesh'] == x[f'{tag}_plain'] and x[f'{tag}_mesh_loss_bits'] == x[f'{tag}_plain_loss_bits']}"
+              f"; the first step's {x[f'{tag}_sites']} collectives "
+              f"({sum(v[0] for v in w.values())} calls, "
+              f"{sum(v[1] for v in w.values())} bytes sent) as the closed "
+              f"form gives them ({sum(sum(v.values()) for v in sites.values())}"
+              f"); calls, bytes sent, received and device ms by kind "
+              f"{json.dumps(w)}")
     pm, pp = x["train_mesh_profile"], x["train_plain_profile"]
     print(f"mesh phase, one more step under torch.profiler: partitioned "
           f"wall {pm[0]:.1f} ms, device busy {pm[1]:.1f} ms "
@@ -5278,7 +5464,19 @@ DRYRUN_GROUPS = (
     ("deepseek-v2-lite-16b,deepseek-v2-236b", "train_4k", "single", ()),
     ("internlm2-1.8b", "prefill_32k,decode_32k", "multi", ()),
     ("internlm2-1.8b", "train_4k", "multi", ("--unpacked",)),
+    ("deepseek-v2-lite-16b", "train_4k", "multi", (
+        "--step", "train", "--patch", json.dumps({"microbatch": 2}),
+        "--patch", json.dumps({"moe_block_dispatch": 64}))),
 )
+# the MoE cells whose flops `dryrun_phase` sets side by side: global
+# dispatch, microbatches (routing over 8-rank data subgroups) and
+# block-local dispatch (4 blocks a data rank)
+DRYRUN_MOE = ("deepseek-v2-lite-16b|train_4k|pod2x16x16",
+              "deepseek-v2-lite-16b|train_4k|pod2x16x16|microbatch=2",
+              "deepseek-v2-lite-16b|train_4k|pod2x16x16|"
+              "moe_block_dispatch=64")
+GROUPED = ("masked_matmul_grouped", "masked_matmul_grouped_dx",
+           "masked_matmul_grouped_ds")
 DRYRUN_TIMEOUT = 600           # seconds a group may take
 DRYRUN_DEVICES = {"pod16x16": 256, "pod2x16x16": 512}
 
@@ -5294,7 +5492,9 @@ def dryrun_cell_check(key, res, unpacked):
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import partition
     check(res["ok"], f"dry run {key}: {res.get('error')}")
-    arch, shape, mesh = key.split("|")
+    arch, shape, mesh, *patch = key.split("|")
+    patch = {k: int(v) for k, v in (kv.split("=") for kv in
+                                     patch[0].split(","))} if patch else {}
     n_dev = DRYRUN_DEVICES[mesh]
     for step, r in res.items():
         if not isinstance(r, dict) or step == "stream_cover":
@@ -5307,11 +5507,10 @@ def dryrun_cell_check(key, res, unpacked):
               f"{_gib(mem['temp_size'])} GiB, flops {r['flops']}, sites "
               f"{sites}, collective bytes "
               f"{json.dumps(r['collective_bytes'])}")
-    if "round_step" not in res:
-        check(all(r["flops"] > 0 and r["memory"]["argument_size"] > 0
-                  for k, r in res.items() if k.endswith("_step")),
-              f"dry run {key}: {res}")
-        return {}
+    check(all(r["flops"] > 0 and r["memory"]["argument_size"] > 0
+              for k, r in res.items()
+              if k.endswith("_step") and k != "round_step"),
+          f"dry run {key}: {res}")
     train = res.get("train_step")
     if train is not None and get_config(arch).family in partition.FAMILIES:
         # rank 0's block of the partitioned step: FSDP gathers over
@@ -5337,31 +5536,49 @@ def dryrun_cell_check(key, res, unpacked):
         if get_config(arch).family == "moe":
             # the expert layout's collectives, each operand size and
             # count; kernels 5-6 on rank 0's experts and slots: the
-            # global step's flops over rank 0's are the device count, or
-            # that times cap / slots where the slots are padded
+            # global step runs cohorts x M chunks x G' groups x cap rows
+            # an expert, rank 0 its E/16 experts' pieces x slots / span
+            cfg = get_config(arch)
             cohorts = 2 if mesh == "pod2x16x16" else 1
             shape = {"data": 16, "model": 16}
             tokens = (SHAPES["train_4k"].global_batch // cohorts
                       // shape["data"] * SHAPES["train_4k"].seq_len)
-            want, cap, slots = moe_expert_sites(get_config(arch), tokens,
-                                                shape, 1)
+            micro = patch.get("microbatch", 1)
+            want, rt = moe_expert_sites(
+                cfg, tokens, shape, 1, micro,
+                patch.get("moe_block_dispatch", cfg.moe_block_dispatch))
             miss = missing_sites(want, train["collective_operands"])
             check(not miss, f"{key}: expert collectives (kind, elements, "
                   f"expected, recorded) {miss}")
+            cap, slots, span = rt["cap"], rt["slots"], rt["span"]
+            mine_rows = rt["pieces"] * cfg.n_experts // 16 * slots // span
+            glob_rows = cohorts * micro * rt["blocks"] * cap * cfg.n_experts
             for k in ("masked_matmul_grouped", "masked_matmul_grouped_dx"):
                 glob = int(train["global_step"]["kernel_work"][k]["flops"])
                 mine = int(train["kernel_work"][k]["flops"])
-                check(glob * slots == mine * n_dev * cap, f"{key}: {k} "
+                check(glob * mine_rows == mine * glob_rows, f"{key}: {k} "
                       f"global flops {glob} over rank 0's {mine}, expected "
-                      f"{n_dev} x {cap} / {slots}")
+                      f"{glob_rows} / {mine_rows} (expert rows)")
                 ratio[k] = glob / mine
-            moe = (f"; capacity {cap}, {slots} slots ({slots - cap} "
+            routed = ("on the rank" if span == 1 else
+                      "over \"data\"" if span == 16 else
+                      f"over the subgroup \"data/{span}\"")
+            moe = (f"; routing groups of {rt['group']} tokens, "
+                   f"{rt['groups']} a piece, routed {routed}; capacity "
+                   f"{cap}, {slots} slots an expert ({slots - rt['groups'] * cap} "
                    f"padded), the expert layout's "
                    f"{sum(sum(v.values()) for v in want.values())} "
                    f"collectives as the closed form gives them")
+            subs = {k.split()[1] for k in train["collective_operands"]
+                    if k.split()[1].startswith("data/")}
+            check(subs == ({f"data/{span}"} if 1 < span < 16 else set()),
+                  f"{key}: collectives over data subgroups {subs}, routing "
+                  f"groups over {span} data ranks")
         print(f"dry run {key} partitioned train step: {train['n_sites']} "
               f"collectives, bytes by kind and axes {json.dumps(axes)}; "
               f"global over rank 0 kernel flops {ratio}{moe}")
+    if "round_step" not in res:
+        return {}
     rnd = res["round_step"]
     cm = rnd["comm_model"]
     leaves = res["stream_cover"]["n_leaves"]
@@ -5494,6 +5711,7 @@ def dryrun_phase(torch, dispatch):
             log.close()
     wall = time.time() - t0
     launches = {k: 0 for k in dispatch.KERNELS}
+    cells = {}
     for i, (p, _) in enumerate(procs):
         text = (work / f"group{i}.log").read_text()
         check(p.returncode == 0 and "[FAIL]" not in text,
@@ -5502,8 +5720,23 @@ def dryrun_phase(torch, dispatch):
         unpacked = "--unpacked" in DRYRUN_GROUPS[i][3]
         for key, res in json.loads(
                 (work / f"group{i}.json").read_text()).items():
+            cells[key] = res
             for k, v in dryrun_cell_check(key, res, unpacked).items():
                 launches[k] += v
+    # the MoE train cells' counted flops against the kernels' stated
+    # work: what is not a kernel's is mostly the one-hot dispatch and
+    # combine einsums
+    for key in DRYRUN_MOE:
+        t = cells[key]["train_step"]
+        line = []
+        for side, r in (("rank 0", t), ("global", t["global_step"])):
+            kern = sum(v["flops"] for v in r["kernel_work"].values())
+            experts = sum(r["kernel_work"][k]["flops"] for k in GROUPED)
+            line.append(f"{side} {r['flops']:.6g} flops, kernels "
+                        f"{kern:.6g} (experts, kernels 5-7: {experts:.6g}), "
+                        f"the rest {r['flops'] - kern:.6g} = "
+                        f"{(r['flops'] - kern) / experts:.3f} x the experts'")
+        print(f"dry run {key} flops: {'; '.join(line)}")
     print(f"dryrun_phase: {wall:.1f}s, {len(procs)} processes side by side")
     import shutil
     shutil.rmtree(work)

@@ -3,7 +3,8 @@
 (16, 16) or (2, 16, 16) mesh.
 
     python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
-        --shape train_4k --mesh multi [--device cpu] [--unpacked]
+        --shape train_4k --mesh multi [--device cpu] [--unpacked] \\
+        [--step train] [--patch '{"microbatch": 2}' ...]
 
 The reference forces 512 host devices, lowers each cell's jitted step
 under its shardings and reads the compiled program.  torch has no
@@ -23,8 +24,11 @@ side of each cell instead:
   and hybrid families' conv leaves with C on "model") the step runs
   partitioned (`steps.make_train_step(api, cfg, mesh, state_sh)`) on
   rank 0's block as meta tensors at the local shapes, its collectives
-  recorded: the cell reports rank 0's flops, kernel work and collective
-  bytes (by kind, and by kind and mesh axes;
+  recorded (microbatched and block-dispatched steps too, `--patch`:
+  a data rank's rows as pieces of the global chunks, a MoE layer's
+  routing groups over data subgroups or on the rank): the cell reports
+  rank 0's flops, kernel work and collective bytes (by kind, and by
+  kind and mesh axes;
   its calls by kind, axes, type and operand size), the global step's
   beside them under "global_step"; then the round
   step run once on rank 0's block of the state, drawn on `device` alone
@@ -544,7 +548,24 @@ def parse_args(argv=None):
                     help="bf16 all-reduce mask aggregation (baseline)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the round cells' blocks live")
+    ap.add_argument("--step", default="auto",
+                    choices=("auto", "train", "round"),
+                    help="the steps a train shape's cell runs")
+    ap.add_argument("--patch", action="append", default=[],
+                    help="a JSON dict of fields replaced in the arch's "
+                    "config or the step's (microbatch, chunk_kv, "
+                    "tp_only): one cell each, keyed arch|shape|mesh|k=v")
     return ap.parse_args(argv)
+
+
+def cell_key(arch: str, shape: str, mesh_name: str,
+             patch: Optional[dict] = None) -> str:
+    """A cell's key in the results: arch|shape|mesh, and |k=v,... for a
+    patched cell."""
+    key = f"{arch}|{shape}|{mesh_name}"
+    if patch:
+        key += "|" + ",".join(f"{k}={v}" for k, v in sorted(patch.items()))
+    return key
 
 
 def main(argv=None) -> int:
@@ -563,21 +584,25 @@ def main(argv=None) -> int:
         with open(args.out) as f:
             results = json.load(f)
 
+    patches = [json.loads(p) for p in args.patch] or [None]
     n_ok = n_fail = 0
     for mp in meshes:
         mesh_name = MESHES[mp]
-        todo = [(a, s) for a, s in iter_cells(archs, shapes)
-                if not results.get(f"{a}|{s}|{mesh_name}", {}).get("ok")]
+        todo = [(a, s, p) for a, s in iter_cells(archs, shapes)
+                for p in patches
+                if not results.get(cell_key(a, s, mesh_name, p),
+                                   {}).get("ok")]
         if not todo:
             continue
         meshlib.init_dry(512 if mp else 256)
         try:
-            for arch, shape in todo:
-                key = f"{arch}|{shape}|{mesh_name}"
+            for arch, shape, patch in todo:
+                key = cell_key(arch, shape, mesh_name, patch)
                 t0 = time.time()
                 try:
                     r = cell(arch, shape, mp, packed=not args.unpacked,
-                             device=device)
+                             device=device, step_kind=args.step,
+                             cfg_patch=patch)
                     results[key] = {"ok": True, **r}
                     n_ok += 1
                     print(f"[OK]   {key}  ({time.time() - t0:.0f}s)",

@@ -95,7 +95,11 @@ class Mesh:
     construction, as NCCL requires:
     `group(axes)` is the group of the ranks that share this rank's
     coordinates off those axes, its members ordered row-major over them
-    (pod-major for ("pod", "data"))."""
+    (pod-major for ("pod", "data")).  The data subgroups come last:
+    for each k dividing d_data with 1 < k < d_data, the groups of k
+    consecutive "data" coordinates (`data_group(k)`, keyed "data/k":
+    the routing groups of a MoE layer that cover whole data ranks,
+    `partition.ExpertLayout.moe`)."""
 
     def __init__(self, shape, axis_names,
                  device: Optional[torch.device] = None):
@@ -127,6 +131,10 @@ class Mesh:
         for axes in used:
             if axes and axes not in self._groups:
                 self._groups[axes] = self._make_group(axes)
+        d = self.shape.get("data", 1)
+        for k in range(2, d):
+            if d % k == 0:
+                self._groups[(f"data/{k}",)] = self._make_subgroup(k)
 
     def _make_group(self, axes):
         if len(axes) == len(self.axis_names):
@@ -141,6 +149,37 @@ class Mesh:
             if self.rank in row:
                 mine = g
         return mine
+
+    def _make_subgroup(self, k):
+        """Every rank makes every group of k consecutive "data"
+        coordinates, row by row of the "data" groups, and keeps its own."""
+        i = self.axis_names.index("data")
+        rest = [a for a in range(len(self.axis_names)) if a != i]
+        rows = self.ranks.transpose(rest + [i]).reshape(-1, k)
+        mine = None
+        for row in rows:
+            g = dist.new_group(row.tolist())
+            if self.rank in row:
+                mine = g
+        return mine
+
+    def data_group(self, k: int):
+        """The process group of the k consecutive "data" coordinates
+        (k divides d_data) among which this rank's lies, ordered by
+        coordinate: the "data" group itself at k = d_data."""
+        d = self.shape["data"]
+        if k == d:
+            return self.group("data")
+        if d % k or k < 2:
+            raise ValueError(f"no data subgroup of {k} on {d} data ranks")
+        return self._groups[(f"data/{k}",)]
+
+    def axis_size(self, axis: str) -> int:
+        """The ranks a group key of `group_axes` names spans: a mesh axis's
+        size, or k for the data subgroup "data/k"."""
+        if axis.startswith("data/"):
+            return int(axis.split("/")[1])
+        return self.shape[axis]
 
     def _axes(self, axis_names) -> tuple:
         names = ((axis_names,) if isinstance(axis_names, str)
@@ -158,7 +197,8 @@ class Mesh:
 
     def group_axes(self, group) -> tuple:
         """The axis tuple a process group of this mesh spans: the inverse
-        of `group` (None, the default group, spans every axis)."""
+        of `group` and `data_group` (None, the default group, spans every
+        axis; a data subgroup of k ranks is ("data/k",))."""
         if group is None or group is dist.group.WORLD:
             return self.axis_names
         for axes, g in self._groups.items():

@@ -31,30 +31,39 @@ leaf is used, so no model code changes:
   whole on every model rank.
 * A stacked (E, K, N) expert leaf (`ExpertLayout`, which
   `layers.moe_apply` hands a MoE layer's routed experts to).  The
-  routing is the global step's over the cohort's tokens of every data
-  rank: the router logits are all-gathered over "data" in data-rank
-  order (each data rank holds a contiguous run of the cohort's rows, so
-  that is the global token order) and every rank routes all of them:
-  the capacity, the queue positions, the keep mask, the gates and the
-  aux loss of the cohort's T tokens.  Each rank scatters only its own
-  tokens into the (E, cap, D) slots (a slot is filled by one token of
-  the cohort, so the sum over "data" is exact), and the slots are
-  reduce-scattered over "data" along the slot axis (cap padded up to a
-  multiple of the data size with zero rows, never combined): rank
-  (data j, model i) runs kernels 5-6-7 on its slots and its experts,
-  E/d_model of them from e0 = i*E/d_model on (the reference's
-  `moe-expert` rule), their rows all-gathered over "data" at the global
-  leaf's per-(layer, expert) offsets; an E that does not split over
-  "model" falls to the generic rule, a column block of every expert,
-  run as a dense block is (kernels 5-6 at the block's column offset,
-  n_logical = N).  The experts' outputs are all-gathered over "data"
-  (slots) and "model" (experts), and each rank combines its own tokens.
-  Backward: the slot gather's gradient is summed over "data" (what
-  follows it differs per data rank), the expert gather's is sliced (the
-  combine is computed alike on every "model" rank), the rank's partial
-  dx over its experts is all-reduced over "model", and kernel 7's ds is
-  reduce-scattered over "data" to the rank's rows and divided by the
-  data size.
+  routing is the global step's: its unit, a routing group, is a
+  microbatch chunk's tokens, or with `moe_block_dispatch` = G a block of
+  T/G consecutive ones (where the chunk's global T splits so, into
+  blocks of at least 8).  A group inside the rank's piece of the batch
+  (below) is routed there, the piece's groups folded into one grouped
+  launch a projection as `mesh=None` folds its blocks.  A group that
+  covers k whole data ranks is routed on each of them over the k-rank
+  data subgroup (`Mesh.data_group`; the "data" group itself where it is
+  the cohort's whole batch): the router logits are all-gathered there
+  in data-rank order (each data rank holds a contiguous run of the
+  cohort's rows, so that is the global token order) and every rank of
+  the subgroup routes all of them: the capacity, the queue positions,
+  the keep mask, the gates and the aux loss of the group's tokens.
+  Each rank scatters only its own tokens into the (E, cap, D) slots (a
+  slot is filled by one token of the group, so the sum over the
+  subgroup is exact), and the slots are reduce-scattered there along
+  the slot axis (cap padded up to a multiple of k with zero rows, never
+  combined).  Rank (data j, model i) runs kernels 5-6-7 on its slots
+  and its experts, E/d_model of them from e0 = i*E/d_model on (the
+  reference's `moe-expert` rule), their rows all-gathered over "data"
+  at the global leaf's per-(layer, expert) offsets; an E that does not
+  split over "model" falls to the generic rule, a column block of
+  every expert, run as a dense block is (kernels 5-6 at the block's
+  column offset, n_logical = N).  The experts' outputs are all-gathered
+  over the subgroup (slots) and "model" (experts), and each rank
+  combines its own tokens.  Backward: the slot gather's gradient is
+  summed over the subgroup (what follows it differs per data rank), the
+  expert gather's is sliced (the combine is computed alike on every
+  "model" rank), the rank's partial dx over its experts is all-reduced
+  over "model", and kernel 7's ds is reduce-scattered over "data" to
+  the rank's rows and divided by the data size.  A group that neither
+  lies inside one rank nor covers whole ranks does not run
+  (`check_train`).
 * A depthwise (W, C) conv leaf (`BlockLayout.conv`, which
   `layers.masked_conv1d_apply` runs for a leaf that carries a layout:
   mamba2's and recurrentgemma's `conv/w_conv`), a layer block at a time:
@@ -78,6 +87,16 @@ leaf is used, so no model code changes:
   summed: that compute is replicated), summed over "data"
   (reduce-scattered where the block splits there, else all-reduced) and
   divided by the data size.
+
+Microbatches (`StepConfig.microbatch` = M): the reference runs a
+cohort's global batch of B rows as M chunks of B/M, chunk j's masks
+drawn at stream tick step * M + j.  A data rank runs its B/d_data rows
+as pieces of g = gcd(B/M, B/d_data) rows (`batch_pieces`), each inside
+one chunk and drawn at that chunk's tick, every rank the same count of
+pieces in lockstep, so every collective is issued alike on every rank;
+each piece runs the forward and backward above, its gradients summed in
+f32 over the pieces and divided by their count, a mean over the data
+ranks' pieces: the global step's mean over the chunks.
 
 Every collective is a public `torch.distributed` tensor collective over
 a `Mesh.group`, inside an autograd Function, and none uses a float
@@ -112,22 +131,47 @@ FAMILIES = ("dense", "vlm", "encdec", "moe", "ssm", "hybrid")
 _M32 = 0xFFFFFFFF
 
 
-def check_train(api, cfg) -> None:
+def check_train(api, cfg, data: int = 1, rows: int = 0,
+                seq: int = 0) -> None:
     """Raise NotImplementedError for what the partitioned train step does
-    not run: a family outside FAMILIES, block-local MoE dispatch (its
-    blocks of the cohort's tokens cut across data ranks), microbatches
-    (the global step's chunks cut across data shards)."""
+    not run: a family outside FAMILIES, and, given the mesh's data size
+    and a cohort's global batch (`rows` rows of `seq` tokens), a MoE
+    layer's routing group (a microbatch chunk, or its block under
+    `moe_block_dispatch`) that neither lies inside one data rank's
+    tokens nor covers whole data ranks."""
     if api.cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the partitioned train step runs the families {FAMILIES}; "
             f"{api.cfg.name} is {api.cfg.family!r}")
-    if api.cfg.moe_block_dispatch > 0:
+    if not (rows and api.cfg.n_experts):
+        return
+    M, G = cfg.microbatch, api.cfg.moe_block_dispatch
+    T, R = rows // M * seq, rows // data * seq
+    L = T // layers.dispatch_blocks(T, G)
+    if R % L and L % R:
         raise NotImplementedError(
-            "the partitioned train step routes the cohort's tokens "
-            "globally; moe_block_dispatch > 0 does not run on a mesh")
-    if cfg.microbatch > 1:
-        raise NotImplementedError(
-            "the partitioned train step runs microbatch = 1 only")
+            f"microbatch {M} and moe_block_dispatch {G} make routing "
+            f"groups of {L} tokens, which neither lie inside a data rank's "
+            f"{R} tokens nor cover whole data ranks (rows {rows}, seq "
+            f"{seq}, {data} data ranks): unaligned routing groups do not "
+            f"run on a mesh")
+
+
+def batch_pieces(rows: int, microbatch: int, data: int = 1,
+                 coord: int = 0):
+    """(g, chunks): a data rank's `rows` rows of a cohort's batch as
+    pieces of g rows, and the microbatch chunk of each piece in turn.
+    The cohort's rows * data rows run as `microbatch` chunks of B/M rows;
+    g = gcd(B/M, rows), so a piece lies inside one chunk and one rank,
+    and every rank runs rows // g pieces.  With data 1 (`mesh=None`) the
+    pieces are the chunks."""
+    B = rows * data
+    if B % microbatch:
+        raise ValueError(f"batch {B} does not split into {microbatch} "
+                         f"microbatches")
+    c = B // microbatch
+    g = math.gcd(c, rows)
+    return g, [(coord * rows + i * g) // c for i in range(rows // g)]
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +419,7 @@ class ExpertLayout(BlockLayout):
     `moe-expert` rule), or its N/d_model columns of every expert
     (`cols`: E does not split over "model"), or all of it."""
     experts: bool
+    chunk_rows: int = 0        # rows of a microbatch chunk, global
 
     def grouped(self, x: torch.Tensor, p: MaskedLeaf) -> torch.Tensor:
         """y[e] = x[e] @ (m[e] * w[e]) of the rank's experts (x: (E_rank,
@@ -382,51 +427,75 @@ class ExpertLayout(BlockLayout):
         return self._product(x, p, True)
 
     def moe(self, p: dict, x: torch.Tensor, n_experts: int, k: int,
-            capacity_factor: float):
+            capacity_factor: float, block_dispatch: int = 0):
         """The routed experts of `layers.moe_apply` (a MoE layer's params
         `p`, its expert leaves placed, the float leaves gathered whole) on
-        this rank's rows x (B, S, D) of the cohort: (y (B, S, D), aux),
-        the global step's semantics (module docstring).
+        this rank's piece x (B, S, D) of a microbatch chunk of
+        `chunk_rows` rows: (y (B, S, D), aux), the global step's
+        semantics (module docstring).  The routing groups are the
+        chunk's, or its blocks' where `block_dispatch` = G splits the
+        chunk's global T tokens into blocks of at least 8; the piece holds
+        whole groups, routed here, or one rank's share of a group that
+        covers k whole data ranks, routed over their subgroup.
 
-        Every data rank adds the whole aux term to its loss.  The logits'
-        gather sums the d_data copies of its gradient, and the router's
-        float `Placement.reduce` divides by d_data: the router gets the
-        gradient of the mean loss plus the aux term once, as in the global
-        step.  A rank's tokens reach the other data ranks' losses only
+        aux is the mean of the piece's groups' aux terms (a group over k
+        ranks: its own, added by each of them).  Over every piece of the
+        step that is the global step's mean over the groups: each piece
+        counts 1/P in the rank's mean and each rank 1/d_data in the
+        cohort's, and a group over k ranks is added k times.  Its
+        gradient reaches the router alike: the logits' gather over the
+        subgroup sums the k copies of their gradient, and the router's
+        float `Placement.reduce` divides by d_data, so the router gets the
+        gradient of the mean loss plus the mean aux term, as in the
+        global step.  A rank's tokens reach the other ranks' losses only
         through the aux term (a slot is combined into the one token that
         filled it), so the summed slot gradients give every rank the
         gradient of its own tokens."""
         mesh = self.mesh
-        data, j = mesh.group("data"), mesh.coords["data"]
         B, S, D = x.shape
-        xt = x.reshape(1, B * S, D)
-        logits = _GatherSum.apply(xt.float() @ p["router_w"], data, 1)
+        n, T = B * S, self.chunk_rows * S
+        L = T // layers.dispatch_blocks(T, block_dispatch)
+        if not self.chunk_rows or (n % L and L % n):
+            raise NotImplementedError(
+                f"a routing group of {L} tokens on a piece of {n}: neither "
+                f"inside it nor spanning whole data ranks")
+        groups, span = (n // L, 1) if n % L == 0 else (1, L // n)
+        sub = mesh.data_group(span) if span > 1 else None
+        xt = x.reshape(groups, n // groups, D)
+        logits = xt.float() @ p["router_w"]
+        if sub is not None:
+            logits = _GatherSum.apply(logits, sub, 1)
         probs, gval, _, onehot, pos, keep, cap = layers.moe_route(
             logits, n_experts, k, capacity_factor)
-        mine = slice(j * B * S, (j + 1) * B * S)
-        own, pos, keep, gval = (onehot[:, mine], pos[:, mine],
-                                keep[:, mine], gval[:, mine])
+        own = onehot
+        if sub is not None:
+            j = mesh.coords["data"] % span
+            mine = slice(j * n, (j + 1) * n)
+            own, pos, keep, gval = (onehot[:, mine], pos[:, mine],
+                                    keep[:, mine], gval[:, mine])
         pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)
-                  ).float() * keep[..., None]                 # (1, t, k, C)
-        n = n_experts // mesh.shape["model"] if self.experts else n_experts
-        e0 = mesh.coords["model"] * n if self.experts else 0
+                  ).float() * keep[..., None]                 # (g, t, k, C)
+        ne = n_experts // mesh.shape["model"] if self.experts else n_experts
+        e0 = mesh.coords["model"] * ne if self.experts else 0
         if self.experts:
             model = mesh.group("model")
             xt = _ToModel.apply(xt, model)
-        disp = torch.einsum("gtke,gtkc->gtec", own[..., e0:e0 + n], pos_oh)
+        disp = torch.einsum("gtke,gtkc->gtec", own[..., e0:e0 + ne], pos_oh)
         xe = torch.einsum("gtec,gtd->egcd", disp, xt.float()).reshape(
-            n, cap, D)
-        pad = -cap % mesh.shape["data"]
-        if pad:
-            xe = torch.nn.functional.pad(xe, (0, 0, 0, pad))
-        xe = _ScatterSum.apply(xe, data, 1)          # (n, slots, D)
+            ne, groups * cap, D)
+        if sub is not None:
+            pad = -cap % span
+            if pad:
+                xe = torch.nn.functional.pad(xe, (0, 0, 0, pad))
+            xe = _ScatterSum.apply(xe, sub, 1)       # (ne, slots / k, D)
         h = (torch.nn.functional.silu(p["w_gate"].layout.grouped(
             xe, p["w_gate"])) * p["w_up"].layout.grouped(xe, p["w_up"]))
-        ye = _GatherSum.apply(p["w_down"].layout.grouped(h, p["w_down"]),
-                              data, 1)
+        ye = p["w_down"].layout.grouped(h, p["w_down"])
+        if sub is not None:
+            ye = _GatherSum.apply(ye, sub, 1)
         if self.experts:
             ye = _FromModel.apply(ye, model, mesh.coords["model"], 0)
-        ye = ye[:, :cap].reshape(n_experts, 1, cap, D)
+        ye = ye[:, :groups * cap].reshape(n_experts, groups, cap, D)
         comb = torch.einsum("gtke,gtkc,gtk->gtec", own, pos_oh, gval.float())
         y = torch.einsum("gtec,egcd->gtd", comb, ye.float())
         me = probs.mean(dim=-2)
@@ -532,12 +601,17 @@ class TrainPlan:
             None if f is None else _Gathered.apply(f, pl)
             for f, pl in zip(flat, self.floats)])
 
-    def place(self, i: int, leaf: MaskedLeaf) -> MaskedLeaf:
+    def place(self, i: int, leaf: MaskedLeaf,
+              chunk_rows: int = 0) -> MaskedLeaf:
         """Masked leaf `i` of a forward tree built on the rank's blocks,
         given this rank's layout and the offsets and row length at which
         its blocks draw the global leaf's masks (so `materialize_leaf` of
-        it is the global leaf's block too)."""
+        it is the global leaf's block too); an expert leaf's layout also
+        the rows of the microbatch chunk its piece of the batch lies in
+        (the routing groups')."""
         layout, off, n = self.layouts[i]
+        if isinstance(layout, ExpertLayout):
+            layout = dataclasses.replace(layout, chunk_rows=chunk_rows)
         return dataclasses.replace(leaf, off=off, n_logical=n, layout=layout)
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:

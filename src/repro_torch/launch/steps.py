@@ -16,7 +16,8 @@ mask stream is keyed by.
   kernels 5-7 on the rank's experts, kernels 8-9 on its conv channels).
   `StepConfig.microbatch` = M splits each cohort's batch into M
   contiguous chunks, one mask-stream tick each (step * M + j), and
-  averages their gradients in f32; `chunk_kv` chunks attention over its
+  averages their gradients in f32 (on a mesh a rank runs its rows as
+  pieces inside those chunks); `chunk_kv` chunks attention over its
   keys; `score_dtype` (that of `init_fed_state`: a state of another
   score type raises) keeps scores and moments in bf16, updated in f32 a
   piece at a time and stored once in their type.
@@ -274,8 +275,14 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
     place and returns the global mean loss on every rank.  Cohort c of
     the rank keys its mask stream by its global index, the proxy's n is
     the global score count a cohort, and each cohort's gradient is the
-    mean of its data ranks'.  Microbatch 1 and global MoE dispatch only
-    (`partition.check_train` raises NotImplementedError otherwise)."""
+    mean of its data ranks'.  With M > 1 the rank runs its rows as
+    pieces that each lie inside one global chunk (`partition.
+    batch_pieces`), each at its chunk's tick, their gradients summed in
+    f32 and divided by the piece count, the loss their mean.  A MoE
+    layer's routing groups (chunks, or blocks of them under
+    `moe_block_dispatch`) that neither lie inside one data rank nor cover
+    whole data ranks do not run (`partition.check_train` raises
+    NotImplementedError on the first call)."""
     b1, b2 = ADAM_BETAS
     M = cfg.microbatch
     if (mesh is None) != (state_sh is None):
@@ -305,14 +312,16 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
         coef = (torch.tensor(cfg.lam, dtype=torch.float32) /
                 torch.tensor(float(n), dtype=torch.float32)).to(dev)
         B = next(iter(batch_c.values())).shape[0]
-        if B % M:
-            raise ValueError(f"batch {B} does not split into {M} "
-                             f"microbatches")
-        # over the chunks: bf16 score blocks sum their gradients (each
-        # with the proxy's, as the reference differentiates each chunk's
-        # total) in an f32 buffer; f32 ones in .grad, the floats in f32
+        d, r = ((1, 0) if plan is None else
+                (plan.mesh.shape["data"], plan.mesh.coords["data"]))
+        rows, chunks = partition.batch_pieces(B, M, d, r)
+        P = len(chunks)
+        # over the pieces (mesh=None: the chunks): bf16 score blocks sum
+        # their gradients (each with the proxy's, as the reference
+        # differentiates each chunk's total) in an f32 buffer; f32 ones in
+        # .grad, the floats in f32
         acc, f_acc, loss_sum = {}, {}, None
-        for j in range(M):
+        for i_piece, j in enumerate(chunks):
             tick = step * M + j
             params = masking.masked_forward_tree(
                 mp, lambda i: masking.mask_stream_seed(tick, 0, i, cohort,
@@ -320,12 +329,13 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
                 mode=cfg.mask_mode, tau=cfg.tau)
             flat, tdef = tu.flatten(params)
             params = tu.unflatten(tdef, [
-                dataclasses.replace(p if plan is None else plan.place(i, p),
-                                    s=grad_s[i])
+                dataclasses.replace(
+                    p if plan is None else plan.place(i, p, B * d // M),
+                    s=grad_s[i])
                 if isinstance(p, MaskedLeaf) else p
                 for i, p in enumerate(flat)])
-            chunk = batch_c if M == 1 else {
-                k: v[j * (B // M):(j + 1) * (B // M)]
+            chunk = batch_c if P == 1 else {
+                k: v[i_piece * rows:(i_piece + 1) * rows]
                 for k, v in batch_c.items()}
             loss = api.loss(api.forward(params, chunk,
                                         chunk_kv=cfg.chunk_kv), chunk)
@@ -373,8 +383,8 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
                     if g is None:
                         g = (s.grad if s.grad is not None
                              else torch.zeros_like(s))
-                    if M > 1:
-                        g.div_(M)
+                    if P > 1:
+                        g.div_(P)
                     for gp, sp, mp_, vp in _pieces(g, s, m, v):
                         if s.dtype == torch.float32:
                             _update_f32(cfg, gp, sp, mp_, vp, coef, bc)
@@ -390,12 +400,12 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
                 if f is None:
                     continue
                 if i in f_acc:
-                    f.copy_((f.float() - cfg.float_lr * (f_acc.pop(i) / M))
+                    f.copy_((f.float() - cfg.float_lr * (f_acc.pop(i) / P))
                             .to(f.dtype))
                 elif f.grad is not None:
                     f.sub_(cfg.float_lr * f.grad)
                 f.grad = None
-        return loss_sum / M if M > 1 else loss_sum
+        return loss_sum / P if P > 1 else loss_sum
 
     plan = None     # on a mesh: the rank's TrainPlan, built on the first call
 
@@ -405,6 +415,10 @@ def make_train_step(api, cfg: StepConfig, mesh=None, state_sh=None):
         C = next(s for s in tu.leaves(state["scores"]) if s is not None
                  ).shape[0]
         if mesh is not None and plan is None:
+            tokens = batch["tokens"]
+            partition.check_train(api, cfg, mesh.shape["data"],
+                                  tokens.shape[1] * mesh.shape["data"],
+                                  tokens.shape[2])
             plan = partition.TrainPlan(mesh, state, state_sh)
         first = 0 if plan is None else plan.first_cohort(C)
         losses = [cohort_update(state, c, first + c,

@@ -504,6 +504,13 @@ def moe_route(logits: torch.Tensor, n_experts: int, k: int,
     return probs, gval * keep, gidx, onehot, pos, keep, cap
 
 
+def dispatch_blocks(T: int, block_dispatch: int) -> int:
+    """The blocks a MoE layer routes T tokens in: `block_dispatch` = G
+    where T splits into G blocks of at least 8 tokens, else one."""
+    G = block_dispatch
+    return G if G and T % G == 0 and T // G >= 8 else 1
+
+
 def moe_apply(p, x, n_experts, k, capacity_factor=1.25, block_dispatch=0):
     """Capacity-dispatch MoE. x: (B, S, D) -> ((B, S, D), aux).  Tokens
     over an expert's capacity fall through on the residual path (plus
@@ -521,18 +528,19 @@ def moe_apply(p, x, n_experts, k, capacity_factor=1.25, block_dispatch=0):
 
     Expert leaves that carry a mesh layout (`launch.partition.
     ExpertLayout`, a rank's block on a mesh) hand the routing, the
-    dispatch, the expert chain and the combine to it (the global step's
-    routing over the cohort's tokens of every data rank)."""
+    dispatch, the expert chain and the combine to it, with
+    `block_dispatch`: x is then the rank's piece of a microbatch chunk,
+    and the blocks are the global chunk's (G decided on its T tokens),
+    routed on the rank or over the data ranks a block covers."""
     if isinstance(p["w_up"], MaskedLeaf) and p["w_up"].layout is not None:
-        y, aux = p["w_up"].layout.moe(p, x, n_experts, k, capacity_factor)
+        y, aux = p["w_up"].layout.moe(p, x, n_experts, k, capacity_factor,
+                                      block_dispatch)
         if "shared" in p:
             y = y + mlp_apply(p["shared"], x)
         return y, aux
     B, S, D = x.shape
     T = B * S
-    G = block_dispatch
-    if not (G and T % G == 0 and T // G >= 8):
-        G = 1
+    G = dispatch_blocks(T, block_dispatch)
     xt = x.reshape(G, T // G, D)
     logits = xt.float() @ p["router_w"]
     probs, gval, _, onehot, pos, keep, cap = moe_route(

@@ -36,9 +36,10 @@ shapes by kind, axis and bytes, and check that each placed leaf
 In this process: a (1, 1, 1) mesh gives the `mesh=None` steps bit for
 bit, the torchrun entry's steps too; a block leaf's masks are the
 global leaf's block's, at an offset that wraps past 2**32; the step
-refuses microbatches and block-local MoE dispatch.  The MoE family's
-partitioned step is held in `test_torch_mesh_train_moe.py`, the ssm and
-hybrid families' in `test_torch_mesh_train_ssm.py`.
+refuses unaligned MoE routing groups.  The MoE family's partitioned
+step is held in `test_torch_mesh_train_moe.py`, the ssm and hybrid
+families' in `test_torch_mesh_train_ssm.py`, microbatches and
+block-local dispatch in `test_torch_mesh_train_micro.py`.
 """
 import dataclasses
 import importlib.util
@@ -182,6 +183,7 @@ def _blocks(prefix, local, shardings, host, out):
 # ---------------------------------------------------------------------------
 
 REFERENCE_TEMPLATE = r'''
+import dataclasses
 import os
 import sys
 import numpy as np
@@ -195,9 +197,6 @@ from repro.models import build_model
 
 inp, out_path = sys.argv[1], sys.argv[2]
 a = dict(np.load(inp))
-mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
-                         ("pod", "data", "model"))
-grid = np.asarray(mesh.devices)
 NONE = lambda x: x is None
 
 def rank(d):
@@ -218,9 +217,14 @@ def shards(prefix, tree_):
                 [[sl.start or 0, sl.stop if sl.stop is not None else n]
                  for sl, n in zip(s.index, x.shape)], np.int64)
 
-for run, arch, opts, held, fused in REF_RUNS:
+for run, arch, opts, held, fused, *more in REF_RUNS:
+    over = more[0] if more else {}
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(
+        over.get("mesh", (2, 2, 2))), ("pod", "data", "model"))
+    grid = np.asarray(mesh.devices)
     os.environ["REPRO_EFF_PATH"] = "0" if fused else "1"    # read at trace
-    api = build_model(get_config(arch, smoke=True))
+    api = build_model(dataclasses.replace(get_config(arch, smoke=True),
+                                          **over.get("patch", {})))
     for opt in opts:
         tag = f"{run}/{opt}"
         shape = jax.eval_shape(lambda k: steps.init_fed_state(
@@ -240,7 +244,8 @@ for run, arch, opts, held, fused in REF_RUNS:
         names = sorted(k.split("/")[2] for k in a
                        if k.startswith(f"{run}/batch0/"))
         bsh = {k: NamedSharding(mesh, P("pod", "data")) for k in names}
-        cfg = steps.StepConfig(lam=1.0, lr=LR, seed=SEED, optimizer=opt)
+        cfg = steps.StepConfig(lam=1.0, lr=LR, seed=SEED, optimizer=opt,
+                               microbatch=over.get("microbatch", 1))
         fn = jax.jit(steps.make_train_step(api, cfg),
                      in_shardings=(sh, bsh),
                      out_shardings=(sh, shd.replicated(mesh)))
@@ -260,7 +265,9 @@ np.savez(out_path, **res)
 
 def reference_script(runs) -> str:
     """The reference subprocess's script for the runs `runs` (REF_RUNS'
-    layout)."""
+    layout, each run optionally followed by a dict: its "mesh" shape
+    over ("pod", "data", "model"), (2, 2, 2) by default, its
+    "microbatch" and its config fields replaced, "patch")."""
     return REFERENCE_TEMPLATE.replace("LR", repr(LR)).replace(
         "SEED", repr(SEED)).replace("REF_RUNS", repr(runs))
 
@@ -270,7 +277,7 @@ def _inputs(path, runs=REF_RUNS):
     two global batches, as numpy arrays keyed by
     '{run}/{opt}/{key}/{path}' and '{run}/batch{i}/{name}'."""
     out = {}
-    for run, arch, opts, _, _ in runs:
+    for run, arch, opts, *_ in runs:
         api = _api(arch)
         for opt in opts:
             st = _start(api, optimizer=opt)
@@ -750,21 +757,39 @@ def test_block_leaf_draws_the_global_leafs_masks(mode):
 
 
 def test_refusals():
-    """Microbatches and block-local MoE dispatch raise on a mesh (no mesh
-    is built: the step refuses before it reads one), while the ssm and
-    hybrid families' steps build; mesh without state_sh raises."""
+    """What the partitioned step still refuses: a MoE layer's routing
+    groups that M or G leave unaligned with the data ranks (6 rows on 2
+    data ranks at M = 3: chunks of 32 tokens on ranks of 48;
+    `check_train` runs on the step's first call, naming the condition),
+    and a family outside FAMILIES; mesh without state_sh raises.
+    Microbatches and block-local dispatch build, and aligned groups pass
+    the check: a group inside a rank, one over whole ranks, G's global
+    fallback and the dense families at any M (no mesh is built: the step
+    refuses before it reads one)."""
+    from repro_torch.launch import partition
     api = _api("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        steps.make_train_step(api, steps.StepConfig(microbatch=2),
-                              mesh=object(), state_sh={})
-    with pytest.raises(NotImplementedError, match="moe_block_dispatch"):
-        steps.make_train_step(
-            _api("deepseek-v2-lite-16b", {"moe_block_dispatch": 4}),
-            steps.StepConfig(), mesh=object(), state_sh={})
-    # the ssm and hybrid families build (their partitioned step:
-    # test_torch_mesh_train_ssm.py)
-    for arch in ("mamba2-370m", "recurrentgemma-9b"):
-        assert callable(steps.make_train_step(_api(arch), steps.StepConfig(),
-                                              mesh=object(), state_sh={}))
+    moe = _api("deepseek-v2-lite-16b")
+    with pytest.raises(NotImplementedError, match="routing groups of 32 "
+                       "tokens, which neither lie inside a data rank's 48"):
+        partition.check_train(moe, steps.StepConfig(microbatch=3), 2, 6, S)
+    blocks = _api("deepseek-v2-lite-16b", {"moe_block_dispatch": 3})
+    with pytest.raises(NotImplementedError, match="moe_block_dispatch 3"):
+        partition.check_train(blocks, steps.StepConfig(), 2, 6, 16)
+    for a, m, data, rows in ((moe, 2, 4, 4), (moe, 4, 2, 4), (moe, 1, 4, 4),
+                             (blocks, 1, 1, 6), (api, 3, 2, 6)):
+        partition.check_train(a, steps.StepConfig(microbatch=m), data, rows,
+                              S)
+    other = type("Api", (), {"cfg": dataclasses.replace(api.cfg,
+                                                        family="cnn")})()
+    with pytest.raises(NotImplementedError, match="'cnn'"):
+        steps.make_train_step(other, steps.StepConfig(), mesh=object(),
+                              state_sh={})
+    for arch, over, m in (("internlm2-1.8b", {}, 2),
+                          ("deepseek-v2-lite-16b", {"moe_block_dispatch": 4},
+                           2), ("mamba2-370m", {}, 1),
+                          ("recurrentgemma-9b", {}, 3)):
+        assert callable(steps.make_train_step(
+            _api(arch, over), steps.StepConfig(microbatch=m), mesh=object(),
+            state_sh={}))
     with pytest.raises(ValueError):
         steps.make_train_step(api, steps.StepConfig(), mesh=object())
