@@ -211,7 +211,16 @@ Phases (any failure exits non-zero and prints no result line):
    with moe_block_dispatch 4 (a rank's rows as pieces inside the global
    chunks, each at its chunk's tick; bit for bit, the kernels once a
    piece, every collective as `block_sites` and `moe_step_sites` give
-   it); (g)
+   it), then the partitioned prefill and decode of internlm2-1.8b's
+   plain weights cast to f32 (`partition.ServePlan`: a prompt of 4 x
+   128, then 8 greedy decode steps over a cache whose prompt positions
+   hold seeded random keys and values) on the rank's blocks against
+   mesh=None's: the prefill's logits bit for bit, the decode's bit for
+   bit against mesh=None through the same
+   softmax merge and within SERVE_RTOL of the logit scale against its
+   softmax, their greedy tokens equal but at near ties, every
+   collective as `serve_sites` gives it, no kernel launched, both sides'
+   seconds and peaks; (g)
    the analysis engines: the op
    walker over one full-width internlm2-1.8b train step and the three
    aligned check configs (no weight-shaped f32 value or mask outside
@@ -233,8 +242,19 @@ Phases (any failure exits non-zero and prints no result line):
    the uplink bits against the bitpack meter, kernels 4 and 11 once a
    masked leaf),
    internlm2-1.8b's, the moe archs', mamba2-370m's and
-   recurrentgemma-9b's train_4k on (16, 16), internlm2's prefill_32k and
-   decode_32k, and its unpacked round (a purity finding a leaf, 16 bits
+   recurrentgemma-9b's train_4k on (16, 16), the partitioned prefill
+   and decode cells (`partition.ServePlan` on rank 0's meta block, its
+   collectives recorded: every one as `serve_sites` gives it, the
+   projections' flops the global step's over the ranks that split them,
+   none over "data" under tp_only): internlm2-1.8b's prefill_32k and
+   decode_32k on both production meshes (its cache's positions on
+   "model"), its prefill_32k with `tp_only`, deepseek-7b's decode_32k
+   (kv heads on "model") and gemma3-4b's decode_32k and long_500k (batch
+   1: positions over every axis), those on (2, 16, 16) without `tp_only`
+   also once on rank 0's real block on the card (`dryrun.serve_cell`:
+   seconds, peak above the arguments), each cell's bytes on a line of
+   its own; internlm2's
+   unpacked round (a purity finding a leaf, 16 bits
    a parameter), and deepseek-v2-lite-16b's partitioned train_4k step
    on (2, 16, 16) at microbatch 2 (routing over 8-rank data subgroups)
    and at moe_block_dispatch 64 (4 blocks a rank, routed there), in a
@@ -245,7 +265,7 @@ Phases (any failure exits non-zero and prints no result line):
    quickstart, serve_masked, train_lm_masked at ~40M parameters,
    fault_tolerance_demo) on the card, launches reckoned;
 9. profile one more step and round of the first four training paths
-   and of whisper-medium, eight decode
+   and of whisper-medium, each cut to PROFILE_LAYERS layers, eight decode
    steps of the served internlm2-1.8b, and 6 ticks of gemma3-4b's engine
    on 2 slots, exact and lockstep (torch.profiler): device time by
    kernel, the device's busy share and operations a step or tick.
@@ -292,6 +312,10 @@ CONV_SHAPES = {"mamba2-370m": 2304, "recurrentgemma-9b": 4096}
 CONV_RAGGED = (3, 37, 1000)
 CONV_ODD = (2, 21, 1001)      # C % 4 != 0: the kernels' element path
 MAMBA_LAYERS, RG_LAYERS = 48, 5   # recurrentgemma: 5 of its 38 layers
+# the profiled step and round run a path cut to this many layers (and
+# encoder layers): a stack's layers repeat one pattern, and the profiler's
+# per-event cost made the full-depth profiles ~90 s of the script
+PROFILE_LAYERS = 8
 BITPACK_RAGGED = (3, 37_005)  # (R, n): row starts off the 16-byte grid
 # masked leaves a round unpacks: internlm2 7, deepseek-v2-lite at 4
 # layers 19, mamba2 3, recurrentgemma at 5 layers 34
@@ -3267,13 +3291,17 @@ def artifact_phase(torch, dispatch, dev, arch):
 
 
 def profile_phase(torch, dev, cfg):
-    """One more train step and round of `cfg` under torch.profiler:
-    device time by kernel and the device's busy share of the wall time
-    (after the main paths, whose launch counts are already read)."""
+    """One more train step and round of `cfg` cut to PROFILE_LAYERS
+    layers under torch.profiler: device time by kernel and the device's
+    busy share of the wall time (after the main paths, whose launch
+    counts are already read)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import registry
     from repro_torch.launch import steps as steplib
     from repro_torch.models import build_model
+    cfg = dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, PROFILE_LAYERS),
+        enc_layers=min(cfg.enc_layers, PROFILE_LAYERS))
     api = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(17)
     plan = registry.get_launch_plan("fedpm_reg")(
@@ -3300,8 +3328,9 @@ def profile_phase(torch, dev, cfg):
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     wall = sum(walls.values()) * 1e3
-    print(f"profile {cfg.name} ({cfg.n_layers} layers): 1 step + 1 round, "
-          f"wall {wall:.1f} ms "
+    enc = f", {cfg.enc_layers} encoder layers" if cfg.enc_layers else ""
+    print(f"profile {cfg.name} ({cfg.n_layers} layers{enc}): 1 step + 1 "
+          f"round, wall {wall:.1f} ms "
           f"(step {walls['step'] * 1e3:.1f}, round "
           f"{walls['round'] * 1e3:.1f}), device busy {busy:.1f} ms "
           f"({100 * busy / wall:.1f}%); device ms by kernel:")
@@ -4352,6 +4381,20 @@ MESH_ARGV = ["--arch", "internlm2-1.8b", "--cohorts", str(COHORTS)]
 MESH_TIMEOUT = 300            # seconds a rank may take
 MESH_STEPS = 4                # partitioned train steps before the round
 MICROBATCH, MICRO_STEPS = 2, 2  # the microbatched partitioned steps
+# the partitioned prefill and decode (`partition.ServePlan`) of
+# internlm2-1.8b's plain weights cast to f32 (its cache too): a prompt of
+# SERVE_BATCH x SERVE_PROMPT, then SERVE_STEPS greedy decode steps.  One
+# rank's positions "split" over a model axis of 1 merge their softmax
+# partials where mesh=None runs a softmax: the attention's f32 outputs
+# differ by 4.2e-7 of 0.79 (SERVE_F32 bounds it against the largest
+# output).  In bf16 activations that flipped 3 of 8,192 outputs a layer
+# and moved the logits by 1.8% of their scale through 24 layers (NVIDIA
+# H100 80GB HBM3, 700 W), so the comparison runs f32 activations, where
+# the merge's rounding stays f32's: SERVE_RTOL of the largest logit.
+# mesh=None through the same merge gives the partitioned logits bit for
+# bit
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_SEED = 4, 128, 8, 53
+SERVE_F32, SERVE_RTOL = 1e-5, 1e-4
 DIGEST_PIECE = 1 << 26
 
 
@@ -4610,6 +4653,75 @@ def moe_step_sites(cfg, state, state_sh, shape, tokens, cohorts,
             for k, v in sorted(out.items())}, rt
 
 
+def serve_sites(params, params_sh, shape, cfg, rows, seq, cache=None,
+                cache_sh=None, act="bfloat16"):
+    """Every collective one partitioned prefill (`cache` None) or decode
+    step issues on one rank (`partition.ServePlan`), keyed as
+    `dryrun.collective_operands` keys them ({"kind axes dtype":
+    {elements: calls}}), from the global shapes and dtypes of `params`
+    (meta tensors do) and their shardings, and for a decode the cache's:
+    `shape` the mesh's axis sizes, `cfg` the arch's config, `rows` the
+    batch rows on the rank, `seq` a row's tokens (a prefill's whole
+    sequence, the vlm's patches among them; a decode's 1), `act` the
+    activations' type.  Per leaf that is not a projection (the tables,
+    norm scales, biases, learned positions): each sharded dim gathered
+    in turn, once a step, the unembedding's table among them (the
+    unembedding has no collective of its own).  Per layer block of a
+    projection the step runs (a decode runs neither whisper's encoder
+    nor its cross k and v projections; those read the frames' enc_seq
+    tokens a row): its rows gathered over "data" where they split there,
+    its output columns (rows x tokens x N / d_model) over "model" where
+    they split there.  Per attention layer of a decode over a cache
+    block split on "model": its heads' output gathered over "model"
+    (rows x n_heads / d_model x hd), or, its positions split, every
+    head's f32 softmax partials gathered over the position axes (rows x
+    n_heads x (hd + 2))."""
+    from repro_torch.core import masking, tree
+    mask = masking.MaskSpec()
+    out = {}
+
+    def add(kind, axes, dtype, elems, calls):
+        key = f"{kind} {axes} {str(dtype).removeprefix('torch.')}"
+        out.setdefault(key, {})
+        out[key][str(elems)] = out[key].get(str(elems), 0) + calls
+    for (path, x), sh in zip(tree.flatten_with_paths(params),
+                             tree.leaves(params_sh)):
+        if x is None:
+            continue
+        parts = list(sh.spec) + [None] * (x.ndim - len(sh.spec))
+        dims = [d // shape[p] if p else d for d, p in zip(x.shape, parts)]
+        if not mask.is_masked(path, x):
+            for i, p in enumerate(parts):
+                if p:
+                    add("all-gather", p, x.dtype, math.prod(dims), 1)
+                    dims[i] = x.shape[i]
+            continue
+        frames = (path.startswith("enc_layers/")
+                  or path.endswith(("cross/w_k", "cross/w_v")))
+        if frames and cache is not None:
+            continue
+        n = math.prod(x.shape[:-2])
+        if parts[-2]:
+            add("all-gather", "data", x.dtype, dims[-2] * dims[-1], n)
+        if parts[-1]:
+            add("all-gather", "model", act,
+                rows * (cfg.enc_seq if frames else seq) * dims[-1], n)
+    for (path, c), sh in zip(tree.flatten_with_paths(cache or {}),
+                             tree.leaves(cache_sh or {})):
+        if path.rsplit("/", 1)[-1] not in ("k", "ck"):
+            continue
+        parts = list(sh.spec) + [None] * (c.ndim - len(sh.spec))
+        if parts[3] == "model":
+            add("all-gather", "model", act,
+                rows * cfg.n_heads // shape["model"] * cfg.hd, c.shape[0])
+        elif parts[2]:
+            axes = (parts[2],) if isinstance(parts[2], str) else parts[2]
+            add("all-gather", "x".join(axes), "float32",
+                rows * cfg.n_heads * (cfg.hd + 2), c.shape[0])
+    return {k: dict(sorted(v.items(), key=lambda kv: int(kv[0])))
+            for k, v in sorted(out.items())}
+
+
 def stub_mesh(shape):
     """A stand-in for `launch.mesh.Mesh` that `steps.fed_state_shardings`
     reads: its axis names and sizes (`shape`, in mesh order)."""
@@ -4693,6 +4805,160 @@ def _train_compare(torch, mesh, api, host, sh, tcfg, batches, res, tag,
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def merged_attention():
+    """`layers.attention_core` of a one-token query without a chunk or a
+    cap through one block's softmax partials and their merge
+    (`layers.attention_partials`, `merge_partials`): the arithmetic of a
+    cache whose positions split over one rank; every other call as it
+    is."""
+    from repro_torch.models import layers
+    core = layers.attention_core
+
+    def merged(q, k, v, q_pos, k_pos, window=None, causal=True,
+               chunk_kv=None, soft_cap=None):
+        if q.shape[1] != 1 or chunk_kv is not None or soft_cap is not None:
+            return core(q, k, v, q_pos, k_pos, window, causal, chunk_kv,
+                        soft_cap)
+        return layers.merge_partials(layers.attention_partials(
+            q, k, v, q_pos, k_pos, window, causal)[None], q.dtype)
+    layers.attention_core = merged
+    try:
+        yield
+    finally:
+        layers.attention_core = core
+
+
+def _serve_compare(torch, mesh, dev, res):
+    """internlm2-1.8b's plain weights at full width drawn on the card and
+    cast to f32 (its cache f32 too, so every activation is f32): a
+    prefill of SERVE_BATCH x SERVE_PROMPT tokens, then SERVE_STEPS greedy
+    decode steps from the prefill's token over a cache whose prompt
+    positions hold seeded random keys and values (`mesh=None`'s tokens
+    fed to every side): `mesh=None` on the whole tree ("plain"), `mesh=None`
+    with its attention through one block's softmax partials and their
+    merge ("merged", `merged_attention`: the arithmetic of a cache whose
+    positions split over one rank) and partitioned
+    (`steps.make_prefill_step` / `make_serve_step` with a
+    `partition.ServePlan`, "mesh") on this rank's blocks, each prefill
+    warmed by one untimed call first.  Writes into `res` each
+    side's logits of the rank's rows, seconds, peak GiB and launches,
+    the partitioned prefill's and first decode's collectives, the greedy
+    tokens, and the largest difference of the attention's f32 output
+    from the merge's at the decode's shapes (random q, k, v)."""
+    from repro_torch.analysis import comm_model
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun, partition
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import build_model, layers
+    api = build_model(get_config("internlm2-1.8b"))
+    cfg = api.cfg
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    params = tree.tree_map(lambda t: None if t is None else t.float(),
+                           api.init_params(gen))
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    total = SERVE_PROMPT + SERVE_STEPS
+    # the attention alone in f32: the softmax against the merge
+    q = torch.randn(SERVE_BATCH, 1, cfg.n_heads, cfg.hd, generator=gen,
+                    device=dev)
+    k, v = (torch.randn(SERVE_BATCH, total, cfg.n_kv_heads, cfg.hd,
+                        generator=gen, device=dev) for _ in range(2))
+    qp, kp = torch.tensor([total - 1], device=dev), torch.arange(
+        total, device=dev)
+    o = layers.attention_core(q, k, v, qp, kp)
+    res["serve_attention_f32"] = [
+        (o - layers.merge_partials(layers.attention_partials(
+            q, k, v, qp, kp)[None], torch.float32)).abs().max().item(),
+        o.abs().max().item()]
+    del q, k, v, o
+    cache = tree.tree_map(lambda t: t.float(),
+                          api.init_cache(SERVE_BATCH, total, dev))
+    for t in tree.leaves(cache):              # the prompt's keys, values
+        t[:, :, :SERVE_PROMPT] = torch.randn(
+            t[:, :, :SERVE_PROMPT].shape, generator=gen, device=dev)
+    psh = shd.tree_param_shardings(params, mesh)
+    csh = shd.cache_shardings(cache, mesh, SERVE_BATCH)
+    client = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    rows = shd.NamedSharding(mesh, shd.P(client, None))
+    csize = math.prod(mesh.shape[a] for a in client)
+    tok_sh = shd.NamedSharding(mesh, shd.P(client) if SERVE_BATCH % csize
+                               == 0 else shd.P())
+    plan = partition.ServePlan(mesh, params, psh, csh)
+    local = tree.tree_map(lambda x, s: s.local(x), params, psh)
+    plain = steplib.make_serve_step(api)
+    start = {"plain": cache,
+             "merged": tree.tree_map(lambda x: x.clone(), cache),
+             "mesh": tree.tree_map(lambda x, s: s.local(x).clone(), cache,
+                                   csh)}
+    tokens = None
+    for side in ("plain", "merged", "mesh"):
+        part = side == "mesh"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        pre = (steplib.make_prefill_step(api, None, mesh, plan) if part
+               else steplib.make_prefill_step(api))
+        dec = steplib.make_serve_step(api, mesh, plan) if part else plain
+        p_args = ((local, {"tokens": rows.local(prompt)}) if part
+                  else (params, {"tokens": prompt}))
+        if side != "merged":
+            pre(*p_args)                          # warm
+            rec = (comm_model.record_collectives(mesh, check=True) if part
+                   else contextlib.nullcontext([]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rec as sites:
+                logits = pre(*p_args)
+            torch.cuda.synchronize()
+            res[f"serve_{side}_prefill_s"] = time.perf_counter() - t0
+            if part:
+                res["serve_prefill_operands"] = dryrun.collective_operands(
+                    sites)
+            res[f"serve_{side}_prefill"] = logits.float().cpu().tolist()
+            if tokens is None:
+                tokens = [logits.argmax(-1).to(torch.int32)]
+        cur = start[side]
+        outs, secs = [], []
+        with (merged_attention() if side == "merged"
+              else contextlib.nullcontext()):
+            for i in range(SERVE_STEPS):
+                tok = tokens[i]
+                rec = (comm_model.record_collectives(mesh, check=True)
+                       if part and i == 0 else contextlib.nullcontext([]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with rec as sites:
+                    out, _ = dec(local if part else params, cur,
+                                 tok_sh.local(tok) if part else tok,
+                                 torch.tensor(SERVE_PROMPT + i, device=dev))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                if sites:
+                    res["serve_decode_operands"] = (
+                        dryrun.collective_operands(sites))
+                outs.append(out.float().cpu().tolist())
+                if side == "plain" and i + 1 < SERVE_STEPS:
+                    tokens.append(out.argmax(-1).to(torch.int32))
+        res[f"serve_{side}_decode"] = outs
+        res[f"serve_{side}_decode_s"] = secs
+        res[f"serve_{side}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
+        res[f"serve_{side}_launches"] = {k: v for k, v in
+                                         dispatch.LAUNCHES.items() if v}
+    res["serve_tokens"] = [t.cpu().tolist() for t in tokens]
+    res["serve_rows"] = [rows.index(tuple(prompt.shape))[0].start,
+                         rows.index(tuple(prompt.shape))[0].stop]
+    res["serve_tok_rows"] = [tok_sh.index((SERVE_BATCH,))[0].start,
+                             tok_sh.index((SERVE_BATCH,))[0].stop]
+    res["serve_cache_spec"] = str(tree.leaves(csh)[0].spec)
+    del params, local, cache, start, plan
+    torch.cuda.empty_cache()
+
+
 def mesh_rank(rank, world, store, out_path):
     """One rank of `mesh_phase`: NCCL on card `rank`.  The host-global
     state is drawn once from the launcher's seed (on the card, then moved
@@ -4723,7 +4989,9 @@ def mesh_rank(rank, world, store, out_path):
     MICRO_STEPS steps both ways at microbatch MICROBATCH with
     `moe_block_dispatch` = BLOCK_DISPATCH (`moe_micro`); (8) the same for
     mamba2-370m at all MAMBA_LAYERS layers (its conv leaves through
-    `partition.BlockLayout.conv`), the phase's seconds beside.
+    `partition.BlockLayout.conv`), the phase's seconds beside; (9) the
+    partitioned prefill and decode of internlm2-1.8b's plain weights
+    against mesh=None (`_serve_compare`).
     Writes a JSON of what it found; raises on any failed check."""
     import torch
     import torch.distributed as dist
@@ -4893,6 +5161,12 @@ def mesh_rank(rank, world, store, out_path):
         res["ssm_phase_s"] = time.perf_counter() - t0
         del api, host, batches
 
+        # (9) the partitioned prefill and decode of internlm2-1.8b's plain
+        # weights against mesh=None
+        t0 = time.perf_counter()
+        _serve_compare(torch, mesh, dev, res)
+        res["serve_phase_s"] = time.perf_counter() - t0
+
         # kernel 10 in mask_mean_packed: one layer's masks of each leaf
         gen = torch.Generator(device=dev).manual_seed(29)
         masks = {k: (torch.rand(s, generator=gen, device=dev) < 0.5).to(
@@ -4910,6 +5184,84 @@ def mesh_rank(rank, world, store, out_path):
         Path(out_path).write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
+
+
+def serve_check(x, r, world):
+    """The checks of the mesh phase's partitioned prefill and decode on
+    rank r's results `x` (`_serve_compare`): no kernel launched (plain
+    weights); the attention's f32 output within SERVE_F32 of the merge's
+    (relative to its largest value); the rank's rows of the prefill's
+    logits mesh=None's, and on one rank (its positions "split" over a
+    model axis of one) every decode step's logits and greedy tokens
+    mesh=None's through the merge ("merged") bit for bit; against
+    mesh=None's softmax each step's logits within SERVE_RTOL of its
+    largest logit (the merge's f32 rounding through 24 layers of f32
+    activations) and the greedy tokens equal but where mesh=None's top
+    two lie within twice that (a near tie); every collective of the
+    first prefill and decode as `serve_sites` gives it (f32 weights and
+    activations).  Returns the line's numbers."""
+    from repro_torch.analysis import stream_cover
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import build_model
+    check(not any(x[f"serve_{k}_launches"] for k in ("plain", "merged",
+                                                     "mesh")),
+          f"rank {r}: the plain-weight serving launched a kernel")
+    f32, scale = x["serve_attention_f32"]
+    check(f32 <= SERVE_F32 * scale, f"rank {r}: the merged attention's f32 "
+          f"output {f32} from the softmax's (largest {scale})")
+    lo, hi = x["serve_rows"]
+    same = x["serve_mesh_prefill"] == x["serve_plain_prefill"][lo:hi]
+    lo, hi = x["serve_tok_rows"]
+    merged = [step[lo:hi] for step in x["serve_merged_decode"]]
+    bits = x["serve_mesh_decode"] == merged
+    if world == 1:
+        check(same, f"rank {r}: the partitioned prefill's logits differ "
+              f"from mesh=None's")
+        check(bits, f"rank {r}: the partitioned decode's logits differ from "
+              f"mesh=None's through the merge")
+    err = rel = 0.0
+    eq = ties = n = 0
+    for a, b in zip(x["serve_mesh_decode"], x["serve_plain_decode"]):
+        scale = max(abs(u) for row in b[lo:hi] for u in row)
+        bound = SERVE_RTOL * scale
+        for ra, rb in zip(a, b[lo:hi]):
+            d = max(abs(u - v) for u, v in zip(ra, rb))
+            err, rel = max(err, d), max(rel, d / scale)
+            check(d <= bound, f"rank {r}: partitioned decode logits {d} "
+                  f"from mesh=None's, bound {bound}")
+            top = sorted(rb)[-2:]
+            n += 1
+            if ra.index(max(ra)) == rb.index(max(rb)):
+                eq += 1
+            else:
+                check(top[1] - top[0] <= 2 * bound, f"rank {r}: a greedy "
+                      f"token differs where mesh=None's top two lie "
+                      f"{top[1] - top[0]} apart")
+                ties += 1
+    cfg = get_config("internlm2-1.8b")
+    stub = stub_mesh(x["shape"])
+    params = tree.tree_map(lambda t: None if t is None else t.float(),
+                           stream_cover.meta_params(cfg))
+    psh = shd.tree_param_shardings(params, stub)
+    cache = build_model(cfg).init_cache(SERVE_BATCH,
+                                        SERVE_PROMPT + SERVE_STEPS, "meta")
+    csh = shd.cache_shardings(cache, stub, SERVE_BATCH)
+    rows = x["serve_rows"][1] - x["serve_rows"][0]
+    sites = {"prefill": serve_sites(params, psh, stub.shape, cfg, rows,
+                                    SERVE_PROMPT, act="float32"),
+             "decode": serve_sites(params, psh, stub.shape, cfg, hi - lo, 1,
+                                   cache, csh, act="float32")}
+    for kind, want in sites.items():
+        check(x[f"serve_{kind}_operands"] == want, f"rank {r}: the "
+              f"partitioned {kind}'s collectives {x[f'serve_{kind}_operands']}"
+              f", serve_sites {want}")
+    return {"prefill_equal": same, "merged_equal": bits, "decode_err": err,
+            "decode_rel": rel, "attention_f32": f32, "tokens_equal": eq,
+            "tokens": n, "near_ties": ties,
+            **{f"{k}_sites": sum(sum(v.values()) for v in w.values())
+               for k, w in sites.items()}}
 
 
 def mesh_phase(torch, dispatch):
@@ -4949,8 +5301,9 @@ def mesh_phase(torch, dispatch):
     one rank the `mesh=None` steps bit for bit (digests and loss bits),
     the kernels once a projection, layer, local cohort, piece and step,
     every collective of the first step as `block_sites` (pieces) and
-    `moe_step_sites` give them.  Returns the launches, summed over the
-    ranks."""
+    `moe_step_sites` give them.  The partitioned prefill and decode of
+    internlm2-1.8b's plain weights: `serve_check`.  Returns the
+    launches, summed over the ranks."""
     import multiprocessing
 
     from repro_torch.analysis import stream_cover
@@ -4983,6 +5336,7 @@ def mesh_phase(torch, dispatch):
            for r in range(world)]
     leaves = len(LAYER_SHAPES)
     launches = {k: 0 for k in dispatch.KERNELS}
+    serve = []
     for r, x in enumerate(res):
         want = {k: 0 for k in dispatch.KERNELS}
         want.update(sample_and_pack=leaves, unpack_bits=leaves)
@@ -5106,6 +5460,7 @@ def mesh_phase(torch, dispatch):
               f"{ssm_sites}")
         check(len(x["ssm_mesh_loss_bits"]) == MESH_STEPS, f"rank {r}: ssm "
               f"losses {x['ssm_mesh_losses']}")
+        serve.append(serve_check(x, r, world))
         check(x["unpacked"]["scores"] == x["mesh"]["scores"],
               f"rank {r}: the unpacked theta differs from the packed one")
         if world == 1:
@@ -5292,6 +5647,31 @@ def mesh_phase(torch, dispatch):
               f"form gives them ({sum(sum(v.values()) for v in sites.values())}"
               f"); calls, bytes sent, received and device ms by kind "
               f"{json.dumps(w)}")
+    sv = serve[0]
+    print(f"mesh phase, partitioned prefill and decode (internlm2-1.8b's "
+          f"plain weights at full size in f32, cache "
+          f"{x['serve_cache_spec']}; "
+          f"prompt {SERVE_BATCH} x {SERVE_PROMPT}, then {SERVE_STEPS} greedy "
+          f"decode steps over a cache of random prompt keys and values; "
+          f"the whole step (9) "
+          f"{x['serve_phase_s']:.1f} s; {smi_line()}): prefill partitioned "
+          f"{x['serve_mesh_prefill_s']:.4f} s, mesh=None "
+          f"{x['serve_plain_prefill_s']:.4f} s, logits equal bit for bit: "
+          f"{sv['prefill_equal']}; decode partitioned "
+          f"{_fmt(x['serve_mesh_decode_s'])} s, mesh=None "
+          f"{_fmt(x['serve_plain_decode_s'])} s, equal bit for bit to "
+          f"mesh=None's through the merge: {sv['merged_equal']}; against "
+          f"mesh=None's softmax the largest logit difference "
+          f"{sv['decode_err']:.4g} ({sv['decode_rel']:.4g} of the scale, "
+          f"bound {SERVE_RTOL}; the attention's f32 output "
+          f"{sv['attention_f32']:.3g} off), greedy tokens equal "
+          f"{sv['tokens_equal']} of {sv['tokens']} (near ties "
+          f"{sv['near_ties']}); peaks "
+          f"{x['serve_mesh_peak_gib']:.2f} GiB against "
+          f"{x['serve_plain_peak_gib']:.2f}; the prefill's "
+          f"{sv['prefill_sites']} and a decode step's {sv['decode_sites']} "
+          f"collectives as `serve_sites` gives them "
+          f"({json.dumps(x['serve_decode_operands'])})")
     pm, pp = x["train_mesh_profile"], x["train_plain_profile"]
     print(f"mesh phase, one more step under torch.profiler: partitioned "
           f"wall {pm[0]:.1f} ms, device busy {pm[1]:.1f} ms "
@@ -5451,10 +5831,15 @@ def analysis_phase(torch, dispatch, dev):
 
 
 # the dry run's cells on the card, one process a group: the stand-in
-# process group is process-wide, and the train steps' meta flop counts are
-# host work the groups run side by side (deepseek-v2-236b's alone)
+# process group is process-wide, and the meta steps' flop counts are host
+# work the groups run side by side (deepseek-v2-236b's train step alone; a
+# partitioned prefill_32k cell a process, 25-65 s of meta steps each)
 DRYRUN_GROUPS = (
     ("deepseek-v2-236b", "train_4k", "multi", ()),
+    ("internlm2-1.8b", "prefill_32k", "multi", ()),
+    ("internlm2-1.8b", "prefill_32k,decode_32k", "single", ()),
+    ("internlm2-1.8b", "prefill_32k", "multi",
+     ("--patch", json.dumps({"tp_only": True}))),
     ("mamba2-370m,internlm2-1.8b,qwen2-7b", "train_4k", "multi", ()),
     ("recurrentgemma-9b,whisper-medium,deepseek-7b", "train_4k", "multi",
      ()),
@@ -5462,11 +5847,12 @@ DRYRUN_GROUPS = (
     ("internlm2-1.8b,mamba2-370m,recurrentgemma-9b", "train_4k", "single",
      ()),
     ("deepseek-v2-lite-16b,deepseek-v2-236b", "train_4k", "single", ()),
-    ("internlm2-1.8b", "prefill_32k,decode_32k", "multi", ()),
     ("internlm2-1.8b", "train_4k", "multi", ("--unpacked",)),
     ("deepseek-v2-lite-16b", "train_4k", "multi", (
         "--step", "train", "--patch", json.dumps({"microbatch": 2}),
         "--patch", json.dumps({"moe_block_dispatch": 64}))),
+    ("internlm2-1.8b,deepseek-7b,gemma3-4b", "decode_32k,long_500k", "multi",
+     ()),
 )
 # the MoE cells whose flops `dryrun_phase` sets side by side: global
 # dispatch, microbatches (routing over 8-rank data subgroups) and
@@ -5493,8 +5879,8 @@ def dryrun_cell_check(key, res, unpacked):
     from repro_torch.launch import partition
     check(res["ok"], f"dry run {key}: {res.get('error')}")
     arch, shape, mesh, *patch = key.split("|")
-    patch = {k: int(v) for k, v in (kv.split("=") for kv in
-                                     patch[0].split(","))} if patch else {}
+    patch = {k: json.loads(v.lower()) for k, v in (
+        kv.split("=") for kv in patch[0].split(","))} if patch else {}
     n_dev = DRYRUN_DEVICES[mesh]
     for step, r in res.items():
         if not isinstance(r, dict) or step == "stream_cover":
@@ -5511,6 +5897,10 @@ def dryrun_cell_check(key, res, unpacked):
               for k, r in res.items()
               if k.endswith("_step") and k != "round_step"),
           f"dry run {key}: {res}")
+    for kind in ("prefill_step", "serve_step"):
+        if kind in res:
+            serve_cell_check(key, res[kind], n_dev,
+                             patch.get("tp_only", False))
     train = res.get("train_step")
     if train is not None and get_config(arch).family in partition.FAMILIES:
         # rank 0's block of the partitioned step: FSDP gathers over
@@ -5620,6 +6010,79 @@ def dryrun_cell_check(key, res, unpacked):
     return got
 
 
+def serve_cell_check(key, step, n_dev, tp_only):
+    """A prefill or decode dry-run cell (rank 0 of the production mesh):
+    for the families the partitioned serving runs, every collective as
+    `serve_sites` gives it (none null), none over "data" under tp_only,
+    and the projections' flops exactly the global step's over the ranks
+    that split them (the client ranks holding the batch's rows, times
+    d_model: every projection of these archs splits its columns), the
+    unembedding on the gathered table beside them; the other families'
+    cells unpartitioned, their bytes None; on (2, 16, 16) without
+    tp_only the step run on rank 0's real block on the card, nowhere
+    else.  Prints the cell's per-rank bytes (and the block's seconds and
+    peak)."""
+    from repro_torch.analysis import stream_cover
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, partition
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import build_model
+    arch, shape, mesh = key.split("|")[:3]
+    cfg = get_config(arch)
+    if cfg.family not in partition.SERVE_FAMILIES:
+        check(step["partitioned"] is False
+              and step["collective_bytes"] is None, f"{key}: {step}")
+        print(f"dry run {key}: not partitioned ({cfg.family})")
+        return
+    check(step["partitioned"] is True and step["collective_bytes"],
+          f"{key}: partitioned serving step {step}")
+    stub = stub_mesh({"pod": 2, "data": 16, "model": 16}
+                     if mesh == "pod2x16x16" else {"data": 16, "model": 16})
+    sc = SHAPES[shape]
+    csize = math.prod(v for a, v in stub.shape.items() if a != "model")
+    rows = sc.global_batch // csize if sc.global_batch % csize == 0 \
+        else sc.global_batch
+    params = stream_cover.meta_params(cfg)
+    psh = shd.tree_param_shardings(params, stub, tp_only=tp_only)
+    if sc.kind == "prefill":
+        seq = sc.seq_len
+        want = serve_sites(params, psh, stub.shape, cfg, rows, seq)
+    else:
+        seq = 1
+        cache, csh, *_ = dryrun.serve_batch_specs(cfg, sc, stub,
+                                                  build_model(cfg))
+        want = serve_sites(params, psh, stub.shape, cfg, rows, 1, cache, csh)
+    got = step["collective_operands"]
+    bad = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+           if got.get(k) != want.get(k)}
+    check(not bad, f"{key}: collectives (recorded, serve_sites) {bad}")
+    data = [k for k in step["collective_axes"] if k.split()[1] == "data"]
+    check(not (tp_only and data), f"{key} tp_only: collectives over "
+          f"\"data\": {data}")
+    unembed = 2 * seq * cfg.d_model * cfg.vocab
+    mine = step["flops_by_op"]["aten.mm"] - rows * unembed
+    glob = (step["global_step"]["flops_by_op"]["aten.mm"]
+            - sc.global_batch * unembed)
+    split = sc.global_batch // rows * stub.shape["model"]
+    check(mine * split == glob, f"{key}: projection flops, rank 0 {mine}, "
+          f"global {glob}, expected a {split}th")
+    blk = step.get("block")
+    check((blk is not None and blk["memory"]["peak"] is not None)
+          == (mesh == "pod2x16x16" and not tp_only),
+          f"{key}: rank 0's real block on the card {blk}")
+    block = ("" if blk is None else
+             f"; on rank 0's real block on the card {blk['seconds']:.3f} s, "
+             f"peak {_gib(blk['memory']['peak'])} GiB, "
+             f"{_gib(blk['memory']['temp_size'])} GiB above its "
+             f"{_gib(blk['memory']['arguments'])} GiB of arguments")
+    print(f"dry run {key}{' tp_only' if tp_only else ''} partitioned: "
+          f"arguments {step['memory']['argument_size']} B a rank, "
+          f"{step['n_sites']} collectives as serve_sites gives them, bytes "
+          f"{json.dumps(step['collective_bytes'])}, by kind and axes "
+          f"{json.dumps(step['collective_axes'])}; projection flops a "
+          f"{split}th of the global step's{block}; {smi_line()}")
+
+
 def conv_cell_check(key, train, n_dev, ratio):
     """The partitioned train step of an ssm or hybrid dry-run cell (rank 0
     of the production mesh, one cohort a pod): every collective as the
@@ -5676,11 +6139,16 @@ def conv_cell_check(key, train, n_dev, ratio):
 def dryrun_phase(torch, dispatch):
     """(h) the multi-pod dry run (`python -m repro_torch.launch.dryrun
     --device cuda`, DRYRUN_GROUPS in processes side by side): every
-    arch's train_4k cell on the (2, 16, 16) mesh, internlm2-1.8b's on
-    (16, 16) and its prefill_32k and decode_32k cells, each as rank 0 of
-    the stand-in process group, the round on rank 0's block on the card;
-    then internlm2-1.8b's train_4k with `--unpacked`.  Any [FAIL] fails
-    the run.  Each packed multi-pod round: no purity finding, `bpp_wire`
+    arch's train_4k cell on the (2, 16, 16) mesh, five archs' on
+    (16, 16), each as rank 0 of the stand-in process group, the round on
+    rank 0's block on the card; internlm2-1.8b's train_4k with
+    `--unpacked`; deepseek-v2-lite's train step patched; and the
+    partitioned prefill and decode cells (internlm2-1.8b's prefill_32k
+    and decode_32k on both meshes and its prefill_32k under `tp_only`,
+    deepseek-7b's and gemma3-4b's decode_32k, gemma3-4b's long_500k;
+    those on (2, 16, 16) without `tp_only` also on rank 0's real block on
+    the card; `serve_cell_check`).  Any [FAIL] fails the run.  Each
+    packed multi-pod round: no purity finding, `bpp_wire`
     at least 1 plus the replicated blocks' share and at most that plus
     the word padding, its uplink bits every shard's block as the bitpack
     meter counts it on rank 0's, kernels 4 and 11 once a masked leaf; the
@@ -5693,14 +6161,15 @@ def dryrun_phase(torch, dispatch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     t0 = time.time()
     procs = []
-    for i, (archs, shapes, mesh, more) in enumerate(DRYRUN_GROUPS):
-        log = open(work / f"group{i}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-             "cuda", "--arch", archs, "--shape", shapes, "--mesh", mesh,
-             "--out", str(work / f"group{i}.json"), *more], cwd=ROOT,
-            env=env, stdout=log, stderr=subprocess.STDOUT), log))
     try:
+        for i, (archs, shapes, mesh, more) in enumerate(DRYRUN_GROUPS):
+            log = open(work / f"group{i}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--device", "cuda", "--arch", archs, "--shape", shapes,
+                 "--mesh", mesh, "--out", str(work / f"group{i}.json"),
+                 *more], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log))
         for p, _ in procs:
             p.wait(DRYRUN_TIMEOUT)
     finally:

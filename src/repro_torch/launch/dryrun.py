@@ -37,21 +37,33 @@ side of each cell instead:
   collectives' operand bytes, argument bytes, the peak memory above
   them on a card, and declared-vs-held placement;
 * prefill and decode shapes: argument bytes of rank 0's blocks of
-  params and batch or cache, and the flops of `api.forward` or
-  `steps.make_serve_step` on meta.
+  params (`tree_param_shardings`, `tp_only` under `--patch`) and batch
+  or cache, and the flops of `steps.make_prefill_step` or
+  `make_serve_step` on meta at the global shapes.  For the families the
+  partitioned serving runs (`partition.SERVE_FAMILIES`: dense, vlm,
+  encdec) the step runs partitioned (`partition.ServePlan`) on rank 0's
+  block as meta tensors, its collectives recorded, and reports rank 0's
+  flops and collective bytes, the global step's under "global_step";
+  on a card, a cell on the multi-pod mesh in the default sharding runs
+  it once more on rank 0's real block (`serve_cell`: seconds, peak
+  memory).  The other families' cells keep
+  the global result and say ``"partitioned": false``: their collective
+  bytes are None, not zero.
 
 Only shapes, bytes, sites, memory and launch counts are read: under the
 stand-in group an all-reduce leaves its buffer as it was and an
 all-gather brings no peer's rows, so theta and the scores after the
 round mean nothing.  Every result carries ``"peers": "fake"``.  Fields
 with no twin here are None: `generated_code_size`, and the collective
-bytes of the steps the port runs unpartitioned: prefill and decode.
+bytes of the prefill and decode steps the port runs unpartitioned (the
+moe, ssm and hybrid families).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -341,6 +353,9 @@ def _counting():
 
 def _meta_result(fc, work, arg_bytes, sites=None) -> dict:
     return {"flops": float(fc.get_total_flops()),
+            "flops_by_op": {str(k): int(v) for k, v in sorted(
+                fc.get_flop_counts().get("Global", {}).items(),
+                key=lambda kv: str(kv[0]))},
             "kernel_work": {k: dict(v) for k, v in sorted(work.items())},
             "bytes_accessed": None,
             "collective_bytes": (None if sites is None
@@ -348,6 +363,19 @@ def _meta_result(fc, work, arg_bytes, sites=None) -> dict:
             "memory": {"argument_size": int(sum(arg_bytes)),
                        "output_size": None, "temp_size": None,
                        "generated_code_size": None}}
+
+
+def _partitioned_result(fc, work, arg_bytes, sites, glob) -> dict:
+    """A partitioned step's result on rank 0's block: its flops, kernel
+    work and collectives (operand bytes by kind, and by kind and axes;
+    calls by kind, axes, type and operand size), the global step's
+    counts `glob` beside them."""
+    return dict(_meta_result(fc, work, arg_bytes, sites),
+                global_step={k: glob[k] for k in ("flops", "flops_by_op",
+                                                  "kernel_work")},
+                collective_axes=collective_axes(sites),
+                collective_operands=collective_operands(sites),
+                n_sites=len(sites), partitioned=True)
 
 
 def stream_gate(state_shapes, mesh, C, run_seed) -> dict:
@@ -437,6 +465,45 @@ def round_cell(api, scfg, mesh, state_shapes, state_sh, device) -> dict:
     return out
 
 
+def serve_cell(fn, args, shardings, mesh, device, pos: int) -> dict:
+    """One partitioned prefill or decode step `fn` on this rank's real
+    block of its arguments (`args` at their global shapes, `shardings`
+    theirs) on `device`, under the stand-in group: weights and tables
+    0.02, tokens, embeddings and caches 0, the decode at position `pos`.
+    The gathers bring no peer's rows, so only the seconds and the memory
+    mean anything: the peak above the placed arguments, on a card."""
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    block = [tu.tree_map(
+        lambda t, sh, v=v: None if t is None else torch.full(
+            comm_model.shard_shape(tuple(t.shape), sh.spec, mesh), v,
+            dtype=t.dtype, device=device), x, shs)
+        for x, shs, v in zip(args, shardings, (0.02, 0, 0, 0))]
+    if len(block) == 4:
+        block[3] = torch.tensor(pos, dtype=torch.int32, device=device)
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    out = fn(*block)
+    if on_card:
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    res = {"seconds": seconds, "out_shape": list(out[0].shape if
+                                                 isinstance(out, tuple)
+                                                 else out.shape),
+           "memory": {"arguments": base if on_card else None, "peak": peak,
+                      "temp_size": None if peak is None else peak - base}}
+    del out, block
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
 def cell(arch: str, shape_name: str, multi_pod: bool, *,
          step_kind: str = "auto", packed: bool = True,
          cfg_patch: Optional[dict] = None, device="cuda",
@@ -445,7 +512,11 @@ def cell(arch: str, shape_name: str, multi_pod: bool, *,
     reference's `lower_cell`): a dict of per-step results.  The stand-in
     group must be up at the mesh's world size (`meshlib.init_dry`);
     `mesh` overrides the production mesh (tests use a (2, 2, 2) one) and
-    `smoke` the config size."""
+    `smoke` the config size.  On a card, a partitioned prefill or decode
+    cell on the multi-pod mesh without `tp_only` also runs its step on
+    rank 0's real block (`serve_cell`): one mesh reads a rank's memory,
+    and the card is shared with the other cells' processes (a prefill_32k
+    block holds ~13 GiB)."""
     cfg = get_config(arch, smoke=smoke)
     shape_cfg = SHAPES[shape_name]
     scfg, tp_only, patch = _step_config(shape_cfg, packed, cfg_patch)
@@ -474,49 +545,57 @@ def cell(arch: str, shape_name: str, multi_pod: bool, *,
                 fn(meta_state, batch)
             results["train_step"] = _meta_result(fc, work, arg)
             if cfg.family in partition.FAMILIES:
-                glob = {k: results["train_step"][k]
-                        for k in ("flops", "kernel_work")}
+                glob = results["train_step"]
                 fn = steplib.make_train_step(api, scfg, mesh, state_sh)
                 with _whole_pieces(), _counting() as (fc, work), \
                         comm_model.record_collectives(mesh,
                                                       check=True) as sites:
                     fn(local_meta(state_shapes, state_sh, mesh),
                        local_meta(batch, batch_sh, mesh))
-                results["train_step"] = dict(
-                    _meta_result(fc, work, arg, sites), global_step=glob,
-                    collective_axes=collective_axes(sites),
-                    collective_operands=collective_operands(sites),
-                    n_sites=len(sites))
+                results["train_step"] = _partitioned_result(
+                    fc, work, arg, sites, glob)
             results["train_step"]["seconds"] = time.perf_counter() - t1
         if step_kind in ("auto", "round"):
             t1 = time.perf_counter()
             results["round_step"] = round_cell(api, scfg, mesh, state_shapes,
                                                state_sh, device)
             results["round_step"]["seconds"] = time.perf_counter() - t1
-    elif shape_cfg.kind == "prefill":
+    else:                                     # prefill or decode
         api = build_model(cfg)
         params = stream_cover.meta_params(cfg)
         params_sh = shd.tree_param_shardings(params, mesh, tp_only=tp_only)
-        batch, batch_sh = prefill_batch_specs(cfg, shape_cfg, mesh)
-        arg = (block_bytes(params, params_sh, mesh)
-               + block_bytes(batch, batch_sh, mesh))
+        if shape_cfg.kind == "prefill":
+            key = "prefill_step"
+            batch, batch_sh = prefill_batch_specs(cfg, shape_cfg, mesh)
+            args, shs, cache_sh = (params, batch), (params_sh, batch_sh), None
+            make = functools.partial(steplib.make_prefill_step, api,
+                                     scfg.chunk_kv)
+        else:
+            key = "serve_step"
+            cache, cache_sh, token, pos, (tok_sh, pos_sh) = \
+                serve_batch_specs(cfg, shape_cfg, mesh, api)
+            args = (params, cache, token, pos)
+            shs = (params_sh, cache_sh, tok_sh, pos_sh)
+            make = functools.partial(steplib.make_serve_step, api)
+        arg = [b for x, sh in zip(args, shs) for b in block_bytes(x, sh, mesh)]
         with torch.no_grad(), _counting() as (fc, work):
-            api.forward(params, batch, chunk_kv=scfg.chunk_kv)[0][:, -1]
-        results["prefill_step"] = _meta_result(fc, work, arg)
-        results["prefill_step"]["seconds"] = time.perf_counter() - t0
-    else:                                     # decode
-        api = build_model(cfg)
-        params = stream_cover.meta_params(cfg)
-        params_sh = shd.tree_param_shardings(params, mesh, tp_only=tp_only)
-        cache, cache_sh, token, pos, (tok_sh, pos_sh) = serve_batch_specs(
-            cfg, shape_cfg, mesh, api)
-        arg = (block_bytes(params, params_sh, mesh)
-               + block_bytes(cache, cache_sh, mesh)
-               + block_bytes([token, pos], [tok_sh, pos_sh], mesh))
-        with torch.no_grad(), _counting() as (fc, work):
-            steplib.make_serve_step(api)(params, cache, token, pos)
-        results["serve_step"] = _meta_result(fc, work, arg)
-        results["serve_step"]["seconds"] = time.perf_counter() - t0
+            make()(*args)
+        results[key] = _meta_result(fc, work, arg)
+        if cfg.family in partition.SERVE_FAMILIES:
+            plan = partition.ServePlan(mesh, params, params_sh, cache_sh)
+            fn = make(mesh=mesh, plan=plan)
+            local = [local_meta(x, sh, mesh) for x, sh in zip(args, shs)]
+            with _counting() as (fc, work), \
+                    comm_model.record_collectives(mesh, check=True) as sites:
+                fn(*local)
+            results[key] = _partitioned_result(fc, work, arg, sites,
+                                               results[key])
+            if device.type == "cuda" and multi_pod and not tp_only:
+                results[key]["block"] = serve_cell(
+                    fn, args, shs, mesh, device, shape_cfg.seq_len - 1)
+        else:
+            results[key]["partitioned"] = False
+        results[key]["seconds"] = time.perf_counter() - t0
     total = time.perf_counter() - t0
     for r in results.values():
         r["peers"] = "fake"

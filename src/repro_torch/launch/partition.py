@@ -1,7 +1,8 @@
-"""The partitioned train step: the twin of what GSPMD does to the
-reference's train step when it is jitted with `in_shardings` =
+"""The partitioned train and serve steps: the twin of what GSPMD does to
+the reference's train step when it is jitted with `in_shardings` =
 (`steps.fed_state_shardings`, the batch's shardings), as its dry run
-jits it, written out as collectives over the mesh's process groups.
+jits it, and to its prefill and decode (below), written out as
+collectives over the mesh's process groups.
 
 A rank holds its block of every leaf (`elastic.reshard_server`): a
 masked leaf's (K, N) layer blocks split by rows over "data" and by
@@ -98,9 +99,31 @@ each piece runs the forward and backward above, its gradients summed in
 f32 over the pieces and divided by their count, a mean over the data
 ranks' pieces: the global step's mean over the chunks.
 
+Serving (`ServePlan`, the twin of GSPMD on the reference's prefill
+closure and serve step jitted with `tree_param_shardings` (FSDP + TP, or
+`tp_only`) and `cache_shardings`, for SERVE_FAMILIES): frozen plain
+weights, no backward.  A plain projection leaf runs a dense block's
+scheme without the mask (`BlockLayout.plain`, which
+`layers.masked_dense_apply` runs for a `layers.Placed` block, a layer at
+a time); every other leaf is gathered whole before the step, the
+embedding table and the unembedding's table among them.  A rank runs its
+client rows of the batch (every row when the batch does not split).  A
+decode cache leaf's layer block (`CacheLayout`, which `layers.write_at`
+and `layers.gqa_apply` run for a `Placed` block) holds the rank's rows
+and, on "model", its kv heads (it writes its heads of the new keys and
+values and attends with their q heads; the output heads are gathered
+over "model"), or a block of the positions (over "model", or over every
+axis at batch 1: only the block holding the position writes it; each
+rank's f32 softmax partials over its positions, every head, are
+gathered over those axes in rank order and merged by log-sum-exp, one
+reduction over the blocks that every rank runs alike), or
+the whole cache.  Prefill has no cache: a rank's rows attend over their
+whole sequence with no collective.
+
 Every collective is a public `torch.distributed` tensor collective over
-a `Mesh.group`, inside an autograd Function, and none uses a float
-atomic, so `analysis.comm_model.record_collectives` sees them all.  A
+a `Mesh.group`, inside an autograd Function (serving: a no-grad helper),
+and none uses a float atomic, so
+`analysis.comm_model.record_collectives` sees them all.  A
 layer's gathered w and s are held by its kernel's autograd node until
 that layer's backward has run (they are kept, not gathered again).
 Collectives over an axis of size 1 still run (a copy), so one rank
@@ -122,7 +145,7 @@ from repro_torch.core import tree as tu
 from repro_torch.core.masking import MaskedLeaf
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as meshlib
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 
 # the families whose masked leaves are 2-D dense blocks (kernels 1-3),
 # stacked (E, K, N) expert blocks (kernels 5-7) or depthwise (W, C) conv
@@ -384,6 +407,20 @@ class BlockLayout:
             y = _FromModel.apply(y, model, i, -1)
         return y
 
+    def plain(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """y = x @ w of a plain (frozen) weight's layer block on this
+        rank's rows of the batch, every column (serving: no backward):
+        the block's rows all-gathered over "data" (the FSDP gather; none
+        under `tp_only`), the product on the rank's (K, N/d_model) column
+        block (`torch.matmul`, as `layers.masked_dense_apply` multiplies
+        a plain weight), its output columns all-gathered over "model"."""
+        w = self.rows.gather(w)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = x.to(dt) @ w.to(dt)
+        if self.cols:
+            y = all_gather(y, self.mesh.group("model"), -1)
+        return y
+
     def _gathered_off(self, p: MaskedLeaf):
         """The stream offsets of the gathered rows: the block's, moved back
         by its first row r0 (its first column c0 stays in)."""
@@ -620,3 +657,179 @@ class TrainPlan:
         loss = loss.clone()
         dist.all_reduce(loss, group=self.clients)
         return loss / self.n_clients
+
+
+# ---------------------------------------------------------------------------
+# serving: the partitioned prefill and decode of the dense-leaf families
+# ---------------------------------------------------------------------------
+
+# the families whose serving params are plain 2-D projections, norms and
+# tables and whose decode caches are GQA (L, B, S, n_kv, hd) tensors
+SERVE_FAMILIES = ("dense", "vlm", "encdec")
+
+
+def check_serve(api) -> None:
+    """Raise NotImplementedError for an arch the partitioned prefill and
+    decode do not run: a family outside SERVE_FAMILIES (MLA's latent
+    cache and the experts of the moe family, the recurrent states of the
+    ssm and hybrid families) and the ring caches of `window_kv_cache`."""
+    cfg = api.cfg
+    if cfg.family not in SERVE_FAMILIES:
+        raise NotImplementedError(
+            f"the partitioned prefill and decode run the families "
+            f"{SERVE_FAMILIES}; {cfg.name} is {cfg.family!r}")
+    if transformer.windowed(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the ring caches of window_kv_cache do not run on "
+            f"a mesh")
+
+
+def _dim_axes(part) -> tuple:
+    return () if part is None else (part,) if isinstance(part, str) \
+        else tuple(part)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """A rank's placement of one KV cache leaf (L, B, S, n_kv, hd), used a
+    layer's (B, S, n_kv, hd) block at a time: its rows the rank's block
+    of the batch (or every row), and on "model" either its kv heads
+    (`heads`), or a block of the positions over the axes `seq` ("model",
+    or every client axis and "model" at batch 1), or neither: the block
+    whole on every "model" rank."""
+    mesh: Any
+    heads: bool
+    seq: tuple
+
+    def _first(self, n: int) -> int:
+        """The global position of the rank's first of n positions: its
+        index over the `seq` axes, row-major in mesh order (the order of
+        their group's ranks and of `sharding.NamedSharding.index`)."""
+        j = 0
+        for a in self.seq:
+            j = j * self.mesh.shape[a] + self.mesh.coords[a]
+        return j * n
+
+    def write(self, buf: torch.Tensor, dim: int, idx: torch.Tensor,
+              val: torch.Tensor) -> None:
+        """`layers.write_at` of the token's keys or values val (B, 1, n_kv,
+        hd) at position idx into a layer's block buf (B, S_r, n_kv_r, hd):
+        the rank's heads of val; where the positions split, only the rank
+        whose block holds idx writes there, the others write their own
+        entry back (nothing changes), with no host read of idx."""
+        if dim != 1:
+            raise NotImplementedError(f"a cache block written along dim "
+                                      f"{dim}")
+        if self.heads:
+            h = buf.shape[2]
+            val = val.narrow(2, self.mesh.coords["model"] * h, h)
+        if self.seq:
+            n = buf.shape[1]
+            idx = idx.reshape(1) - self._first(n)
+            inside = (idx >= 0) & (idx < n)
+            idx = idx.clamp(0, n - 1)
+            val = torch.where(inside.reshape(1, 1, 1, 1), val.to(buf.dtype),
+                              buf.index_select(1, idx))
+        layers.write_at(buf, 1, idx, val)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               q_pos: torch.Tensor, window=None, causal: bool = True):
+        """`layers.attention_core` of q (B, Sq, H, hd), alike on every
+        "model" rank, over the global cache whose layer block this rank
+        holds as k, v: with heads on "model", the q heads of the rank's
+        kv heads over its block, the output's heads all-gathered over
+        "model"; with the positions split, every head's softmax partials
+        over the rank's positions (masks by global position), all-gathered
+        over `seq` in rank order and merged (`layers.merge_partials`);
+        else the whole block.  (B, Sq, H, hd) in q's type."""
+        n = k.shape[1]
+        k_pos = self._first(n) + torch.arange(n, device=q.device)
+        if self.heads:
+            hq = q.shape[2] // self.mesh.shape["model"]
+            q = q.narrow(2, self.mesh.coords["model"] * hq, hq)
+        if self.seq:
+            parts = layers.attention_partials(q, k, v, q_pos, k_pos, window,
+                                              causal)
+            o = layers.merge_partials(
+                all_gather(parts[None], self.mesh.group(self.seq)), q.dtype)
+        else:
+            o = layers.attention_core(q, k, v, q_pos, k_pos, window, causal)
+        if self.heads:
+            o = all_gather(o, self.mesh.group("model"), 2)
+        return o
+
+
+class ServePlan:
+    """The partitioned prefill's and decode's view of one rank's blocks,
+    from the params' shardings (`sharding.tree_param_shardings`: FSDP +
+    TP, or TP alone under `tp_only`) and the cache's
+    (`sharding.cache_shardings`): each plain projection leaf (what
+    `masking.MaskSpec` would mask: 2-D layer blocks) a `BlockLayout`,
+    run by `layers.masked_dense_apply` a layer at a time; every other
+    leaf (embedding tables, norm scales, biases, learned positions) a
+    `Placement`, gathered whole before the step; each cache leaf a
+    `CacheLayout`.  `params` may be the global tree or the rank's blocks
+    (only paths and ranks are read).  Raises NotImplementedError, naming
+    the leaf, for a layout this scheme does not run."""
+
+    def __init__(self, mesh, params, params_sh, cache_sh=None):
+        self.mesh = mesh
+        spec = masking.MaskSpec()
+        self.layouts = []
+        for (path, x), sh in zip(tu.flatten_with_paths(params),
+                                 tu.leaves(params_sh)):
+            if x is None:
+                self.layouts.append(None)
+                continue
+            parts = _parts(sh.spec, x.ndim, f"params leaf {path}")
+            if not spec.is_masked(path, x):
+                self.layouts.append(Placement(mesh, tuple(
+                    (d, a) for d, a in enumerate(parts) if a)))
+                continue
+            if (any(parts[:-2]) or parts[-2] not in (None, "data")
+                    or parts[-1] not in (None, "model")):
+                raise NotImplementedError(
+                    f"params leaf {path}: spec {sh.spec} is not a (K, N) "
+                    f"block over (\"data\", \"model\")")
+            self.layouts.append(BlockLayout(
+                mesh, Placement(mesh, ((0, "data"),) if parts[-2] else ()),
+                parts[-1] == "model"))
+        self.caches = None
+        if cache_sh is not None:
+            client = meshlib.client_axes(mesh)
+            self.caches = []
+            for path, sh in tu.flatten_with_paths(cache_sh):
+                parts = list(sh.spec) + [None] * (5 - len(sh.spec))
+                seq = _dim_axes(parts[2])
+                if (len(sh.spec) > 5 or parts[0] or parts[4]
+                        or _dim_axes(parts[1]) not in ((), client)
+                        or parts[3] not in (None, "model")
+                        or (seq and (seq[-1] != "model"
+                                     or parts[3] is not None))):
+                    raise NotImplementedError(
+                        f"cache leaf {path}: spec {sh.spec} is not an (L, B, "
+                        f"S, n_kv, hd) cache with its batch on the client "
+                        f"axes and its heads or positions on \"model\"")
+                self.caches.append(CacheLayout(mesh, parts[3] == "model",
+                                               seq))
+
+    def place(self, params):
+        """This rank's params blocks as the step uses them: each projection
+        leaf a `layers.Placed` block with its layout (its rows gathered a
+        layer at a time where the layer uses it, and freed after), every
+        other leaf gathered whole."""
+        flat, tdef = tu.flatten(params)
+        return tu.unflatten(tdef, [
+            None if x is None else layers.Placed(x, lay)
+            if isinstance(lay, BlockLayout) else lay.gather(x)
+            for x, lay in zip(flat, self.layouts)])
+
+    def place_cache(self, cache):
+        """This rank's cache blocks, each a `layers.Placed` block with its
+        `CacheLayout` (written in place through it)."""
+        if self.caches is None:
+            raise ValueError("ServePlan: built without the cache's "
+                             "shardings")
+        flat, tdef = tu.flatten(cache)
+        return tu.unflatten(tdef, [layers.Placed(t, lay)
+                                   for t, lay in zip(flat, self.caches)])

@@ -34,7 +34,10 @@ mask stream is keyed by.
   kernel of the port.
 * `make_serve_step` — one decode token of the deployed artifact:
   `api.decode_step` itself (the dry run's decode cells and the serving
-  example run it).
+  example run it); `make_prefill_step` the last position's logits of a
+  prompt (the dry run's prefill cells).  On a mesh both run a rank's
+  blocks (`launch.partition.ServePlan`: projections on column blocks,
+  the KV cache split by heads or by positions).
 * `make_multi_serve_step` — the lockstep serving step: one vmapped
   decode over B slots, each with its own frozen tree, cache, token and
   position.
@@ -696,13 +699,51 @@ def make_fedavg_step(api, cfg: StepConfig):
 # ---------------------------------------------------------------------------
 
 
-def make_serve_step(api):
+def _serve_plan(api, mesh, plan):
+    if (mesh is None) != (plan is None):
+        raise ValueError("give both mesh and plan, or neither")
+    if mesh is not None:
+        partition.check_serve(api)
+
+
+def make_serve_step(api, mesh=None, plan=None):
     """(params, cache, token, pos) -> (logits f32 (B, V), cache): one
     decode token through `api.decode_step`, which writes the token's
-    cache entries in place."""
+    cache entries in place.
+
+    With a `launch.mesh.Mesh` and the rank's `partition.ServePlan` (both
+    or neither; the dense, vlm and encdec families), params and cache
+    are this rank's blocks under the plan's shardings and token its
+    block of the batch (its client rows, or every row where the batch
+    does not split over the client axes); the step runs the global
+    step's semantics partitioned (`launch.partition`), writes the rank's
+    cache block in place and returns the logits of the rank's rows."""
+    _serve_plan(api, mesh, plan)
+
     def serve_step(params, cache, token, pos):
-        return api.decode_step(params, cache, token, pos)
+        if plan is None:
+            return api.decode_step(params, cache, token, pos)
+        logits, _ = api.decode_step(plan.place(params),
+                                    plan.place_cache(cache), token, pos)
+        return logits, cache
     return serve_step
+
+
+def make_prefill_step(api, chunk_kv=None, mesh=None, plan=None):
+    """(params, batch) -> logits f32 (B, V) of the batch's last position:
+    the reference dry run's prefill, `api.forward(params, batch,
+    chunk_kv)[0][:, -1]`, without autograd (a copy: the (B, S, V) logits
+    are freed).  With a mesh and the rank's `partition.ServePlan` (both
+    or neither), params are this rank's blocks and batch its client rows
+    (every "model" rank the same); the logits are those of its rows."""
+    _serve_plan(api, mesh, plan)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        if plan is not None:
+            params = plan.place(params)
+        return api.forward(params, batch, chunk_kv=chunk_kv)[0][:, -1].clone()
+    return prefill_step
 
 
 def make_multi_serve_step(api):

@@ -11,11 +11,15 @@ through `masked_dense_apply` (2-D weights), `masked_grouped_apply`
 (W, C) conv kernels) or `masked_conv2d_apply` (the CNNs' (kh, kw, ci, co)
 kernels), which run the fused kernels for a `MaskedLeaf` and
 a plain product or conv for a plain tensor (float baselines,
-materialized effective params).
+materialized effective params).  A `Placed` leaf is a rank's block of a
+plain weight or of a KV cache on a mesh (`launch.partition`): the
+product, the cache write and the attention over it run its layout.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -27,9 +31,29 @@ from repro_torch.kernels import ops
 DEFAULT_DTYPE = torch.bfloat16
 
 
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A rank's block `t` of a plain weight leaf or of a KV cache leaf,
+    and its placement on the mesh (`launch.partition.BlockLayout` for a
+    weight, `CacheLayout` for a cache).  Indexing takes a layer of a
+    stacked leaf, as indexing the tensor would."""
+    t: torch.Tensor
+    layout: Any
+
+    @property
+    def shape(self):
+        return self.t.shape
+
+    def __getitem__(self, i):
+        return Placed(self.t[i], self.layout)
+
+
 def masked_dense_apply(x: torch.Tensor, p) -> torch.Tensor:
     """y = x @ w_eff for a plain weight or a `MaskedLeaf` block (a rank's
-    block on a mesh: its layout's partitioned product)."""
+    block on a mesh: its layout's partitioned product; a `Placed` plain
+    weight: its layout's partitioned plain product)."""
+    if isinstance(p, Placed):
+        return p.layout.plain(x, p.t)
     if isinstance(p, MaskedLeaf):
         if p.layout is not None:
             return p.layout.dense(x, p)
@@ -118,7 +142,12 @@ def write_at(buf: torch.Tensor, dim: int, idx: torch.Tensor,
     """buf[..., idx, ...] = val along `dim`, in place; `idx` is a
     1-element integer tensor and `val` has size 1 along `dim`.  Through
     `index_put_`, which has a batching rule under `torch.func.vmap` (the
-    lockstep serve step), and with no host read of `idx`."""
+    lockstep serve step), and with no host read of `idx`.  A `Placed`
+    cache block writes through its layout (only the rank's heads, or
+    only where its positions hold `idx`)."""
+    if isinstance(buf, Placed):
+        buf.layout.write(buf.t, dim, idx, val)
+        return
     buf.movedim(dim, 0).index_put_((idx.reshape(1),),
                                    val.movedim(dim, 0).to(buf.dtype))
 
@@ -299,6 +328,43 @@ def attention_core(q, k, v, q_pos, k_pos, window=None, causal=True,
     return o.movedim(-2, 1).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+def attention_partials(q, k, v, q_pos, k_pos, window=None, causal=True):
+    """The softmax partials of q over one block of keys, f32, for a merge
+    with the other blocks' (`merge_partials`): one tensor (B, Kv, rep,
+    Sq, Dv + 2) holding, per query and head, the exp-weighted values
+    sum_k exp(s_k - m) v_k, then the sum of exps sum_k exp(s_k - m), then
+    the running max m, the scores s masked by `attention_core`'s rules
+    at the keys' positions `k_pos` (a block whose keys are all masked
+    has m = -1e30 and weighs nothing in the merge).  Shapes as
+    `attention_core`'s."""
+    B, Sq, H, Hd = q.shape
+    Kv = k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(Hd))).reshape(B, Sq, Kv, H // Kv, Hd)
+    s = (torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
+         + _causal_mask(q_pos, k_pos, window, causal))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bgrqk,bkgh->bgrqh", p, v.float())
+    return torch.cat([acc, p.sum(dim=-1)[..., None], m[..., None]], dim=-1)
+
+
+def merge_partials(parts, dtype):
+    """Attention from the partials of every key block, stacked along dim
+    0 in block order (`attention_partials`): each block's sums rescaled
+    by exp(its max - the largest max), added along the block axis in one
+    reduction (the same order on every rank that merges the same
+    blocks; no atomics), then the exp-weighted values over the sum of
+    exps; (B, Sq, H, Dv) in `dtype`."""
+    Dv = parts.shape[-1] - 2
+    m = parts[..., Dv + 1]
+    a = torch.exp(m - m.amax(dim=0))
+    acc = (parts[..., :Dv] * a[..., None]).sum(dim=0)
+    l = (parts[..., Dv] * a).sum(dim=0)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    B, Kv, rep, Sq = o.shape[:4]
+    return o.movedim(-2, 1).reshape(B, Sq, Kv * rep, Dv).to(dtype)
+
+
 def add_bias(t, p, name):
     """t + p[name] (an f32 bias over the flattened heads), in t.dtype."""
     if name not in p:
@@ -318,7 +384,8 @@ def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
     by M-RoPE over `mrope_sections` instead of RoPE; `use_rope=False`
     rotates nothing.  `kv_override` = (k, v) attends over given keys and
     values instead (cached decode: the keys are already roped; cross
-    attention) at `k_positions` (default arange)."""
+    attention) at `k_positions` (default arange); `Placed` cache blocks
+    attend through their layout."""
     B, S, _ = x.shape
 
     def rotate(t):
@@ -331,15 +398,20 @@ def gqa_apply(p, x, positions, n_heads, n_kv, head_dim, rope_theta=10000.0,
     q = rotate(add_bias(q, p, "bias_q"))
     if kv_override is not None:
         k, v = kv_override
-        k_pos = (k_positions if k_positions is not None
-                 else torch.arange(k.shape[1], device=x.device))
+        k_pos = k_positions
+        if k_pos is None and not isinstance(k, Placed):
+            k_pos = torch.arange(k.shape[1], device=x.device)
     else:
         k = masked_dense_apply(x, p["w_k"]).reshape(B, S, n_kv, head_dim)
         v = masked_dense_apply(x, p["w_v"]).reshape(B, S, n_kv, head_dim)
         k = rotate(add_bias(k, p, "bias_k"))
         v = add_bias(v, p, "bias_v")
         k_pos = positions
-    o = attention_core(q, k, v, positions, k_pos, window, causal, chunk_kv)
+    if isinstance(k, Placed):       # a rank's cache block on a mesh
+        o = k.layout.attend(q, k.t, v.t, positions, window, causal)
+    else:
+        o = attention_core(q, k, v, positions, k_pos, window, causal,
+                           chunk_kv)
     return masked_dense_apply(o.reshape(B, S, n_heads * head_dim),
                               p["w_o"]), (k, v)
 

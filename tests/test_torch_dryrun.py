@@ -199,6 +199,28 @@ _, st = stream_cover.meta_fed_state(get_config("internlm2-1.8b",
                                                smoke=True), 2)
 out["round_leaf_bytes"] = dryrun.block_bytes(
     st, steplib.fed_state_shardings(st, mesh), mesh)
+for shape in ("prefill_32k", "decode_32k"):
+    for tp in (False, True):
+        out[f"serve|{shape}|{tp}"] = dryrun.cell(
+            "internlm2-1.8b", shape, True, device=cpu, smoke=True, mesh=mesh,
+            cfg_patch={"tp_only": True} if tp else None)
+from repro_torch.configs import SHAPES
+from repro_torch.launch import partition
+from repro_torch.launch import sharding as shd
+from repro_torch.models import build_model
+cfg = get_config("internlm2-1.8b", smoke=True)
+api = build_model(cfg)
+params = stream_cover.meta_params(cfg)
+psh = shd.tree_param_shardings(params, mesh)
+cache, csh, tok, pos, (tok_sh, pos_sh) = dryrun.serve_batch_specs(
+    cfg, SHAPES["decode_32k"], mesh, api)
+fn = steplib.make_serve_step(api, mesh,
+                             partition.ServePlan(mesh, params, psh, csh))
+out["serve_block"] = dryrun.serve_cell(fn, (params, cache, tok, pos),
+                                       (psh, csh, tok_sh, pos_sh), mesh, cpu,
+                                       127)
+out["serve_moe"] = dryrun.cell("deepseek-v2-lite-16b", "decode_32k", True,
+                               device=cpu, smoke=True, mesh=mesh)
 dist.destroy_process_group()
 
 path = sys.argv[2]
@@ -383,6 +405,81 @@ def test_main_skips_an_ok_cell_and_fails_on_a_failing_one(runs):
     assert cell["ok"] is False and "KeyError" in cell["error"]
     assert "[FAIL] no-such-arch|train_4k|pod2x16x16" in stdout
     assert "done: 0 ok, 1 failed" in stdout
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("tp_only", [False, True],
+                         ids=["fsdp_tp", "tp_only"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serve_cells_run_partitioned(runs, shape, tp_only):
+    """internlm2-1.8b's SMOKE prefill_32k and decode_32k cells on rank 0
+    of a (2, 2, 2) stand-in mesh run the partitioned step: its
+    collectives, by kind, axes, type and operand size, as
+    `chip_smoke.serve_sites` gives them (every byte counted, none null),
+    none over "data" under tp_only; the projections' flops exactly the
+    global step's over the 8 ranks (the unembedding's, which runs on the
+    gathered table, over the 4 client ranks)."""
+    from repro_torch.analysis import stream_cover
+    _, port, _ = runs
+    r = port[f"serve|{shape}|{tp_only}"]
+    step = r["prefill_step" if shape == "prefill_32k" else "serve_step"]
+    assert step["partitioned"] is True and step["peers"] == "fake"
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    mesh = AxisSizes.of((2, 2, 2), ("pod", "data", "model"))
+    params = stream_cover.meta_params(cfg)
+    from repro_torch.launch import sharding as shd
+    psh = shd.tree_param_shardings(params, mesh, tp_only=tp_only)
+    sc = SHAPES[shape]
+    rows = sc.global_batch // 4
+    if sc.kind == "prefill":
+        want = _chip_smoke().serve_sites(params, psh, mesh.shape, cfg, rows,
+                                         sc.seq_len)
+        seq = sc.seq_len
+    else:
+        cache, csh, *_ = dryrun.serve_batch_specs(cfg, sc, mesh,
+                                                  build_model(cfg))
+        want = _chip_smoke().serve_sites(params, psh, mesh.shape, cfg, rows,
+                                         1, cache, csh)
+        seq = 1
+    assert step["collective_operands"] == want
+    total = sum(int(e) * c * (2 if k.endswith("bfloat16") else 4)
+                for k, v in want.items() for e, c in v.items())
+    assert step["collective_bytes"]["total"] == total > 0
+    assert step["n_sites"] == sum(c for v in want.values()
+                                  for c in v.values())
+    data = [k for k in step["collective_axes"] if k.split()[1] == "data"]
+    assert (data == []) == tp_only, step["collective_axes"]
+    unembed = 2 * seq * cfg.d_model * cfg.vocab
+    mine = step["flops_by_op"]["aten.mm"] - rows * unembed
+    glob = (step["global_step"]["flops_by_op"]["aten.mm"]
+            - sc.global_batch * unembed)
+    assert mine * 8 == glob > 0
+
+
+def test_serve_block_and_unpartitioned_cells(runs):
+    """`serve_cell`: the partitioned decode once more on rank 0's real
+    block (here on the CPU: seconds, no peak), which a cell runs only on
+    a card; a moe arch's decode cell keeps the global meta result and
+    says it is not partitioned."""
+    _, port, _ = runs
+    blk = port["serve_block"]
+    assert blk["seconds"] > 0 and blk["out_shape"] == [128 // 4, 256]
+    assert blk["memory"]["peak"] is None
+    assert not any("block" in port[f"serve|{shape}|{tp}"][step]
+                   for shape, step in (("prefill_32k", "prefill_step"),
+                                       ("decode_32k", "serve_step"))
+                   for tp in (False, True))
+    moe = port["serve_moe"]["serve_step"]
+    assert moe["partitioned"] is False
+    assert moe["collective_bytes"] is None and moe["flops"] > 0
 
 
 def test_main_refuses_a_missing_card():
